@@ -16,7 +16,17 @@ Phases, each of which raises on failure:
      through the kernel against the plain path;
   5. LM-base in bfloat16: a serving run of 16 requests through 8 slots
      (decode kernel K6), and a shorter one with an int8 KV cache (K7);
-     the launch counts show the main path went through the kernel.
+     the launch counts show the main path went through the kernel;
+  6. the flash-attention kernels (K2 forward, K3 dQ, K4 dK/dV) against
+     their plain versions (f32 and bf16, head dims 64 and 128, causal or
+     not, ragged lengths, an lse cotangent, the training shape), timed at
+     the training shape beside their bounds, plain versions and SDPA;
+  7. one LM-base-width float32 train step (2 layers) through the flash
+     kernels against the same step through reference attention;
+  8. LM-base (24 layers, byte vocabulary) trained 30 steps through lm_cli
+     at batch 8 x 1024 in bf16: ms/step, tokens/s, peak memory, the
+     device's idle share, mfu, falling loss, and K2/K3/K4 launched once
+     per layer per step.
 The second-to-last lines are the kernels' JSON record and the card's name
 and power limit; the last line is {"ok": true, "device": {...}}.
 
@@ -295,7 +305,8 @@ def exactness(torch, port) -> None:
             t = int(diff[0])
             # a flip is allowed only at a near-tie of the top two logits
             logits = tfm.apply(params, torch.from_numpy(
-                want[:t].astype(np.int64))[None].cuda(), cfg=cfg)[0, -1]
+                want[:t].astype(np.int64))[None].cuda(), cfg=cfg,
+                attn_impl="reference")[0, -1]
             top2 = torch.topk(logits, 2).values
             gap = float(top2[0] - top2[1])
             print(f"  request {rid}: first divergence at {t}, top-2 logit "
@@ -461,6 +472,333 @@ def serving_run(torch, port, *, n_req, budgets, kv_dtype, label) -> dict:
     return res
 
 
+# -- phases 6-8: the LM-training slice -------------------------------------
+
+# Flash kernels (K2 forward, K3 dQ, K4 dK/dV) against their plain versions.
+# float32: both sides compute in f32 and differ in summation order: o and
+# lse to 2e-5, gradients to 1e-4, each absolute plus relative (the JAX
+# tests' own tolerances).  bfloat16: both sides round p (and ds) to bf16
+# at different points, and each rounds its f32 sums to the bf16 output
+# independently, which alone can differ by one bf16 ulp (<= 2^-7 |x|).  So
+# o is held to min(1e-2, 5% of its row's RMS) plus one ulp of the element,
+# lse (f32 on both sides) to 1e-3, and each gradient to 5% of the
+# reference's RMS over its (b*h) slab plus one ulp of the element.
+FLASH_TOL = {"float32": {"o": (2e-5, 2e-5), "lse": (2e-5, 2e-5),
+                         "grad": (1e-4, 1e-4)},
+             "bfloat16": {"o_abs": 1e-2, "o_row_rms": 5e-2, "lse": 1e-3,
+                          "grad_slab_rms": 5e-2, "ulp": 2.0 ** -7}}
+FLASH_KERNELS = ("K2", "K3", "K4")
+
+
+def flash_agreement(torch, name, got, ref, dtype: str) -> float:
+    """Worst error/tolerance of ``got`` against ``ref`` (``name`` "o",
+    "lse" or "grad"; tensors (BH, S[, D]); ``dtype`` the operands')."""
+    err = (got.float() - ref.float()).abs()
+    r = ref.float()
+    tol = FLASH_TOL[dtype]
+    if dtype == "float32":
+        atol, rtol = tol[name]
+        bound = atol + rtol * r.abs()
+    elif name == "lse":
+        bound = torch.full_like(r, tol["lse"])
+    elif name == "o":
+        rms = r.pow(2).mean(-1, keepdim=True).sqrt()
+        bound = torch.minimum(torch.full_like(rms, tol["o_abs"]),
+                              tol["o_row_rms"] * rms) + tol["ulp"] * r.abs()
+    else:
+        rms = r.pow(2).mean(dim=(-2, -1), keepdim=True).sqrt()
+        bound = tol["grad_slab_rms"] * rms + tol["ulp"] * r.abs()
+    ratio = (err / bound.clamp_min(1e-12)).max().item()
+    if not bool(torch.isfinite(got).all()):
+        ratio = math.inf
+    return ratio
+
+
+def flash_case(torch, attn, *, bh, s, d, dtype, causal, dlse, seed):
+    """One case: K2, K3 and K4 on (bh, s, d) operands against the plain
+    versions; returns {kernel: (max abs err, worst err/tol)}."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    q, k, v, do = (randn(bh, s, d) for _ in range(4))
+    o, lse = attn.flash_attention_fwd(q, k, v, causal=causal)
+    ro, rlse = attn.flash_attention_fwd_plain(q, k, v, causal=causal)
+    delta = (do.float() * ro.float()).sum(-1)
+    if dlse:  # the (o, lse) form with a nonzero lse cotangent
+        delta = delta - torch.randn((bh, s), generator=gen, device="cuda")
+    dq = attn.flash_attention_bwd_dq(q, k, v, rlse, do, delta,
+                                     causal=causal)
+    dk, dv = attn.flash_attention_bwd_dkv(q, k, v, rlse, do, delta,
+                                          causal=causal)
+    rdq, rdk, rdv = attn.flash_attention_bwd_plain(q, k, v, rlse, do, delta,
+                                                   causal=causal)
+    torch.cuda.synchronize()
+    out = {}
+    for kname, pairs in (("K2", (("o", o, ro), ("lse", lse, rlse))),
+                         ("K3", (("grad", dq, rdq),)),
+                         ("K4", (("grad", dk, rdk), ("grad", dv, rdv)))):
+        err = max((g.float() - r.float()).abs().max().item()
+                  for _, g, r in pairs)
+        ratio = max(flash_agreement(torch, n, g, r, str(dtype)[6:])
+                    for n, g, r in pairs)
+        out[kname] = (err, ratio)
+    return out
+
+
+def check_flash(torch, attn) -> dict:
+    """Every case of K2-K4 against the plain versions on the card; returns
+    the worst error and error/tolerance per kernel."""
+    worst = {k: [0.0, 0.0] for k in FLASH_KERNELS}
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (64, 128):
+            for causal in (False, True):
+                for s in (256, 1024):
+                    cases.append(dict(bh=8, s=s, d=d, dtype=dtype,
+                                      causal=causal, dlse=False))
+        # a ragged length (not a multiple of any tile) and the lse cotangent
+        cases.append(dict(bh=8, s=200, d=128, dtype=dtype, causal=True,
+                          dlse=False))
+        cases.append(dict(bh=8, s=256, d=64, dtype=dtype, causal=True,
+                          dlse=True))
+    # the training shape: B=8 x H=8, S=1024, D=128, causal, bf16
+    cases.append(dict(bh=64, s=1024, d=128, dtype=torch.bfloat16,
+                      causal=True, dlse=False))
+    for i, case in enumerate(cases):
+        res = flash_case(torch, attn, seed=100 + i, **case)
+        for k, (err, ratio) in res.items():
+            worst[k][0] = max(worst[k][0], err)
+            worst[k][1] = max(worst[k][1], ratio)
+        print(f"  {str(case['dtype'])[6:]:8s} BH={case['bh']:2d} "
+              f"S={case['s']:4d} D={case['d']:3d} causal={case['causal']:d} "
+              f"dlse={case['dlse']:d}: " + ", ".join(
+                  f"{k} err {e:.2e} ({r:.3f} of tol)"
+                  for k, (e, r) in res.items()))
+        bad = [k for k, (_, r) in res.items() if not r <= 1.0]
+        if bad:
+            fail(f"{bad} disagree with their plain versions in case {case}")
+    print(f"  K2/K3/K4 agree with their plain versions in all "
+          f"{len(cases)} cases")
+    return {k: {"max_abs_err": e, "err_over_tol": r}
+            for k, (e, r) in worst.items()}
+
+
+def time_flash(torch, F, attn, facts) -> dict:
+    """K2, K3 and K4 at the training shape (B=8, H=8, S=1024, D=128,
+    causal, bf16): device ms by CUDA events, the bound (the causal work's
+    matrix-product FLOPs over the bf16 peak, or the bytes each input read
+    once and each output written once over the memory rate, whichever is
+    larger), the plain version's time and a library yardstick (SDPA, which
+    the port never calls).  Each operand is 16 MB, so one call's inputs
+    already exceed the 50 MB L2."""
+    b, h, s, d = 8, 8, 1024, 128
+    bh, dt = b * h, torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v, do = (torch.randn((bh, s, d), generator=gen, device="cuda")
+                   .to(dt) for _ in range(4))
+    o, lse = attn.flash_attention_fwd(q, k, v, causal=True)
+    delta = (do.float() * o.float()).sum(-1)
+    launches0 = [getattr(attn, f).launches for f in
+                 ("flash_attention_fwd", "flash_attention_bwd_dq",
+                  "flash_attention_bwd_dkv")]
+    kernel = {
+        "K2": lambda: attn.flash_attention_fwd(q, k, v, causal=True),
+        "K3": lambda: attn.flash_attention_bwd_dq(q, k, v, lse, do, delta,
+                                                  causal=True),
+        "K4": lambda: attn.flash_attention_bwd_dkv(q, k, v, lse, do, delta,
+                                                   causal=True)}
+    ms = {n: time_ms(torch, fn, iters=20) for n, fn in kernel.items()}
+    for f, n0 in zip(("flash_attention_fwd", "flash_attention_bwd_dq",
+                      "flash_attention_bwd_dkv"), launches0):
+        getattr(attn, f).launches = n0  # timing launches are not counted
+    plain_fwd = time_ms(torch, lambda: attn.flash_attention_fwd_plain(
+        q, k, v, causal=True), iters=5)
+    plain_bwd = time_ms(torch, lambda: attn.flash_attention_bwd_plain(
+        q, k, v, lse, do, delta, causal=True), iters=5)
+    # library yardsticks: SDPA forward; SDPA's autograd backward (dq, dk
+    # and dv together) for both K3 and K4
+    q4, k4, v4 = (t.view(b, h, s, d).clone().requires_grad_(True)
+                  for t in (q, k, v))
+    lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True))
+    o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    do4 = do.view(b, h, s, d)
+    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        o4, (q4, k4, v4), do4, retain_graph=True))
+    pairs = bh * s * (s + 1) // 2  # live (query, key) pairs, causal
+    t_bytes = 2 * bh * s * d       # one bf16 (BH, S, D) operand
+    ops = {"K2": 4 * pairs * d, "K3": 6 * pairs * d, "K4": 8 * pairs * d}
+    nbytes = {"K2": 4 * t_bytes + 4 * bh * s,
+              "K3": 5 * t_bytes + 8 * bh * s,
+              "K4": 6 * t_bytes + 8 * bh * s}
+    out = {}
+    for n in FLASH_KERNELS:
+        tb = nbytes[n] / facts["bw"] * 1e3
+        to = ops[n] / PEAK_OPS["bfloat16"] * 1e3
+        out[n] = {"ms": ms[n], "plain_ms": plain_fwd if n == "K2"
+                  else plain_bwd,
+                  "library_ms": lib_fwd if n == "K2" else lib_bwd,
+                  "library": ("F.scaled_dot_product_attention forward"
+                              if n == "K2" else
+                              "SDPA autograd backward, dq+dk+dv together"),
+                  "plain": ("flash_attention_fwd_plain" if n == "K2" else
+                            "flash_attention_bwd_plain, dq+dk+dv together"),
+                  "bound_ms": max(tb, to),
+                  "bound_by": "bytes" if tb >= to else "operations",
+                  "flops": ops[n], "bytes": nbytes[n],
+                  "tflops_per_s": ops[n] / ms[n] / 1e9}
+    return out
+
+
+def lm_cfg_flops(cfg, n_params: int, b: int, s: int) -> float:
+    """Model FLOPs of one training step (forward + backward): 6 N T for
+    the dense products (N = every parameter, the tied embedding counted
+    once for the head) plus 6 L H Dh S T for causal attention (half of the
+    12 L H Dh S T of full attention), T = B S tokens."""
+    t = b * s
+    return 6.0 * n_params * t + 6.0 * cfg.n_layers * cfg.n_heads \
+        * cfg.head_dim * s * t
+
+
+def train_step_check(torch, port) -> dict:
+    """One LM-base-width train step in float32 (2 layers, B=2, S=512)
+    through the flash kernels against the same step through reference
+    attention, from the same params and batch."""
+    import dataclasses
+    tfm, lm = port["tfm"], port["lm"]
+    model = dataclasses.replace(tfm.PRESETS["LM-base"], n_layers=2)
+    cfg = lm.LMTrainConfig(model=model, compute_dtype=None)
+    rng = np.random.default_rng(3)
+    tokens = rng.integers(0, model.vocab_size, (2, 512)).astype(np.int32)
+    targets = np.roll(tokens, -1, axis=1).astype(np.int32)
+    targets[:, -1] = lm.IGNORE
+    runs = {}
+    for impl in ("flash", "reference"):
+        tr = lm.LMTrainer(cfg, device="cuda", attn_impl=impl)
+        if impl == "reference":
+            tr.load_state({n: p.detach() for n, p in
+                           runs["flash"]["init"].items()})
+        init = {n: p.detach().clone() for n, p in tr.params.items()}
+        loss = float(tr.train_step(tokens, targets))
+        runs[impl] = {"init": init, "loss": loss, "trainer": tr,
+                      "gnorm": float(tr.last_metrics[0])}
+    fl, rf = runs["flash"], runs["reference"]
+    rel = abs(fl["loss"] - rf["loss"]) / abs(rf["loss"])
+    grel = abs(fl["gnorm"] - rf["gnorm"]) / rf["gnorm"]
+    # Post-step params: Adam's first step moves each entry by about
+    # lr * g / (|g| + eps), so float32 summation-order noise in g can move
+    # an entry with |g| near eps by up to 2 lr; elsewhere the two steps
+    # agree to float32 noise.  Held: every entry within 2 lr, and at most
+    # 0.1% of the entries more than 1e-6 apart.
+    max_d, n_far, n_all = 0.0, 0, 0
+    for n, p in fl["trainer"].params.items():
+        diff = (p.detach() - rf["trainer"].params[n].detach()).abs()
+        max_d = max(max_d, diff.max().item())
+        n_far += int((diff > 1e-6).sum())
+        n_all += diff.numel()
+    res = {"loss_flash": fl["loss"], "loss_reference": rf["loss"],
+           "loss_rel_diff": rel, "grad_norm_rel_diff": grel,
+           "param_max_abs_diff": max_d, "param_frac_over_1e-6":
+           n_far / n_all, "lr": cfg.lr}
+    print("  f32 step, flash vs reference: " + json.dumps(res))
+    if not rel <= 1e-5 or not grel <= 1e-5:
+        fail(f"flash and reference train steps disagree: loss rel {rel}, "
+             f"grad-norm rel {grel}")
+    if not (max_d <= 2 * cfg.lr and n_far / n_all <= 1e-3):
+        fail(f"post-step params disagree: max {max_d}, "
+             f"{n_far}/{n_all} entries over 1e-6")
+    del runs
+    torch.cuda.empty_cache()
+    return res
+
+
+def training_run(torch, port, steps: int = 30) -> dict:
+    """LM-base (24 layers, d_model 1024, byte vocab) through lm_cli, B=8,
+    S=1024, bf16 compute, synthetic corpus.  The host waits for the device
+    only at the ends of the windows (and where lm_cli logs): steps 2-10
+    and 16-30 are timed unprofiled, steps 11-15 run under torch.profiler
+    for device time.  The flash launch counts are read over the whole
+    run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    attn, cli = port["attn"], port["lm_cli"]
+    b, s = 8, 1024
+    argv = ["--preset", "LM-base", "--steps", str(steps), "--batch-size",
+            str(b), "--seq-len", str(s), "--compute-dtype", "bfloat16",
+            "--log-every", "10", "--device", "cuda"]
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    marks = (1, 10, 15, steps)  # windows (1, 10] and (15, steps] unprofiled
+    losses, t = [], {}
+
+    def on_step(step, trainer, loss):
+        losses.append(loss)
+        if step in marks:
+            torch.cuda.synchronize()
+            if step == marks[2]:
+                prof.stop()
+            t[step] = time.perf_counter()
+            if step == marks[1]:
+                prof.start()
+
+    for f in ("flash_attention_fwd", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv"):
+        getattr(attn, f).launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = cli.run(argv, on_step=on_step)
+    launches = {"K2": attn.flash_attention_fwd.launches,
+                "K3": attn.flash_attention_bwd_dq.launches,
+                "K4": attn.flash_attention_bwd_dkv.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cfg = trainer.cfg.model
+    n_params = sum(p.numel() for p in trainer.params.values())
+    losses = [float(x) for x in losses]
+    for i in [0] + list(range(9, steps, 10)):
+        print(f"  step {i + 1}: loss {losses[i]:.4f}")
+    windows = [(t[marks[1]] - t[marks[0]]) / (marks[1] - marks[0]),
+               (t[marks[3]] - t[marks[2]]) / (marks[3] - marks[2])]
+    step_ms = (t[marks[1]] - t[marks[0]] + t[marks[3]] - t[marks[2]]) \
+        / (marks[1] - marks[0] + marks[3] - marks[2]) * 1e3
+    device_us, n_ops, top = 0.0, 0, {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            device_us += e.self_device_time_total
+            n_ops += e.count
+            top[e.key] = top.get(e.key, 0.0) + e.self_device_time_total
+    n_prof = marks[2] - marks[1]
+    device_ms = device_us / 1e3 / n_prof
+    flops = lm_cfg_flops(cfg, n_params, b, s)
+    res = {"steps": steps, "batch": b, "seq": s, "n_params": n_params,
+           "losses_every_10": [losses[0]] + losses[9::10],
+           "ms_per_step": step_ms,
+           "ms_per_step_windows": [w * 1e3 for w in windows],
+           "tokens_per_s": b * s / (step_ms / 1e3),
+           "first_step_s": t[1] - t0,  # with model and corpus setup
+           "peak_mem_gb": peak_gb, "launches": launches,
+           "device_ms_per_step": device_ms,
+           "device_ops_per_step": n_ops / n_prof,
+           "device_idle_share": 1.0 - device_ms / step_ms,
+           "model_tflop_per_step": flops / 1e12,
+           "mfu": flops / (step_ms / 1e3) / PEAK_OPS["bfloat16"],
+           "top_kernels": [[k[:60], us / max(device_us, 1e-9)] for k, us in
+                           sorted(top.items(), key=lambda kv: -kv[1])[:10]]}
+    print("  LM-base bf16 training: " + json.dumps(res))
+    if not all(np.isfinite(losses)) or len(losses) != steps:
+        fail(f"training losses malformed: {losses}")
+    if not np.mean(losses[-5:]) < np.mean(losses[:5]) - 0.5:
+        fail(f"the loss did not fall over {steps} steps: {losses}")
+    for k, n in launches.items():
+        if n != cfg.n_layers * steps:
+            fail(f"{k}: {n} launches for {steps} steps x {cfg.n_layers} "
+                 f"layers")
+    del trainer
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -468,7 +806,7 @@ def main() -> int:
         return 2
     try:
         from distributed_pytorch_tpu_torch import generate as gen
-        from distributed_pytorch_tpu_torch import serve
+        from distributed_pytorch_tpu_torch import lm, lm_cli, serve
         from distributed_pytorch_tpu_torch.models import transformer as tfm
         from distributed_pytorch_tpu_torch.ops import _build
         from distributed_pytorch_tpu_torch.ops import attention as attn
@@ -477,7 +815,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     import torch.nn.functional as F
-    port = {"tfm": tfm, "gen": gen, "serve": serve, "attn": attn}
+    port = {"tfm": tfm, "gen": gen, "serve": serve, "attn": attn, "lm": lm,
+            "lm_cli": lm_cli}
 
     # 1. card facts
     facts = card_facts(torch)
@@ -487,17 +826,21 @@ def main() -> int:
           f"{facts['smi']}; torch {torch.__version__} (CUDA "
           f"{torch.version.cuda}); python {sys.version.split()[0]}")
 
-    # 2. build
+    # 2. build every kernel library, one nvcc per source, all at once
     t0 = time.perf_counter()
-    _build.load_library("decode_attention")
-    info = _build.build_info["decode_attention"]
-    print(f"[2] built decode_attention in {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {info['seconds']:.1f} s)")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print("    " + line.strip())
+    libs = ("decode_attention", "flash_attention")
+    _build.build_all(libs)
+    for lib in libs:
+        _build.load_library(lib)
+    print(f"[2] built {', '.join(libs)} in {time.perf_counter() - t0:.1f} s")
+    for lib in libs:
+        info = _build.build_info[lib]
+        print(f"  {lib} (nvcc {info['seconds']:.1f} s):")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                print("    " + line.strip())
 
-    print("[3] kernels against their plain versions")
+    print("[3] decode kernels against their plain versions")
     worst = check_kernels(torch, attn)
     timing = {}
     for name, quant in (("K6", False), ("K7", True)):
@@ -513,8 +856,19 @@ def main() -> int:
                           kv_dtype=None, label="bf16 cache (K6)"),
         "K7": serving_run(torch, port, n_req=8, budgets=(32, 64),
                           kv_dtype="int8", label="int8 cache (K7)")}
-    src = "distributed_pytorch_tpu_torch/csrc/decode_attention.cu"
+    print("[6] flash kernels (K2, K3, K4) against their plain versions")
+    flash_worst = check_flash(torch, attn)
+    flash_timing = time_flash(torch, F, attn, facts)
+    for name, t in flash_timing.items():
+        print(f"  {name} timing (bf16, B=8 H=8 S=1024 D=128 causal): "
+              + json.dumps(t))
+    print("[7] LM-base-width f32 train step, flash vs reference attention")
+    train_step_check(torch, port)
+    print("[8] LM-base bf16 training through lm_cli")
+    train_res = training_run(torch, port)
+
     kernels = []
+    src = "distributed_pytorch_tpu_torch/csrc/decode_attention.cu"
     for name, line in (("K6", 507), ("K7", 515)):
         t = timing[name]
         kernels.append({
@@ -528,6 +882,20 @@ def main() -> int:
             "tolerance": {"float32": TOL_ABS["float32"],
                           "bfloat16": f"min({TOL_ABS['bfloat16']}, "
                                       f"{TOL_ROW_RMS['bfloat16']} x row RMS)"},
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
+    src = "distributed_pytorch_tpu_torch/csrc/flash_attention.cu"
+    for name, fn, line in (("K2", "flash_fwd", 97), ("K3", "flash_bwd_dq", 206),
+                           ("K4", "flash_bwd_dkv", 252)):
+        t = flash_timing[name]
+        kernels.append({
+            "name": f"{fn} ({name})", "route": "cuda", "source": src,
+            "replaces": f"distributed_pytorch_tpu/ops/attention.py:{line}",
+            "launches": train_res["launches"][name],
+            "max_abs_err": flash_worst[name]["max_abs_err"],
+            "err_over_tol": flash_worst[name]["err_over_tol"],
+            "tolerance": FLASH_TOL,
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})

@@ -5,6 +5,11 @@ The port keeps the JAX layouts (models/transformer.py), so conversion is
 renaming plus dtype and device, with no transposes: the nested
 ``{"embed", "final_norm", "layer{i}": {"wq", ...}}`` tree of numpy arrays
 becomes ``{"embed", "final_norm", "layers.{i}.wq", ...}`` tensors, and back.
+
+The optimizer state crosses too: the Adam moments and step count of an
+optax ``chain(clip_by_global_norm, adamw)`` state (its ``ScaleByAdamState``
+``count``/``mu``/``nu``) become the port's ``{"count", "mu", "nu"}`` dict
+(lm.py), and back, so a JAX run can continue in the port.
 """
 
 from __future__ import annotations
@@ -60,3 +65,51 @@ def to_jax_params(params: dict[str, torch.Tensor]) -> dict:
             t = t.float()
         node[parts[-1]] = t.numpy()
     return tree
+
+
+def _is_adam_state(node) -> bool:
+    return getattr(node, "_fields", None) == ("count", "mu", "nu")
+
+
+def from_jax_opt_state(state, device: str | torch.device = "cuda") -> dict:
+    """An optax state tree (nested tuples of namedtuples, numpy or JAX
+    leaves) -> the port's Adam state ``{"count": int, "mu": flat params,
+    "nu": flat params}`` from its one ``ScaleByAdamState``."""
+    found = []
+
+    def walk(node):
+        if _is_adam_state(node):
+            found.append(node)
+        elif isinstance(node, tuple):
+            for child in node:
+                walk(child)
+
+    walk(state)
+    if len(found) != 1:
+        raise ValueError(f"expected one ScaleByAdamState (count, mu, nu) in "
+                         f"the optimizer state, found {len(found)}")
+    adam = found[0]
+    return {"count": int(np.asarray(adam.count)),
+            "mu": from_jax_params(adam.mu, device=device),
+            "nu": from_jax_params(adam.nu, device=device)}
+
+
+def to_jax_opt_state(opt_state: dict, like):
+    """The port's Adam state -> an optax state of ``like``'s structure
+    (numpy leaves): its ``ScaleByAdamState`` takes the count and moments,
+    and every other state that carries only a step ``count`` (the LR
+    schedule's) takes the count."""
+    count = np.asarray(opt_state["count"], dtype=np.int32)
+
+    def walk(node):
+        if _is_adam_state(node):
+            return node._replace(count=count,
+                                 mu=to_jax_params(opt_state["mu"]),
+                                 nu=to_jax_params(opt_state["nu"]))
+        if getattr(node, "_fields", None) == ("count",):
+            return node._replace(count=count)
+        if isinstance(node, tuple) and not hasattr(node, "_fields"):
+            return tuple(walk(child) for child in node)
+        return node
+
+    return walk(like)

@@ -26,8 +26,8 @@ from .utils.device import resolve_device
 
 Cache = dict[str, dict[str, torch.Tensor]]
 
-PAGED_SLICE = "ROADMAP.md queue 1, slice 2 (paged serving)"
-PARALLEL_SLICE = "ROADMAP.md queue 1, slice 5 (parallelism)"
+PAGED_SLICE = "ROADMAP.md queue 1, slice 3 (paged serving)"
+PARALLEL_SLICE = tfm.PARALLEL_SLICE
 
 # int8 KV quantization floor: a zero row quantizes against this scale
 # instead of dividing by zero (dequantized zeros stay exactly zero).

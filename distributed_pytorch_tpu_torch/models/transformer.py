@@ -11,9 +11,10 @@ cross between the two packages by renaming alone (convert.py):
 - ``layers.{i}.w_gate``/``w_up`` (D, F), ``w_down`` (F, D);
 - ``layers.{i}.attn_norm``/``mlp_norm`` (D,).
 
-This slice ports the dense single-device forward with
-``attn_impl="reference"``.  The flash-attention kernel, MoE layers and the
-parallelism / remat / boundary / int8-matmul options are refused with
+The dense single-device forward runs with ``attn_impl="flash"`` (the
+default, as in the JAX package: hand-written kernels K2-K4 on the GPU,
+ops/attention.py) or ``"reference"``.  MoE layers and the parallelism /
+remat / boundary / int8-matmul options are refused with
 ``NotImplementedError`` until the slice that ports them (ROADMAP.md
 queue 1).
 """
@@ -31,7 +32,9 @@ from ..utils.device import resolve_device
 
 Params = dict[str, torch.Tensor]
 
-LM_TRAINING_SLICE = "ROADMAP.md queue 1, slice 3 (LM training)"
+LM_SCALE_SLICE = ("ROADMAP.md queue 1, slice 6 (LM training at scale: "
+                  "MoE, int8 matmul, remat, chunked CE)")
+PARALLEL_SLICE = "ROADMAP.md queue 1, slice 5 (parallelism)"
 
 
 def not_ported(what: str, where: str) -> NotImplementedError:
@@ -50,8 +53,8 @@ class TransformerConfig:
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-5
     # Mixture-of-Experts fields: kept so configs cross between the
-    # packages unchanged; n_experts > 0 is refused until the LM-training
-    # slice ports ops/moe.py.
+    # packages unchanged; n_experts > 0 is refused until the slice that
+    # ports ops/moe.py.
     n_experts: int = 0
     moe_every: int = 2
     moe_top_k: int = 1
@@ -96,7 +99,7 @@ PRESETS = {
 
 def _refuse_moe(cfg: TransformerConfig) -> None:
     if cfg.n_experts:
-        raise not_ported("n_experts > 0 (MoE layers)", LM_TRAINING_SLICE)
+        raise not_ported("n_experts > 0 (MoE layers)", LM_SCALE_SLICE)
 
 
 def init(seed_or_generator: int | torch.Generator, cfg: TransformerConfig,
@@ -196,48 +199,58 @@ def mlp(lp: Params, h: torch.Tensor) -> torch.Tensor:
 
 
 def _check_options(attn_impl: str, **opts) -> None:
-    if attn_impl == "flash":
-        raise not_ported("attn_impl='flash' (kernel K2)", LM_TRAINING_SLICE)
-    if attn_impl != "reference":
+    if attn_impl not in ("flash", "reference"):
         raise ValueError(f"unknown attn_impl {attn_impl!r}")
     for name, value in opts.items():
         if value not in (None, "none"):
-            raise not_ported(f"{name}={value!r}", LM_TRAINING_SLICE)
+            where = (PARALLEL_SLICE if name in ("seq_axis", "tp_axis",
+                                                "ep_axis", "boundary")
+                     else LM_SCALE_SLICE)
+            raise not_ported(f"{name}={value!r}", where)
 
 
 def block(lp: Params, x: torch.Tensor, *, cfg: TransformerConfig,
-          is_moe: bool, pos: torch.Tensor, attn_impl: str = "reference",
+          is_moe: bool, pos: torch.Tensor, attn_impl: str = "flash",
           seq_axis=None, tp_axis=None, ep_axis=None, matmul_dtype=None,
           ) -> tuple[torch.Tensor, torch.Tensor]:
     """One dense transformer block: (layer params, (B, S, D)) -> (x, aux),
-    aux being the MoE load-balance loss (always 0 here)."""
+    aux being the MoE load-balance loss (always 0 here).  GQA repeats the
+    k/v heads to H before attention, so autograd sums their gradient back
+    over each group."""
     _check_options(attn_impl, seq_axis=seq_axis, tp_axis=tp_axis,
                    ep_axis=ep_axis, matmul_dtype=matmul_dtype)
     if is_moe:
-        raise not_ported("MoE layers", LM_TRAINING_SLICE)
+        raise not_ported("MoE layers", LM_SCALE_SLICE)
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
     q, k, v = qkv(lp, h, pos, cfg.rope_theta)
     if cfg.kv_heads != cfg.n_heads:
         rep = q.shape[1] // k.shape[1]
         k = k.repeat_interleave(rep, dim=1)
         v = v.repeat_interleave(rep, dim=1)
-    o = attn_ops.attention_reference(q, k, v, causal=True)
+    if attn_impl == "flash":
+        o = attn_ops.flash_attention(q, k, v, causal=True)
+    else:
+        o = attn_ops.attention_reference(q, k, v, causal=True)
     x = x + attn_out(lp, o)
     h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
     return x + mlp(lp, h), torch.zeros((), device=x.device)
 
 
 def apply(params: Params, tokens: torch.Tensor, *, cfg: TransformerConfig,
-          dtype: torch.dtype | None = None, attn_impl: str = "reference",
+          dtype: torch.dtype | None = None, attn_impl: str = "flash",
           seq_axis=None, tp_axis=None, ep_axis=None,
           pos0: int = 0, pos: torch.Tensor | None = None,
           return_aux: bool = False, boundary=None, matmul_dtype=None,
-          remat=None):
+          remat=None, head_fn=None):
     """Forward pass: (B, S) int tokens -> (B, S, vocab) float32 logits.
 
-    ``attn_impl`` defaults to ``"reference"`` here (the JAX package
-    defaults to its Pallas flash kernel, which the port refuses until the
-    LM-training slice ports it)."""
+    ``attn_impl`` is ``"flash"`` (the default, as in the JAX package) or
+    ``"reference"``.  ``head_fn``, when given, is called as
+    ``head_fn(h, params["embed"])`` on the final-norm hidden states in
+    place of the logits matmul, and its result is returned where the
+    logits would be (the trainer's head-loss seam, ops/losses.py).  With
+    ``return_aux`` the result is ``(out, aux)``, aux being the summed MoE
+    load-balance loss (0 for a dense model)."""
     _refuse_moe(cfg)
     _check_options(attn_impl, seq_axis=seq_axis, tp_axis=tp_axis,
                    ep_axis=ep_axis, boundary=boundary,
@@ -248,9 +261,13 @@ def apply(params: Params, tokens: torch.Tensor, *, cfg: TransformerConfig,
     if pos is None:
         pos = pos0 + torch.arange(x.shape[1], device=x.device)
     for i in range(cfg.n_layers):
-        x, _ = block(layer(params, i), x, cfg=cfg, is_moe=False, pos=pos)
+        x, _ = block(layer(params, i), x, cfg=cfg, is_moe=False, pos=pos,
+                     attn_impl=attn_impl)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    out = x.float() @ params["embed"].float().T
+    if head_fn is not None:
+        out = head_fn(x, params["embed"])
+    else:
+        out = x.float() @ params["embed"].float().T
     if return_aux:
-        return out, torch.zeros((), device=out.device)
+        return out, torch.zeros((), device=x.device)
     return out

@@ -33,10 +33,29 @@ _SIGNATURES = {
             + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]),
         "decode_attention_error": (ctypes.c_char_p, [ctypes.c_int]),
     },
+    "flash_attention": {
+        "flash_fwd_launch": (
+            ctypes.c_int,
+            [ctypes.c_int, ctypes.c_int]
+            + [ctypes.c_void_p] * 5  # q, k, v, o, lse
+            + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]),
+        "flash_bwd_dq_launch": (
+            ctypes.c_int,
+            [ctypes.c_int, ctypes.c_int]
+            + [ctypes.c_void_p] * 7  # q, k, v, do, lse, delta, dq
+            + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]),
+        "flash_bwd_dkv_launch": (
+            ctypes.c_int,
+            [ctypes.c_int, ctypes.c_int]
+            + [ctypes.c_void_p] * 8  # q, k, v, do, lse, delta, dk, dv
+            + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]),
+        "flash_attention_error": (ctypes.c_char_p, [ctypes.c_int]),
+    },
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
-# name -> {"seconds": build time (0.0 when the library was already built),
+# name -> {"seconds": build time (0.0 when the library was already built;
+#          each nvcc's own wall time when several build at once),
 #          "log": nvcc's output (register / shared-memory report)}
 build_info: dict[str, dict] = {}
 
@@ -61,32 +80,39 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its hashed library exists."""
-    out = library_path(name)
-    if out.exists():
-        build_info.setdefault(name, {"seconds": 0.0, "log": ""})
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-        capture_output=True, text=True, check=False)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed building {name}:\n{proc.stdout}"
-                           f"\n{proc.stderr}")
-    os.replace(tmp, out)
-    build_info[name] = {"seconds": time.perf_counter() - t0,
-                        "log": proc.stdout + proc.stderr}
-    return out
+def build_all(names) -> None:
+    """Compile every ``csrc/<name>.cu`` whose hashed library is missing, one
+    ``nvcc`` process per source, all started together."""
+    started = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            build_info.setdefault(name, {"seconds": 0.0, "log": ""})
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        started[name] = (proc, tmp, out, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, out, t0) in started.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            failed.append(f"nvcc failed building {name}:\n{log}")
+            continue
+        os.replace(tmp, out)
+        build_info[name] = {"seconds": time.perf_counter() - t0, "log": log}
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded kernel library ``name``, built on first use."""
     lib = _loaded.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build(name)))
+        build_all([name])
+        lib = ctypes.CDLL(str(library_path(name)))
         for fn, (restype, argtypes) in _SIGNATURES[name].items():
             getattr(lib, fn).restype = restype
             getattr(lib, fn).argtypes = argtypes

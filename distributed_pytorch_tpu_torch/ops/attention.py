@@ -1,14 +1,21 @@
-"""Attention ops: plain PyTorch reference attention and the decode-attention
-kernel (the port of the JAX package's ops/attention.py).
+"""Attention ops: plain PyTorch reference attention, flash attention and the
+decode-attention kernel (the port of the JAX package's ops/attention.py).
 
 - ``attention_reference``: einsum -> float32 softmax -> einsum over
   (B, H, S, D); the oracle, and the prefill attention of generate.py.
+- ``flash_attention``: tiled attention with a custom backward (a
+  ``torch.autograd.Function``), optionally returning the row logsumexp as
+  a second differentiable output.  On CUDA tensors the forward launches
+  the hand-written kernel K2 and the backward K3 (dQ) and K4 (dK, dV) of
+  csrc/flash_attention.cu; on CPU tensors the same autograd.Function runs
+  ``flash_attention_fwd_plain`` and ``flash_attention_bwd_plain``.
 - ``decode_attention``: single-token decode over a contiguous KV cache with
   exact ``pos+1`` read bounds.  On a CUDA tensor it launches the
   hand-written kernel in csrc/decode_attention.cu (TPU kernels K6 and K7);
   on a CPU tensor it runs ``decode_attention_plain``, the same function in
-  plain PyTorch.  There is no fallback from the kernel to the plain
-  version: a CUDA input the kernel does not take raises.
+  plain PyTorch.
+There is no fallback from a kernel to its plain version: a CUDA input a
+kernel does not take raises.
 
 Shapes follow the (batch, heads, seq, head_dim) convention.
 """
@@ -20,30 +27,28 @@ import math
 
 import torch
 
+# The JAX package's flash-attention block defaults.  The CUDA kernels tile
+# by their own sizes; these only decide which sequence lengths are refused
+# (``_fit_block``), so both packages take the same arguments.
+DEFAULT_BLOCK_Q = 1024
+DEFAULT_BLOCK_K = 1024
 # Decode reads are skipped at tile granularity in the JAX package's kernel;
 # kept as the block the plain path's callers size caches against.
 DEFAULT_DECODE_BLOCK_K = 256
 NEG_INF = -1e30  # large-negative instead of -inf: keeps exp()/max() NaN-free
 
-# What the CUDA kernel takes (csrc/decode_attention.cu).
+# What the CUDA kernels take (csrc/decode_attention.cu and, for head dims
+# and dtypes, csrc/flash_attention.cu).
 KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_MAX_GROUP = 16
 _QTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _CTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
-def attention_reference(q, k, v, *, causal: bool = False,
-                        sm_scale: float | None = None, with_lse: bool = False,
-                        bias: torch.Tensor | None = None):
-    """Plain attention over (B, H, S, D) tensors.
-
-    Scores and softmax in float32 regardless of input dtype; ``p`` is cast
-    to ``v``'s dtype before the P.V product, which accumulates in float32.
-    ``bias`` is an additive score bias broadcastable to (B, H, Sq, Sk).
-    With ``with_lse`` also returns the row logsumexp (B, H, Sq)."""
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
+def _scores(q, k, causal: bool, sm_scale: float, bias=None) -> torch.Tensor:
+    """float32 (..., Sq, Sk) scaled scores plus ``bias``, NEG_INF where
+    causally masked (query i sees keys j <= i + Sk - Sq)."""
+    s = torch.einsum("...qd,...kd->...qk", q.float(), k.float()) * sm_scale
     if bias is not None:
         s = s + bias.float()
     if causal:
@@ -52,9 +57,24 @@ def attention_reference(q, k, v, *, causal: bool = False,
         kj = torch.arange(sk, device=s.device)[None, :]
         s = torch.where(qi + (sk - sq) >= kj, s,
                         torch.full((), NEG_INF, device=s.device))
+    return s
+
+
+def attention_reference(q, k, v, *, causal: bool = False,
+                        sm_scale: float | None = None, with_lse: bool = False,
+                        bias: torch.Tensor | None = None):
+    """Plain attention over (B, H, S, D) tensors (any leading dims).
+
+    Scores and softmax in float32 regardless of input dtype; ``p`` is cast
+    to ``v``'s dtype before the P.V product, which accumulates in float32.
+    ``bias`` is an additive score bias broadcastable to (B, H, Sq, Sk).
+    With ``with_lse`` also returns the row logsumexp (B, H, Sq)."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    s = _scores(q, k, causal, sm_scale, bias)
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
-    o = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(),
+    o = torch.einsum("...qk,...kd->...qd", p.to(v.dtype).float(),
                      v.float()).to(q.dtype)
     if with_lse:
         return o, lse
@@ -71,6 +91,240 @@ def _fit_block(limit: int, s: int) -> int:
         f"sequence length {s} has no MXU-friendly divisor <= {limit} "
         f"(need an 8-aligned divisor >= 128, or s itself); pad the "
         f"sequence or pass explicit block sizes")
+
+
+# -- flash attention: plain versions ---------------------------------------
+
+def flash_attention_fwd_plain(q, k, v, *, causal: bool = False,
+                              sm_scale: float | None = None):
+    """Plain-PyTorch forward of flash attention over (..., S, D) operands:
+    ``(o, lse)``, ``attention_reference(with_lse=True)`` itself (float32
+    scores and softmax, ``p`` cast to ``v``'s dtype before P.V, o in
+    ``q``'s dtype, lse float32)."""
+    return attention_reference(q, k, v, causal=causal, sm_scale=sm_scale,
+                               with_lse=True)
+
+
+def flash_attention_bwd_plain(q, k, v, lse, do, delta, *,
+                              causal: bool = False,
+                              sm_scale: float | None = None):
+    """Plain-PyTorch backward of flash attention, the K3/K4 formulas:
+    ``p = exp(s - lse)`` recomputed from q, k and the saved lse;
+    ``dp = do . v`` (do cast to v's dtype); ``ds = p (dp - delta) scale``;
+    ``dq = ds . k``, ``dk = ds^T . q``, ``dv = p^T . do`` with ds and p cast
+    to the other operand's dtype first and float32 sums.  ``delta`` is
+    rowsum(do * o) - dlse in float32 (..., Sq).  Returns (dq, dk, dv)."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    p = torch.exp(_scores(q, k, causal, sm_scale) - lse.float()[..., None])
+    dp = torch.einsum("...qd,...kd->...qk", do.to(v.dtype).float(), v.float())
+    ds = p * (dp - delta.float()[..., None]) * sm_scale
+    dq = torch.einsum("...qk,...kd->...qd", ds.to(k.dtype).float(), k.float())
+    dk = torch.einsum("...qk,...qd->...kd", ds.to(q.dtype).float(), q.float())
+    dv = torch.einsum("...qk,...qd->...kd", p.to(do.dtype).float(),
+                      do.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# -- flash attention: the CUDA kernels (K2, K3, K4) ------------------------
+
+def _check_flash(name: str, q, k, v, *rest) -> tuple[int, int, int, int]:
+    """(BH, Sq, Sk, D) of the kernel operands, or ValueError for what the
+    kernel does not take.  ``rest`` are do (q's shape) then float32 (BH, Sq)
+    lse and delta."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    if q.ndim != 3 or k.ndim != 3 or v.ndim != 3:
+        raise ValueError(f"{name}: kernel operands are (B*H, S, D), got "
+                         f"{tuple(q.shape)}/{tuple(k.shape)}/{tuple(v.shape)}")
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name}: the kernel takes head_dim in "
+                         f"{KERNEL_HEAD_DIMS}, got {d}")
+    if q.dtype not in _QTYPES:
+        raise ValueError(f"{name}: the kernel takes float32 or bfloat16, got "
+                         f"{q.dtype}")
+    if k.shape != (bh, sk, d) or v.shape != (bh, sk, d):
+        raise ValueError(f"{name}: k/v shapes {tuple(k.shape)}/"
+                         f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
+    if bh > 65535 or sq < 1 or sk < 1:
+        raise ValueError(f"{name}: the kernel takes 1 <= S and B*H <= 65535, "
+                         f"got {tuple(q.shape)}")
+    tensors = [(q, q.dtype), (k, q.dtype), (v, q.dtype)]
+    if rest:
+        do, lse, delta = rest
+        if do.shape != q.shape or lse.shape != (bh, sq) \
+                or delta.shape != (bh, sq):
+            raise ValueError(f"{name}: do {tuple(do.shape)}, lse "
+                             f"{tuple(lse.shape)} and delta "
+                             f"{tuple(delta.shape)} do not match q "
+                             f"{tuple(q.shape)}")
+        tensors += [(do, q.dtype), (lse, torch.float32),
+                    (delta, torch.float32)]
+    for t, dtype in tensors:
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: expected {dtype} operands, got "
+                             f"{t.dtype}")
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name}: every operand must be a contiguous "
+                             f"tensor on q's device")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: operands must be 16-byte aligned")
+    return bh, sq, sk, d
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _flash_launch(entry: str, q: torch.Tensor, *args) -> None:
+    """Call ``entry`` of csrc/flash_attention.cu with ``args`` on q's
+    current stream; raise on the CUDA error it returns."""
+    from ._build import load_library
+    lib = load_library("flash_attention")
+    stream = ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)
+    err = getattr(lib, entry)(*args, stream)
+    if err:
+        raise RuntimeError(f"{entry} failed: CUDA error {err} "
+                           f"({lib.flash_attention_error(err).decode()})")
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool = False,
+                        sm_scale: float | None = None):
+    """Flash-attention forward over (B*H, S, D): ``(o, lse)``.
+
+    On CUDA tensors this launches K2 on the current stream and adds one to
+    ``flash_attention_fwd.launches``; on CPU tensors it runs
+    ``flash_attention_fwd_plain`` (no launch is counted)."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return flash_attention_fwd_plain(q, k, v, causal=causal,
+                                         sm_scale=sm_scale)
+    bh, sq, sk, d = _check_flash("flash_attention_fwd", q, k, v)
+    o = torch.empty_like(q)
+    lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    _flash_launch("flash_fwd_launch", q, _QTYPES[q.dtype], d, _ptr(q),
+                  _ptr(k), _ptr(v), _ptr(o), _ptr(lse), bh, sq, sk,
+                  int(causal), ctypes.c_float(sm_scale))
+    flash_attention_fwd.launches += 1
+    return o, lse
+
+
+def flash_attention_bwd_dq(q, k, v, lse, do, delta, *, causal: bool = False,
+                           sm_scale: float | None = None):
+    """dQ of flash attention over (B*H, S, D).  On CUDA tensors this
+    launches K3 and adds one to ``flash_attention_bwd_dq.launches``; on CPU
+    tensors it runs ``flash_attention_bwd_plain``."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, lse, do, delta,
+                                         causal=causal, sm_scale=sm_scale)[0]
+    bh, sq, sk, d = _check_flash("flash_attention_bwd_dq", q, k, v, do, lse,
+                                 delta)
+    dq = torch.empty_like(q)
+    _flash_launch("flash_bwd_dq_launch", q, _QTYPES[q.dtype], d, _ptr(q),
+                  _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
+                  _ptr(dq), bh, sq, sk, int(causal), ctypes.c_float(sm_scale))
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, lse, do, delta, *, causal: bool = False,
+                            sm_scale: float | None = None):
+    """(dK, dV) of flash attention over (B*H, S, D).  On CUDA tensors this
+    launches K4 and adds one to ``flash_attention_bwd_dkv.launches``; on
+    CPU tensors it runs ``flash_attention_bwd_plain``."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, lse, do, delta,
+                                         causal=causal, sm_scale=sm_scale)[1:]
+    bh, sq, sk, d = _check_flash("flash_attention_bwd_dkv", q, k, v, do, lse,
+                                 delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _flash_launch("flash_bwd_dkv_launch", q, _QTYPES[q.dtype], d, _ptr(q),
+                  _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
+                  _ptr(dk), _ptr(dv), bh, sq, sk, int(causal),
+                  ctypes.c_float(sm_scale))
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_fwd.launches = 0
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """(q, k, v) (B*H, S, D) -> (o, lse), both differentiable; the port of
+    the JAX package's ``_flash_lse`` custom VJP.  The backward folds the lse
+    cotangent into ``delta = rowsum(do * o) - dlse`` (float32, outside the
+    kernels, as the JAX ``_bwd`` does), then runs dQ and dK/dV."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal,
+                                     sm_scale=sm_scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        ctx.set_materialize_grads(False)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(o)
+        do = do.contiguous()
+        delta = (do.float() * o.float()).sum(-1)
+        if dlse is not None:
+            delta = delta - dlse.float()
+        kw = dict(causal=ctx.causal, sm_scale=ctx.sm_scale)
+        dq = flash_attention_bwd_dq(q, k, v, lse, do, delta, **kw)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, lse, do, delta, **kw)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = False,
+                    sm_scale: float | None = None, block_q: int | None = None,
+                    block_k: int | None = None, with_lse: bool = False):
+    """Tiled attention over (B, H, S, D), differentiable.
+
+    With ``with_lse`` also returns the float32 row logsumexp (B, H, S) as a
+    second differentiable output (its cotangent is handled exactly in the
+    backward).  The argument checks are the JAX package's: rank 4, causal
+    needs sq == sk, and each sequence length must have an 8-aligned divisor
+    >= 128 (or be that divisor itself) below the default block, or divide
+    the explicitly passed block.  The blocks decide only what is refused:
+    the CUDA kernels use their own tiles.  On CUDA tensors the forward
+    launches K2 and the backward K3 and K4; on CPU tensors the plain
+    versions run through the same autograd.Function."""
+    if q.ndim != 4:
+        raise ValueError(f"expected (B, H, S, D) q, got {tuple(q.shape)}")
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    block_q = _fit_block(DEFAULT_BLOCK_Q, sq) if block_q is None else min(
+        block_q, sq)
+    block_k = _fit_block(DEFAULT_BLOCK_K, sk) if block_k is None else min(
+        block_k, sk)
+    if sq % block_q or sk % block_k:
+        raise ValueError(f"seq lens ({sq}, {sk}) must divide block sizes "
+                         f"({block_q}, {block_k})")
+    if causal and sq != sk:
+        raise ValueError("causal flash attention requires sq == sk")
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    o, lse = _FlashAttention.apply(
+        q.reshape(b * h, sq, d).contiguous(),
+        k.reshape(b * h, sk, d).contiguous(),
+        v.reshape(b * h, sk, d).contiguous(), causal, sm_scale)
+    o = o.reshape(b, h, sq, d)
+    if with_lse:
+        return o, lse.reshape(b, h, sq)
+    return o
 
 
 def _check_decode_args(q, k_cache, k_scale, v_scale):

@@ -56,7 +56,7 @@ from .utils.tracing import PhaseTimer
 # which explicitly DISABLES eos for that request
 _INHERIT = object()
 
-SERVING_SLICE = "ROADMAP.md queue 1, slice 2 (paged serving)"
+SERVING_SLICE = "ROADMAP.md queue 1, slice 3 (paged serving)"
 FLEET_SLICE = "ROADMAP.md queue 1, slice 5 (fleet)"
 
 

@@ -29,6 +29,7 @@ def test_port_imports_no_jax_and_no_jax_package():
                           check=True)
     got = json.loads(proc.stdout.strip().splitlines()[-1])
     for mod in ("generate", "serve", "convert", "models.transformer",
-                "ops.attention", "ops._build", "utils.tracing"):
+                "ops.attention", "ops._build", "utils.tracing", "lm",
+                "lm_cli", "ops.nn", "ops.losses", "data.lm_corpus"):
         assert f"distributed_pytorch_tpu_torch.{mod}" in got["modules"]
     assert got["bad"] == [], f"the port imported {got['bad']}"

@@ -1,0 +1,297 @@
+"""The port's LM trainer slice (distributed_pytorch_tpu_torch: lm.py,
+lm_cli.py, data/lm_corpus.py, ops/losses.py, convert.py's optimizer state)
+against the JAX package's, on the CPU in float32.
+
+The model is tests/test_lm.py's (vocab 256, d_model 128, 2 layers, 2 heads
+x 64, d_ff 256; batch 4 x 128, seed 1).  The port starts from the JAX
+trainer's own initial params (and, where stated, its mid-run Adam state),
+carried by convert.py.  Losses agree to rtol 1e-5 / atol 1e-6; params after
+the steps to rtol 1e-4 / atol 5e-4, the bound tests/test_lm.py holds its
+own layouts to (Adam divides by sqrt(nu), which amplifies float32
+summation-order noise on near-zero gradient entries).
+"""
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from distributed_pytorch_tpu import lm as jlm
+from distributed_pytorch_tpu import lm_cli as jcli
+from distributed_pytorch_tpu.data import lm_corpus as jcorpus
+from distributed_pytorch_tpu.models import transformer as jtfm
+from distributed_pytorch_tpu_torch import convert
+from distributed_pytorch_tpu_torch import lm as tlm
+from distributed_pytorch_tpu_torch import lm_cli as tcli
+from distributed_pytorch_tpu_torch.data import lm_corpus as tcorpus
+from distributed_pytorch_tpu_torch.models import transformer as ttfm
+from distributed_pytorch_tpu_torch.ops import losses as tlosses
+from distributed_pytorch_tpu_torch.ops import nn as tnn
+
+LOSS_TOL = dict(rtol=1e-5, atol=1e-6)
+PARAM_TOL = dict(rtol=1e-4, atol=5e-4)
+SHAPE = dict(vocab_size=256, d_model=128, n_layers=2, n_heads=2,
+             head_dim=64, d_ff=256)
+
+
+def _data(b=4, s=128, vocab=256, seed=0):
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, vocab, (b, s)).astype(np.int32)
+    targets = np.roll(tokens, -1, axis=1).astype(np.int32)
+    targets[:, -1] = jlm.IGNORE
+    return tokens, targets
+
+
+def _snapshot(jtr):
+    return (jax.tree.map(np.array, jtr.params),
+            jax.tree.map(np.array, jtr.opt_state))
+
+
+def _jax_run(steps, batches, **kw):
+    """The JAX trainer's losses, its initial params, and its state after
+    every step (numpy copies: the step donates its buffers)."""
+    cfg = jlm.LMTrainConfig(model=jtfm.TransformerConfig(**SHAPE),
+                            compute_dtype=None, **kw)
+    jtr = jlm.LMTrainer(cfg)
+    states = [_snapshot(jtr)]
+    losses = []
+    for i in range(steps):
+        losses.append(float(jtr.train_step(*batches[i % len(batches)])))
+        states.append(_snapshot(jtr))
+    return jtr, losses, states
+
+
+def _port(states, i=0, with_opt=False, **kw):
+    cfg = tlm.LMTrainConfig(model=ttfm.TransformerConfig(**SHAPE),
+                            compute_dtype=None, **kw)
+    ttr = tlm.LMTrainer(cfg, device="cpu")
+    params, opt = states[i]
+    ttr.load_state(convert.from_jax_params(params, device="cpu"),
+                   convert.from_jax_opt_state(opt, device="cpu")
+                   if with_opt else None)
+    return ttr
+
+
+def _assert_params_close(ttr, jparams):
+    want = convert.from_jax_params(jparams, device="cpu")
+    for name, p in ttr.params.items():
+        np.testing.assert_allclose(p.detach().numpy(), want[name].numpy(),
+                                   err_msg=name, **PARAM_TOL)
+
+
+@pytest.fixture(scope="module")
+def base():
+    """Five JAX steps on two alternating batches."""
+    batches = [_data(), _data(seed=1)]
+    jtr, losses, states = _jax_run(5, batches)
+    return batches, jtr, losses, states
+
+
+def test_config_fields_match_jax():
+    jf = {f.name: f for f in dataclasses.fields(jlm.LMTrainConfig)}
+    tf = {f.name: f for f in dataclasses.fields(tlm.LMTrainConfig)}
+    assert list(tf) == list(jf)
+    for name in jf:
+        if name != "model":
+            assert tf[name].default == jf[name].default, name
+    assert tlm.LMTrainConfig().model == ttfm.PRESETS["LM-tiny"]
+
+
+def test_trainer_matches_jax(base):
+    """Three steps from the JAX initial params: losses and params."""
+    batches, _, want, states = base
+    ttr = _port(states)
+    got = [float(ttr.train_step(*batches[i % 2])) for i in range(3)]
+    np.testing.assert_allclose(got, want[:3], **LOSS_TOL)
+    _assert_params_close(ttr, states[3][0])
+    assert float(ttr.last_ok) == 1.0
+    assert ttr.last_metrics.shape == (2,) and ttr._step == 3
+
+
+def test_continues_from_carried_jax_state(base):
+    """The port picks up the JAX run after step 3 (params and Adam state,
+    carried by convert.py) and reproduces steps 4 and 5."""
+    batches, _, want, states = base
+    ttr = _port(states, 3, with_opt=True)
+    assert ttr._step == 3
+    got = [float(ttr.train_step(*batches[i % 2])) for i in (3, 4)]
+    np.testing.assert_allclose(got, want[3:5], **LOSS_TOL)
+    _assert_params_close(ttr, states[5][0])
+
+
+def test_evaluate_matches_jax(base):
+    batches, jtr, _, states = base
+    ttr = _port(states, 5)
+    want = jtr.evaluate(batches)
+    got = ttr.evaluate(batches)
+    assert got["tokens"] == want["tokens"] == 2 * 4 * 127
+    np.testing.assert_allclose(got["loss"], want["loss"], **LOSS_TOL)
+    np.testing.assert_allclose(got["ppl"], want["ppl"], rtol=1e-5)
+
+
+def test_schedule_and_clip_match_jax():
+    """Warmup + cosine decay, and a grad_clip small enough to bite on
+    every step."""
+    kw = dict(warmup_steps=2, decay_steps=6, lr=1e-3, grad_clip=0.05)
+    batches = [_data(seed=2)]
+    jtr, want, states = _jax_run(3, batches, **kw)
+    assert float(np.asarray(jtr.last_metrics)[0]) > kw["grad_clip"]
+    ttr = _port(states, **kw)
+    got = [float(ttr.train_step(*batches[0])) for _ in range(3)]
+    np.testing.assert_allclose(got, want, **LOSS_TOL)
+    _assert_params_close(ttr, states[3][0])
+
+
+def test_grad_accum_matches_jax():
+    """grad_accum=2 on both sides: the interleaved split, gradients summed
+    and normalized by the whole batch's token count."""
+    tokens, targets = _data(seed=3)
+    targets[0, 60:] = jlm.IGNORE  # unequal masks per microbatch
+    _, want, states = _jax_run(3, [(tokens, targets)], grad_accum=2)
+    ttr = _port(states, grad_accum=2)
+    got = [float(ttr.train_step(tokens, targets)) for _ in range(3)]
+    np.testing.assert_allclose(got, want, **LOSS_TOL)
+    _assert_params_close(ttr, states[3][0])
+    with pytest.raises(ValueError, match="divisible into"):
+        _port(states, grad_accum=3).train_step(tokens, targets)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(warmup_steps=5), dict(decay_steps=12),
+    dict(warmup_steps=3, decay_steps=12, min_lr_ratio=0.2, lr=1e-3)],
+    ids=["constant", "warmup", "cosine", "warmup_cosine"])
+def test_lr_sequence_matches_optax(kw):
+    """The port's per-step LR against the JAX package's optax schedule,
+    evaluated at the update count (0 for the first step)."""
+    want_fn = jlm.make_schedule(jlm.LMTrainConfig(**kw))
+    got_fn = tlm.make_schedule(tlm.LMTrainConfig(**kw))
+    for step in range(16):
+        want = want_fn if isinstance(want_fn, float) else float(want_fn(step))
+        np.testing.assert_allclose(got_fn(step), want, rtol=1e-6, atol=1e-12)
+
+
+def test_opt_state_round_trip(base):
+    _, _, _, states = base
+    params, opt = states[2]
+    mine = convert.from_jax_opt_state(opt, device="cpu")
+    assert mine["count"] == 2
+    back = convert.to_jax_opt_state(mine, like=opt)
+    a, b = jax.tree.leaves(opt), jax.tree.leaves(back)
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+
+
+def test_losses_match_jax():
+    """masked_ce and the dense head on shared inputs; chunked is refused."""
+    from distributed_pytorch_tpu.ops import losses as jlosses
+    rng = np.random.default_rng(4)
+    h = rng.standard_normal((2, 8, 16)).astype(np.float32)
+    emb = rng.standard_normal((32, 16)).astype(np.float32)
+    tg = rng.integers(0, 32, (2, 8)).astype(np.int32)
+    tg[1, 5:] = tnn.IGNORE_INDEX
+    want = jlosses.head_loss(h, emb, tg)
+    got = tlosses.head_loss(torch.from_numpy(h), torch.from_numpy(emb),
+                            torch.from_numpy(tg))
+    np.testing.assert_allclose(got[0].item(), float(want[0]), rtol=1e-6)
+    assert int(got[1]) == int(want[1]) == 13
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tlosses.head_loss(torch.from_numpy(h), torch.from_numpy(emb),
+                          torch.from_numpy(tg), loss_impl="chunked")
+
+
+def test_corpus_and_loader_match_jax():
+    """Same bytes, same encode/decode, and exactly the JAX loader's batches
+    for the same seed and epoch, in both shuffle modes and layouts."""
+    assert tcorpus.VOCAB_SIZE == jcorpus.VOCAB_SIZE
+    assert tcorpus.synthetic_corpus(20_000, seed=3) == \
+        jcorpus.synthetic_corpus(20_000, seed=3)
+    np.testing.assert_array_equal(tcorpus.encode("héllo"),
+                                  jcorpus.encode("héllo"))
+    corpus_t = tcorpus.load_corpus(synthetic_bytes=50_000)
+    corpus_j = jcorpus.load_corpus(synthetic_bytes=50_000)
+    np.testing.assert_array_equal(corpus_t.tokens, corpus_j.tokens)
+    assert tcorpus.decode(corpus_t.tokens[:40]) == \
+        jcorpus.decode(corpus_j.tokens[:40])
+    for kw in (dict(), dict(shuffle_mode="affine"), dict(shuffle=False),
+               dict(num_replicas=2, rank=1, elastic_order=True)):
+        lt = tcorpus.LMDataLoader(corpus_t, 4, 64, seed=7, **kw)
+        lj = jcorpus.LMDataLoader(corpus_j, 4, 64, seed=7, **kw)
+        assert len(lt) == len(lj)
+        for epoch in (0, 1):
+            lt.set_epoch(epoch)
+            lj.set_epoch(epoch)
+            for (a, b), (c, d) in zip(lt, lj):
+                np.testing.assert_array_equal(a, c)
+                np.testing.assert_array_equal(b, d)
+
+
+CLI_BASE = ["--device", "cpu", "--d-model", "64", "--n-layers", "1",
+            "--n-heads", "1", "--head-dim", "64", "--seq-len", "64",
+            "--batch-size", "2", "--log-every", "1"]
+
+
+def test_lm_cli_runs_on_cpu(tmp_path, capsys):
+    corpus = tmp_path / "corpus.txt"
+    corpus.write_bytes(tcorpus.synthetic_corpus(20_000))
+    assert tcli.main(CLI_BASE + ["--steps", "3", "--eval-every", "3",
+                                 "--corpus", str(corpus),
+                                 "--generate", "The", "--max-new", "4",
+                                 "--temperature", "0"]) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    assert out and out[-1].startswith("The") and len(out[-1]) >= 4
+
+
+def test_lm_cli_parser_matches_jax():
+    jp, tp = jcli.build_parser(), tcli.build_parser()
+    jflags = {o: a for a in jp._actions for o in a.option_strings}
+    tflags = {o: a for a in tp._actions for o in a.option_strings}
+    assert set(tflags) == set(jflags) | {"--device"}
+    for flag, action in jflags.items():
+        if flag not in ("-h", "--help"):
+            assert tflags[flag].default == action.default, flag
+    assert tflags["--device"].default == "cuda"
+
+
+REFUSED_FLAGS = [["--dp", "2"], ["--tp", "2"], ["--pp-size", "2"],
+                 ["--fsdp"], ["--elastic"], ["--checkpoint-dir", "ck"],
+                 ["--telemetry-dir", "tel"], ["--profile-dir", "p"],
+                 ["--sync-every", "2"], ["--dcn-size", "2"],
+                 ["--matmul-dtype", "int8"], ["--loss-impl", "chunked"],
+                 ["--remat", "full"], ["--n-experts", "2"],
+                 ["--rendezvous", "env"]]
+
+
+@pytest.mark.parametrize("flag", REFUSED_FLAGS, ids=lambda f: f[0])
+def test_lm_cli_refuses_later_flags(flag, capsys):
+    with pytest.raises(SystemExit) as e:
+        tcli.main(CLI_BASE + ["--steps", "1"] + flag)
+    assert e.value.code == 2
+    assert "ROADMAP.md" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("kw", [
+    dict(dp=2), dict(fsdp=True), dict(sync_every=2), dict(pp_size=2),
+    dict(remat="full"), dict(loss_impl="chunked"), dict(matmul_dtype="int8"),
+    dict(model=ttfm.TransformerConfig(**SHAPE, n_experts=2))],
+    ids=["dp", "fsdp", "sync_every", "pp_size", "remat", "loss_impl",
+         "matmul_dtype", "n_experts"])
+def test_trainer_refuses_later_slices(kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tlm.LMTrainer(tlm.LMTrainConfig(**kw), device="cpu")
+
+
+def test_trainer_refuses_checkpoints_and_the_cpu_by_default(monkeypatch):
+    cfg = tlm.LMTrainConfig(model=ttfm.TransformerConfig(**SHAPE))
+    ttr = tlm.LMTrainer(cfg, device="cpu")
+    for call in (lambda: ttr.save_checkpoint("ck"),
+                 lambda: ttr.maybe_restore("ck"), ttr.flush_checkpoints):
+        with pytest.raises(NotImplementedError, match="slice 5"):
+            call()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tlm.LMTrainer(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tcli.main(["--steps", "1"])
