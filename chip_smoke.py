@@ -26,7 +26,21 @@ Phases, each of which raises on failure:
   8. LM-base (24 layers, byte vocabulary) trained 30 steps through lm_cli
      at batch 8 x 1024 in bf16: ms/step, tokens/s, peak memory, the
      device's idle share, mfu, falling loss, and K2/K3/K4 launched once
-     per layer per step.
+     per layer per step;
+  9. the paged decode kernels (K8, K9) against their plain versions over
+     shuffled pools with poisoned table tails and garbage in unowned pages
+     (f32, bf16 and int8 pools, head dims 64 and 128, g 1 and 4), bitwise
+     equal to K6/K7 over the same rows laid out contiguously, and timed at
+     the serving shape beside their bound, plain versions and SDPA;
+ 10. LM-base in float32 through the paged batcher: an oversubscribed pool
+     (evictions and swap-ins) and shared-prefix admissions against static
+     generate() per request, and one decode step's logits through K8
+     against the plain paged path;
+ 11. LM-base bf16 paged serving: phase 5's load on the default pool
+     without compaction (tokens equal to phase 5's, request by request),
+     with compaction, on an oversubscribed pool, the int8 pool (K9), and a
+     shared-system-prompt load with and without the prefix cache; every
+     decode step through K8/K9 once per layer and never through K6/K7.
 The second-to-last lines are the kernels' JSON record and the card's name
 and power limit; the last line is {"ok": true, "device": {...}}.
 
@@ -103,9 +117,12 @@ def host_us(torch, fn, iters: int = 200) -> float:
 
 # -- phase 3: kernels against their plain versions -------------------------
 
+DEVICE = "cuda"  # where make_case builds its tensors
+
+
 def make_case(torch, *, b, h, hkv, s, d, qdtype, quant, pos, seed):
     rng = np.random.default_rng(seed)
-    dev = "cuda"
+    dev = DEVICE
     q = torch.from_numpy(rng.standard_normal((b, h, 1, d), np.float32)
                          ).to(dev, qdtype)
     k = torch.from_numpy(rng.standard_normal((b, hkv, s, d), np.float32)
@@ -284,52 +301,69 @@ def time_kernel(torch, F, attn, *, quant: bool, qdtype, facts) -> dict:
 
 # -- phases 4 and 5: the slice ---------------------------------------------
 
+def check_greedy(torch, port, params, prompts, got, max_new,
+                 label: str) -> int:
+    """Each request's batcher tokens ``got[rid]`` against static
+    generate(); a difference is allowed only at a near-tie (top-2 logit
+    gap < 1e-3) of the reference stream's first diverging position.
+    Returns the number of such flips."""
+    tfm, gen = port["tfm"], port["gen"]
+    cfg, dev = port["cfg"], port["dev"]
+    flips = 0
+    for rid, p in enumerate(prompts):
+        want = gen.generate(params, p[None], cfg=cfg, max_new=max_new,
+                            temperature=0.0, device=dev)[0].cpu().numpy()
+        if not np.isfinite(want).all() or len(want) != len(p) + max_new:
+            fail("generate() output malformed")
+        diff = np.nonzero(got[rid] != want)[0]
+        if len(diff):
+            t = int(diff[0])
+            logits = tfm.apply(params, torch.from_numpy(
+                want[:t].astype(np.int64))[None].to(dev), cfg=cfg,
+                attn_impl="reference")[0, -1]
+            top2 = torch.topk(logits, 2).values
+            gap = float(top2[0] - top2[1])
+            print(f"  {label} request {rid}: first divergence at {t}, "
+                  f"top-2 logit gap {gap:.3e}")
+            if gap > 1e-3:
+                fail(f"{label}: batcher tokens differ from generate() for "
+                     f"request {rid} at {t} with a top-2 gap of {gap}")
+            flips += 1
+    return flips
+
+
+def sync(torch) -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
 def exactness(torch, port) -> None:
-    tfm, gen, attn = port["tfm"], port["gen"], port["attn"]
-    cfg = tfm.PRESETS["LM-base"]
-    params = tfm.init(0, cfg, device="cuda", dtype=torch.float32)
+    tfm, gen = port["tfm"], port["gen"]
+    cfg, dev = port["cfg"], port["dev"]
+    params = tfm.init(0, cfg, device=dev, dtype=torch.float32)
     rng = np.random.default_rng(1)
     lens, max_new = (7, 45, 130, 300), 24
     prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
                for n in lens]
     cb = port["serve"].ContinuousBatcher(
         params, cfg, slots=2, max_len=512, temperature=0.0,
-        prompt_buckets=(64, 512), device="cuda")
+        prompt_buckets=(64, 512), device=dev)
     got = cb.run(prompts, max_new=max_new)
-    flips = 0
-    for rid, p in enumerate(prompts):
-        want = gen.generate(params, p[None], cfg=cfg, max_new=max_new,
-                            temperature=0.0, device="cuda")[0].cpu().numpy()
-        diff = np.nonzero(got[rid] != want)[0]
-        if len(diff):
-            t = int(diff[0])
-            # a flip is allowed only at a near-tie of the top two logits
-            logits = tfm.apply(params, torch.from_numpy(
-                want[:t].astype(np.int64))[None].cuda(), cfg=cfg,
-                attn_impl="reference")[0, -1]
-            top2 = torch.topk(logits, 2).values
-            gap = float(top2[0] - top2[1])
-            print(f"  request {rid}: first divergence at {t}, top-2 logit "
-                  f"gap {gap:.3e}")
-            if gap > 1e-3:
-                fail(f"batcher tokens differ from generate() for request "
-                     f"{rid} at {t} with a top-2 gap of {gap}")
-            flips += 1
-        if not np.isfinite(want).all() or len(want) != len(p) + max_new:
-            fail("generate() output malformed")
+    flips = check_greedy(torch, port, params, prompts, got, max_new,
+                         "dense batcher")
     print(f"  f32 batcher vs static generate: {len(prompts)} requests, "
           f"{flips} near-tie flips")
     # first decode step's logits: kernel vs plain path, same prefilled cache
     b, s0 = 4, 200
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s0))).cuda()
-    cache = gen.init_cache(cfg, b, 512, device="cuda")
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s0))).to(dev)
+    cache = gen.init_cache(cfg, b, 512, device=dev)
     logits, cache = gen._forward_cached(params, cache, toks,
-                                        torch.arange(s0, device="cuda"), 0,
+                                        torch.arange(s0, device=dev), 0,
                                         cfg=cfg, k_len=s0,
                                         unembed_last_only=True)
     tok = torch.argmax(logits[:, 0], -1)
     pos = torch.tensor([s0, s0 - 50, s0 - 120, 3], dtype=torch.int32,
-                       device="cuda")
+                       device=dev)
     outs = []
     for kernel in (True, False):
         c2 = {n: {k: t.clone() for k, t in lyr.items()}
@@ -347,10 +381,11 @@ def exactness(torch, port) -> None:
     torch.cuda.empty_cache()
 
 
-def decode_window(torch, cb, prompts, n_blocks: int, profiled: bool) -> dict:
-    """Admit ``prompts`` (64 tokens each) into the drained batcher, run one
-    block, then measure ``n_blocks`` decode blocks, and drain.  Greedy and
-    from the same drained state, so every call runs the same work.
+def decode_window(torch, cb, prompts, n_blocks: int, profiled: bool,
+                  max_new: int = 64) -> dict:
+    """Admit ``prompts`` into the drained batcher, run one block, then
+    measure ``n_blocks`` decode blocks, and drain.  Greedy and from the
+    same drained state, so every call runs the same work.
 
     Unprofiled: wall ms per decode step.  Profiled (torch.profiler): device
     ms per decode step and device operations (kernels and copies) per step,
@@ -361,9 +396,9 @@ def decode_window(torch, cb, prompts, n_blocks: int, profiled: bool) -> dict:
     if cb.pending():
         fail("decode window started on a busy batcher")
     for p in prompts:
-        cb.submit(p, max_new=64)
+        cb.submit(p, max_new=max_new)
     cb.step()  # admit and run one block
-    torch.cuda.synchronize()
+    sync(torch)
     steps0 = cb.stats["decode_steps"]
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
         if profiled else None
@@ -372,7 +407,7 @@ def decode_window(torch, cb, prompts, n_blocks: int, profiled: bool) -> dict:
         prof.start()
     for _ in range(n_blocks):
         cb.step()
-    torch.cuda.synchronize()
+    sync(torch)
     if prof is not None:
         prof.stop()
     wall = time.perf_counter() - t0
@@ -395,78 +430,116 @@ def decode_window(torch, cb, prompts, n_blocks: int, profiled: bool) -> dict:
         "device_ms_per_decode_step": total_us / 1e3 / max(steps, 1),
         "device_ops_per_decode_step":
             sum(n for _, n in by_name.values()) / max(steps, 1),
-        "top_kernels": [[name[:60], us / max(total_us, 1e-9), n / steps]
-                        for name, (us, n) in top]})
+        "top_kernels": [[name[:60], us / max(total_us, 1e-9),
+                         n / max(steps, 1)] for name, (us, n) in top]})
     return res
 
 
-def serving_run(torch, port, *, n_req, budgets, kv_dtype, label) -> dict:
-    tfm, attn = port["tfm"], port["attn"]
-    cfg = tfm.PRESETS["LM-base"]
-    params = tfm.init(0, cfg, device="cuda", dtype=torch.bfloat16)
+def phase5_load(cfg, n_req: int, budgets: tuple[int, int]):
+    """Phase 5's serving load: ``n_req`` prompts of 64-480 tokens and
+    budgets drawn from ``budgets`` (seed 0)."""
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, (int(n),)).astype(np.int32)
                for n in rng.integers(64, 481, n_req)]
     max_new = [int(m) for m in rng.integers(budgets[0], budgets[1] + 1,
                                             n_req)]
+    return prompts, max_new
+
+
+def serving_run(torch, port, *, label, prompts, max_new,
+                window_blocks: int = 2, window_new: int = 64,
+                **batcher_kw) -> dict:
+    """One LM-base bf16 serving load through the batcher (8 slots x 2048,
+    buckets (128, 512), 16 steps per block unless ``batcher_kw`` says
+    otherwise): tokens/s, ms per decode step and per prefill, utilization,
+    peak memory and the scheduler's counts over the whole run, then the
+    device's idle share from three decode windows of ``window_blocks``
+    blocks (none when 0).  Fails unless every request completes its budget
+    and every decode step went through the path's decode kernel (K6/K7, or
+    K8/K9 when paged) once per layer, and never through the other one.
+    The result's ``tokens`` holds each request's output."""
+    tfm, attn = port["tfm"], port["attn"]
+    cfg, dev = port["cfg"], port["dev"]
+    params = tfm.init(0, cfg, device=dev, dtype=torch.bfloat16)
+    opts = dict(slots=8, max_len=2048, temperature=0.0, dtype=torch.bfloat16,
+                prompt_buckets=(128, 512), steps_per_sync=16, device=dev)
+    opts.update(batcher_kw)
 
     def batcher():
-        return port["serve"].ContinuousBatcher(
-            params, cfg, slots=8, max_len=2048, temperature=0.0,
-            dtype=torch.bfloat16, prompt_buckets=(128, 512),
-            steps_per_sync=16, kv_dtype=kv_dtype, device="cuda")
+        return port["serve"].ContinuousBatcher(params, cfg, **opts)
 
     warm = batcher()  # one-time costs (cuBLAS handles, allocator) out
     warm.run(prompts[:2], max_new=4)
     del warm
+    kern, other = attn.decode_attention, attn.decode_attention_paged
+    if opts.get("paged"):
+        kern, other = other, kern
     cb = batcher()
     rids = [cb.submit(p, max_new=m) for p, m in zip(prompts, max_new)]
-    torch.cuda.synchronize()
+    sync(torch)
     torch.cuda.reset_peak_memory_stats()
-    attn.decode_attention.launches = 0
+    kern.launches = other.launches = 0
     t0 = time.perf_counter()
     while cb.pending():
         cb.step()
-    torch.cuda.synchronize()
+    sync(torch)
     wall = time.perf_counter() - t0
-    launches = attn.decode_attention.launches
+    launches, other_launches = kern.launches, other.launches
     st = dict(cb.stats)  # before the windows below add to them
     utilization = cb.utilization()
     peak_mem_gb = torch.cuda.max_memory_allocated() / 1e9
-    for rid, p, m in zip(rids, prompts, max_new):
-        out = cb.result(rid)
+    tokens = [cb.result(rid) for rid in rids]
+    for rid, out, p, m in zip(rids, tokens, prompts, max_new):
         if len(out) != len(p) + m or not (out >= 0).all() \
                 or not (out < cfg.vocab_size).all():
             fail(f"{label}: request {rid} did not complete its budget "
                  f"({len(out) - len(p)} of {m})")
-    if launches != cfg.n_layers * st["decode_steps"]:
-        fail(f"{label}: {launches} kernel launches for {st['decode_steps']} "
-             f"decode steps x {cfg.n_layers} layers")
+    if launches != cfg.n_layers * st["decode_steps"] or other_launches:
+        fail(f"{label}: {launches} launches of {kern.__name__} and "
+             f"{other_launches} of {other.__name__} for "
+             f"{st['decode_steps']} decode steps x {cfg.n_layers} layers")
     ts = cb.timing_stats()
-    # the device's idle share, within one window: two decode blocks over a
-    # full pool, run unprofiled (wall), profiled (device time by kernel),
-    # unprofiled again.  The launches here come after the count above.
-    unprof = [decode_window(torch, cb, prompts[:8], 2, profiled=False)]
-    prof = decode_window(torch, cb, prompts[:8], 2, profiled=True)
-    unprof.append(decode_window(torch, cb, prompts[:8], 2, profiled=False))
-    prof["unprofiled_wall_ms_per_decode_step"] = [
-        w["wall_ms_per_decode_step"] for w in unprof]
-    prof["device_idle_share"] = 1.0 - prof["device_ms_per_decode_step"] \
-        / float(np.mean(prof["unprofiled_wall_ms_per_decode_step"]))
-    res = {"label": label, "requests": n_req,
+    res = {"label": label, "requests": len(prompts),
            "emitted_tokens": st["emitted_tokens"],
            "decode_steps": st["decode_steps"], "launches": launches,
+           "kernel": kern.__name__,
            "wall_s": wall, "tokens_per_s": st["emitted_tokens"] / wall,
            "ms_per_decode_step": (ts["dispatch"]["total_s"]
                                   / st["decode_steps"] * 1e3),
            "ms_per_prefill": (ts["prefill"]["total_s"]
                               / st["prefill_dispatches"] * 1e3),
+           "prefill_dispatches": st["prefill_dispatches"],
            "utilization": utilization,
            "peak_mem_gb": peak_mem_gb,
            "timing_total_s": {k: v["total_s"] for k, v in ts.items()
-                              if k != "_total_s"},
-           "profile": prof}
+                              if k != "_total_s"}}
+    for k in ("decode_dispatches", "evictions", "swap_ins",
+              "compact_dispatches", "prefix_hits", "prefix_pages_shared",
+              "prefix_reclaimed"):
+        res[k] = st[k]
+    if opts.get("paged"):
+        res["pool_pages"] = cb.pool_pages
+        res["pool_gb"] = sum(t.numel() * t.element_size()
+                             for lyr in cb.cache.values()
+                             for t in lyr.values()) / 1e9
+    if window_blocks:
+        # the device's idle share, within one window: decode blocks over a
+        # full pool, run unprofiled (wall), profiled (device time by
+        # kernel), unprofiled again.  These launches come after the count.
+        win = [prompts[:8], window_blocks]
+        unprof = [decode_window(torch, cb, *win, profiled=False,
+                                max_new=window_new)]
+        prof = decode_window(torch, cb, *win, profiled=True,
+                             max_new=window_new)
+        unprof.append(decode_window(torch, cb, *win, profiled=False,
+                                    max_new=window_new))
+        prof["unprofiled_wall_ms_per_decode_step"] = [
+            w["wall_ms_per_decode_step"] for w in unprof]
+        prof["device_idle_share"] = 1.0 - prof["device_ms_per_decode_step"] \
+            / float(np.mean(prof["unprofiled_wall_ms_per_decode_step"]))
+        res["profile"] = prof
     print(f"  {label}: " + json.dumps(res))
+    res["tokens"] = tokens
     del params, cb
     torch.cuda.empty_cache()
     return res
@@ -799,6 +872,426 @@ def training_run(torch, port, steps: int = 30) -> dict:
     return res
 
 
+# -- phases 9-11: the paged-serving slice ----------------------------------
+
+PAGE = 512  # the batcher's page size
+
+
+def make_paged(torch, case, seed: int, page: int = PAGE) -> dict:
+    """A dense case's caches (``make_case``) scattered page by page into a
+    shuffled pool of B * n_pages + 3 pages.  Pages 0-2 belong to no
+    sequence and hold garbage (+-1e4 once dequantized), as do the rows past
+    each sequence's pos in its last live page; the table entries past
+    pos // page hold an index far outside the pool."""
+    b, hkv, s, d = case["k"].shape
+    n_pages = s // page
+    pids = torch.from_numpy(np.random.default_rng(seed).permutation(
+        b * n_pages) + 3).to(case["k"].device)
+    table = pids.reshape(b, n_pages).to(torch.int32)
+    pos = [int(p) for p in case["pos"].tolist()]
+    out = {"q": case["q"], "pos": case["pos"], "live_table": table}
+    for name, fill in (("k", 1e4), ("v", -1e4), ("k_scale", 100.0),
+                       ("v_scale", 100.0)):
+        x = case[name]
+        if x is None:
+            out[name] = None
+            continue
+        w = x.shape[-1]
+        if x.dtype == torch.int8:
+            fill = 100 if fill > 0 else -100
+        pool = torch.full((b * n_pages + 3, hkv, page, w), fill,
+                          dtype=x.dtype, device=x.device)
+        pool[pids] = (x.reshape(b, hkv, n_pages, page, w).transpose(1, 2)
+                      .reshape(b * n_pages, hkv, page, w))
+        for j, p in enumerate(pos):
+            pool[int(table[j, p // page]), :, p % page + 1:] = fill
+        out[name] = pool
+    poisoned = table.clone()
+    for j, p in enumerate(pos):
+        poisoned[j, p // page + 1:] = 2 ** 30
+    out["table"] = poisoned
+    return out
+
+
+def run_paged(attn, pc, plain: bool = False):
+    fn = attn.decode_attention_paged_plain if plain \
+        else attn.decode_attention_paged
+    return fn(pc["q"], pc["k"], pc["v"], pc["table"], pc["pos"],
+              k_scale=pc["k_scale"], v_scale=pc["v_scale"])
+
+
+def check_paged_kernels(torch, attn) -> dict:
+    """K8/K9 against ``decode_attention_paged_plain`` in every case, and
+    bitwise against K6/K7 (``decode_attention``) over the same rows laid
+    out contiguously; returns the worst error and error/tolerance per
+    kernel."""
+    worst = {"K8": 0.0, "K9": 0.0}
+    worst_ratio = {"K8": 0.0, "K9": 0.0}
+    shapes = []
+    for quant in (False, True):
+        for qdtype in (torch.float32, torch.bfloat16):
+            for d in (128, 64):
+                for g in (1, 4):
+                    shapes.append(dict(b=5, h=4 * g, hkv=4, s=2048, d=d,
+                                       qdtype=qdtype, quant=quant))
+        # the serving shape: 8 slots x 8 heads x 128, 4 pages per sequence
+        shapes.append(dict(b=8, h=8, hkv=8, s=2048, d=128,
+                           qdtype=torch.bfloat16, quant=quant))
+    for i, sh in enumerate(shapes):
+        s, b = sh["s"], sh["b"]
+        # 0, a tile edge, the last row of page 0, the first of page 1,
+        # S-1, and deep ragged depths
+        pos = ([0, 31, 511, 512, s - 1] + [700 + 97 * j for j in range(b)])[:b]
+        case = make_case(torch, pos=pos, seed=300 + i, **sh)
+        pc = make_paged(torch, case, seed=i)
+        out, ref = run_paged(attn, pc), run_paged(attn, pc, plain=True)
+        dense, _ = run_case(attn, case)
+        sync(torch)
+        err, ratio = agreement(torch, out, ref)
+        name, twin = ("K9", "K7") if sh["quant"] else ("K8", "K6")
+        worst[name] = max(worst[name], err)
+        worst_ratio[name] = max(worst_ratio[name], ratio)
+        print(f"  {name} {str(sh['qdtype'])[6:]:8s} D={sh['d']:3d} "
+              f"g={sh['h'] // sh['hkv']:2d} B={b} S={s} pos={pos}: "
+              f"max_abs_err {err:.3e}, err/tol {ratio:.3f}")
+        if not ratio <= 1.0:
+            fail(f"{name} disagrees with decode_attention_paged_plain: "
+                 f"{err} ({ratio} x the tolerance)")
+        if not torch.equal(out, dense):
+            fail(f"{name} is not bitwise equal to {twin} over the same rows "
+                 f"laid out contiguously (case {i})")
+    print(f"  K8/K9: all {len(shapes)} cases within tolerance of the plain "
+          f"version and bitwise equal to K6/K7 on the same rows, with "
+          f"poisoned table tails and garbage in unowned pages and rows")
+    return {"max_abs_err": worst, "err_over_tol": worst_ratio}
+
+
+def time_paged_kernel(torch, F, attn, *, quant: bool, facts) -> dict:
+    """K8 (bf16 pool) or K9 (int8 pool) at the serving shape: 8 slots x 8
+    kv heads x 128, 4 pages of 512 per sequence, phase 3's ragged depths,
+    pools rotated over enough copies to exceed the 50 MB L2.  Beside it the
+    plain version, and SDPA over the contiguous view gathered from the
+    pool through the table (the gather excluded from its time; a yardstick
+    the port never calls)."""
+    b, h, hkv, s, d = 8, 8, 8, 2048, 128
+    qdtype = torch.bfloat16
+    rng = np.random.default_rng(7)
+    pos = [int(p) for p in rng.integers(64, 1985, b)]  # phase 3's depths
+    base = make_case(torch, b=b, h=h, hkv=hkv, s=s, d=d, qdtype=qdtype,
+                     quant=quant, pos=pos, seed=99)
+    pc = make_paged(torch, base, seed=99)
+    out, ref = run_paged(attn, pc), run_paged(attn, pc, plain=True)
+    err, ratio = agreement(torch, out, ref)
+    if not ratio <= 1.0 or not torch.equal(out, run_case(attn, base)[0]):
+        fail(f"decode_attention_paged on the timed case: err {err} "
+             f"({ratio} x the tolerance), or not bitwise the dense kernel")
+    per = sum(pc[k].numel() * pc[k].element_size()
+              for k in ("k", "v", "k_scale", "v_scale") if pc[k] is not None)
+    n_rot = max(2, math.ceil(200e6 / per))
+    cases = [pc] + [{key: (t.clone() if torch.is_tensor(t) else t)
+                     for key, t in pc.items()} for _ in range(n_rot - 1)]
+    it = iter(range(10 ** 9))
+
+    def kernel():
+        run_paged(attn, cases[next(it) % n_rot])
+
+    def plain():
+        run_paged(attn, cases[next(it) % n_rot], plain=True)
+
+    slot = torch.arange(s, device="cuda")
+    mask = (slot[None, :] <= base["pos"][:, None].long())[:, None, None, :]
+    dense = []
+    for c in cases:
+        view = []
+        for name in ("k", "v", "k_scale", "v_scale"):
+            x = c[name]
+            if x is not None:
+                x = (x[c["live_table"].long()].transpose(1, 2)
+                     .reshape(b, hkv, s, x.shape[-1]))
+            view.append(x)
+        kd, vd, ks, vs = view
+        if quant:
+            kd, vd = (kd.float() * ks).to(qdtype), (vd.float() * vs).to(qdtype)
+        dense.append((c["q"], kd.contiguous(), vd.contiguous()))
+
+    def library():
+        qq, kd, vd = dense[next(it) % n_rot]
+        F.scaled_dot_product_attention(qq, kd, vd, attn_mask=mask)
+
+    launches0 = attn.decode_attention_paged.launches
+    ms = time_ms(torch, kernel)
+    wrapper_us = host_us(torch, kernel)
+    attn.decode_attention_paged.launches = launches0  # not counted
+    plain_ms = time_ms(torch, plain, iters=10)
+    library_ms = time_ms(torch, library)
+    rows = sum(p + 1 for p in pos) * hkv
+    itemsize = 1 if quant else 2
+    # K6/K7's bytes plus the table entries the live tiles read (one int32
+    # per live page per sequence)
+    nbytes = (rows * d * 2 * itemsize + (rows * 8 if quant else 0)
+              + 2 * b * h * d * 2 + 4 * b
+              + 4 * sum(p // PAGE + 1 for p in pos))
+    ops = 4 * d * sum(p + 1 for p in pos) * h
+    t_bytes = nbytes / facts["bw"] * 1e3
+    t_ops = ops / PEAK_OPS["bfloat16"] * 1e3
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": "F.scaled_dot_product_attention over the contiguous "
+                       "view gathered through the table (gather excluded)",
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "host_us_per_call": wrapper_us, "pos": pos,
+            "max_abs_err": err, "err_over_tol": ratio}
+
+
+def paged_exactness(torch, port) -> dict:
+    """LM-base in float32 through the paged batcher: (1) two requests that
+    both cross page 0's boundary on a 2-page pool (one is evicted and
+    swapped back in) and (2) shared-prefix admissions over a 520-token
+    common prompt, each against static generate() per request (flips only
+    at near-ties); (3) one decode step's logits through K8 against the
+    plain paged path, on a prefilled cache scattered into a shuffled
+    pool."""
+    tfm, gen, attn, serve = port["tfm"], port["gen"], port["attn"], \
+        port["serve"]
+    cfg, dev = port["cfg"], port["dev"]
+    params = tfm.init(0, cfg, device=dev, dtype=torch.float32)
+    rng = np.random.default_rng(2)
+    v = cfg.vocab_size
+    res = {}
+    prompts = [rng.integers(0, v, (n,)).astype(np.int32) for n in (470, 490)]
+    cb = serve.ContinuousBatcher(
+        params, cfg, slots=2, max_len=1024, temperature=0.0,
+        prompt_buckets=(512,), paged=True, pool_pages=3, steps_per_sync=8,
+        device=dev)
+    got = cb.run(prompts, max_new=48)
+    st = cb.stats
+    res["oversubscribed"] = {
+        "evictions": st["evictions"], "swap_ins": st["swap_ins"],
+        "flips": check_greedy(torch, port, params, prompts, got, 48,
+                              "oversubscribed pool")}
+    if not (st["evictions"] >= 1 and st["swap_ins"] == st["evictions"]):
+        fail(f"the oversubscribed pool did not preempt and resume: {st}")
+    sysp = rng.integers(0, v, (520,)).astype(np.int32)
+    prompts = [np.concatenate([sysp, rng.integers(0, v, (n,)).astype(
+        np.int32)]) for n in (12, 30, 7)]
+    cb = serve.ContinuousBatcher(
+        params, cfg, slots=2, max_len=1024, temperature=0.0,
+        prompt_buckets=(64, 1024), paged=True, prefix_cache=True,
+        steps_per_sync=8, device=dev)
+    got = cb.run(prompts, max_new=16)
+    res["prefix"] = {
+        "prefix_hits": cb.stats["prefix_hits"],
+        "prefix_pages_shared": cb.stats["prefix_pages_shared"],
+        "flips": check_greedy(torch, port, params, prompts, got, 16,
+                              "shared prefix")}
+    if cb.stats["prefix_hits"] < 1:
+        fail(f"no shared-prefix admission: {cb.stats}")
+    # (3) one decode step, K8 against the plain paged version
+    b, s0 = 4, 200
+    toks = torch.from_numpy(rng.integers(0, v, (b, s0))).to(dev)
+    cache = gen.init_cache(cfg, b, PAGE, device=dev)
+    logits, cache = gen._forward_cached(params, cache, toks,
+                                        torch.arange(s0, device=dev), 0,
+                                        cfg=cfg, k_len=s0,
+                                        unembed_last_only=True)
+    tok = torch.argmax(logits[:, 0], -1)
+    pos = torch.tensor([s0, s0 - 50, s0 - 120, 3], dtype=torch.int32,
+                       device=dev)
+    pids = torch.from_numpy(rng.permutation(b) + 2).to(dev)
+    table = pids[:, None].to(torch.int32)
+
+    def pool():
+        p = gen.init_paged_cache(cfg, b + 2, PAGE, device=dev)
+        for name, lyr in p.items():
+            for leaf, t in lyr.items():
+                t[pids] = cache[name][leaf]
+        return p
+
+    kernel_logits = gen.decode_step_ragged(params, pool(), tok, pos,
+                                           cfg=cfg, use_decode_kernel=True,
+                                           page_table=table)[0]
+    routed = gen.decode_attention_paged
+    gen.decode_attention_paged = attn.decode_attention_paged_plain
+    try:
+        plain_logits = gen.decode_step_ragged(
+            params, pool(), tok, pos, cfg=cfg, use_decode_kernel=True,
+            page_table=table)[0]
+    finally:
+        gen.decode_attention_paged = routed
+    dense_logits = gen.decode_step_ragged(params, cache, tok, pos, cfg=cfg,
+                                          use_decode_kernel=True)[0]
+    err = (kernel_logits - plain_logits).abs().max().item()
+    res["step_logits_max_abs_err"] = err
+    res["step_logits_bitwise_equal_to_K6"] = bool(
+        torch.equal(kernel_logits, dense_logits))
+    print("  f32 paged batcher: " + json.dumps(res))
+    # f32 throughout; the kernel and the plain version sum in different
+    # orders over 24 layers, as in phase 4
+    if not err <= 1e-3:
+        fail(f"decode-step logits differ between K8 and plain: {err}")
+    del params, cache
+    torch.cuda.empty_cache()
+    return res
+
+
+def admission_profile(torch, port, prompts, prefix_cache: bool) -> dict:
+    """Single admissions of ``prompts`` (LM-base bf16, the (e) load's
+    batcher) with ``max_new=1``, so a ``step()`` is one prefill (or suffix
+    prefill over shared pages) and the first token's sample, and nothing
+    else.  Two warm-up admissions (with the prefix cache the first
+    publishes the shared pages), four timed by the host clock, each ending
+    in a synchronize, and four under torch.profiler for their device time
+    and device operations."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    tfm, cfg, dev = port["tfm"], port["cfg"], port["dev"]
+    params = tfm.init(0, cfg, device=dev, dtype=torch.bfloat16)
+    cb = port["serve"].ContinuousBatcher(
+        params, cfg, slots=8, max_len=2048, temperature=0.0,
+        dtype=torch.bfloat16, prompt_buckets=(128, 512, 1536), paged=True,
+        prefix_cache=prefix_cache, device=dev)
+
+    def admit(p):
+        cb.submit(p, max_new=1)
+        cb.step()
+
+    for p in prompts[:2]:
+        admit(p)
+    sync(torch)
+    walls = []
+    for p in prompts[2:6]:
+        t0 = time.perf_counter()
+        admit(p)
+        sync(torch)
+        walls.append(time.perf_counter() - t0)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    with prof:
+        for p in prompts[6:10]:
+            admit(p)
+        sync(torch)
+    us, n = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            us += e.self_device_time_total
+            n += e.count
+    wall_ms = float(np.mean(walls)) * 1e3
+    res = {"wall_ms_per_admission": wall_ms,
+           "device_ms_per_admission": us / 1e3 / 4,
+           "device_ops_per_admission": n / 4,
+           "device_idle_share": 1.0 - us / 1e3 / 4 / wall_ms,
+           "prefix_hits": cb.stats["prefix_hits"]}
+    del params, cb
+    torch.cuda.empty_cache()
+    return res
+
+
+def paired_decode(torch, port, prompts, pairs: int = 4) -> dict:
+    """The paged decode step's wall time against the dense one's within
+    one stretch of the host's time: a dense and a paged batcher (compaction
+    off, so both dispatch all 8 rows) run the same unprofiled decode window
+    alternately, dense-paged then paged-dense, ``pairs`` times.  Whole
+    loads run minutes apart, and the host's speed drifts between them by
+    more than the paged path could cost."""
+    tfm, cfg, dev = port["tfm"], port["cfg"], port["dev"]
+    params = tfm.init(0, cfg, device=dev, dtype=torch.bfloat16)
+    opts = dict(slots=8, max_len=2048, temperature=0.0, dtype=torch.bfloat16,
+                prompt_buckets=(128, 512), steps_per_sync=16, device=dev)
+    cbs = {"dense": port["serve"].ContinuousBatcher(params, cfg, **opts),
+           "paged": port["serve"].ContinuousBatcher(
+               params, cfg, paged=True, compact_tail=False, **opts)}
+    for cb in cbs.values():  # warm-up
+        decode_window(torch, cb, prompts[:8], 1, profiled=False, max_new=32)
+    walls = {"dense": [], "paged": []}
+    for i in range(pairs):
+        for key in (("dense", "paged"), ("paged", "dense"))[i % 2]:
+            walls[key].append(decode_window(
+                torch, cbs[key], prompts[:8], 2,
+                profiled=False)["wall_ms_per_decode_step"])
+    ratios = [p / d for p, d in zip(walls["paged"], walls["dense"])]
+    del params, cbs
+    torch.cuda.empty_cache()
+    return {"dense_ms_per_decode_step": walls["dense"],
+            "paged_ms_per_decode_step": walls["paged"],
+            "paged_over_dense": ratios,
+            "median_paged_over_dense": float(np.median(ratios))}
+
+
+def paged_serving(torch, port, dense_tokens) -> dict:
+    """Phase 11's loads, (a)-(e), on LM-base bf16; ``dense_tokens`` are
+    phase 5's bf16 load outputs, which load (a) must equal request by
+    request (K8 is bitwise K6, and prefill, insert and GEMM shapes are the
+    same)."""
+    cfg = port["cfg"]
+    load16 = phase5_load(cfg, 16, (64, 256))
+    load8 = phase5_load(cfg, 8, (32, 64))
+    short = dict(window_blocks=1, window_new=32)  # lighter idle-share window
+    res = {"a": serving_run(torch, port, label="(a) paged, default pool, "
+                            "compact_tail=False", prompts=load16[0],
+                            max_new=load16[1], paged=True,
+                            compact_tail=False)}
+    bad = [i for i, (x, y) in enumerate(zip(res["a"]["tokens"], dense_tokens))
+           if not np.array_equal(x, y)]
+    if bad:
+        fail(f"(a): paged tokens differ from phase 5's dense tokens for "
+             f"requests {bad}")
+    print(f"  (a): tokens equal phase 5's dense tokens for all "
+          f"{len(dense_tokens)} requests")
+    res["b"] = serving_run(torch, port, label="(b) paged, compact_tail=True",
+                           prompts=load16[0], max_new=load16[1], paged=True,
+                           **short)
+    if res["b"]["compact_dispatches"] < 1:
+        fail("(b): no compact dispatch")
+    res["c"] = serving_run(torch, port, label="(c) paged, pool_pages=9",
+                           prompts=load16[0], max_new=load16[1], paged=True,
+                           pool_pages=9, **short)
+    if not (res["c"]["evictions"] >= 1
+            and res["c"]["swap_ins"] == res["c"]["evictions"]):
+        fail(f"(c): evictions {res['c']['evictions']}, swap-ins "
+             f"{res['c']['swap_ins']}")
+    res["d"] = serving_run(torch, port, label="(d) paged int8 pool (K9)",
+                           prompts=load8[0], max_new=load8[1], paged=True,
+                           kv_dtype="int8", **short)
+    rng = np.random.default_rng(5)
+    sysp = rng.integers(0, cfg.vocab_size, (1024,)).astype(np.int32)
+    prompts = [np.concatenate([sysp, rng.integers(
+        0, cfg.vocab_size, (int(n),)).astype(np.int32)])
+        for n in rng.integers(16, 201, 16)]
+    max_new = [int(m) for m in rng.integers(32, 65, 16)]
+    kw = dict(prompts=prompts, max_new=max_new, paged=True,
+              prompt_buckets=(128, 512, 1536))
+    res["e"] = serving_run(torch, port, label="(e) shared 1024-token "
+                           "system prompt, prefix cache", prefix_cache=True,
+                           **short, **kw)
+    if res["e"]["prefix_hits"] != 15 or res["e"]["prefix_pages_shared"] != 30:
+        fail(f"(e): {res['e']['prefix_hits']} prefix hits sharing "
+             f"{res['e']['prefix_pages_shared']} pages (want 15 and 30)")
+    res["e0"] = serving_run(torch, port, label="(e) the same load without "
+                            "the prefix cache", window_blocks=0, **kw)
+    print(f"  (e) ms per prefill: {res['e']['ms_per_prefill']:.3f} with the "
+          f"prefix cache, {res['e0']['ms_per_prefill']:.3f} without "
+          f"({res['e0']['ms_per_prefill'] / res['e']['ms_per_prefill']:.2f}"
+          f"x)")
+    # where an admission's time goes: device vs host, suffix vs full prefill
+    res["admission"] = {
+        key: admission_profile(torch, port, prompts, prefix_cache=on)
+        for key, on in (("prefix_cache", True), ("full_prefill", False))}
+    print("  (e) single admissions: " + json.dumps(res["admission"]))
+    if res["admission"]["prefix_cache"]["prefix_hits"] != 9:
+        fail(f"(e) admissions: {res['admission']} (want 9 prefix hits)")
+    res["paired"] = paired_decode(torch, port, load16[0])
+    print("  dense and paged decode windows, alternated: "
+          + json.dumps(res["paired"]))
+    return res
+
+
+T_START = time.perf_counter()
+
+
+def phase(n: int, title: str) -> None:
+    print(f"[{n}] {title} (at {time.perf_counter() - T_START:.0f} s)",
+          flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -816,7 +1309,7 @@ def main() -> int:
         return 2
     import torch.nn.functional as F
     port = {"tfm": tfm, "gen": gen, "serve": serve, "attn": attn, "lm": lm,
-            "lm_cli": lm_cli}
+            "lm_cli": lm_cli, "dev": "cuda", "cfg": tfm.PRESETS["LM-base"]}
 
     # 1. card facts
     facts = card_facts(torch)
@@ -840,7 +1333,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print("    " + line.strip())
 
-    print("[3] decode kernels against their plain versions")
+    phase(3, "decode kernels against their plain versions")
     worst = check_kernels(torch, attn)
     timing = {}
     for name, quant in (("K6", False), ("K7", True)):
@@ -848,24 +1341,39 @@ def main() -> int:
                                    qdtype=torch.bfloat16, facts=facts)
         print(f"  {name} timing (bf16, B=8 H=8 D=128 S=2048): "
               + json.dumps(timing[name]))
-    print("[4] slice exactness, LM-base f32")
+    phase(4, "slice exactness, LM-base f32")
     exactness(torch, port)
-    print("[5] serving run, LM-base bf16")
+    phase(5, "serving run, LM-base bf16")
+    load16 = phase5_load(port["cfg"], 16, (64, 256))
+    load8 = phase5_load(port["cfg"], 8, (32, 64))
     serve_res = {
-        "K6": serving_run(torch, port, n_req=16, budgets=(64, 256),
-                          kv_dtype=None, label="bf16 cache (K6)"),
-        "K7": serving_run(torch, port, n_req=8, budgets=(32, 64),
-                          kv_dtype="int8", label="int8 cache (K7)")}
-    print("[6] flash kernels (K2, K3, K4) against their plain versions")
+        "K6": serving_run(torch, port, label="bf16 cache (K6)",
+                          prompts=load16[0], max_new=load16[1]),
+        "K7": serving_run(torch, port, label="int8 cache (K7)",
+                          prompts=load8[0], max_new=load8[1],
+                          kv_dtype="int8")}
+    phase(6, "flash kernels (K2, K3, K4) against their plain versions")
     flash_worst = check_flash(torch, attn)
     flash_timing = time_flash(torch, F, attn, facts)
     for name, t in flash_timing.items():
         print(f"  {name} timing (bf16, B=8 H=8 S=1024 D=128 causal): "
               + json.dumps(t))
-    print("[7] LM-base-width f32 train step, flash vs reference attention")
+    phase(7, "LM-base-width f32 train step, flash vs reference attention")
     train_step_check(torch, port)
-    print("[8] LM-base bf16 training through lm_cli")
+    phase(8, "LM-base bf16 training through lm_cli")
     train_res = training_run(torch, port)
+    phase(9, "paged decode kernels (K8, K9) against their plain versions")
+    paged_worst = check_paged_kernels(torch, attn)
+    paged_timing = {}
+    for name, quant in (("K8", False), ("K9", True)):
+        paged_timing[name] = time_paged_kernel(torch, F, attn, quant=quant,
+                                               facts=facts)
+        print(f"  {name} timing (bf16 q, B=8 H=8 D=128, 4 pages of 512): "
+              + json.dumps(paged_timing[name]))
+    phase(10, "paged exactness, LM-base f32")
+    paged_exactness(torch, port)
+    phase(11, "paged serving, LM-base bf16")
+    paged_res = paged_serving(torch, port, serve_res["K6"]["tokens"])
 
     kernels = []
     src = "distributed_pytorch_tpu_torch/csrc/decode_attention.cu"
@@ -882,6 +1390,24 @@ def main() -> int:
             "tolerance": {"float32": TOL_ABS["float32"],
                           "bfloat16": f"min({TOL_ABS['bfloat16']}, "
                                       f"{TOL_ROW_RMS['bfloat16']} x row RMS)"},
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
+    for name, line, load in (("K8", 684, "a"), ("K9", 696, "d")):
+        t = paged_timing[name]
+        kernels.append({
+            "name": f"decode_attention_paged ({name})", "route": "cuda",
+            "source": src,
+            "replaces": f"distributed_pytorch_tpu/ops/attention.py:{line}",
+            "launches": paged_res[load]["launches"],
+            "max_abs_err": max(paged_worst["max_abs_err"][name],
+                               t["max_abs_err"]),
+            "err_over_tol": max(paged_worst["err_over_tol"][name],
+                                t["err_over_tol"]),
+            "tolerance": {"float32": TOL_ABS["float32"],
+                          "bfloat16": f"min({TOL_ABS['bfloat16']}, "
+                                      f"{TOL_ROW_RMS['bfloat16']} x row RMS)"},
+            "bitwise_equal_to": "K7" if name == "K9" else "K6",
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})

@@ -6,6 +6,10 @@ renaming plus dtype and device, with no transposes: the nested
 ``{"embed", "final_norm", "layer{i}": {"wq", ...}}`` tree of numpy arrays
 becomes ``{"embed", "final_norm", "layers.{i}.wq", ...}`` tensors, and back.
 
+KV caches and page pools cross as they are: the JAX package's
+``{"layer{i}": {"k", "v"[, "ks", "vs"]}}`` cache tree has the port's names
+and layouts already (``from_jax_cache``).
+
 The optimizer state crosses too: the Adam moments and step count of an
 optax ``chain(clip_by_global_norm, adamw)`` state (its ``ScaleByAdamState``
 ``count``/``mu``/``nu``) become the port's ``{"count", "mu", "nu"}`` dict
@@ -47,6 +51,18 @@ def from_jax_params(tree, device: str | torch.device = "cuda",
 
     walk(tree, [])
     return out
+
+
+def from_jax_cache(tree, device: str | torch.device = "cuda"
+                   ) -> dict[str, dict[str, torch.Tensor]]:
+    """A JAX KV cache or page pool ``{"layer{i}": {"k", "v"[, "ks",
+    "vs"]}}`` of arrays -> the port's cache dict of tensors on ``device``
+    (same names, layouts and dtypes; copied, so the port may update it in
+    place)."""
+    dev = resolve_device(device)
+    return {name: {leaf: torch.from_numpy(np.array(a, copy=True)).to(dev)
+                   for leaf, a in layer.items()}
+            for name, layer in tree.items()}
 
 
 def to_jax_params(params: dict[str, torch.Tensor]) -> dict:

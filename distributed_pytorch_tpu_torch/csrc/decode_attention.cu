@@ -1,13 +1,16 @@
-// Single-token decode attention over a contiguous KV cache, for Hopper
-// (sm_90a).  Built by ops/_build.py with nvcc into a shared library with a
-// plain C interface and called through ctypes from ops/attention.py
-// (decode_attention).
+// Single-token decode attention over a contiguous KV cache or a paged KV
+// pool, for Hopper (sm_90a).  Built by ops/_build.py with nvcc into a shared
+// library with a plain C interface and called through ctypes from
+// ops/attention.py (decode_attention, decode_attention_paged).
 //
 // Replaces the JAX package's Pallas TPU kernels
-//   K6  distributed_pytorch_tpu/ops/attention.py  _decode_kernel
-//   K7  distributed_pytorch_tpu/ops/attention.py  _decode_kernel_q
-// (both bodies are _decode_kernel_body): one kernel here, templated on the
-// cache type (float / bf16, or int8 with per-row float32 scales).
+//   K6  distributed_pytorch_tpu/ops/attention.py:507  _decode_kernel
+//   K7  distributed_pytorch_tpu/ops/attention.py:515  _decode_kernel_q
+//   K8  distributed_pytorch_tpu/ops/attention.py:684  _decode_kernel_paged
+//   K9  distributed_pytorch_tpu/ops/attention.py:696  _decode_kernel_paged_q
+// (all four bodies are _decode_kernel_body): one kernel here, templated on
+// the cache type (float / bf16, or int8 with per-row float32 scales) and on
+// where a tile's rows come from (kPaged).
 //
 // What it computes, per sequence b and query head h (kv head h / g):
 //   s_j = (q . k_j) * sm_scale in float32, for slots j <= pos[b], else
@@ -17,11 +20,25 @@
 // Under int8 each K/V row dequantizes as (int8 -> f32) * row_scale, cast to
 // q's dtype, inside the tile: no dense dequantized cache is ever built.
 //
+// Paged (K8/K9): the cache is a pool (P, Hkv, page, D) shared by all
+// sequences, and sequence b's logical slots [j*page, (j+1)*page) live in
+// pool page table[b, j].  The page size must be a multiple of the 32-key
+// tile (the wrapper raises otherwise), so a tile never straddles two pages:
+// tile t reads pool page table[b, t*32 / page] from row (t*32) % page on,
+// and its rows stay contiguous, 16-byte loads coalesced as in the dense
+// case.  The loop visits only live tiles, so no table entry past
+// pos[b] / page and no pool row past pos[b] is ever read (entries past a
+// sequence's live pages may be garbage).  The int8 scales of a row sit at
+// the same (page, head, row) index of their (P, Hkv, page, 1) pools.  Only
+// the address of a tile differs from the dense instance: the arithmetic,
+// and its order, is the same, so K8 over a shuffled pool is bitwise equal
+// to K6 over the same rows laid out contiguously, and K9 to K7.
+//
 // What bounds it: bytes.  One decode step reads each live cache row once
 // per kv head (sum_b (pos_b + 1) * Hkv * D * 2 * itemsize, plus 8 B per row
-// for the int8 scales) and does ~4 * g flops per byte of bf16 cache, far
-// below the card's ~295 flops/byte balance point.  So the design reads as
-// little as it can:
+// for the int8 scales, plus one int32 table entry per tile when paged) and
+// does ~4 * g flops per byte of bf16 cache, far below the card's ~295
+// flops/byte balance point.  So the design reads as little as it can:
 //   - grid (B, Hkv), one block per (sequence, kv head); the g query heads
 //     that share a kv head are rows of one tile, so every cache line is read
 //     once per kv head, not once per query head (the GQA fold);
@@ -108,12 +125,23 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename QT, typename CT, int D>
+// Kernel arguments.  Dense: k/v (B, Hkv, S, D), ks/vs (B, Hkv, S, 1),
+// table null.  Paged: k/v (P, Hkv, page, D), ks/vs (P, Hkv, page, 1), table
+// (B, n_pages) int32, and S = page * n_pages, the logical cache length.
+struct Args {
+  const void *q, *k, *v, *ks, *vs, *pos, *table;
+  void* out;
+  int B, H, Hkv, S, page, n_pages;
+  float sm_scale;
+};
+
+template <typename QT, typename CT, int D, bool kPaged>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const QT* __restrict__ q, const CT* __restrict__ k,
               const CT* __restrict__ v, const float* __restrict__ ks,
               const float* __restrict__ vs, const int* __restrict__ pos,
-              QT* __restrict__ out, int H, int Hkv, int S, float sm_scale) {
+              const int* __restrict__ table, QT* __restrict__ out, int H,
+              int Hkv, int S, int page, int n_pages, float sm_scale) {
   constexpr bool kQuant = std::is_same<CT, int8_t>::value;
   constexpr int kEpc = 16 / sizeof(CT);            // elements per chunk
   constexpr int kCpr = D / kEpc;                   // chunks per row
@@ -137,10 +165,6 @@ decode_kernel(const QT* __restrict__ q, const CT* __restrict__ k,
   const int ntiles = last >= 0 ? last / kTile + 1 : 0;
 
   const size_t head = static_cast<size_t>(b) * Hkv + kvh;
-  const CT* kb = k + head * S * D;
-  const CT* vb = v + head * S * D;
-  const float* ksb = kQuant ? ks + head * S : nullptr;
-  const float* vsb = kQuant ? vs + head * S : nullptr;
   const QT* qb = q + (static_cast<size_t>(b) * H + kvh * g) * D;
 
   for (int i = tid; i < g * D; i += kThreads) q_s[i / D][i % D] = to_float(qb[i]);
@@ -159,16 +183,28 @@ decode_kernel(const QT* __restrict__ q, const CT* __restrict__ k,
 
   for (int t = 0; t < ntiles; ++t) {
     const int base = t * kTile;
+    // the tile's first row in the cache, or in its pool page: the only
+    // place the two instances differ.  base <= last, so the table column
+    // base / page never passes pos[b] / page.
+    size_t tile_row;
+    if constexpr (kPaged) {
+      const int pid = table[static_cast<size_t>(b) * n_pages + base / page];
+      tile_row = (static_cast<size_t>(pid) * Hkv + kvh) * page + base % page;
+    } else {
+      tile_row = head * S + base;
+    }
+    const CT* kt = k + tile_row * D;
+    const CT* vt = v + tile_row * D;
     // every 16-byte load of the tile in flight before any is consumed
     uint4 kr[kChunks], vr[kChunks];
 #pragma unroll
     for (int i = 0; i < kChunks; ++i) {
       const int c = tid + i * kThreads;
       const int slot = base + c / kCpr;
-      const size_t off = static_cast<size_t>(slot) * D + (c % kCpr) * kEpc;
+      const int off = (c / kCpr) * D + (c % kCpr) * kEpc;
       if (slot <= last) {
-        kr[i] = *reinterpret_cast<const uint4*>(kb + off);
-        vr[i] = *reinterpret_cast<const uint4*>(vb + off);
+        kr[i] = *reinterpret_cast<const uint4*>(kt + off);
+        vr[i] = *reinterpret_cast<const uint4*>(vt + off);
       } else {
         kr[i] = make_uint4(0u, 0u, 0u, 0u);
         vr[i] = make_uint4(0u, 0u, 0u, 0u);
@@ -181,8 +217,8 @@ decode_kernel(const QT* __restrict__ q, const CT* __restrict__ k,
       const int slot = base + r;
       float ksc = 1.f, vsc = 1.f;
       if (kQuant && slot <= last) {
-        ksc = ksb[slot];
-        vsc = vsb[slot];
+        ksc = ks[tile_row + r];
+        vsc = vs[tile_row + r];
       }
       unpack<QT, CT>(kr[i], &k_s[r][e0], ksc);
       unpack<QT, CT>(vr[i], &v_s[r][e0], vsc);
@@ -239,66 +275,79 @@ decode_kernel(const QT* __restrict__ q, const CT* __restrict__ k,
   }
 }
 
-template <typename QT, typename CT, int D>
-void launch(const void* q, const void* k, const void* v, const void* ks,
-            const void* vs, const void* pos, void* out, int B, int H, int Hkv,
-            int S, float sm_scale, cudaStream_t stream) {
-  dim3 grid(B, Hkv);
-  decode_kernel<QT, CT, D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const QT*>(q), static_cast<const CT*>(k),
-      static_cast<const CT*>(v), static_cast<const float*>(ks),
-      static_cast<const float*>(vs), static_cast<const int*>(pos),
-      static_cast<QT*>(out), H, Hkv, S, sm_scale);
+template <typename QT, typename CT, int D, bool kPaged>
+void launch(const Args& a, cudaStream_t stream) {
+  dim3 grid(a.B, a.Hkv);
+  decode_kernel<QT, CT, D, kPaged><<<grid, kThreads, 0, stream>>>(
+      static_cast<const QT*>(a.q), static_cast<const CT*>(a.k),
+      static_cast<const CT*>(a.v), static_cast<const float*>(a.ks),
+      static_cast<const float*>(a.vs), static_cast<const int*>(a.pos),
+      static_cast<const int*>(a.table), static_cast<QT*>(a.out), a.H, a.Hkv,
+      a.S, a.page, a.n_pages, a.sm_scale);
 }
 
-template <typename QT, typename CT>
-bool launch_d(int D, const void* q, const void* k, const void* v,
-              const void* ks, const void* vs, const void* pos, void* out,
-              int B, int H, int Hkv, int S, float sm_scale,
-              cudaStream_t stream) {
+template <typename QT, typename CT, bool kPaged>
+bool launch_d(int D, const Args& a, cudaStream_t stream) {
   if (D == 64) {
-    launch<QT, CT, 64>(q, k, v, ks, vs, pos, out, B, H, Hkv, S, sm_scale,
-                       stream);
+    launch<QT, CT, 64, kPaged>(a, stream);
   } else if (D == 128) {
-    launch<QT, CT, 128>(q, k, v, ks, vs, pos, out, B, H, Hkv, S, sm_scale,
-                        stream);
+    launch<QT, CT, 128, kPaged>(a, stream);
   } else {
     return false;
   }
   return true;
 }
 
-}  // namespace
-
 // qtype: 0 float32, 1 bfloat16.  ctype: 0 float32, 1 bfloat16, 2 int8
 // (then ks/vs are the float32 row scales).  The cache type must equal the
-// query type unless it is int8.  Returns cudaGetLastError() after the
-// launch (0 on success), or cudaErrorInvalidValue for an unsupported
-// combination.
+// query type unless it is int8.
+template <bool kPaged>
+int dispatch(int qtype, int ctype, int D, const Args& a, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (a.B < 1 || a.Hkv < 1 || a.H % a.Hkv || a.H / a.Hkv > kMaxG || a.S < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  bool ok = false;
+  if (qtype == 0 && ctype == 0)
+    ok = launch_d<float, float, kPaged>(D, a, st);
+  else if (qtype == 1 && ctype == 1)
+    ok = launch_d<__nv_bfloat16, __nv_bfloat16, kPaged>(D, a, st);
+  else if (qtype == 0 && ctype == 2)
+    ok = launch_d<float, int8_t, kPaged>(D, a, st);
+  else if (qtype == 1 && ctype == 2)
+    ok = launch_d<__nv_bfloat16, int8_t, kPaged>(D, a, st);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Dense decode over (B, Hkv, S, D) caches.  Returns cudaGetLastError()
+// after the launch (0 on success), or cudaErrorInvalidValue for an
+// unsupported combination.
 extern "C" int decode_attention_launch(int qtype, int ctype, int D,
                                        const void* q, const void* k,
                                        const void* v, const void* ks,
                                        const void* vs, const void* pos,
                                        void* out, int B, int H, int Hkv,
                                        int S, float sm_scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B < 1 || Hkv < 1 || H % Hkv || H / Hkv > kMaxG || S < 1)
+  const Args a{q, k, v, ks, vs, pos, nullptr, out, B, H, Hkv, S, 0, 0,
+               sm_scale};
+  return dispatch<false>(qtype, ctype, D, a, stream);
+}
+
+// Paged decode over (P, Hkv, page, D) pools through the (B, n_pages) int32
+// block table.  The page must be a positive multiple of the 32-key tile.
+// Returns as decode_attention_launch does.
+extern "C" int decode_attention_paged_launch(
+    int qtype, int ctype, int D, const void* q, const void* k, const void* v,
+    const void* ks, const void* vs, const void* pos, const void* table,
+    void* out, int B, int H, int Hkv, int page, int n_pages, float sm_scale,
+    void* stream) {
+  if (page < kTile || page % kTile || n_pages < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  bool ok = false;
-  if (qtype == 0 && ctype == 0)
-    ok = launch_d<float, float>(D, q, k, v, ks, vs, pos, out, B, H, Hkv, S,
-                                sm_scale, st);
-  else if (qtype == 1 && ctype == 1)
-    ok = launch_d<__nv_bfloat16, __nv_bfloat16>(D, q, k, v, ks, vs, pos, out,
-                                                B, H, Hkv, S, sm_scale, st);
-  else if (qtype == 0 && ctype == 2)
-    ok = launch_d<float, int8_t>(D, q, k, v, ks, vs, pos, out, B, H, Hkv, S,
-                                 sm_scale, st);
-  else if (qtype == 1 && ctype == 2)
-    ok = launch_d<__nv_bfloat16, int8_t>(D, q, k, v, ks, vs, pos, out, B, H,
-                                         Hkv, S, sm_scale, st);
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  const Args a{q, k, v, ks, vs, pos, table, out, B, H, Hkv, page * n_pages,
+               page, n_pages, sm_scale};
+  return dispatch<true>(qtype, ctype, D, a, stream);
 }
 
 extern "C" const char* decode_attention_error(int code) {

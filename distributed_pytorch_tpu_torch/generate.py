@@ -1,17 +1,23 @@
 """Autoregressive decoding with a KV cache: the port of the JAX package's
-generate.py, contiguous-cache path.
+generate.py, contiguous-cache and paged-pool paths.
 
 Per-layer K/V caches are ``{"layer{i}": {"k", "v"[, "ks", "vs"]}}`` dicts of
-(B, Hkv, S, Dh) tensors, as in the JAX package.  Unlike JAX's immutable
-arrays, the port's caches are UPDATED IN PLACE: ``_forward_cached`` writes
-each new K/V row into the cache tensors it is given (and returns the same
-dict for the JAX signature's sake).
+(B, Hkv, S, Dh) tensors, as in the JAX package, or of (P, Hkv, page, Dh)
+page POOLS (``init_paged_cache``) that sequences own through a
+(B, n_pages) block table.  Unlike JAX's immutable arrays, the port's caches
+are UPDATED IN PLACE: ``_forward_cached`` writes each new K/V row into the
+cache tensors it is given (and returns the same dict for the JAX
+signature's sake).
 
 Single-token decode goes through ``ops.attention.decode_attention`` (the
-CUDA decode kernel on the GPU) when ``use_decode_kernel`` is set; prefill
-attends through ``attention_reference`` with a cache-validity bias.  The
-paged pool, the scatter-write verify window and tensor-parallel decode are
-refused until the slices that port them (ROADMAP.md queue 1).
+CUDA decode kernel on the GPU) when ``use_decode_kernel`` is set, and
+through ``decode_attention_paged`` over a pool; prefill and the
+multi-token ragged window (``verify_step_ragged``, the suffix prefill of
+prefix caching) attend through ``attention_reference`` with a
+cache-validity bias.  Tensor-parallel decode (``tp_axis``) is refused
+until slice 5 (ROADMAP.md queue 1); speculative decoding
+(``generate_speculative``, ``generate_lookup``) is not ported yet
+(slice 3b).
 """
 
 from __future__ import annotations
@@ -21,12 +27,12 @@ import torch
 
 from .models import transformer as tfm
 from .models.transformer import not_ported
-from .ops.attention import NEG_INF, attention_reference, decode_attention
+from .ops.attention import (NEG_INF, attention_reference, decode_attention,
+                            decode_attention_paged)
 from .utils.device import resolve_device
 
 Cache = dict[str, dict[str, torch.Tensor]]
 
-PAGED_SLICE = "ROADMAP.md queue 1, slice 3 (paged serving)"
 PARALLEL_SLICE = tfm.PARALLEL_SLICE
 
 # int8 KV quantization floor: a zero row quantizes against this scale
@@ -82,6 +88,17 @@ def kv_bytes_per_token(cfg: tfm.TransformerConfig, dtype=torch.float32,
     return per_head * hk * cfg.n_layers
 
 
+def _kv_leaves(shape, dtype, kv_dtype, dev) -> dict[str, torch.Tensor]:
+    if canon_kv_dtype(kv_dtype) is not None:
+        sshape = shape[:-1] + (1,)
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "ks": torch.zeros(sshape, device=dev),
+                "vs": torch.zeros(sshape, device=dev)}
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
 def init_cache(cfg: tfm.TransformerConfig, batch: int, max_len: int,
                dtype=torch.float32, kv_heads: int | None = None,
                kv_dtype=None, device: str | torch.device = "cuda") -> Cache:
@@ -90,18 +107,25 @@ def init_cache(cfg: tfm.TransformerConfig, batch: int, max_len: int,
     (..., max_len, 1)."""
     dev = resolve_device(device)
     shape = (batch, kv_heads or cfg.kv_heads, max_len, cfg.head_dim)
+    return {f"layer{i}": _kv_leaves(shape, dtype, kv_dtype, dev)
+            for i in range(cfg.n_layers)}
 
-    def leaves():
-        if canon_kv_dtype(kv_dtype) is not None:
-            sshape = shape[:-1] + (1,)
-            return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
-                    "v": torch.zeros(shape, dtype=torch.int8, device=dev),
-                    "ks": torch.zeros(sshape, device=dev),
-                    "vs": torch.zeros(sshape, device=dev)}
-        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
-    return {f"layer{i}": leaves() for i in range(cfg.n_layers)}
+def init_paged_cache(cfg: tfm.TransformerConfig, n_pages: int,
+                     page: int = 512, dtype=torch.float32,
+                     kv_heads: int | None = None, kv_dtype=None,
+                     device: str | torch.device = "cuda") -> Cache:
+    """Zeroed per-layer PAGED K/V pools (n_pages, kv_heads, page,
+    head_dim): sequences own pages through a block table instead of a
+    contiguous per-sequence buffer (serve.py paged mode), so cache memory
+    scales with the pages allocated, not slots x max_len.  With
+    ``kv_dtype=int8`` the pools are int8 with per-row scale pools
+    ``ks``/``vs`` (n_pages, kv_heads, page, 1) that ride the same block
+    tables."""
+    dev = resolve_device(device)
+    shape = (n_pages, kv_heads or cfg.kv_heads, page, cfg.head_dim)
+    return {f"layer{i}": _kv_leaves(shape, dtype, kv_dtype, dev)
+            for i in range(cfg.n_layers)}
 
 
 def pad_cache_len(n: int) -> int:
@@ -129,26 +153,54 @@ def _forward_cached(params, cache: Cache, tokens: torch.Tensor,
 
     Modes: prefill (``write_at=0``, ``pos`` (S,)); lockstep decode (S = 1,
     ``pos`` (1,), ``write_at`` an int); ragged decode (S = 1, ``pos``
-    (B, 1), ``write_at`` a (B,) tensor of per-sequence offsets).  Query row
-    j attends cache slots <= pos[j]: through the decode kernel for
-    single-token steps with ``use_decode_kernel``, else through
-    ``attention_reference`` with a NEG_INF validity bias over the first
-    ``k_len`` slots."""
-    if page_table is not None:
-        raise not_ported("the paged KV pool (page_table)", PAGED_SLICE)
+    (B, 1), ``write_at`` a (B,) tensor of per-sequence offsets); the
+    multi-token ragged window (S > 1, ``pos`` (B, S)), whose ``write_at``
+    is a (B, S) matrix of per-TOKEN write positions, already clamped by the
+    caller at each sequence's allocated frontier, written as one scatter.
+    Query row j attends cache slots <= pos[j]: through the
+    decode kernel for single-token steps with ``use_decode_kernel``, else
+    through ``attention_reference`` with a NEG_INF validity bias over the
+    first ``k_len`` slots.
+
+    With ``page_table`` (B, n_pages) the cache leaves are (P, Hkv, page,
+    Dh) pools and sequence b's slot p lives in pool page
+    ``page_table[b, p // page]`` at row ``p % page``.  Single-token decode
+    then goes through ``decode_attention_paged`` (it must use the kernel
+    path); the multi-token window scatters its writes through the table and
+    reads a contiguous per-sequence view gathered from the first
+    ``ceil(k_len / page)`` table columns (``k_len`` is then the caller's
+    live-depth hint; without it the whole table is gathered), dequantized
+    under int8."""
     if tp_axis is not None:
         raise not_ported("tensor-parallel decode (tp_axis)", PARALLEL_SLICE)
     s = tokens.shape[1]
     ragged = pos.ndim == 2
-    if ragged and s > 1:
-        raise not_ported("the multi-token ragged verify window",
-                         PAGED_SLICE)
+    multi_ragged = ragged and s > 1
+    kernel_path = use_decode_kernel and s == 1
+    if page_table is not None:
+        if not ((kernel_path or multi_ragged) and ragged):
+            raise ValueError("page_table requires ragged per-sequence "
+                             "positions, and single-token decode must use "
+                             "the kernel path (use_decode_kernel=True)")
+    if multi_ragged and write_at.ndim != 2:
+        raise ValueError("a multi-token ragged forward needs (B, S) "
+                         "per-token write positions")
     x = params["embed"][tokens]
     if dtype is not None:
         x = x.to(dtype)
     first = next(iter(cache.values()))
+    k_len_hint = k_len
     k_len = k_len or first["k"].shape[2]
-    kernel_path = use_decode_kernel and s == 1
+    gather_cols = 0
+    if page_table is not None and multi_ragged:
+        # the gathered view spans the table's first ceil(k_len / page)
+        # columns (the live-depth hint) or the whole table; the per-row pos
+        # bias masks everything beyond each sequence's own depth
+        page = first["k"].shape[2]
+        gather_cols = page_table.shape[1]
+        if k_len_hint:
+            gather_cols = min(-(-k_len_hint // page), gather_cols)
+        k_len = gather_cols * page
     if not kernel_path:
         slot = torch.arange(k_len, device=x.device)
         if ragged:  # (B, 1, S, k_len)
@@ -158,8 +210,16 @@ def _forward_cached(params, cache: Cache, tokens: torch.Tensor,
             bias = torch.where(slot[None] <= pos[:, None], 0.0,
                                NEG_INF)[None, None]
     quant = "ks" in first
-    if ragged:
-        bidx = torch.arange(tokens.shape[0], device=x.device)
+    bidx = torch.arange(tokens.shape[0], device=x.device)
+    if page_table is not None:
+        # token at position p lands in pool page table[b, p // page], row
+        # p % page: (B, 1) positions for single-token decode, (B, S) for
+        # the window
+        page = first["k"].shape[2]
+        table = page_table.long()
+        w = write_at.long().reshape(len(table), -1)
+        pids, offs = torch.gather(table, 1, w // page), w % page
+    elif ragged:  # (B,) single-token, (B, S) for the window
         widx = write_at.long()
     else:
         w0 = int(write_at)
@@ -177,21 +237,44 @@ def _forward_cached(params, cache: Cache, tokens: torch.Tensor,
             pairs = (("k", k), ("v", v))
         for name, u in pairs:
             leaf = c[name]
-            if ragged:  # cache[b, :, write_at[b]] = u[b, :, 0]
+            if page_table is not None:
+                # pool[pids[b, j], :, offs[b, j]] = u[b, :, j]; colliding
+                # (clamped) rows resolve arbitrarily and are never read
+                leaf[pids, :, offs] = u.transpose(1, 2).to(leaf.dtype)
+            elif multi_ragged:  # cache[b, :, widx[b, j]] = u[b, :, j]
+                leaf[bidx[:, None], :, widx] = u.transpose(1, 2).to(
+                    leaf.dtype)
+            elif ragged:  # cache[b, :, write_at[b]] = u[b, :, 0]
                 leaf[bidx, :, widx] = u[:, :, 0].to(leaf.dtype)
             else:
                 leaf[:, :, w0:w0 + s] = u.to(leaf.dtype)
-        if kernel_path:
+        if kernel_path and page_table is not None:
+            o = decode_attention_paged(q, c["k"], c["v"], page_table,
+                                       pos[:, 0], k_scale=c.get("ks"),
+                                       v_scale=c.get("vs"))
+        elif kernel_path:
             o = decode_attention(q, c["k"], c["v"],
                                  pos[:, 0] if ragged else pos[0],
                                  k_scale=c.get("ks"), v_scale=c.get("vs"))
         else:
-            ka, va = c["k"][:, :, :k_len], c["v"][:, :, :k_len]
+            if page_table is not None:
+                # contiguous per-sequence view of the first gather_cols
+                # table columns: (B, cols, Hkv, page, w) -> (B, Hkv, k_len, w)
+                tbl = table[:, :gather_cols]
+
+                def view(leaf):
+                    return (leaf[tbl].transpose(1, 2)
+                            .reshape(len(tbl), leaf.shape[1], k_len,
+                                     leaf.shape[3]))
+            else:
+                def view(leaf):
+                    return leaf[:, :, :k_len]
+            ka, va = view(c["k"]), view(c["v"])
             if quant:
-                ka = dequantize_kv(ka, c["ks"][:, :, :k_len])
-                va = dequantize_kv(va, c["vs"][:, :, :k_len])
+                ka = dequantize_kv(ka, view(c["ks"]))
+                va = dequantize_kv(va, view(c["vs"]))
             ka, va = ka.to(q.dtype), va.to(q.dtype)
-            if cfg.kv_heads != cfg.n_heads:
+            if q.shape[1] != ka.shape[1]:
                 rep = q.shape[1] // ka.shape[1]
                 ka = ka.repeat_interleave(rep, dim=1)
                 va = va.repeat_interleave(rep, dim=1)
@@ -240,6 +323,26 @@ def decode_step_ragged(params, cache: Cache, token: torch.Tensor,
         dtype=dtype, tp_axis=tp_axis, use_decode_kernel=use_decode_kernel,
         page_table=page_table)
     return logits[:, 0], cache
+
+
+def verify_step_ragged(params, cache: Cache, tokens: torch.Tensor,
+                       pos: torch.Tensor, write_pos: torch.Tensor, *,
+                       cfg: tfm.TransformerConfig, dtype=None, tp_axis=None,
+                       page_table=None, k_len: int | None = None):
+    """MULTI-token ragged forward: (B, W) tokens at per-sequence positions
+    ``pos`` (B, W) -> ((B, W, vocab) logits, cache).  ``write_pos`` (B, W)
+    gives each token's cache write position, already clamped at the
+    sequence's allocated frontier by the caller (rows past the accepted
+    prefix are garbage, never read: reads are pos-bounded).  Attention runs
+    the bias path with exact per-row ``slot <= pos`` bounds; a paged pool
+    is gathered into its contiguous per-sequence view, bounded to the first
+    ``ceil(k_len / page)`` table columns when the caller passes ``k_len``
+    (every live row's positions must stay below it).  The batcher's suffix
+    prefill of a shared-prefix admission (serve.py, prefix caching) runs
+    through it."""
+    return _forward_cached(params, cache, tokens, pos, write_pos, cfg=cfg,
+                           dtype=dtype, tp_axis=tp_axis,
+                           page_table=page_table, k_len=k_len)
 
 
 def _gumbel_argmax(generator: torch.Generator | None,

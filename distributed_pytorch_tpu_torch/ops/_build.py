@@ -31,6 +31,12 @@ _SIGNATURES = {
             [ctypes.c_int, ctypes.c_int, ctypes.c_int]
             + [ctypes.c_void_p] * 7  # q, k, v, ks, vs, pos, out
             + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]),
+        "decode_attention_paged_launch": (
+            ctypes.c_int,
+            [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+            + [ctypes.c_void_p] * 8  # q, k, v, ks, vs, pos, table, out
+            + [ctypes.c_int] * 5  # B, H, Hkv, page, n_pages
+            + [ctypes.c_float, ctypes.c_void_p]),
         "decode_attention_error": (ctypes.c_char_p, [ctypes.c_int]),
     },
     "flash_attention": {

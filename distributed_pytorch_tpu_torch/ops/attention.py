@@ -14,6 +14,10 @@ decode-attention kernel (the port of the JAX package's ops/attention.py).
   hand-written kernel in csrc/decode_attention.cu (TPU kernels K6 and K7);
   on a CPU tensor it runs ``decode_attention_plain``, the same function in
   plain PyTorch.
+- ``decode_attention_paged``: the same decode over a PAGED KV pool, each
+  sequence's cache blocks looked up in a block table.  On a CUDA tensor it
+  launches the paged instance of the same kernel (TPU kernels K8 and K9);
+  on a CPU tensor it runs ``decode_attention_paged_plain``.
 There is no fallback from a kernel to its plain version: a CUDA input a
 kernel does not take raises.
 
@@ -425,33 +429,180 @@ def decode_attention(q, k_cache, v_cache, pos, *, k_scale=None, v_scale=None,
             raise ValueError("decode kernel: scales must be float32 "
                              f"(B, Hkv, S, 1) = {(b, hkv, s, 1)}")
         tensors += [k_scale, v_scale]
-    for t in tensors:
-        if t.device != q.device or not t.is_contiguous():
-            raise ValueError("decode kernel: every operand must be a "
-                             "contiguous tensor on q's device")
-        if t.data_ptr() % 16:
-            raise ValueError("decode kernel: operands must be 16-byte "
-                             "aligned")
+    _check_decode_operands("decode kernel", q, tensors)
     pos_v = _pos_vector(pos, b, q.device)
     out = torch.empty_like(q)
-    from ._build import load_library
-    lib = load_library("decode_attention")
-    null = ctypes.c_void_p(0)
-    err = lib.decode_attention_launch(
-        _QTYPES[q.dtype], _CTYPES[k_cache.dtype], d,
-        ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k_cache.data_ptr()),
-        ctypes.c_void_p(v_cache.data_ptr()),
-        ctypes.c_void_p(k_scale.data_ptr()) if quant else null,
-        ctypes.c_void_p(v_scale.data_ptr()) if quant else null,
-        ctypes.c_void_p(pos_v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        b, h, hkv, s, ctypes.c_float(sm_scale),
-        ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
-    if err:
-        raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
-                           f"error {err} "
-                           f"({lib.decode_attention_error(err).decode()})")
+    _decode_launch("decode_attention_launch", q, k_cache, v_cache, k_scale,
+                   v_scale, pos_v, out, (b, h, hkv, s), sm_scale)
     decode_attention.launches += 1
     return out
 
 
 decode_attention.launches = 0
+
+
+def _check_decode_operands(name: str, q, tensors) -> None:
+    for t in tensors:
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name}: every operand must be a contiguous "
+                             f"tensor on q's device")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: operands must be 16-byte aligned")
+
+
+def _decode_launch(entry: str, q, k, v, k_scale, v_scale, pos_v, out,
+                   dims: tuple[int, ...], sm_scale: float,
+                   table=None) -> None:
+    """Call ``entry`` of csrc/decode_attention.cu as (qtype, ctype, D, q,
+    k, v, ks, vs, pos, [table,] out, *dims, sm_scale, stream) on q's
+    current stream; raise on the CUDA error it returns."""
+    from ._build import load_library
+    lib = load_library("decode_attention")
+    null = ctypes.c_void_p(0)
+    quant = k_scale is not None
+    ptrs = [_ptr(q), _ptr(k), _ptr(v),
+            _ptr(k_scale) if quant else null,
+            _ptr(v_scale) if quant else null, _ptr(pos_v)]
+    if table is not None:
+        ptrs.append(_ptr(table))
+    err = getattr(lib, entry)(
+        _QTYPES[q.dtype], _CTYPES[k.dtype], q.shape[-1], *ptrs, _ptr(out),
+        *dims, ctypes.c_float(sm_scale),
+        ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
+    if err:
+        raise RuntimeError(f"{entry} failed: CUDA error {err} "
+                           f"({lib.decode_attention_error(err).decode()})")
+
+
+# -- paged decode (K8, K9) -------------------------------------------------
+
+# Keys per tile of the CUDA kernel (kTile in csrc/decode_attention.cu): on
+# the GPU a page must hold whole tiles, so no tile straddles two pages.
+KERNEL_PAGE_MULTIPLE = 32
+
+
+def _check_paged_args(q, k_pool, k_scale, v_scale):
+    """The JAX ``decode_attention_paged`` argument checks, with its
+    messages; returns (b, h, hkv, page, d)."""
+    b, h, sq, d = q.shape
+    if sq != 1:
+        raise ValueError(f"decode_attention_paged takes single-token "
+                         f"queries, got sq={sq}")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("pass both k_scale and v_scale or neither")
+    p_blocks, hkv, page, _ = k_pool.shape
+    if h % hkv:
+        raise ValueError(f"{h} query heads do not group over {hkv} kv heads")
+    if page % 8 or (page < 128 and p_blocks > 1):
+        raise ValueError(
+            f"page size {page} must be 8-aligned, and >= 128 whenever the "
+            f"pool holds more than one page (got {p_blocks} pages; a "
+            f"single-page pool tolerates shorter pages since no block-table "
+            f"indirection happens)")
+    return b, h, hkv, page, d
+
+
+def decode_attention_paged_plain(q, k_pool, v_pool, table, pos, *,
+                                 k_scale=None, v_scale=None,
+                                 sm_scale: float | None = None):
+    """Plain-PyTorch paged decode attention, the same function as the
+    kernel.
+
+    ``q`` (B, H, 1, D); pools (P, Hkv, page, D); ``table`` (B, n_pages)
+    int32, entry j the pool page holding cache slots [j*page, (j+1)*page);
+    ``pos`` a scalar or (B,).  Sequence b's logical block j is pool page
+    ``table[b, min(j, pos[b] // page)]``: the column index is clamped
+    BEFORE the table is read, so entries past a sequence's live pages
+    (garbage, or out of the pool's range) are never read, and neither is
+    any pool page they would name.  The gathered (B, Hkv, n_pages * page,
+    D) view then goes through ``decode_attention_plain``, whose pos bound
+    masks the repeated last page.  int8 scale pools (P, Hkv, page, 1)
+    float32 ride the same lookup.  Returns (B, H, 1, D)."""
+    b, h, hkv, page, d = _check_paged_args(q, k_pool, k_scale, v_scale)
+    n_pages = table.shape[1]
+    pos_v = _pos_vector(pos, b, q.device).long()
+    col = torch.minimum(torch.arange(n_pages, device=q.device)[None],
+                        (pos_v // page)[:, None])
+    pids = torch.gather(table.to(q.device).long(), 1, col)  # (B, n_pages)
+
+    def view(pool):
+        w = pool.shape[-1]
+        return (pool[pids].permute(0, 2, 1, 3, 4)
+                .reshape(b, hkv, n_pages * page, w))
+
+    scales = {}
+    if k_scale is not None:
+        scales = dict(k_scale=view(k_scale), v_scale=view(v_scale))
+    return decode_attention_plain(q, view(k_pool), view(v_pool), pos_v,
+                                  sm_scale=sm_scale, **scales)
+
+
+def decode_attention_paged(q, k_pool, v_pool, table, pos, *, k_scale=None,
+                           v_scale=None, sm_scale: float | None = None):
+    """Single-token decode attention over a paged KV pool (semantics of
+    ``decode_attention_paged_plain``).
+
+    On CUDA tensors this launches the paged decode kernel (K8; K9 when the
+    int8 scale pools are given) on the current stream and adds one to
+    ``decode_attention_paged.launches``.  The kernel is ``decode_attention``'s
+    (the same dtypes, head_dim 64 or 128, 1 to 16 query heads per kv
+    head) with one more limit: the page must be a multiple of the kernel's
+    32-key tile, so that a tile never straddles two pages (serving uses
+    512).  It reads no table entry past ``pos[b] // page`` and no pool row
+    past ``pos[b]``.  Anything else on CUDA raises.  On CPU tensors the
+    plain version runs (no launch is counted)."""
+    b, h, hkv, page, d = _check_paged_args(q, k_pool, k_scale, v_scale)
+    if q.device.type == "cpu":
+        return decode_attention_paged_plain(q, k_pool, v_pool, table, pos,
+                                            k_scale=k_scale, v_scale=v_scale,
+                                            sm_scale=sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention_paged: unsupported device "
+                         f"{q.device}")
+    name = "paged decode kernel"
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    quant = k_scale is not None
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name} takes head_dim in {KERNEL_HEAD_DIMS}, "
+                         f"got {d}")
+    if h // hkv > KERNEL_MAX_GROUP:
+        raise ValueError(f"{name} takes at most {KERNEL_MAX_GROUP} query "
+                         f"heads per kv head, got {h // hkv}")
+    if q.dtype not in _QTYPES:
+        raise ValueError(f"{name} takes float32 or bfloat16 q, got "
+                         f"{q.dtype}")
+    if page % KERNEL_PAGE_MULTIPLE:
+        raise ValueError(f"{name} takes pages of a multiple of "
+                         f"{KERNEL_PAGE_MULTIPLE} rows (whole 32-key tiles), "
+                         f"got page {page}")
+    want = torch.int8 if quant else q.dtype
+    if k_pool.dtype != want or v_pool.dtype != want:
+        raise ValueError(f"{name}: pools must be {want} for q {q.dtype}, got "
+                         f"{k_pool.dtype}/{v_pool.dtype}")
+    if v_pool.shape != k_pool.shape or k_pool.shape[3] != d:
+        raise ValueError(f"{name}: pool shapes {tuple(k_pool.shape)}/"
+                         f"{tuple(v_pool.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if table.ndim != 2 or table.shape[0] != b or table.dtype != torch.int32:
+        raise ValueError(f"{name}: table must be int32 (B, n_pages) with "
+                         f"B = {b}, got {table.dtype} {tuple(table.shape)}")
+    tensors = [q, k_pool, v_pool, table]
+    if quant:
+        sshape = k_pool.shape[:3] + (1,)
+        if (k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32
+                or k_scale.shape != sshape or v_scale.shape != sshape):
+            raise ValueError(f"{name}: scale pools must be float32 "
+                             f"(P, Hkv, page, 1) = {tuple(sshape)}")
+        tensors += [k_scale, v_scale]
+    _check_decode_operands(name, q, tensors)
+    pos_v = _pos_vector(pos, b, q.device)
+    out = torch.empty_like(q)
+    _decode_launch("decode_attention_paged_launch", q, k_pool, v_pool,
+                   k_scale, v_scale, pos_v, out,
+                   (b, h, hkv, page, table.shape[1]), sm_scale, table=table)
+    decode_attention_paged.launches += 1
+    return out
+
+
+decode_attention_paged.launches = 0

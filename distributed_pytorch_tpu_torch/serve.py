@@ -1,4 +1,4 @@
-"""Continuous batching: slot-based autoregressive serving, the core of the
+"""Continuous batching: slot-based autoregressive serving, the port of the
 JAX package's serve.py ContinuousBatcher.
 
 A fixed pool of cache slots where sequences enter (bucketed batched prefill
@@ -6,12 +6,17 @@ into a free slot), decode in lockstep (one ragged decode step per token for
 every slot) and retire independently (EOS or length budget), their slot
 refilled from the queue at the next block boundary:
 
-- the slot pool is one contiguous (slots, Hkv, max_len, Dh) KV cache per
-  layer; prompts pad to bucketed lengths;
+- the KV cache is either one contiguous (slots, Hkv, max_len, Dh) buffer
+  per layer, or (``paged=True``) a shared pool of 512-token pages per layer
+  that each slot owns through a block-table row, so cache memory scales
+  with the pages allocated, not slots x max_len.  Page 0 is a RESERVED
+  SCRATCH page: empty and released slots' table rows point at it, so their
+  lockstep garbage writes never land in a page recycled to another slot;
 - per-sequence exactness comes from the ragged decode step
   (generate.decode_step_ragged): every sequence reads exactly its own
   ``pos+1`` cache prefix (the decode kernel's per-sequence bound on the
-  GPU) and writes its K/V at its own offset;
+  GPU; through the block table when paged) and writes its K/V at its own
+  offset, clamped at its own allocated frontier (``_write_caps``);
 - slot recycling needs no cache zeroing: the padded prompt rows a prefill
   writes beyond the prompt's true length, and a previous occupant's stale
   rows, are never read (reads stop at the occupant's own ``pos``), and each
@@ -24,21 +29,39 @@ refilled from the queue at the next block boundary:
   the early exit (every slot done).  The block's tokens come back to the
   host in one transfer at its end;
 - **per-request sampling**: temperature / top_k / top_p / eos_id are
-  ``submit()`` parameters, applied per slot by ``sample_per_seq``.
+  ``submit()`` parameters, applied per slot by ``sample_per_seq``;
+- **preemption** (paged): when live sequences outgrow an oversubscribed
+  pool, the youngest occupant is host-swapped (its pages copied to host
+  memory, the request parked on a resume queue) and swapped back into
+  freshly allocated pages, bitwise, when the pool has room, instead of
+  raising;
+- **prefix caching** (``prefix_cache=True``, paged): full 512-token prompt
+  pages are content-addressed by chain hash (``prefix_page_hashes``) and
+  SHARED across requests through the block tables with refcounts; a
+  repeated system prompt admits by pointing its table at the cached pages
+  and prefilling only its suffix (one ``verify_step_ragged`` window).
+  Sharing is read-only by construction (decode writes land at positions
+  >= the prompt length, in the slot's own tail pages); unreferenced cached
+  pages are reclaimed LRU under pool pressure before anything is
+  preempted;
+- **drained-tail compaction** (``compact_tail``, paged): with no queued or
+  swapped work left and at most half the slots live, a block runs over a
+  power-of-two number of rows holding only the live slots (their table
+  rows carry the cache indirection).
 
 Differences from the JAX batcher: ``inblock_refill`` and ``overlap``
 default to False and passing True raises for now.  Both change only the
 scheduling (when a retired slot refills, when a block's results are
-fetched), never the tokens, so greedy outputs are the same.  The paged pool
-(and its ``compact_tail``), prefix caching, speculation (and its
-``spec_ngram``), chunked prefill, tensor parallelism (``mesh``,
-``tp_axis``) and the fleet handoff (``export_request``/``import_request``)
-raise ``NotImplementedError`` naming the ROADMAP.md slice that brings them
-whenever they are set to anything but their default.
+fetched), never the tokens, so greedy outputs are the same.  Chunked
+prefill (``prefill_chunk``) and in-batcher speculation (``speculate``,
+``spec_ngram``) raise ``NotImplementedError`` naming ROADMAP.md slice 3b;
+tensor parallelism (``mesh``, ``tp_axis``) and the fleet handoff
+(``export_request``/``import_request``) name slice 5.
 """
 
 from __future__ import annotations
 
+import hashlib
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -56,8 +79,27 @@ from .utils.tracing import PhaseTimer
 # which explicitly DISABLES eos for that request
 _INHERIT = object()
 
-SERVING_SLICE = "ROADMAP.md queue 1, slice 3 (paged serving)"
+SCHEDULING_SLICE = "ROADMAP.md queue 1, slice 3b (scheduling)"
 FLEET_SLICE = "ROADMAP.md queue 1, slice 5 (fleet)"
+
+
+def prefix_page_hashes(prompt, page: int) -> list[bytes]:
+    """Chain hash per FULL ``page``-token prompt page: page i's key is the
+    SHA-1 of page i-1's key followed by the int32 bytes of tokens
+    [i*page, (i+1)*page), so it commits to every token before it and equal
+    keys imply the cached page's K/V was computed under the identical
+    context.  Byte for byte the JAX package's function (the fleet router
+    walks these chains against each replica's registry, so the two must
+    hash identically)."""
+    prompt = np.asarray(prompt)
+    out: list[bytes] = []
+    h = b""
+    for i in range(len(prompt) // page):
+        h = hashlib.sha1(
+            h + prompt[i * page:(i + 1) * page]
+            .astype(np.int32).tobytes()).digest()
+        out.append(h)
+    return out
 
 
 @dataclass
@@ -71,9 +113,25 @@ class _Request:
     eos_id: int | None = None
     emitted: list = field(default_factory=list)
     done: bool = False
+    # chain hashes of the prompt's full pages, computed once at submit when
+    # prefix caching is on
+    prefix_hashes: list | None = None
     t_submit: float = 0.0
     t_first: float | None = None  # first emission (TTFT = t_first - t_submit)
     t_done: float | None = None
+
+
+@dataclass
+class _Swapped:
+    """A preempted request: its KV pages live on the HOST until the pool
+    can take it back.  Host-swap rather than requeue-and-re-prefill because
+    the generated prefix can outgrow every prompt bucket; restoring the
+    pages bitwise keeps the request exactly where it was."""
+    req: _Request
+    kv: list                      # per cache leaf: (n_pages, Hkv, page, *)
+    n_pages: int
+    pos: int                      # last written position
+    last_tok: int
 
 
 class ContinuousBatcher:
@@ -91,7 +149,19 @@ class ContinuousBatcher:
 
     ``run(prompts, max_new)`` drives submit/step to completion.  The
     batcher runs on ``device`` (the GPU by default); ``params`` must live
-    there.
+    there.  ``paged=True`` serves from a page pool (``pool_pages`` pages of
+    512 tokens, one of them the reserved scratch page; default enough for
+    every slot at max_len), with preemption, ``prefix_cache`` and
+    ``compact_tail`` as the module docstring describes.
+
+    ``compact_tail`` determinism caveat (as in the JAX batcher): a
+    compacted block is a narrower dispatch, so bf16 GREEDY streams can
+    flip at near-ties at the compaction boundary (a different
+    accumulation shape), and SAMPLED streams change there in any dtype
+    (``sample_per_seq`` draws per row over the dispatch shape, so a
+    request's draws shift when its row moves).  ``compact_tail=False``
+    keeps every dispatch full-width when seeded reproducibility matters;
+    f32 greedy is exact either way.
     """
 
     def __init__(self, params, cfg: tfm.TransformerConfig, *,
@@ -113,17 +183,23 @@ class ContinuousBatcher:
                  kv_dtype=None,
                  mesh=None, tp_axis: str = "model",
                  device: str | torch.device = "cuda"):
-        refused = {"paged=True": paged, "pool_pages": pool_pages is not None,
-                   "prefix_cache": prefix_cache,
-                   "speculate > 0": speculate > 0,
+        if prefix_cache:
+            if not paged:
+                raise ValueError("prefix_cache requires paged=True (the "
+                                 "sharing rides the block tables)")
+            if prefill_chunk is not None:
+                raise ValueError(
+                    "prefix_cache does not compose with prefill_chunk: "
+                    "chunked admission re-prefills every prompt and "
+                    "would silently never share pages")
+        refused = {"speculate > 0": speculate > 0,
                    "prefill_chunk": prefill_chunk is not None,
                    "inblock_refill=True": inblock_refill,
                    "overlap=True": overlap,
-                   "compact_tail=False": not compact_tail,
                    "spec_ngram != 2": spec_ngram != 2}
         for what, on in refused.items():
             if on:
-                raise not_ported(what, SERVING_SLICE)
+                raise not_ported(what, SCHEDULING_SLICE)
         if mesh is not None or tp_axis != "model":
             raise not_ported("mesh / tp_axis (tensor-parallel serving)",
                              gen.PARALLEL_SLICE)
@@ -155,11 +231,42 @@ class ContinuousBatcher:
         self.schedule = schedule
         self._queue_dirty = False
         self.kv_heads = params["layers.0.wk"].shape[1]
-        self.cache = gen.init_cache(cfg, slots, self.max_len,
-                                    dtype=dtype or torch.float32,
-                                    kv_heads=self.kv_heads,
-                                    kv_dtype=self.kv_dtype,
-                                    device=self.device)
+        kv_kw = dict(dtype=dtype or torch.float32, kv_heads=self.kv_heads,
+                     kv_dtype=self.kv_dtype, device=self.device)
+        self.paged = paged
+        self.page = 512
+        self.pages_per_slot = self.max_len // self.page
+        if paged:
+            if not self.use_kernel and decode_kernel is not None:
+                raise ValueError("paged serving requires the decode-kernel "
+                                 "path (the page table lives in its "
+                                 "lookup); drop decode_kernel=False")
+            self.use_kernel = True  # the plain version on CPU tensors
+            self.pool_pages = (pool_pages if pool_pages is not None
+                               else slots * self.pages_per_slot + 1)
+            if self.pool_pages - 1 < self.pages_per_slot:
+                raise ValueError(
+                    f"pool_pages {self.pool_pages} cannot hold even one "
+                    f"max_len sequence ({self.pages_per_slot} pages + the "
+                    f"reserved scratch page)")
+            self.cache = gen.init_paged_cache(cfg, self.pool_pages,
+                                              self.page, **kv_kw)
+            self.table = np.zeros((slots, self.pages_per_slot), np.int32)
+            self.free_pages = deque(range(1, self.pool_pages))
+            self.slot_pages: list[list[int]] = [[] for _ in range(slots)]
+            # preemption: victims host-swap their pages and wait here;
+            # admission sequence numbers pick the YOUNGEST victim
+            self.swapped: deque[_Swapped] = deque()
+            self.slot_admit_seq = np.zeros(slots, np.int64)
+            self._admit_counter = 0
+        else:
+            self.cache = gen.init_cache(cfg, slots, self.max_len, **kv_kw)
+        self.compact_tail = compact_tail
+        self.prefix_cache = prefix_cache
+        if prefix_cache:
+            self.registry: dict[bytes, int] = {}   # chain hash -> page id
+            self.page_hash: dict[int, bytes] = {}  # registered page -> hash
+            self.page_refs: dict[int, int] = {}    # registered page -> refs
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         # host-side slot state
@@ -176,11 +283,14 @@ class ContinuousBatcher:
         # per-phase wall clock: host_plan / prefill / dispatch / fetch /
         # host_parse (timing_stats)
         self.timers = PhaseTimer()
-        # accounting: slot-steps dispatched vs tokens delivered
+        # accounting: slot-steps dispatched vs tokens delivered, and the
+        # page pool's preemption, compaction and prefix-cache events
         self.stats = {"decode_dispatches": 0, "decode_steps": 0,
                       "slot_steps": 0, "emitted_tokens": 0,
                       "wasted_slot_steps": 0, "prefill_dispatches": 0,
-                      "batch_admissions": 0}
+                      "batch_admissions": 0, "evictions": 0, "swap_ins": 0,
+                      "compact_dispatches": 0, "prefix_hits": 0,
+                      "prefix_pages_shared": 0, "prefix_reclaimed": 0}
 
     # -- submission / results --------------------------------------------
     def submit(self, prompt, max_new: int = 128, *,
@@ -216,13 +326,16 @@ class ContinuousBatcher:
             top_p=1.0 if top_p is None else top_p,
             eos_id=self.eos_id if eos_id is _INHERIT else eos_id)
         req.t_submit = time.perf_counter()
+        if self.prefix_cache:
+            req.prefix_hashes = prefix_page_hashes(req.prompt, self.page)
         self.requests[rid] = req
         self.queue.append(req)
         self._queue_dirty = True
         return rid
 
     def pending(self) -> bool:
-        return bool(self.queue) or any(o is not None for o in self.occupant)
+        return (bool(self.queue) or (self.paged and bool(self.swapped))
+                or any(o is not None for o in self.occupant))
 
     def queue_depth(self) -> int:
         """Requests accepted but not yet generating."""
@@ -230,10 +343,11 @@ class ContinuousBatcher:
 
     def timing_stats(self) -> dict:
         """Per-phase wall-clock summary over every ``step()`` so far:
-        ``host_plan`` (admission and staging), ``prefill`` (admission
-        prefills), ``dispatch`` (the decode block's steps, including the
-        per-step early-exit check), ``fetch`` (the block's device->host
-        transfer), ``host_parse`` (emission bookkeeping)."""
+        ``host_plan`` (admission, swap-in, page planning and staging),
+        ``prefill`` (admission prefills), ``dispatch`` (the decode block's
+        steps, including the per-step early-exit check), ``fetch`` (the
+        block's device->host transfer), ``host_parse`` (emission
+        bookkeeping)."""
         return self.timers.summary()
 
     def result(self, rid: int) -> np.ndarray:
@@ -273,6 +387,241 @@ class ContinuousBatcher:
     def import_request(self, state: dict):
         raise not_ported("import_request (fleet KV handoff)", FLEET_SLICE)
 
+    # -- the page pool (paged) ---------------------------------------------
+    def _avail_pages(self) -> int:
+        """Pages the pool can still supply: the free list plus registry
+        pages no occupant references (reclaimable prefix cache)."""
+        n = len(self.free_pages)
+        if self.prefix_cache:
+            n += sum(1 for pid in self.registry.values()
+                     if self.page_refs.get(pid, 0) == 0)
+        return n
+
+    def _reclaim_registry(self, n: int) -> None:
+        """Free ``n`` unreferenced registry pages, least recently used first
+        (insertion order, ``_admit_shared`` re-inserting on every hit)."""
+        for h in list(self.registry):
+            if n <= 0:
+                break
+            pid = self.registry[h]
+            if self.page_refs.get(pid, 0) == 0:
+                del self.registry[h]
+                del self.page_hash[pid]
+                del self.page_refs[pid]
+                self.free_pages.append(pid)
+                self.stats["prefix_reclaimed"] += 1
+                n -= 1
+
+    def _take_free_page(self) -> int:
+        if not self.free_pages and self.prefix_cache:
+            self._reclaim_registry(1)
+        if not self.free_pages:
+            raise RuntimeError(
+                f"KV page pool exhausted ({self.pool_pages} pages): "
+                f"raise pool_pages or lower concurrency/max_new")
+        return self.free_pages.popleft()
+
+    def _alloc_pages(self, slot: int, upto_pos: int) -> None:
+        """Ensure ``slot``'s block table covers positions [0, upto_pos]."""
+        need = min(upto_pos // self.page + 1, self.pages_per_slot)
+        pages = self.slot_pages[slot]
+        while len(pages) < need:
+            pid = self._take_free_page()
+            self.table[slot, len(pages)] = pid
+            pages.append(pid)
+
+    def _release_pages(self, slot: int) -> None:
+        """Return a retired slot's pages and repoint its table row at the
+        scratch page 0 (resetting pos too): the slot keeps lockstep-writing
+        in later dispatches until re-admitted, and those writes must never
+        land in pages recycled to OTHER slots.  Registered (prefix-cache)
+        pages stay in the registry at one fewer reference."""
+        for pid in self.slot_pages[slot]:
+            if self.prefix_cache and pid in self.page_hash:
+                self.page_refs[pid] -= 1
+            else:
+                self.free_pages.append(pid)
+        self.slot_pages[slot] = []
+        self.table[slot, :] = 0
+        self.pos[slot] = 0
+
+    def _write_caps(self) -> np.ndarray:
+        """Per-slot last writable position: the allocated frontier under
+        paging (a slot that keeps lockstep-writing after it is done must
+        not dereference table entries it does not own), max_len-1 for the
+        dense cache."""
+        if not self.paged:
+            return np.full(self.slots, self.max_len - 1, np.int32)
+        return np.asarray([max(len(p) * self.page - 1, 0)
+                           for p in self.slot_pages], np.int32)
+
+    def _block_writes(self, rem: int) -> int:
+        """Worst-case cache writes ONE block can make for a slot with
+        ``rem`` emission budget: K lockstep steps, but no more than the
+        budget (the early exit never writes past it; the lockstep writes of
+        a done slot clamp at its frontier).  Every occupant is fully
+        prefilled here; the JAX batcher also counts the prompt tokens an
+        in-block admission has left (slice 3b)."""
+        return min(self.steps_per_sync, rem)
+
+    def _pages_short(self, upto_pos: int, owned: int = 0) -> int:
+        """How many pages the pool must supply to cover positions
+        [0, upto_pos] given ``owned`` pages already held."""
+        return min(upto_pos // self.page + 1, self.pages_per_slot) - owned
+
+    # -- prefix cache (prefix_cache=True) ----------------------------------
+    def _prefix_lookup(self, req: _Request) -> list[int]:
+        """Longest cached chain of the request's full prompt pages, capped
+        so at least one suffix token is always left to prefill (its logits
+        seed the first emission; shared pages are never re-written)."""
+        hashes = req.prefix_hashes
+        if len(req.prompt) % self.page == 0:
+            hashes = hashes[:-1]
+        return self._registry_chain(hashes)
+
+    def _registry_chain(self, hashes: list[bytes]) -> list[int]:
+        """Pages of the longest chain prefix present in the registry."""
+        shared: list[int] = []
+        for h in hashes:
+            pid = self.registry.get(h)
+            if pid is None:
+                break
+            shared.append(pid)
+        return shared
+
+    def _register_prompt_pages(self, slot: int, req: _Request) -> None:
+        """Publish a freshly prefilled prompt's full pages.  Only pages
+        wholly covered by prompt tokens register: the partial tail page
+        takes decode writes and stays private."""
+        for i, h in enumerate(req.prefix_hashes):
+            pid = self.slot_pages[slot][i]
+            if h in self.registry or pid in self.page_hash:
+                continue  # this chain (or page) is already published
+            self.registry[h] = pid
+            self.page_hash[pid] = h
+            self.page_refs[pid] = 1
+
+    def _admit_shared(self, slot: int, req: _Request,
+                      shared: list[int]) -> torch.Tensor:
+        """Admit over cached prompt pages: the slot's table points at the
+        shared pages (refcounted, LRU-touched), fresh tail pages are
+        allocated, and only the uncached suffix prefills.  Returns the
+        last-prompt-position logits."""
+        self.stats["prefix_hits"] += 1
+        self.stats["prefix_pages_shared"] += len(shared)
+        pages = self.slot_pages[slot]
+        for i, pid in enumerate(shared):
+            self.page_refs[pid] += 1
+            h = self.page_hash[pid]
+            self.registry.pop(h)        # LRU touch: re-insert newest
+            self.registry[h] = pid
+            self.table[slot, i] = pid
+            pages.append(pid)
+        L = len(req.prompt)
+        base = len(shared) * self.page
+        # allocate through position L (decode's first write, needed next
+        # block anyway); the suffix's pad writes clamp onto row L
+        wcap = min(L, self.max_len - 1)
+        self._alloc_pages(slot, wcap)
+        last_logits = self._suffix_prefill(slot, req.prompt[base:], base,
+                                           wcap)
+        self.stats["prefill_dispatches"] += 1
+        # publish freshly prefilled full pages BEYOND the shared chain
+        self._register_prompt_pages(slot, req)
+        return last_logits
+
+    def _suffix_prefill(self, slot: int, suffix: np.ndarray, base: int,
+                        wcap: int) -> torch.Tensor:
+        """One bucketed (1, sbucket) window at positions base.. attends the
+        shared pages through the slot's table (gen.verify_step_ragged) and
+        writes its own K/V into the fresh tail pages; returns the (vocab,)
+        logits at the true last prompt position.  Pad tokens past the
+        suffix all clamp onto position ``wcap`` = the prompt length, the
+        row decode writes first (overwritten before any read)."""
+        dev = self.device
+        n = len(suffix)
+        sbucket = next(b for b in self.buckets if b >= n)
+        chunk = torch.zeros((1, sbucket), dtype=torch.long, device=dev)
+        chunk[0, :n] = torch.from_numpy(suffix.astype(np.int64))
+        pos = base + torch.arange(sbucket, device=dev)[None]
+        trow = torch.from_numpy(self.table[slot:slot + 1]).to(dev)
+        logits, _ = gen.verify_step_ragged(
+            self.params, self.cache, chunk, pos, torch.clamp(pos, max=wcap),
+            cfg=self.cfg, dtype=self.dtype, page_table=trow)
+        return logits[0, n - 1]
+
+    # -- preemption: host-swap under pool pressure -------------------------
+    def _leaves(self) -> list[torch.Tensor]:
+        """Every cache leaf (K, V and, under int8, the scale pools), in one
+        fixed order."""
+        return [t for layer in self.cache.values() for t in layer.values()]
+
+    def _evict(self, victim: int) -> None:
+        """Preempt ``victim``: its pages are copied to host memory (every
+        leaf, scales included, exactly the pages it owns) and the request
+        joins the resume queue; the pages go back to the pool."""
+        occ = self.occupant[victim]
+        pids = torch.tensor(self.slot_pages[victim], device=self.device)
+        kv = [leaf[pids].cpu() for leaf in self._leaves()]
+        self.swapped.append(_Swapped(
+            req=occ, kv=kv, n_pages=len(self.slot_pages[victim]),
+            pos=int(self.pos[victim]), last_tok=int(self.last_tok[victim])))
+        self.occupant[victim] = None
+        self._release_pages(victim)
+        self.stats["evictions"] += 1
+
+    def _ensure_pages_or_evict(self, slot: int, upto: int) -> None:
+        """Cover ``slot``'s write frontier, evicting the youngest occupant
+        (possibly ``slot`` itself) while the pool is short.  Progress is
+        guaranteed: one sequence always fits the pool (checked at init)."""
+        while True:
+            need = self._pages_short(upto, len(self.slot_pages[slot]))
+            if need <= self._avail_pages():
+                self._alloc_pages(slot, upto)
+                return
+            cands = [t for t in range(self.slots)
+                     if self.occupant[t] is not None]
+            victim = max(cands, key=lambda t: self.slot_admit_seq[t])
+            self._evict(victim)
+            if victim == slot:
+                return  # the requester itself was youngest: it waits
+
+    def _resume_swapped(self) -> None:
+        """Swap preempted requests back into free slots, oldest first, when
+        the pool can hold their pages plus the next block's writes (the
+        headroom keeps them from being evicted again at once)."""
+        for slot in range(self.slots):
+            if not self.swapped:
+                break
+            if self.occupant[slot] is not None:
+                continue
+            sw = self.swapped[0]
+            rem = sw.req.max_new - len(sw.req.emitted)
+            upto = min(sw.pos + self._block_writes(rem),
+                       self.max_len - 1)
+            if self._avail_pages() < max(self._pages_short(upto),
+                                         sw.n_pages):
+                break
+            self.swapped.popleft()
+            self._alloc_pages(slot, sw.n_pages * self.page - 1)
+            pids = torch.from_numpy(
+                self.table[slot, :sw.n_pages].astype(np.int64)).to(
+                    self.device)
+            for leaf, host in zip(self._leaves(), sw.kv):
+                leaf[pids] = host.to(self.device)
+            self.occupant[slot] = sw.req
+            self._set_slot_params(slot, sw.req)
+            self.pos[slot] = sw.pos
+            self.last_tok[slot] = sw.last_tok
+            self._alloc_pages(slot, upto)
+            self.stats["swap_ins"] += 1
+
+    def _hold_for_resume(self) -> bool:
+        """True while a preempted request waits on the resume queue: new
+        admissions hold so freed pages accumulate for the oldest victim's
+        swap-in instead of being taken by younger arrivals."""
+        return self.paged and bool(self.swapped)
+
     # -- admission --------------------------------------------------------
     def _prefill(self, prompt: np.ndarray):
         """Bucketed prefill of one prompt into a (1, Hkv, bucket, Dh)
@@ -301,6 +650,21 @@ class ContinuousBatcher:
                 small = slab[name][leaf]
                 big[slot, :, :small.shape[2]] = small[0]
 
+    def _insert_paged(self, slab, slot: int) -> None:
+        """Write a prefill's (1, Hkv, bucket, Dh) slabs into this slot's
+        OWNED pages, page by page.  Allocation is by prompt length, so a
+        padded bucket wider than the owned pages writes only the chunks
+        the slot owns: the padded tail is never read (pos bound)."""
+        bucket = next(iter(slab.values()))["k"].shape[2]
+        n = min(-(-bucket // self.page), len(self.slot_pages[slot]))
+        pids = [int(p) for p in self.table[slot, :n]]
+        for name, layer in self.cache.items():
+            for leaf, big in layer.items():
+                small = slab[name][leaf][0]
+                for c, pid in enumerate(pids):
+                    rows = small[:, c * self.page:(c + 1) * self.page]
+                    big[pid, :, :rows.shape[1]] = rows
+
     def _sample_first(self, req: _Request, last_logits) -> int:
         """Sample a freshly-admitted request's first token with ITS
         sampling parameters."""
@@ -311,29 +675,64 @@ class ContinuousBatcher:
             torch.full((1,), req.top_k, dtype=torch.int32, device=dev),
             torch.full((1,), req.top_p, device=dev))[0])
 
+    def _set_slot_params(self, slot: int, req: _Request) -> None:
+        self.slot_temp[slot] = req.temperature
+        self.slot_topk[slot] = req.top_k
+        self.slot_topp[slot] = req.top_p
+        self.slot_eos[slot] = -1 if req.eos_id is None else req.eos_id
+        if self.paged:
+            # admission order; preemption evicts the youngest occupant
+            self._admit_counter += 1
+            self.slot_admit_seq[slot] = self._admit_counter
+
     def _occupy(self, slot: int, req: _Request, first_tok: int,
                 out: list) -> None:
         """Install a prefilled request into its slot and emit token 0."""
         self.occupant[slot] = req
         self.pos[slot] = len(req.prompt) - 1
-        self.slot_temp[slot] = req.temperature
-        self.slot_topk[slot] = req.top_k
-        self.slot_topp[slot] = req.top_p
-        self.slot_eos[slot] = -1 if req.eos_id is None else req.eos_id
+        self._set_slot_params(slot, req)
         self.stats["batch_admissions"] += 1
         self._emit(slot, first_tok, out)
 
     def _fill_free_slots(self) -> list[tuple[int, int]]:
         """Prefill queued requests into free slots, one bucketed prefill
-        each; returns the (rid, first token) pairs."""
+        each (a suffix prefill over cached pages under prefix caching);
+        returns the (rid, first token) pairs.  When the page pool cannot
+        hold the prompt, or a preempted request waits to resume, the queue
+        WAITS instead of raising."""
+        if self._hold_for_resume():
+            return []
         out: list[tuple[int, int]] = []
         for slot in range(self.slots):
             if self.occupant[slot] is not None or not self.queue:
                 continue
+            head = self.queue[0]
+            L = len(head.prompt)
+            shared = self._prefix_lookup(head) if self.prefix_cache else []
+            if self.paged:
+                # shared admissions allocate through position L (the
+                # suffix pad's clamp row, = decode's first write); idle
+                # shared pages must not count as reclaimable (that would
+                # destroy the very prefix about to be reused)
+                upto = min(L, self.max_len - 1) if shared else L - 1
+                shared_idle = sum(1 for pid in shared
+                                  if self.page_refs.get(pid, 0) == 0)
+                if (self._avail_pages() - shared_idle
+                        < self._pages_short(upto) - len(shared)):
+                    break  # pool full: hold admissions until pages free
             req = self.queue.popleft()
-            last_logits, slab = self._prefill(req.prompt)
-            self.stats["prefill_dispatches"] += 1
-            self._insert(slab, slot)
+            if shared:
+                last_logits = self._admit_shared(slot, req, shared)
+            else:
+                last_logits, slab = self._prefill(req.prompt)
+                self.stats["prefill_dispatches"] += 1
+                if self.paged:
+                    self._alloc_pages(slot, L - 1)
+                    self._insert_paged(slab, slot)
+                    if self.prefix_cache:
+                        self._register_prompt_pages(slot, req)
+                else:
+                    self._insert(slab, slot)
             self._occupy(slot, req, self._sample_first(req, last_logits),
                          out)
         return out
@@ -350,26 +749,33 @@ class ContinuousBatcher:
             req.done = True
             req.t_done = time.perf_counter()
             self.occupant[slot] = None  # slot free; stale K/V never read
+            if self.paged:
+                self._release_pages(slot)
         else:
             self.last_tok[slot] = tok
 
     # -- the decode block -------------------------------------------------
-    def _decode_block(self, budget: np.ndarray, pos: np.ndarray):
-        """Run up to ``steps_per_sync`` lockstep ragged decode steps for
-        the whole pool.  Per-slot state stays on the device; the loop
-        checks once per step whether every slot is done.  Returns device
-        tensors (tokens (K, slots), emit mask (K, slots), last written
-        position per slot) and the number of steps executed."""
-        dev, k_steps, n = self.device, self.steps_per_sync, self.slots
-        tok = torch.from_numpy(self.last_tok.astype(np.int64)).to(dev)
-        pos_d = torch.from_numpy(pos).to(dev)
-        rem = torch.from_numpy(budget).to(dev)
-        temp = torch.from_numpy(self.slot_temp).to(dev)
-        topk = torch.from_numpy(self.slot_topk).to(dev)
-        topp = torch.from_numpy(self.slot_topp).to(dev)
-        eos = torch.from_numpy(self.slot_eos).to(dev)
-        cap = self.max_len - 1
-        done = rem <= 0  # empty slots enter done
+    def _decode_block(self, st: dict[str, np.ndarray]):
+        """Run up to ``steps_per_sync`` lockstep ragged decode steps over
+        the dispatch's rows, staged in ``st`` (per row: input token, write
+        position, budget, sampling parameters, write cap and, paged, the
+        block-table row).  Per-row state stays on the device; the loop
+        checks once per step whether every row is done.  A done row keeps
+        computing in lockstep with its writes clamped at its cap.  Returns
+        device tensors (tokens (K, w), emit mask (K, w), last written
+        position per row) and the number of steps executed."""
+        dev, k_steps = self.device, self.steps_per_sync
+
+        def up(key, dtype=None):
+            a = st[key] if dtype is None else st[key].astype(dtype)
+            return torch.from_numpy(a).to(dev)
+
+        tok, pos_d, rem = up("tok", np.int64), up("pos"), up("rem")
+        temp, topk, topp, eos = up("temp"), up("topk"), up("topp"), up("eos")
+        cap = up("cap")
+        table = up("table") if self.paged else None
+        n = len(st["pos"])
+        done = rem <= 0  # empty and pad rows enter done
         lw = pos_d.clone()
         buf = torch.zeros((k_steps, n), dtype=torch.int32, device=dev)
         mask = torch.zeros((k_steps, n), dtype=torch.bool, device=dev)
@@ -377,7 +783,8 @@ class ContinuousBatcher:
         while steps < k_steps and not bool(done.all()):
             logits, _ = gen.decode_step_ragged(
                 self.params, self.cache, tok, pos_d, cfg=self.cfg,
-                dtype=self.dtype, use_decode_kernel=self.use_kernel)
+                dtype=self.dtype, use_decode_kernel=self.use_kernel,
+                page_table=table)
             toks = gen.sample_per_seq(self.generator, logits, temp, topk,
                                       topp)
             emit = ~done
@@ -387,62 +794,106 @@ class ContinuousBatcher:
             fin = emit & (((toks == eos) & (eos >= 0)) | (rem <= 0))
             lw = torch.where(emit, pos_d, lw)
             done = done | fin
-            pos_d = torch.clamp(pos_d + 1, max=cap)
+            pos_d = torch.minimum(pos_d + 1, cap)
             tok = toks.long()
             steps += 1
         return buf, mask, lw, steps
 
+    def _stage(self, live: list[int], budget: np.ndarray,
+               pos: np.ndarray):
+        """Per-row staging of one decode block: (st, cols, w).  Full width
+        by default; with drained-tail compaction (paged, nothing queued or
+        swapped, at most half the slots live) a power-of-two number of rows
+        holding only the live slots, the pad rows dead (budget 0, cap 0,
+        pos 0, table row 0: done at step 0, their clamped writes on the
+        scratch page)."""
+        st = {"tok": self.last_tok, "pos": pos, "rem": budget,
+              "temp": self.slot_temp, "topk": self.slot_topk,
+              "topp": self.slot_topp, "eos": self.slot_eos,
+              "cap": self._write_caps()}
+        if self.paged:
+            st["table"] = self.table
+        compact = (self.compact_tail and self.paged and not self.queue
+                   and not self.swapped and len(live) <= self.slots // 2)
+        if not compact:
+            return ({k: np.array(a) for k, a in st.items()},
+                    {s: s for s in live}, self.slots)
+        w = 1 << max(len(live) - 1, 0).bit_length()
+        sel = np.asarray(live + [live[0]] * (w - len(live)))
+        st = {k: np.asarray(a)[sel] for k, a in st.items()}
+        for key in ("rem", "cap", "pos", "table"):
+            st[key][len(live):] = 0
+        self.stats["compact_dispatches"] += 1
+        return st, {s: j for j, s in enumerate(live)}, w
+
     def step(self) -> list[tuple[int, int]]:
-        """Admit queued work into free slots (batched prefill), then run
-        one decode block for the whole pool.  Returns the (rid, token)
-        pairs emitted this call, in per-slot sampling order."""
+        """Swap preempted requests back in, admit queued work into free
+        slots (batched prefill), pre-allocate every live slot's pages for
+        the block's worst-case writes (evicting the youngest occupant when
+        the pool is short), then run one decode block.  Returns the (rid,
+        token) pairs emitted this call, in per-slot sampling order."""
         out: list[tuple[int, int]] = []
         t_plan = time.perf_counter()
         if (self.schedule == "longest_first" and self._queue_dirty
                 and len(self.queue) > 1):
             self.queue = deque(sorted(self.queue, key=lambda r: -r.max_new))
         self._queue_dirty = False
+        if self.paged and self.swapped:
+            self._resume_swapped()  # preempted requests take priority
         self.timers.add("host_plan", time.perf_counter() - t_plan)
         with self.timers.phase("prefill"):
             out += self._fill_free_slots()
         t_plan = time.perf_counter()
         live = [s for s in range(self.slots) if self.occupant[s] is not None]
-        if not live:
-            self.timers.add("host_plan", time.perf_counter() - t_plan)
-            return out
         budget = np.zeros(self.slots, np.int32)
         pos = self.pos.copy()
         for s in live:
             occ = self.occupant[s]
             budget[s] = occ.max_new - len(occ.emitted)
             pos[s] = min(pos[s] + 1, self.max_len - 1)  # next write
+        if self.paged:
+            # pages covering this block's write frontier, pos + min(K,
+            # budget) - 1: a slot that finishes early clamps at its
+            # frontier, so the block never needs pages past its real writes
+            for s in live:
+                if self.occupant[s] is None:
+                    continue  # evicted as an earlier slot's victim
+                upto = min(int(pos[s]) + self._block_writes(int(budget[s]))
+                           - 1, self.max_len - 1)
+                self._ensure_pages_or_evict(s, upto)
+            live = [s for s in live if self.occupant[s] is not None]
+            budget[[s for s in range(self.slots)
+                    if self.occupant[s] is None]] = 0
+        if not live:
+            self.timers.add("host_plan", time.perf_counter() - t_plan)
+            return out
+        st, cols, w = self._stage(live, budget, pos)
         self.timers.add("host_plan", time.perf_counter() - t_plan)
         with self.timers.phase("dispatch"):
-            buf, mask, lw, steps = self._decode_block(budget, pos)
+            buf, mask, lw, steps = self._decode_block(st)
         with self.timers.phase("fetch"):
             # one device->host transfer for the whole block
             host = torch.cat([buf.reshape(-1),
                               mask.to(torch.int32).reshape(-1),
                               lw]).cpu().numpy()
-        kn = self.steps_per_sync * self.slots
-        toks = host[:kn].reshape(self.steps_per_sync, self.slots)
-        mask = host[kn:2 * kn].reshape(self.steps_per_sync,
-                                       self.slots).astype(bool)
+        kn = self.steps_per_sync * w
+        toks = host[:kn].reshape(self.steps_per_sync, w)
+        mask = host[kn:2 * kn].reshape(self.steps_per_sync, w).astype(bool)
         lw = host[2 * kn:]
         with self.timers.phase("host_parse"):
             emitted_before = self.stats["emitted_tokens"]
             for s in live:
+                j = cols[s]
                 for i in range(steps):
-                    if mask[i, s] and self.occupant[s] is not None:
-                        self._emit(s, int(toks[i, s]), out)
+                    if mask[i, j] and self.occupant[s] is not None:
+                        self._emit(s, int(toks[i, j]), out)
                 if self.occupant[s] is not None:
-                    self.pos[s] = int(lw[s])
+                    self.pos[s] = int(lw[j])
             self.stats["decode_dispatches"] += 1
             self.stats["decode_steps"] += steps
-            self.stats["slot_steps"] += steps * self.slots
+            self.stats["slot_steps"] += steps * w
             self.stats["wasted_slot_steps"] += (
-                steps * self.slots
-                - (self.stats["emitted_tokens"] - emitted_before))
+                steps * w - (self.stats["emitted_tokens"] - emitted_before))
         return out
 
     def run(self, prompts, max_new: int = 128) -> dict[int, np.ndarray]:

@@ -27,6 +27,16 @@ TCFG = ttfm.TransformerConfig(**SHAPE)
 TOL = dict(atol=1e-4, rtol=1e-4)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for these tiny CPU shapes: parallel test workers
+    each running torch's default thread pool oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def params():
     jp = jtfm.init(jax.random.key(0), JCFG)
@@ -217,14 +227,144 @@ def test_unported_modes_are_refused(params):
     c = tgen.init_cache(TCFG, 2, 16, device="cpu")
     tok = torch.zeros((2, 3), dtype=torch.long)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tgen._forward_cached(tp, c, tok, torch.zeros((2, 3)),
-                             torch.zeros((2, 3)), cfg=TCFG)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tgen._forward_cached(tp, c, tok[:, :1], torch.zeros((2, 1)),
-                             torch.zeros(2), cfg=TCFG,
-                             page_table=torch.zeros((2, 1)))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tgen.decode_step(tp, c, tok[:, 0], 0, cfg=TCFG, tp_axis="model")
     with pytest.raises(ValueError, match="k_len"):
         tgen.decode_step(tp, c, tok[:, 0], 0, cfg=TCFG, k_len=4,
                          use_decode_kernel=True)
+
+
+# -- the paged pool and the multi-token ragged window ----------------------
+
+PAGE = 128
+
+
+def _pool_case(seed, kv_dtype=None, n_pages=7, b=3):
+    """A JAX (P, Hkv, PAGE, Dh) pool pair filled with seeded noise (int8:
+    the JAX quantizer's values and scales) and a shuffled (B, 2) table
+    over pages 1.. (page 0 stays scratch)."""
+    rng = np.random.default_rng(seed)
+    shape = (n_pages, 2, PAGE, 32)
+    pool = {}
+    for i in range(TCFG.n_layers):
+        kv = {n: jnp.asarray(rng.standard_normal(shape), jnp.float32)
+              for n in ("k", "v")}
+        if kv_dtype is not None:
+            kq, ks = jgen.quantize_kv(kv["k"])
+            vq, vs = jgen.quantize_kv(kv["v"])
+            kv = {"k": kq, "v": vq, "ks": ks, "vs": vs}
+        pool[f"layer{i}"] = kv
+    table = (rng.permutation(n_pages - 1)[:2 * b] + 1).astype(
+        np.int32).reshape(b, 2)
+    return pool, table
+
+
+def _leaves_close(tc, jc, skip=None, tol=None):
+    """Every leaf of the port's cache against the JAX one; ``skip`` is an
+    index expression of rows whose contents may differ (colliding clamped
+    writes, resolved arbitrarily on both sides)."""
+    for name, layer in jc.items():
+        for leaf, ja in layer.items():
+            want = np.array(ja)
+            got = tc[name][leaf].numpy()
+            if skip is not None:
+                want[skip] = got[skip] = 0
+            if want.dtype == np.int8:  # one quantization level at most
+                assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+            else:
+                np.testing.assert_allclose(got, want, **(tol or TOL))
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_paged_single_token_decode_matches_jax(params, kv_dtype):
+    """One ragged decode step through a block table: the new K/V row of
+    sequence b lands in pool page table[b, pos // PAGE] at row pos % PAGE
+    on both sides, and attention reads through the table (the JAX Pallas
+    paged kernel in interpret mode; the port's plain paged version).
+    f32: logits within 1e-5 abs + rel and the written pool leaves equal to
+    1e-5.  int8: logits to 1e-3 and leaves within one quantization level
+    (the int8 note of the prefill test above)."""
+    jp, tp = params
+    tol = (dict(atol=1e-5, rtol=1e-5) if kv_dtype is None
+           else dict(atol=1e-3, rtol=1e-3))
+    jpool, table = _pool_case(5, kv_dtype)
+    tpool = convert.from_jax_cache(jpool, device="cpu")
+    rng = np.random.default_rng(6)
+    tok = rng.integers(0, 256, (3,)).astype(np.int32)
+    pos = np.array([5, 130, 255], np.int32)  # page 0, page 1, the last row
+    jl, jpool = jgen.decode_step_ragged(
+        jp, jpool, jnp.asarray(tok), jnp.asarray(pos), cfg=JCFG,
+        use_decode_kernel=True, page_table=jnp.asarray(table))
+    tl, tpool = tgen.decode_step_ragged(
+        tp, tpool, torch.from_numpy(tok).long(), torch.from_numpy(pos),
+        cfg=TCFG, use_decode_kernel=True,
+        page_table=torch.from_numpy(table))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **tol)
+    _leaves_close(tpool, jpool, tol=dict(atol=1e-5, rtol=1e-5))
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_multi_token_window_matches_jax(params, paged):
+    """``verify_step_ragged``: a (B, W) window at per-sequence positions,
+    each token written at its own (B, W) ``write_pos`` in one scatter,
+    through the table when paged, with a ``k_len`` live-depth hint, and
+    with the last tokens of each row clamped onto one duplicate write row
+    (the suffix prefill's pad clamp).  Logits of the rows below the clamp
+    (the only ones whose reads are defined) within 1e-5 abs + rel; every
+    cache row but the colliding ones equal to 1e-5."""
+    jp, tp = params
+    rng = np.random.default_rng(7)
+    b, w = 3, 6
+    base = np.array([0, 100, 190], np.int32)
+    pos = base[:, None] + np.arange(w, dtype=np.int32)[None]
+    wcap = base + 3                       # tokens 3..5 all write row base+3
+    write_pos = np.minimum(pos, wcap[:, None])
+    tokens = rng.integers(0, 256, (b, w)).astype(np.int32)
+    if paged:
+        jc, table = _pool_case(8)
+        kw = dict(page_table=table, k_len=200)
+    else:
+        jc = jgen.init_cache(JCFG, b, 256)
+        jc = {n: {k: jnp.asarray(rng.standard_normal(a.shape), a.dtype)
+                  for k, a in layer.items()} for n, layer in jc.items()}
+        kw = dict(k_len=200)
+    tc = convert.from_jax_cache(jc, device="cpu")
+    jkw = {k: jnp.asarray(v) if k == "page_table" else v
+           for k, v in kw.items()}
+    tkw = {k: torch.from_numpy(v) if k == "page_table" else v
+           for k, v in kw.items()}
+    jl, jc = jgen.verify_step_ragged(jp, jc, jnp.asarray(tokens),
+                                     jnp.asarray(pos), jnp.asarray(write_pos),
+                                     cfg=JCFG, **jkw)
+    tl, tc = tgen.verify_step_ragged(tp, tc, torch.from_numpy(tokens).long(),
+                                     torch.from_numpy(pos),
+                                     torch.from_numpy(write_pos), cfg=TCFG,
+                                     **tkw)
+    assert tl.shape == (b, w, 256)
+    ok = pos < wcap[:, None]
+    np.testing.assert_allclose(tl.numpy()[ok], np.asarray(jl)[ok],
+                               atol=1e-5, rtol=1e-5)
+    if paged:
+        rows = table[np.arange(b), wcap // PAGE], slice(None), wcap % PAGE
+    else:
+        rows = np.arange(b), slice(None), wcap
+    _leaves_close(tc, jc, skip=rows, tol=dict(atol=1e-5, rtol=1e-5))
+
+
+def test_paged_guards_match_jax(params):
+    """The JAX guards: a page table needs ragged positions and, for
+    single-token decode, the kernel path; a paged multi-token window needs
+    (B, S) per-token write positions."""
+    _, tp = params
+    pool = tgen.init_paged_cache(TCFG, 3, PAGE, device="cpu")
+    table = torch.ones((2, 1), dtype=torch.int32)
+    tok = torch.zeros((2, 3), dtype=torch.long)
+    with pytest.raises(ValueError, match="kernel path"):
+        tgen.decode_step_ragged(tp, pool, tok[:, 0], torch.zeros(2),
+                                cfg=TCFG, page_table=table)
+    with pytest.raises(ValueError, match="ragged"):
+        tgen._forward_cached(tp, pool, tok[:, :1], torch.zeros(1), 0,
+                             cfg=TCFG, use_decode_kernel=True,
+                             page_table=table)
+    with pytest.raises(ValueError, match=r"\(B, S\)"):
+        tgen.verify_step_ragged(tp, pool, tok, torch.zeros((2, 3)),
+                                torch.zeros(2), cfg=TCFG, page_table=table)

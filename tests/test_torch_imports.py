@@ -1,6 +1,8 @@
 """The port stands alone: importing every module of
-distributed_pytorch_tpu_torch pulls in neither JAX nor the JAX package."""
+distributed_pytorch_tpu_torch pulls in neither JAX nor the JAX package, and
+no source of the port, nor chip_smoke.py, names either in an import."""
 
+import ast
 import json
 import subprocess
 import sys
@@ -15,6 +17,12 @@ names = [m.name for m in
          pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
 for n in names:
     importlib.import_module(n)
+from distributed_pytorch_tpu_torch import generate, serve
+from distributed_pytorch_tpu_torch.ops import attention
+for fn in (attention.decode_attention_paged,
+           attention.decode_attention_paged_plain, generate.init_paged_cache,
+           generate.verify_step_ragged, serve.prefix_page_hashes):
+    assert callable(fn)
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib") or m.startswith(("jax.", "jaxlib."))
              or m == "distributed_pytorch_tpu"
@@ -33,3 +41,27 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "lm_cli", "ops.nn", "ops.losses", "data.lm_corpus"):
         assert f"distributed_pytorch_tpu_torch.{mod}" in got["modules"]
     assert got["bad"] == [], f"the port imported {got['bad']}"
+
+
+def _banned(name: str) -> bool:
+    return name.split(".")[0] in ("jax", "jaxlib", "distributed_pytorch_tpu")
+
+
+def test_port_sources_and_chip_smoke_import_no_jax():
+    """Every import statement of the port's sources and of chip_smoke.py,
+    at any depth (kernels import lazily inside functions), names neither
+    JAX nor the JAX package."""
+    files = sorted((ROOT / "distributed_pytorch_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    bad = []
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text(), filename=str(f))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            bad += [f"{f.relative_to(ROOT)}:{node.lineno} {n}"
+                    for n in names if _banned(n)]
+    assert len(files) > 10 and bad == [], bad
