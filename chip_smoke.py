@@ -40,7 +40,21 @@ Phases, each of which raises on failure:
      without compaction (tokens equal to phase 5's, request by request),
      with compaction, on an oversubscribed pool, the int8 pool (K9), and a
      shared-system-prompt load with and without the prefix cache; every
-     decode step through K8/K9 once per layer and never through K6/K7.
+     decode step through K8/K9 once per layer and never through K6/K7;
+ 12. the fused BN+ReLU backward kernels (K1a sums, K1b da) against their
+     plain version on the eight VGG-11 batch-256 BN shapes and TINY widths
+     (f32 and bf16), row counts no block size divides, and rows whose
+     forward y lands on 0 or an ulp from it: masks element for element,
+     two runs bitwise equal; timed per layer beside their byte bounds, the
+     plain closed form and aten's native_batch_norm_backward;
+ 13. a VGG-11 f32 train step with fused_bn=True against the plain one on
+     the same weights and batch (loss bitwise, gradients and the params
+     after 10 SGD steps within stated bounds, K1a/K1b once per BN layer),
+     then alternated fused/plain bf16 windows (ms/step, device time, idle
+     share, peak memory);
+ 14. VGG-11 one epoch of synthetic CIFAR-10 through the port's cli (f32 and
+     bf16): the reference's time windows, samples/s, mfu, idle share,
+     falling loss and test accuracy above chance.
 The second-to-last lines are the kernels' JSON record and the card's name
 and power limit; the last line is {"ok": true, "device": {...}}.
 
@@ -1284,6 +1298,590 @@ def paged_serving(torch, port, dense_tokens) -> dict:
     return res
 
 
+# -- phases 12-14: the VGG-training slice ----------------------------------
+
+BN_KERNELS = ("K1a", "K1b")
+VGG_BATCH = 256  # the reference's batch (main.py:18)
+
+
+def vgg_bn_layers(vgg, name: str, batch: int) -> list[tuple[int, int, int]]:
+    """(N, H, C) of every BatchNorm of ``name`` at ``batch``: the (M, C)
+    rows K1a/K1b see are M = N * H * H (32x32 input, a 2x2 pool per 'M')."""
+    h, out = 32, []
+    for c in vgg.CFG[name]:
+        if c == "M":
+            h //= 2
+        else:
+            out.append((batch, h, c))
+    return out
+
+
+def vgg11_train_flops_per_sample() -> float:
+    """bench.py's analytic training FLOPs per sample of VGG-11 on 32x32:
+    conv MACs H*W*Cin*Cout*9 per stage plus the fc head, x2 FLOPs/MAC, x3
+    for forward, input gradient and weight gradient (BN/ReLU/pool
+    excluded) = 916.6 MFLOP."""
+    cfg = [(32, 3, 64), (16, 64, 128), (8, 128, 256), (8, 256, 256),
+           (4, 256, 512), (4, 512, 512), (2, 512, 512), (2, 512, 512)]
+    macs = sum(h * h * cin * cout * 9 for h, cin, cout in cfg) + 512 * 10
+    return 2 * 3 * macs
+
+
+def ulp_neighbours(torch, e):
+    """The representable values just above and just below |e| (sign kept),
+    in e's dtype."""
+    itype = torch.int32 if e.dtype == torch.float32 else torch.int16
+    mag = e.abs().contiguous().view(itype)
+    sign = torch.where(e < 0, -1.0, 1.0).to(e.dtype)
+    up = (mag + 1).view(e.dtype) * sign
+    down = torch.where(mag > 0, mag - 1, mag).view(e.dtype) * sign
+    return up, down
+
+
+def bn_case(torch, m: int, c: int, dtype, seed: int):
+    """(dr, a, mean, rstd, gamma, beta) on the device: (M, C) rows with
+    per-channel scale and shift, their batch statistics, and every 7th row
+    set so the forward's y lands exactly on 0 (a = mean where beta = 0),
+    near 0 through beta (a = mean - beta / inv), or one ulp either side of
+    that; |dr| in [0.5, 2] so a flipped mask shows in da."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=DEVICE)
+
+    def uni(*shape):
+        return torch.rand(shape, generator=g, device=DEVICE)
+
+    a = (rnd(m, c) * (0.5 + uni(c)) + 0.3 * rnd(c)).to(dtype)
+    gamma = 1.0 + 0.2 * rnd(c)
+    beta = 0.2 * rnd(c)
+    beta[: c // 4] = 0.0
+    a32 = a.float()
+    mean = a32.mean(0)
+    rstd = torch.rsqrt((a32 * a32).mean(0) - mean * mean + 1e-5)
+    inv_t = (rstd * gamma).to(dtype).float()
+    edge = (mean.to(dtype).float() - beta.to(dtype).float() / inv_t).to(dtype)
+    up, down = ulp_neighbours(torch, edge)
+    a[0::7] = mean.to(dtype)
+    a[3::7] = edge
+    a[4::7] = up
+    a[5::7] = down
+    dr = ((0.5 + 1.5 * uni(m, c))
+          * torch.where(uni(m, c) < 0.5, -1.0, 1.0)).to(dtype)
+    return dr, a, mean, rstd, gamma, beta
+
+
+def bn_check_case(torch, fb, nn, m, c, dtype, seed) -> dict:
+    """K1a/K1b against bn_relu_bwd_plain on one case: s1, s2 within 1e-5 of
+    max|s| (summation order), da float32 within 1e-5 of max|da| and bf16
+    within one bf16 ulp of the plain value (plus the float32 bound), the
+    masks element for element (read back from da: dy = da / (gamma rstd) +
+    (s1 + xhat s2) / M), and a second run bitwise equal."""
+    dr, a, mean, rstd, gamma, beta = bn_case(torch, m, c, dtype, seed)
+    args = (dr, a, mean, rstd, gamma, beta)
+    s1, s2 = fb.bn_relu_bwd_reduce(*args)
+    da = fb.bn_relu_bwd_apply(*args, s1, s2)
+    s1b, s2b = fb.bn_relu_bwd_reduce(*args)
+    dab = fb.bn_relu_bwd_apply(*args, s1b, s2b)
+    ra, rg, rb = fb.bn_relu_bwd_plain(*args)
+    sync(torch)
+    sum_ratio = max(((got - ref).abs().max() / (1e-5 * ref.abs().max()))
+                    .item() for got, ref in ((s1, rb), (s2, rg)))
+    sum_err = max((got - ref).abs().max().item()
+                  for got, ref in ((s1, rb), (s2, rg)))
+    ref = ra.float()
+    err = (da.float() - ref).abs()
+    tol = 1e-5 * ref.abs().max()
+    if dtype == torch.bfloat16:
+        _, e = torch.frexp(ref)
+        tol = tol + torch.where(ref != 0, torch.ldexp(torch.ones_like(ref),
+                                                      e - 8), 0.0)
+    y = nn.normalize(a, mean, (rstd * gamma).to(dtype), beta)
+    xhat = (a.float() - mean) * rstd
+    dy = da.float() / (gamma * rstd) + (s1 + xhat * s2) / m
+    return {"K1a": (sum_err, sum_ratio),
+            "K1b": (err.max().item(), (err / tol).max().item()),
+            "mask_mismatches": int(((dy.abs() > 0.25) != (y > 0)).sum()),
+            "y_zero": int((y == 0).sum()),
+            # within a few ulps of 0, i.e. of beta's rounding residue
+            "y_tiny": int(((y != 0) & (y.float().abs() <= 8 * torch.finfo(
+                dtype).eps * beta.abs())).sum()),
+            "bitwise_repeat": bool(torch.equal(s1, s1b)
+                                   and torch.equal(s2, s2b)
+                                   and torch.equal(da, dab))}
+
+
+def check_bn_kernels(torch, fb, nn, vgg) -> dict:
+    """Phase 12's agreement cases: the eight VGG-11 batch-256 BN shapes
+    (five distinct) and three TINY widths (C 8, 16, 32), in float32 and
+    bfloat16, and three row counts that are no multiple of any block, all
+    with rows on the ReLU's edge; then the 4-D path of bn_relu_bwd, with a
+    gradient that is not channels_last (one counted copy)."""
+    shapes = sorted({(n * h * h, c) for n, h, c in
+                     vgg_bn_layers(vgg, "VGG11", VGG_BATCH)}, reverse=True)
+    shapes += [(n * h * h, c) for n, h, c in
+               vgg_bn_layers(vgg, "TINY", VGG_BATCH)[::3]]
+    cases = [(m, c, dt) for m, c in shapes
+             for dt in (torch.float32, torch.bfloat16)]
+    cases += [(100003, 64, torch.float32), (777, 512, torch.bfloat16),
+              (12345, 8, torch.float32)]
+    worst = {k: [0.0, 0.0] for k in BN_KERNELS}
+    for i, (m, c, dt) in enumerate(cases):
+        res = bn_check_case(torch, fb, nn, m, c, dt, seed=200 + i)
+        print(f"  {str(dt)[6:]:8s} M={m:6d} C={c:3d}: s1/s2 "
+              f"{res['K1a'][1]:.3f} of tol, da {res['K1b'][1]:.3f} of tol, "
+              f"{res['mask_mismatches']} mask mismatches, y==0 "
+              f"{res['y_zero']}, 0<|y|<=8eps|beta| {res['y_tiny']}, repeat "
+              f"bitwise {res['bitwise_repeat']}")
+        for k in BN_KERNELS:
+            worst[k][0] = max(worst[k][0], res[k][0])
+            worst[k][1] = max(worst[k][1], res[k][1])
+        if not (res["K1a"][1] <= 1.0 and res["K1b"][1] <= 1.0):
+            fail(f"K1a/K1b disagree with bn_relu_bwd_plain at M={m} C={c} "
+                 f"{dt}: {res}")
+        if res["mask_mismatches"] or not res["bitwise_repeat"]:
+            fail(f"K1a/K1b masks or repeatability at M={m} C={c} {dt}: "
+                 f"{res}")
+        if not (res["y_zero"] and res["y_tiny"]):
+            fail(f"the case M={m} C={c} {dt} has no y on or next to 0")
+    # the 4-D path: channels_last activation, a gradient in NCHW order
+    n, h, c = 32, 16, 128
+    dr, a, mean, rstd, gamma, beta = bn_case(torch, n * h * h, c,
+                                             torch.float32, 300)
+    a4 = a.view(n, h, h, c).permute(0, 3, 1, 2)
+    dr4 = dr.view(n, h, h, c).permute(0, 3, 1, 2).contiguous()
+    copies = fb.bn_relu_bwd.copies
+    got = fb.bn_relu_bwd(dr4, a4, mean, rstd, gamma, beta)
+    want = fb.bn_relu_bwd_plain(dr4, a4, mean, rstd, gamma, beta)
+    sync(torch)
+    if fb.bn_relu_bwd.copies != copies + 1 or not \
+            got[0].is_contiguous(memory_format=torch.channels_last):
+        fail("bn_relu_bwd's 4-D path: copy count or da layout wrong")
+    err = (got[0] - want[0]).abs().max().item()
+    if not err <= 1e-5 * want[0].abs().max().item():
+        fail(f"bn_relu_bwd's 4-D path disagrees with the plain version: "
+             f"{err}")
+    print(f"  K1a/K1b agree with bn_relu_bwd_plain in all {len(cases)} "
+          f"cases and on the 4-D path (one counted copy of an NCHW dr)")
+    return {k: {"max_abs_err": e, "err_over_tol": r}
+            for k, (e, r) in worst.items()}
+
+
+def _rotation(torch, fb, nn, n, h, c, dtype, nbytes_each: int) -> list:
+    """Enough independent input sets of one layer to rotate past the 50 MB
+    L2: (args, (s1, s2), dy4, a4) per set, dy4 the masked gradient as the
+    library call takes it."""
+    sets = []
+    for i in range(max(2, math.ceil(150e6 / nbytes_each))):
+        args = bn_case(torch, n * h * h, c, dtype, 400 + i)
+        s = fb.bn_relu_bwd_reduce(*args)
+        dr, a, mean, rstd, gamma, beta = args
+        y = nn.normalize(a, mean, (rstd * gamma).to(dtype), beta)
+        dy = torch.where(y > 0, dr, torch.zeros((), dtype=dtype,
+                                                device=DEVICE))
+        sets.append((args, s) + tuple(t.view(n, h, h, c).permute(0, 3, 1, 2)
+                                      for t in (dy, a)))
+    return sets
+
+
+def time_bn_kernels(torch, fb, nn, vgg, facts) -> dict:
+    """K1a and K1b at every VGG-11 batch-256 BN layer, float32 and bf16,
+    inputs rotated past the L2: device ms by CUDA events beside the byte
+    bound (each input read once, each output written once, over the
+    memory rate), the plain closed form (bn_relu_bwd_plain, both kernels'
+    work) and the library yardstick: aten native_batch_norm_backward in
+    train mode, given the saved mean and invstd, on the already-masked dy
+    (it has no ReLU mask; the port never calls it).  Reported per layer,
+    for the largest layer and summed over the eight."""
+    out = {}
+    layers = vgg_bn_layers(vgg, "VGG11", VGG_BATCH)
+    launches0 = (fb.bn_relu_bwd_reduce.launches,
+                 fb.bn_relu_bwd_apply.launches)
+    for dtype in (torch.bfloat16, torch.float32):
+        dt, isz = str(dtype)[6:], torch.finfo(dtype).bits // 8
+        rows, tot = [], {k: 0.0 for k in ("K1a", "K1b", "plain", "library",
+                                          "bound_K1a", "bound_K1b")}
+        timed = {}
+        for n, h, c in layers:
+            key = (n, h, c)
+            if key not in timed:
+                m = n * h * h
+                sets = _rotation(torch, fb, nn, n, h, c, dtype,
+                                 2 * m * c * isz)
+                it = [0]
+
+                def pick():
+                    it[0] = (it[0] + 1) % len(sets)
+                    return sets[it[0]]
+
+                def k1a():
+                    args, _, _, _ = pick()
+                    fb.bn_relu_bwd_reduce(*args)
+
+                def k1b():
+                    args, s, _, _ = pick()
+                    fb.bn_relu_bwd_apply(*args, *s)
+
+                def plain():
+                    args, _, _, _ = pick()
+                    fb.bn_relu_bwd_plain(*args)
+
+                def library():
+                    args, _, dy4, a4 = pick()
+                    _, _, mean, rstd, gamma, _ = args
+                    torch.ops.aten.native_batch_norm_backward(
+                        dy4, a4, gamma, None, None, mean, rstd, True, 1e-5,
+                        [True, True, True])
+
+                row = {"M": m, "C": c,
+                       "K1a": time_ms(torch, k1a, iters=20),
+                       "K1b": time_ms(torch, k1b, iters=20),
+                       "plain": time_ms(torch, plain, iters=5)}
+                try:
+                    row["library"] = time_ms(torch, library, iters=20)
+                except RuntimeError as e:  # a yardstick only
+                    print(f"  library call refused at {key} {dt}: {e}")
+                    row["library"] = None
+                row["bound_K1a"] = (2 * m * c * isz + 24 * c) / facts["bw"] \
+                    * 1e3
+                row["bound_K1b"] = (3 * m * c * isz + 32 * c) / facts["bw"] \
+                    * 1e3
+                timed[key] = row
+                del sets
+            row = timed[key]
+            rows.append(row)
+            for k in tot:
+                tot[k] = None if (tot[k] is None or row[k] is None) \
+                    else tot[k] + row[k]
+        largest = max(rows, key=lambda r: r["M"] * r["C"])
+        out[dt] = {"layers": list(timed.values()), "sum_8_layers": tot,
+                   "largest_layer": largest}
+        print(f"  {dt} over the 8 VGG-11 layers (batch 256): "
+              + json.dumps(tot))
+        print(f"  {dt} largest layer (M={largest['M']}, C={largest['C']}): "
+              + json.dumps({k: largest[k] for k in tot}))
+    fb.bn_relu_bwd_reduce.launches, fb.bn_relu_bwd_apply.launches = \
+        launches0  # timing launches are not counted
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rel_gap(a: dict, b: dict, skip=()) -> float:
+    """Worst over tensors (but ``skip``) of max|a - b| / max|b|."""
+    return max((a[k] - b[k]).abs().max().item() / b[k].abs().max().item()
+               for k in b if k not in skip)
+
+
+def _grad_gaps(a: dict, b: dict) -> tuple[float, float]:
+    """(worst relative gap over the weight tensors, worst absolute gap of
+    the conv biases over G): a conv bias's true gradient is 0 (the BN
+    after it cancels it), so its values are rounding noise and are held
+    on the scale of G, the largest gradient entry of any tensor."""
+    biases = [k for k in b if k.startswith("conv") and k.endswith(".bias")]
+    g = max(t.abs().max().item() for t in b.values())
+    return (_rel_gap(a, b, skip=biases),
+            max((a[k] - b[k]).abs().max().item() for k in biases) / g)
+
+
+GRAD_TOL = 1e-3       # fused vs plain f32 gradients, relative per tensor
+BIAS_GRAD_TOL = 1e-4  # the conv biases' gradient noise, over G
+# Params after 10 SGD steps at lr 0.1: early VGG training amplifies any
+# difference step over step (two identical plain runs part by ~20% of the
+# distance travelled: cuDNN's backward is not bitwise repeatable), so the
+# fused run is held to PARAM_TOL times the larger of that gap and the gap
+# of a plain run from params nudged by NUDGE (relative, ~ the one-step
+# gradient gap between fused and plain).
+PARAM_TOL = 3.0
+NUDGE = 1e-5
+
+
+def vgg_fused_check(torch, port, name: str = "VGG11",
+                    batch: int = VGG_BATCH, pairs: int = 4,
+                    window: int = 20) -> dict:
+    """Phase 13: a VGG train step with fused_bn=True against the plain one
+    on the same params and batches (torch.backends.cudnn.benchmark off, so
+    both pick the same convolution algorithms): the f32 loss bit for bit,
+    every weight's gradient within GRAD_TOL of its largest entry and the
+    conv biases' within BIAS_GRAD_TOL of the largest gradient entry (each
+    beside the gap between two identical plain runs), the params after 10
+    SGD steps within PARAM_TOL of the plain runs' own spread,
+    K1a/K1b launched once per BN layer on the fused step and never on the
+    plain one.  Then alternated bf16 windows of ``window`` steps, fused and
+    plain, ``pairs`` of each: median ms/step, device ms/step and idle
+    share from one profiled window of each, peak memory."""
+    tr, vgg, fb, cifar = (port["train"], port["vgg"], port["fused_bn"],
+                          port["cifar10"])
+    n_bn = len(vgg_bn_layers(vgg, name, batch))
+    ds = cifar._synthetic(batch * 10, seed=5)
+    images = torch.as_tensor(ds.images).to(DEVICE).view(10, batch, 32, 32, 3)
+    labels = torch.as_tensor(ds.labels).to(DEVICE).long().view(10, batch)
+    p0, s0 = vgg.init(0, name, device=DEVICE)
+
+    def fresh():
+        return ({k: {n: t.clone().requires_grad_(True) for n, t in v.items()}
+                 for k, v in p0.items()},
+                {k: {n: t.clone() for n, t in v.items()}
+                 for k, v in s0.items()})
+
+    def counts():
+        return (fb.bn_relu_bwd_reduce.launches, fb.bn_relu_bwd_apply.launches)
+
+    cfg = tr.TrainConfig(model=name, strategy="none", batch_size=batch)
+    gen = torch.Generator(device=DEVICE)
+
+    def grads(fused):
+        params, state = fresh()
+        gen.manual_seed(tr.augment_seed(cfg.seed, 0))
+        c0 = counts()
+        loss, _ = tr._loss_fn(params, state, gen, images[0], labels[0],
+                              cfg=cfg, fused_bn=fused)
+        loss.backward()
+        sync(torch)
+        c1 = counts()
+        return (loss.detach(), {k: p.grad for k, p in
+                                vgg.flatten(params).items()},
+                (c1[0] - c0[0], c1[1] - c0[1]))
+
+    lp, gp, cp = grads(False)
+    lf, gf, cf = grads(True)
+    lp2, gp2, _ = grads(False)
+
+    def run10(fused, nudge=0.0):
+        params, state = fresh()
+        if nudge:
+            g = torch.Generator(device=DEVICE).manual_seed(9)
+            with torch.no_grad():
+                for p in vgg.flatten(params).values():
+                    p.mul_(1 + nudge * torch.randn(p.shape, generator=g,
+                                                   device=DEVICE))
+        opt = tr.make_optimizer(cfg, params)
+        step = tr.make_train_step(cfg, fused_bn=fused)
+        losses = []
+        for i in range(10):
+            loss, state, _, _ = step(params, state, opt, i, images[i],
+                                     labels[i])
+            losses.append(loss)
+        sync(torch)
+        return ({k: p.detach() for k, p in vgg.flatten(params).items()},
+                [x.item() for x in losses])
+
+    start = {k: t.detach() for k, t in vgg.flatten(p0).items()}
+
+    def moved_gap(a, b):
+        """|a - b| over |b - start|, L2 over every param: how far apart
+        two runs ended against how far training moved them."""
+        num = sum(((a[k] - b[k]).double() ** 2).sum() for k in b)
+        den = sum(((b[k] - start[k]).double() ** 2).sum() for k in b)
+        return (num / den).sqrt().item()
+
+    (pf, lsf), (pp, lsp) = run10(True), run10(False)
+    (pp2, _), (pn, _) = run10(False), run10(False, nudge=NUDGE)
+    gaps, gaps_pp = _grad_gaps(gf, gp), _grad_gaps(gp2, gp)
+    res = {"loss_plain": lp.item(), "loss_fused": lf.item(),
+           "loss_bitwise": bool(torch.equal(lp, lf)),
+           "grad_gap": gaps[0], "grad_gap_plain_vs_plain": gaps_pp[0],
+           "bias_grad_gap": gaps[1],
+           "bias_grad_gap_plain_vs_plain": gaps_pp[1],
+           "losses_10_fused": lsf, "losses_10_plain": lsp,
+           "param_gap_10_steps": moved_gap(pf, pp),
+           "param_gap_10_steps_plain_vs_plain": moved_gap(pp2, pp),
+           "param_gap_10_steps_nudged_plain": moved_gap(pn, pp),
+           "param_gap_10_steps_worst_tensor": _rel_gap(pf, pp),
+           "launches_fused_step": cf, "launches_plain_step": cp,
+           "grad_tol": GRAD_TOL, "bias_grad_tol": BIAS_GRAD_TOL,
+           "param_tol": f"{PARAM_TOL} x max(plain vs plain, nudged plain)"}
+    param_bound = PARAM_TOL * max(res["param_gap_10_steps_plain_vs_plain"],
+                                  res["param_gap_10_steps_nudged_plain"])
+    print("  f32 step, fused vs plain: " + json.dumps(res))
+    if not res["loss_bitwise"]:
+        fail(f"fused and plain f32 losses differ: {lf.item()} vs "
+             f"{lp.item()}")
+    if not (res["grad_gap"] <= GRAD_TOL
+            and res["bias_grad_gap"] <= BIAS_GRAD_TOL):
+        fail(f"fused gradients disagree: {res['grad_gap']}, conv biases "
+             f"{res['bias_grad_gap']}")
+    if not res["param_gap_10_steps"] <= param_bound:
+        fail(f"params after 10 steps disagree: {res['param_gap_10_steps']} "
+             f"> {param_bound}")
+    if cf != (n_bn, n_bn) or cp != (0, 0):
+        fail(f"K1a/K1b launches {cf} fused, {cp} plain per step (want "
+             f"{n_bn} and 0)")
+    del gp, gf, gp2, pf, pp, pp2, pn
+    res["bf16"] = fused_plain_windows(torch, port, name, batch, images,
+                                      labels, pairs, window)
+    torch.cuda.empty_cache()
+    return res
+
+
+def fused_plain_windows(torch, port, name, batch, images, labels, pairs,
+                        window) -> dict:
+    """Alternated bf16 windows (fused, plain, plain, fused, ...): the host
+    slows over a run, so only windows taken in turns compare.  K1a/K1b
+    launches are counted from 0 over the fused windows."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    tr, vgg, fb = port["train"], port["vgg"], port["fused_bn"]
+    cfg = tr.TrainConfig(model=name, strategy="none", batch_size=batch,
+                         compute_dtype="bfloat16")
+    runs = {}
+    for fused in (True, False):
+        p0, s0 = vgg.init(0, name, device=DEVICE)
+        params = {k: {n: t.requires_grad_(True) for n, t in v.items()}
+                  for k, v in p0.items()}
+        runs[fused] = {"params": params, "state": s0,
+                       "opt": tr.make_optimizer(cfg, params),
+                       "step": tr.make_train_step(cfg, fused_bn=fused),
+                       "i": 0, "ms": [], "peak_gb": [], "losses": []}
+
+    def steps(r, k):
+        for _ in range(k):
+            j = r["i"] % images.shape[0]
+            loss, r["state"], _, _ = r["step"](r["params"], r["state"],
+                                               r["opt"], r["i"], images[j],
+                                               labels[j])
+            r["losses"].append(loss)
+            r["i"] += 1
+
+    for r in runs.values():
+        steps(r, 3)  # warm-up: allocator, cuDNN handles
+    fb.bn_relu_bwd_reduce.launches = fb.bn_relu_bwd_apply.launches = 0
+    copies0 = fb.bn_relu_bwd.copies
+    order = [True, False, False, True] * ((pairs + 1) // 2)
+    for fused in order[: 2 * pairs]:
+        r = runs[fused]
+        plain_before = (fb.bn_relu_bwd_reduce.launches,
+                        fb.bn_relu_bwd_apply.launches)
+        sync(torch)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        steps(r, window)
+        sync(torch)
+        r["ms"].append((time.perf_counter() - t0) / window * 1e3)
+        r["peak_gb"].append(torch.cuda.max_memory_allocated() / 1e9)
+        if not fused and (fb.bn_relu_bwd_reduce.launches,
+                          fb.bn_relu_bwd_apply.launches) != plain_before:
+            fail("K1a/K1b launched on the plain path")
+    launches = {"K1a": fb.bn_relu_bwd_reduce.launches,
+                "K1b": fb.bn_relu_bwd_apply.launches}
+    # layout copies bn_relu_bwd had to make of autograd's dr or of a
+    out = {"window_steps": window, "pairs": pairs, "launches": launches,
+           "layout_copies": fb.bn_relu_bwd.copies - copies0}
+    for fused, r in runs.items():
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        sync(torch)
+        with prof:
+            steps(r, 5)
+            sync(torch)
+        device_us, n_ops, top = 0.0, 0, {}
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                device_us += e.self_device_time_total
+                n_ops += e.count
+                top[e.key] = top.get(e.key, 0.0) + e.self_device_time_total
+        med = float(np.median(r["ms"]))
+        losses = [float(x) for x in r["losses"]]
+        out["fused" if fused else "plain"] = {
+            "ms_per_step_windows": r["ms"], "ms_per_step_median": med,
+            "device_ms_per_step": device_us / 1e3 / 5,
+            "device_ops_per_step": n_ops / 5,
+            "device_idle_share": 1.0 - device_us / 1e3 / 5 / med,
+            "peak_mem_gb": max(r["peak_gb"]),
+            "losses_first_last": [losses[0], losses[-1]],
+            "top_kernels": [[k[:60], us / max(device_us, 1e-9)] for k, us in
+                            sorted(top.items(), key=lambda kv: -kv[1])[:8]]}
+        if not all(np.isfinite(losses)):
+            fail(f"bf16 {'fused' if fused else 'plain'} losses not finite")
+    want = len(vgg_bn_layers(port["vgg"], name, batch)) * window * pairs
+    if launches != {"K1a": want, "K1b": want}:
+        fail(f"K1a/K1b launches over the fused windows {launches}, want "
+             f"{want} each")
+    out["fused_over_plain_ms"] = (out["fused"]["ms_per_step_median"]
+                                  / out["plain"]["ms_per_step_median"])
+    print("  bf16 windows, fused vs plain, alternated: " + json.dumps(
+        {k: v for k, v in out.items() if k not in ("fused", "plain")}))
+    for k in ("fused", "plain"):
+        print(f"  bf16 {k}: " + json.dumps(out[k]))
+    return out
+
+
+def vgg_cli_run(torch, port, extra: list[str], label: str,
+                batch: int = VGG_BATCH, model: str = "VGG11",
+                profile_at: int = 170) -> dict:
+    """Phase 14: one epoch of synthetic CIFAR-10 through the port's
+    ``cli.run`` (--strategy none, the reference's main.py), then its test
+    evaluation.  ms/step and samples/s come from the reference's 40-step
+    time windows; 5 steps after the last window run under torch.profiler
+    for device time, operations per step and the idle share; mfu is
+    bench.py's 916.6 MFLOP per sample times samples/s over the card's peak
+    for the compute dtype (bf16: 989 TFLOP/s dense; float32 with TF32 off,
+    as phase 1 sets it: the 67 TFLOP/s non-tensor peak)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    cli, fb = port["cli"], port["fused_bn"]
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    marks = {}
+
+    def on_step(step):
+        if step in (profile_at, profile_at + 5):
+            sync(torch)
+            marks[step] = time.perf_counter()
+            (prof.start if step == profile_at else prof.stop)()
+
+    argv = ["--strategy", "none", "--epochs", "1", "--batch-size",
+            str(batch), "--model", model, "--device", DEVICE] + extra
+    k1 = (fb.bn_relu_bwd_reduce.launches, fb.bn_relu_bwd_apply.launches)
+    sync(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = cli.run(argv, on_step=on_step)
+    wall = time.perf_counter() - t0
+    (ep,) = out["epochs"]
+    windows = [r.value * 1e3 for r in ep["time_meter"].records]
+    loss_windows = [r.value for r in ep["loss_meter"].records]
+    device_us, n_ops, top = 0.0, 0, {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            device_us += e.self_device_time_total
+            n_ops += e.count
+            top[e.key] = top.get(e.key, 0.0) + e.self_device_time_total
+    ms = float(np.median(windows))
+    sps = batch / (ms / 1e3)
+    dtype = "bfloat16" if "bfloat16" in extra else "float32"
+    flops = vgg11_train_flops_per_sample() if model == "VGG11" else None
+    res = {"label": label, "steps": out["trainer"]._step, "batch": batch,
+           "synthetic": out["synthetic"],
+           "ms_per_step_windows": windows, "ms_per_step": ms,
+           "samples_per_s": sps,
+           "mfu": None if flops is None else flops * sps / PEAK_OPS[dtype],
+           "mfu_peak_tflops": PEAK_OPS[dtype] / 1e12,
+           "device_ms_per_step": device_us / 1e3 / 5,
+           "device_ops_per_step": n_ops / 5,
+           "device_idle_share": 1.0 - device_us / 1e3 / 5 / ms,
+           "profiled_wall_ms_per_step": (marks[profile_at + 5]
+                                         - marks[profile_at]) / 5 * 1e3
+           if len(marks) == 2 else None,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "loss_first_window": loss_windows[0],
+           "loss_last_window": loss_windows[-1],
+           "test_loss": ep["eval"][0], "test_accuracy": ep["eval"][1],
+           "wall_s": wall,
+           "k1_launches": (fb.bn_relu_bwd_reduce.launches - k1[0],
+                           fb.bn_relu_bwd_apply.launches - k1[1]),
+           "top_kernels": [[k[:60], us / max(device_us, 1e-9)] for k, us in
+                           sorted(top.items(), key=lambda kv: -kv[1])[:8]]}
+    print(f"  {label}: " + json.dumps(res))
+    if not all(np.isfinite(loss_windows)) or len(marks) != 2:
+        fail(f"{label}: loss windows {loss_windows}, profile marks {marks}")
+    if not loss_windows[-1] < loss_windows[0]:
+        fail(f"{label}: the loss did not fall: {loss_windows}")
+    if not ep["eval"][1] > 0.1:
+        fail(f"{label}: test accuracy {ep['eval'][1]} is not above chance")
+    del out
+    torch.cuda.empty_cache()
+    return res
+
+
 T_START = time.perf_counter()
 
 
@@ -1298,30 +1896,38 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     try:
+        from distributed_pytorch_tpu_torch import cli, lm, lm_cli, serve
         from distributed_pytorch_tpu_torch import generate as gen
-        from distributed_pytorch_tpu_torch import lm, lm_cli, serve
+        from distributed_pytorch_tpu_torch import train
+        from distributed_pytorch_tpu_torch.data import cifar10
         from distributed_pytorch_tpu_torch.models import transformer as tfm
+        from distributed_pytorch_tpu_torch.models import vgg
         from distributed_pytorch_tpu_torch.ops import _build
         from distributed_pytorch_tpu_torch.ops import attention as attn
+        from distributed_pytorch_tpu_torch.ops import fused_bn
+        from distributed_pytorch_tpu_torch.ops import nn
     except ImportError as e:
         print(f"chip_smoke: the port's package is not importable: {e}",
               file=sys.stderr)
         return 2
     import torch.nn.functional as F
     port = {"tfm": tfm, "gen": gen, "serve": serve, "attn": attn, "lm": lm,
-            "lm_cli": lm_cli, "dev": "cuda", "cfg": tfm.PRESETS["LM-base"]}
+            "lm_cli": lm_cli, "dev": "cuda", "cfg": tfm.PRESETS["LM-base"],
+            "train": train, "cli": cli, "vgg": vgg, "fused_bn": fused_bn,
+            "cifar10": cifar10, "nn": nn}
 
     # 1. card facts
     facts = card_facts(torch)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False  # fused and plain: same algos
     print(f"[1] device {facts['name']} x{facts['count']}; nvidia-smi: "
           f"{facts['smi']}; torch {torch.__version__} (CUDA "
           f"{torch.version.cuda}); python {sys.version.split()[0]}")
 
     # 2. build every kernel library, one nvcc per source, all at once
     t0 = time.perf_counter()
-    libs = ("decode_attention", "flash_attention")
+    libs = ("decode_attention", "flash_attention", "fused_bn")
     _build.build_all(libs)
     for lib in libs:
         _build.load_library(lib)
@@ -1374,6 +1980,17 @@ def main() -> int:
     paged_exactness(torch, port)
     phase(11, "paged serving, LM-base bf16")
     paged_res = paged_serving(torch, port, serve_res["K6"]["tokens"])
+    phase(12, "fused BN+ReLU backward kernels (K1a, K1b) against their "
+              "plain version")
+    bn_worst = check_bn_kernels(torch, fused_bn, nn, vgg)
+    bn_timing = time_bn_kernels(torch, fused_bn, nn, vgg, facts)
+    phase(13, "VGG-11 train step, fused BN backward vs plain")
+    fused_res = vgg_fused_check(torch, port)
+    phase(14, "VGG-11 one epoch through cli, synthetic CIFAR-10")
+    cli_res = {dt: vgg_cli_run(torch, port, extra, f"VGG-11 {dt} cli epoch")
+               for dt, extra in (("float32", []),
+                                 ("bfloat16", ["--compute-dtype",
+                                               "bfloat16"]))}
 
     kernels = []
     src = "distributed_pytorch_tpu_torch/csrc/decode_attention.cu"
@@ -1425,6 +2042,34 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
+    src = "distributed_pytorch_tpu_torch/csrc/fused_bn.cu"
+    for name, fn, line in (("K1a", "bn_relu_bwd_reduce", 106),
+                           ("K1b", "bn_relu_bwd_apply", 121)):
+        b16, f32 = bn_timing["bfloat16"], bn_timing["float32"]
+        kernels.append({
+            "name": f"{fn} ({name})", "route": "cuda", "source": src,
+            "replaces": f"distributed_pytorch_tpu/ops/fused_bn.py:{line}",
+            "launches": fused_res["bf16"]["launches"][name],
+            "max_abs_err": bn_worst[name]["max_abs_err"],
+            "err_over_tol": bn_worst[name]["err_over_tol"],
+            "tolerance": ("s1, s2: 1e-5 x max|s|" if name == "K1a" else
+                          "da: f32 1e-5 x max|da|; bf16 one bf16 ulp + "
+                          "that"),
+            "shapes": "the 8 BN layers of VGG-11 at batch 256, bf16, "
+                      "summed; f32 and the largest layer beside",
+            "ms": b16["sum_8_layers"][name],
+            "plain_ms": b16["sum_8_layers"]["plain"],
+            "plain": "bn_relu_bwd_plain, K1a and K1b's work together",
+            "bound_ms": b16["sum_8_layers"][f"bound_{name}"],
+            "bound_by": "bytes",
+            "library_ms": b16["sum_8_layers"]["library"],
+            "library": "aten native_batch_norm_backward on the masked dy, "
+                       "both kernels' work, no ReLU mask",
+            "ms_f32": f32["sum_8_layers"][name],
+            "bound_ms_f32": f32["sum_8_layers"][f"bound_{name}"],
+            "ms_largest_layer_bf16": b16["largest_layer"][name],
+            "bound_ms_largest_layer_bf16":
+                b16["largest_layer"][f"bound_{name}"]})
     if not all(k["launches"] for k in kernels):
         fail("a kernel of the main path was never launched")
     print(json.dumps({"kernels": kernels}))

@@ -14,11 +14,23 @@ The optimizer state crosses too: the Adam moments and step count of an
 optax ``chain(clip_by_global_norm, adamw)`` state (its ``ScaleByAdamState``
 ``count``/``mu``/``nu``) become the port's ``{"count", "mu", "nu"}`` dict
 (lm.py), and back, so a JAX run can continue in the port.
+
+VGG, unlike the transformer, crosses with a transpose: the JAX package's
+conv kernels are HWIO over NHWC activations, the port's OIHW in
+``channels_last`` memory format over NCHW ``channels_last`` activations
+(models/vgg.py), so ``from_jax_vgg`` / ``to_jax_vgg`` permute every 4-D
+conv kernel (the physical order stays HWIO-like, ``channels_last``); BN
+scale/bias, running mean/var and the fc head ((in, out), as in the JAX
+package) cross as they are.  The VGG trainer's optimizer state crosses too:
+the momentum trace of an optax ``chain(add_decayed_weights, sgd(momentum))``
+state becomes the port's momentum buffers (``from_jax_sgd_state``), and
+back.
 """
 
 from __future__ import annotations
 
 import re
+from functools import partial
 
 import numpy as np
 import torch
@@ -124,6 +136,84 @@ def to_jax_opt_state(opt_state: dict, like):
                                  nu=to_jax_params(opt_state["nu"]))
         if getattr(node, "_fields", None) == ("count",):
             return node._replace(count=count)
+        if isinstance(node, tuple) and not hasattr(node, "_fields"):
+            return tuple(walk(child) for child in node)
+        return node
+
+    return walk(like)
+
+
+# -- VGG (models/vgg.py, train.py) -----------------------------------------
+
+def _from_jax_leaf(name: str, a, dev: torch.device) -> torch.Tensor:
+    t = torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+    if name == "kernel" and t.ndim == 4:  # HWIO -> OIHW, channels_last
+        t = t.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+    return t.to(dev)
+
+
+def _to_jax_leaf(name: str, t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu().float()
+    if name == "kernel" and t.ndim == 4:  # OIHW -> HWIO
+        t = t.permute(2, 3, 1, 0)
+    return np.array(t.numpy(), order="C", copy=True)
+
+
+def _vgg_tree(tree, leaf) -> dict:
+    return {layer: {name: leaf(name, a) for name, a in leaves.items()}
+            for layer, leaves in tree.items()}
+
+
+def from_jax_vgg(params, state, device: str | torch.device = "cuda"
+                 ) -> tuple[dict, dict]:
+    """The JAX package's VGG ``(params, state)`` trees (numpy or JAX leaves)
+    -> the port's nested float32 dicts on ``device``, conv kernels HWIO ->
+    OIHW (channels_last)."""
+    leaf = partial(_from_jax_leaf, dev=resolve_device(device))
+    return _vgg_tree(params, leaf), _vgg_tree(state, leaf)
+
+
+def to_jax_vgg(params: dict, state: dict) -> tuple[dict, dict]:
+    """The port's VGG ``(params, state)`` -> the JAX package's trees of numpy
+    float32 arrays, conv kernels OIHW -> HWIO."""
+    return _vgg_tree(params, _to_jax_leaf), _vgg_tree(state, _to_jax_leaf)
+
+
+def _is_trace_state(node) -> bool:
+    return getattr(node, "_fields", None) == ("trace",)
+
+
+def from_jax_sgd_state(opt_state, device: str | torch.device = "cuda"
+                       ) -> dict:
+    """An optax ``chain(add_decayed_weights, sgd(lr, momentum))`` state ->
+    the port's momentum buffers, a nested dict shaped like the VGG params
+    (conv buffers OIHW, channels_last), from its one ``TraceState``."""
+    found = []
+
+    def walk(node):
+        if _is_trace_state(node):
+            found.append(node)
+        elif isinstance(node, tuple):
+            for child in node:
+                walk(child)
+
+    walk(opt_state)
+    if len(found) != 1:
+        raise ValueError(f"expected one TraceState (the momentum trace) in "
+                         f"the optimizer state, found {len(found)}")
+    return _vgg_tree(found[0].trace,
+                     partial(_from_jax_leaf, dev=resolve_device(device)))
+
+
+def to_jax_sgd_state(momentum: dict, like):
+    """The port's momentum buffers -> an optax state of ``like``'s structure
+    (numpy leaves), its ``TraceState`` taking the buffers."""
+    trace = _vgg_tree(momentum, _to_jax_leaf)
+
+    def walk(node):
+        if _is_trace_state(node):
+            return node._replace(trace=trace)
         if isinstance(node, tuple) and not hasattr(node, "_fields"):
             return tuple(walk(child) for child in node)
         return node

@@ -41,8 +41,7 @@ from .utils.device import resolve_device
 
 IGNORE = IGNORE_INDEX  # target id excluded from the loss (padding)
 
-SYSTEMS_SLICE = ("ROADMAP.md queue 1, slice 5 (data parallel and the "
-                 "systems layers)")
+SYSTEMS_SLICE = tfm.SYSTEMS_SLICE
 ADAM_EPS = 1e-8  # optax.adamw's default
 
 

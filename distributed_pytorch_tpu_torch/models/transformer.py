@@ -35,6 +35,8 @@ Params = dict[str, torch.Tensor]
 LM_SCALE_SLICE = ("ROADMAP.md queue 1, slice 6 (LM training at scale: "
                   "MoE, int8 matmul, remat, chunked CE)")
 PARALLEL_SLICE = "ROADMAP.md queue 1, slice 5 (parallelism)"
+SYSTEMS_SLICE = ("ROADMAP.md queue 1, slice 5 (data parallel and the "
+                 "systems layers)")
 
 
 def not_ported(what: str, where: str) -> NotImplementedError:

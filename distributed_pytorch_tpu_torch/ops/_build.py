@@ -57,6 +57,21 @@ _SIGNATURES = {
             + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]),
         "flash_attention_error": (ctypes.c_char_p, [ctypes.c_int]),
     },
+    "fused_bn": {
+        "bn_relu_bwd_reduce_launch": (
+            ctypes.c_int,
+            [ctypes.c_int, ctypes.c_int]
+            + [ctypes.c_void_p] * 9  # dr, a, mean, rstd, gamma, beta,
+            #                          partial, s1, s2
+            + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
+        "bn_relu_bwd_apply_launch": (
+            ctypes.c_int,
+            [ctypes.c_int, ctypes.c_int]
+            + [ctypes.c_void_p] * 9  # dr, a, mean, rstd, gamma, beta, s1,
+            #                          s2, da
+            + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p]),
+        "fused_bn_error": (ctypes.c_char_p, [ctypes.c_int]),
+    },
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -17,11 +17,14 @@ names = [m.name for m in
          pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
 for n in names:
     importlib.import_module(n)
-from distributed_pytorch_tpu_torch import generate, serve
-from distributed_pytorch_tpu_torch.ops import attention
+from distributed_pytorch_tpu_torch import cli, eval, generate, serve, train
+from distributed_pytorch_tpu_torch.models import vgg
+from distributed_pytorch_tpu_torch.ops import attention, fused_bn
 for fn in (attention.decode_attention_paged,
            attention.decode_attention_paged_plain, generate.init_paged_cache,
-           generate.verify_step_ragged, serve.prefix_page_hashes):
+           generate.verify_step_ragged, serve.prefix_page_hashes,
+           train.Trainer, eval.evaluate, cli.main, vgg.init,
+           fused_bn.bn_relu_bwd, fused_bn.bn_relu_bwd_plain):
     assert callable(fn)
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib") or m.startswith(("jax.", "jaxlib."))
@@ -38,7 +41,10 @@ def test_port_imports_no_jax_and_no_jax_package():
     got = json.loads(proc.stdout.strip().splitlines()[-1])
     for mod in ("generate", "serve", "convert", "models.transformer",
                 "ops.attention", "ops._build", "utils.tracing", "lm",
-                "lm_cli", "ops.nn", "ops.losses", "data.lm_corpus"):
+                "lm_cli", "ops.nn", "ops.losses", "data.lm_corpus",
+                "models.vgg", "ops.fused_bn", "train", "eval", "cli",
+                "data.cifar10", "data.sampler", "data.pipeline",
+                "data.augment", "utils.metrics"):
         assert f"distributed_pytorch_tpu_torch.{mod}" in got["modules"]
     assert got["bad"] == [], f"the port imported {got['bad']}"
 
