@@ -54,7 +54,24 @@ Phases, each of which raises on failure:
      share, peak memory);
  14. VGG-11 one epoch of synthetic CIFAR-10 through the port's cli (f32 and
      bf16): the reference's time windows, samples/s, mfu, idle share,
-     falling loss and test accuracy above chance.
+     falling loss and test accuracy above chance;
+ 15. the int8 matmul kernel (K5) against its plain version: the three
+     LM-base shapes at m=8192 (bf16 and f32 inputs), 33x77 @ 77x19,
+     m=8191, k=1000, n=4100, a zero row and rows at +-127, bitwise in
+     every case and two runs bitwise equal; timed per shape beside its
+     bound, the plain integer product and torch._int_mm + the epilogue;
+ 16. LM-base bf16 trained 30 steps through lm_cli --matmul-dtype int8 (as
+     phase 8: ms/step, tokens/s, idle share, peak memory, mfu over the
+     bf16 peak, falling loss; K5 launched 7 x 24 times per step and
+     K2/K3/K4 24), alternated int8/bf16 windows (4 pairs x 10 steps) and
+     the int8-vs-bf16 argmax flip rate (reported), and one 2-layer
+     LM-base-width f32 int8 step through K5 against the plain product
+     (loss bitwise, gradients within the spread of two K5 runs);
+ 17. LM-base bf16 3 steps through lm_cli with --remat none / full /
+     selective (step-1 loss bitwise equal, grad-norm within 1e-3, peak
+     memory, K2 launched twice per layer under full remat and once under
+     selective), and head_loss dense against chunked at vocab 32,000, B=8
+     x S=1024 x 1024 (loss within 1e-5, gradients, time and peak memory).
 The second-to-last lines are the kernels' JSON record and the card's name
 and power limit; the last line is {"ok": true, "device": {...}}.
 
@@ -96,7 +113,7 @@ def card_facts(torch) -> dict:
 
 
 # Published dense peaks of one H100 SXM, operations per second.
-PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 
 
 def time_ms(torch, fn, iters: int = 30, warmup: int = 3) -> float:
@@ -801,20 +818,23 @@ def train_step_check(torch, port) -> dict:
     return res
 
 
-def training_run(torch, port, steps: int = 30) -> dict:
+def training_run(torch, port, steps: int = 30, extra=(),
+                 label: str = "LM-base bf16 training") -> dict:
     """LM-base (24 layers, d_model 1024, byte vocab) through lm_cli, B=8,
-    S=1024, bf16 compute, synthetic corpus.  The host waits for the device
-    only at the ends of the windows (and where lm_cli logs): steps 2-10
-    and 16-30 are timed unprofiled, steps 11-15 run under torch.profiler
-    for device time.  The flash launch counts are read over the whole
-    run."""
+    S=1024, bf16 compute, synthetic corpus, with the flags ``extra``.  The
+    host waits for the device only at the ends of the windows (and where
+    lm_cli logs): steps 2-10 and 16-30 are timed unprofiled, steps 11-15
+    run under torch.profiler for device time.  The flash (K2-K4) and int8
+    matmul (K5) launch counts are set to 0 before the run and read after
+    it: flash once per layer per step; K5 7 times per layer per step with
+    ``--matmul-dtype int8`` and never without it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    attn, cli = port["attn"], port["lm_cli"]
+    attn, cli, qz = port["attn"], port["lm_cli"], port["qz"]
     b, s = 8, 1024
     argv = ["--preset", "LM-base", "--steps", str(steps), "--batch-size",
             str(b), "--seq-len", str(s), "--compute-dtype", "bfloat16",
-            "--log-every", "10", "--device", "cuda"]
+            "--log-every", "10", "--device", DEVICE, *extra]
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     marks = (1, 10, 15, steps)  # windows (1, 10] and (15, steps] unprofiled
     losses, t = [], {}
@@ -832,13 +852,15 @@ def training_run(torch, port, steps: int = 30) -> dict:
     for f in ("flash_attention_fwd", "flash_attention_bwd_dq",
               "flash_attention_bwd_dkv"):
         getattr(attn, f).launches = 0
+    qz.int8_matmul_q.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     trainer = cli.run(argv, on_step=on_step)
     launches = {"K2": attn.flash_attention_fwd.launches,
                 "K3": attn.flash_attention_bwd_dq.launches,
-                "K4": attn.flash_attention_bwd_dkv.launches}
+                "K4": attn.flash_attention_bwd_dkv.launches,
+                "K5": qz.int8_matmul_q.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     cfg = trainer.cfg.model
     n_params = sum(p.numel() for p in trainer.params.values())
@@ -858,7 +880,8 @@ def training_run(torch, port, steps: int = 30) -> dict:
     n_prof = marks[2] - marks[1]
     device_ms = device_us / 1e3 / n_prof
     flops = lm_cfg_flops(cfg, n_params, b, s)
-    res = {"steps": steps, "batch": b, "seq": s, "n_params": n_params,
+    res = {"flags": list(extra), "steps": steps, "batch": b, "seq": s,
+           "n_params": n_params,
            "losses_every_10": [losses[0]] + losses[9::10],
            "ms_per_step": step_ms,
            "ms_per_step_windows": [w * 1e3 for w in windows],
@@ -872,15 +895,17 @@ def training_run(torch, port, steps: int = 30) -> dict:
            "mfu": flops / (step_ms / 1e3) / PEAK_OPS["bfloat16"],
            "top_kernels": [[k[:60], us / max(device_us, 1e-9)] for k, us in
                            sorted(top.items(), key=lambda kv: -kv[1])[:10]]}
-    print("  LM-base bf16 training: " + json.dumps(res))
+    print(f"  {label}: " + json.dumps(res))
     if not all(np.isfinite(losses)) or len(losses) != steps:
         fail(f"training losses malformed: {losses}")
     if not np.mean(losses[-5:]) < np.mean(losses[:5]) - 0.5:
         fail(f"the loss did not fall over {steps} steps: {losses}")
+    per_step = {"K2": 1, "K3": 1, "K4": 1,
+                "K5": 7 if "--matmul-dtype" in extra else 0}
     for k, n in launches.items():
-        if n != cfg.n_layers * steps:
+        if n != per_step[k] * cfg.n_layers * steps:
             fail(f"{k}: {n} launches for {steps} steps x {cfg.n_layers} "
-                 f"layers")
+                 f"layers, want {per_step[k]} per layer per step")
     del trainer
     torch.cuda.empty_cache()
     return res
@@ -1881,6 +1906,394 @@ def vgg_cli_run(torch, port, extra: list[str], label: str,
     torch.cuda.empty_cache()
     return res
 
+# -- phases 15-17: int8 LM training, remat and the chunked head ------------
+
+# K5 at LM-base training (B=8 x S=1024 tokens): (m, k, n) -> launches per
+# layer (q, k, v, o; gate, up; down)
+K5_SHAPES = {(8192, 1024, 1024): 4, (8192, 1024, 4096): 2,
+             (8192, 4096, 1024): 1}
+
+
+def int8_operands(torch, m, k, n, dtype, seed):
+    """x (m, k), w (k, n) on the card: a zero row (scale 1e-30) and a row
+    whose extremes quantize to -127 and +127."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((m, k), np.float32)
+    w = rng.standard_normal((k, n), np.float32) / math.sqrt(k)
+    x[1] = 0.0
+    x[2, :3] = (-5.0, 5.0, 2.5)
+    return (torch.from_numpy(x).to(DEVICE, dtype),
+            torch.from_numpy(w).to(DEVICE, dtype))
+
+
+def check_int8_kernel(torch, qz) -> dict:
+    """K5 against int8_matmul_plain on the card: the three LM-base shapes
+    (bf16 and f32 inputs), 33 x 77 @ 77 x 19, m = 8191, k = 1000 (not a
+    multiple of 16: the byte-wise loads), n = 4100; bitwise in every case,
+    two runs bitwise equal, the zero row exactly 0."""
+    cases = [(m, k, n, dt) for (m, k, n) in K5_SHAPES
+             for dt in (torch.bfloat16, torch.float32)]
+    cases += [(33, 77, 19, torch.float32), (33, 77, 19, torch.bfloat16),
+              (8191, 1024, 1024, torch.bfloat16),
+              (1024, 1000, 1024, torch.bfloat16),
+              (1024, 1024, 4100, torch.float32)]
+    worst = 0.0
+    for i, (m, k, n, dt) in enumerate(cases):
+        x, w = int8_operands(torch, m, k, n, dt, 200 + i)
+        got = qz.int8_matmul(x, w)
+        again = qz.int8_matmul(x, w)
+        ref = qz.int8_matmul_plain(x, w)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        ok = (torch.equal(got, ref), torch.equal(got, again),
+              not bool(got[1].any()), bool(torch.isfinite(got).all()))
+        print(f"  {str(dt)[6:]:8s} m={m:5d} k={k:5d} n={n:5d}: max|K5 - "
+              f"plain| {err:.3e}, bitwise {ok[0]}, repeat bitwise {ok[1]}, "
+              f"zero row {ok[2]}")
+        if not all(ok):
+            fail(f"K5 disagrees with int8_matmul_plain (bitwise, repeat, "
+                 f"zero row, finite = {ok}) at m={m} k={k} n={n} {dt}")
+        worst = max(worst, err)
+    print(f"  K5 bitwise equal to its plain version in all {len(cases)} "
+          f"cases")
+    return {"max_abs_err": worst, "cases": len(cases)}
+
+
+def time_int8(torch, qz, facts) -> dict:
+    """K5 at the three LM-base shapes on quantized bf16 operands: device ms
+    by CUDA events with the operands rotated past the 50 MB L2; the bound
+    max(2 m n k over 1,979 int8 TOP/s, (m k + k n + 4 (m + n) + 4 m n)
+    bytes over the memory rate); the plain version of the kernel's work
+    (the float64 integer product and the epilogue) and the library
+    yardstick torch._int_mm (cuBLASLt) plus the same epilogue, which the
+    port never calls.  Also the per-layer sums (7 launches)."""
+    out = {}
+    for (m, k, n) in K5_SHAPES:
+        x, w = int8_operands(torch, m, k, n, torch.bfloat16, 7)
+        qx, sx = qz.quantize_rowwise(x)
+        qwt, sw = qz.quantize_rowwise(w.t())
+        qwt = qwt.contiguous()
+        per = qx.numel() + qwt.numel() + 4 * m * n
+        n_rot = max(2, math.ceil(200e6 / per))
+        sets = [(qx.clone(), qwt.clone(), sx.clone(), sw.clone())
+                for _ in range(n_rot)]
+        del x, w
+        it = iter(range(10 ** 9))
+
+        def kernel():
+            qz.int8_matmul_q(*sets[next(it) % n_rot])
+
+        def plain():
+            a, b, c, d = sets[next(it) % n_rot]
+            qz._dequant(qz._int_product(a, b.t()), c, d.view(1, -1))
+
+        def library():
+            a, b, c, d = sets[next(it) % n_rot]
+            torch._int_mm(a, b.t()).float() * (c * d.view(1, -1))
+
+        n0 = qz.int8_matmul_q.launches
+        ms = time_ms(torch, kernel)
+        qz.int8_matmul_q.launches = n0  # timing launches are not counted
+        plain_ms = time_ms(torch, plain, iters=5)
+        library_ms = time_ms(torch, library)
+        nbytes = m * k + k * n + 4 * (m + n) + 4 * m * n
+        ops = 2 * m * n * k
+        tb = nbytes / facts["bw"] * 1e3
+        to = ops / PEAK_OPS["int8"] * 1e3
+        out[(m, k, n)] = {
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": max(tb, to),
+            "bound_by": "bytes" if tb >= to else "operations",
+            "bytes": nbytes, "ops": ops, "tops": ops / ms / 1e9}
+        print(f"  K5 m={m} k={k} n={n}: " + json.dumps(out[(m, k, n)]))
+        del sets
+    layer = {key: sum(cnt * out[s][key] for s, cnt in K5_SHAPES.items())
+             for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    by_bytes = sum(cnt * out[s]["bound_ms"] for s, cnt in K5_SHAPES.items()
+                   if out[s]["bound_by"] == "bytes")
+    layer["bound_by"] = ("bytes" if by_bytes >= layer["bound_ms"] / 2
+                         else "operations")
+    print("  K5 per layer (7 launches): " + json.dumps(layer))
+    torch.cuda.empty_cache()
+    return {"shapes": {f"{m}x{k}x{n}": v for (m, k, n), v in out.items()},
+            "per_layer": layer}
+
+
+def lm_base_bytes(port):
+    """LM-base with lm_cli's byte vocabulary, as phase 8 trains it."""
+    import dataclasses
+    return dataclasses.replace(port["tfm"].PRESETS["LM-base"],
+                               vocab_size=port["corpus"].VOCAB_SIZE)
+
+
+def int8_bf16_windows(torch, port, pairs: int = 4, window: int = 10
+                      ) -> dict:
+    """Alternated LM-base bf16 training windows, int8 matmul and plain
+    (int8, bf16, bf16, int8, ...: the host drifts over a run, so only
+    windows taken in turns compare), two trainers from the same seed on
+    the same batches; then the teacher-forced argmax flip rate of the int8
+    forward against the bf16 one on the bf16 run's params and a held-out
+    batch (reported, not gated: the JAX package's 0.02 ceiling is for a
+    trained model)."""
+    lm, tfm, corpus_mod = port["lm"], port["tfm"], port["corpus"]
+    model = lm_base_bytes(port)
+    corpus = corpus_mod.load_corpus(None)
+    split = int(len(corpus) * 0.9)
+    train = corpus_mod.LMCorpus(corpus.tokens[:split], corpus.synthetic)
+    loader = corpus_mod.LMDataLoader(train, 8, 1024, seed=1)
+    batches = [bt for _, bt in zip(range(window), loader)]
+    runs = {}
+    for mode in ("int8", "bf16"):
+        cfg = lm.LMTrainConfig(model=model, compute_dtype="bfloat16",
+                               matmul_dtype="int8" if mode == "int8"
+                               else None)
+        tr = lm.LMTrainer(cfg, device=DEVICE)
+        for tk, tg in batches[:2]:  # warm-up
+            tr.train_step(tk, tg)
+        runs[mode] = {"tr": tr, "ms": []}
+    order = ["int8", "bf16", "bf16", "int8"] * ((pairs + 1) // 2)
+    for mode in order[: 2 * pairs]:
+        tr = runs[mode]["tr"]
+        sync(torch)
+        t0 = time.perf_counter()
+        for tk, tg in batches:
+            loss = tr.train_step(tk, tg)
+        float(loss)
+        sync(torch)
+        runs[mode]["ms"].append((time.perf_counter() - t0) / window * 1e3)
+    held = corpus_mod.LMCorpus(corpus.tokens[split:], corpus.synthetic)
+    tk, _ = next(iter(corpus_mod.LMDataLoader(held, 8, 1024,
+                                              shuffle=False)))
+    params = {n: p.detach() for n, p in runs["bf16"]["tr"].params.items()}
+    with torch.no_grad():
+        tk = torch.as_tensor(tk, device=DEVICE).long()
+        a = tfm.apply(params, tk, cfg=model, dtype=torch.bfloat16)
+        b = tfm.apply(params, tk, cfg=model, dtype=torch.bfloat16,
+                      matmul_dtype="int8")
+        flips = (a.argmax(-1) != b.argmax(-1)).float().mean().item()
+    med = {m: float(np.median(r["ms"])) for m, r in runs.items()}
+    res = {"window_steps": window, "pairs": pairs,
+           "int8_ms_windows": runs["int8"]["ms"],
+           "bf16_ms_windows": runs["bf16"]["ms"],
+           "int8_ms_median": med["int8"], "bf16_ms_median": med["bf16"],
+           "int8_over_bf16_ms": med["int8"] / med["bf16"],
+           "argmax_flip_rate_int8_vs_bf16": flips,
+           "flip_rate_tokens": int(a.shape[0] * a.shape[1])}
+    print("  alternated int8/bf16 windows: " + json.dumps(res))
+    del runs, params, a, b
+    torch.cuda.empty_cache()
+    return res
+
+
+def int8_step_check(torch, port) -> dict:
+    """One LM-base-width float32 int8 step (2 layers, B=2, S=512): loss and
+    gradients through K5 twice, then through the plain int8 product (the
+    module's int8_matmul swapped for int8_matmul_plain for this comparison
+    only).  The loss must be bitwise equal; the gradients equal, or no
+    further apart than the two kernel runs."""
+    import dataclasses
+    tfm, lm, qz = port["tfm"], port["lm"], port["qz"]
+    model = dataclasses.replace(tfm.PRESETS["LM-base"], n_layers=2)
+    cfg = lm.LMTrainConfig(model=model, compute_dtype=None,
+                           matmul_dtype="int8")
+    rng = np.random.default_rng(5)
+    tokens = rng.integers(0, model.vocab_size, (2, 512)).astype(np.int32)
+    targets = np.roll(tokens, -1, axis=1).astype(np.int32)
+    targets[:, -1] = lm.IGNORE
+    tr = lm.LMTrainer(cfg, device=DEVICE)
+    tk, tg = tr._batch(tokens, targets)
+    n_total = (tg != lm.IGNORE).sum().float()
+
+    def loss_and_grads():
+        for p in tr.params.values():
+            p.grad = None
+        loss = lm._loss_fn(cfg, "flash", tr.params, tk, tg, n_total, 0.0)
+        loss.backward()
+        return loss.item(), {n: p.grad.clone() for n, p in
+                             tr.params.items()}
+
+    n0 = qz.int8_matmul_q.launches
+    k1, k2 = loss_and_grads(), loss_and_grads()
+    launched = qz.int8_matmul_q.launches - n0
+    kernel = qz.int8_matmul
+    qz.int8_matmul = qz.int8_matmul_plain
+    try:
+        pl = loss_and_grads()
+    finally:
+        qz.int8_matmul = kernel
+
+    def gap(a, b):
+        return max(((a[n] - b[n]).abs().max() / b[n].abs().max()
+                    .clamp_min(1e-30)).item() for n in a)
+
+    res = {"loss_kernel": k1[0], "loss_plain": pl[0],
+           "loss_bitwise": k1[0] == pl[0] == k2[0],
+           "grad_rel_gap_kernel_plain": gap(k1[1], pl[1]),
+           "grad_rel_gap_kernel_kernel": gap(k1[1], k2[1]),
+           "k5_launches_two_steps": launched}
+    print("  f32 int8 step, K5 vs plain: " + json.dumps(res))
+    if not res["loss_bitwise"]:
+        fail(f"the int8 loss through K5 is not bitwise the plain one's: "
+             f"{res}")
+    if res["grad_rel_gap_kernel_plain"] > res["grad_rel_gap_kernel_kernel"]:
+        fail(f"int8 gradients through K5 and the plain product differ "
+             f"more than two K5 runs: {res}")
+    if launched != 2 * 7 * model.n_layers:
+        fail(f"K5 launched {launched} times in two 2-layer forwards")
+    del tr
+    torch.cuda.empty_cache()
+    return res
+
+
+REMAT_GNORM_TOL = 1e-3  # bf16 gradients summed in another order
+
+
+def remat_runs(torch, port, steps: int = 3) -> dict:
+    """LM-base bf16 through lm_cli with --remat none, full and selective,
+    3 steps each from the same seed and batches: step-1 losses bitwise
+    equal (the same forward), step-1 grad-norms within REMAT_GNORM_TOL
+    relative; the peak memory of the run (the optimizer's transients
+    included), ms per step over steps 2-3, and the peak of one forward +
+    backward above the trainer's resident params and Adam state (the
+    activations and the gradients: what remat changes); K2 launched twice
+    per layer per step under full remat (the recompute) and once under
+    selective (the kept (o, lse)), K3/K4 once."""
+    attn, cli, lm = port["attn"], port["lm_cli"], port["lm"]
+    rng = np.random.default_rng(13)
+    tokens = rng.integers(0, port["corpus"].VOCAB_SIZE, (8, 1024))
+    targets = np.roll(tokens, -1, axis=1)
+    out = {}
+    for mode in ("none", "full", "selective"):
+        losses, gnorms, t = [], [], {}
+
+        def on_step(step, trainer, loss):
+            losses.append(loss)
+            gnorms.append(trainer.last_metrics[0])
+            if step in (1, steps):
+                sync(torch)
+                t[step] = time.perf_counter()
+
+        for f in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                  "flash_attention_bwd_dkv"):
+            getattr(attn, f).launches = 0
+        argv = ["--preset", "LM-base", "--steps", str(steps),
+                "--batch-size", "8", "--seq-len", "1024", "--compute-dtype",
+                "bfloat16", "--log-every", "1000", "--device", DEVICE,
+                "--remat", mode]
+        sync(torch)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = cli.run(argv, on_step=on_step)
+        sync(torch)
+        out[mode] = {
+            "losses": [float(x) for x in losses],
+            "grad_norms": [float(x) for x in gnorms],
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "ms_per_step_2_to_last": (t[steps] - t[1]) / (steps - 1) * 1e3,
+            "s": time.perf_counter() - t0,
+            "launches": {"K2": attn.flash_attention_fwd.launches,
+                         "K3": attn.flash_attention_bwd_dq.launches,
+                         "K4": attn.flash_attention_bwd_dkv.launches}}
+        n_layers = trainer.cfg.model.n_layers
+        tk, tg = trainer._batch(tokens, targets)
+        for p in trainer.params.values():
+            p.grad = None
+        sync(torch)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        lm._loss_fn(trainer.cfg, "flash", trainer.params, tk, tg,
+                    (tg != lm.IGNORE).sum().float(), 0.0).backward()
+        sync(torch)
+        out[mode]["fwd_bwd_peak_gb"] = \
+            (torch.cuda.max_memory_allocated() - base) / 1e9
+        del trainer
+        torch.cuda.empty_cache()
+        print(f"  remat {mode}: " + json.dumps(out[mode]))
+    ref = out["none"]
+    for mode in ("full", "selective"):
+        r = out[mode]
+        if r["losses"][0] != ref["losses"][0]:
+            fail(f"remat {mode}: step-1 loss {r['losses'][0]} is not the "
+                 f"no-remat {ref['losses'][0]}")
+        rel = abs(r["grad_norms"][0] - ref["grad_norms"][0]) \
+            / ref["grad_norms"][0]
+        r["grad_norm_rel_diff_step1"] = rel
+        if not rel <= REMAT_GNORM_TOL:
+            fail(f"remat {mode}: step-1 grad-norm {rel} relative from "
+                 f"the no-remat step")
+    for mode, k2 in (("none", 1), ("full", 2), ("selective", 1)):
+        want = {"K2": k2, "K3": 1, "K4": 1}
+        for k, n in out[mode]["launches"].items():
+            if n != want[k] * n_layers * steps:
+                fail(f"remat {mode}: {k} launched {n} times, want "
+                     f"{want[k]} x {n_layers} layers x {steps} steps")
+    return out
+
+
+HEAD_TOL = {"loss_rel": 1e-5, "dh_rel": 2.0 ** -7, "demb_of_max": 1e-4}
+
+
+def chunked_head_check(torch, port) -> dict:
+    """head_loss dense against chunked at the LM-base preset's vocabulary
+    (32,000 rows, the default chunk 1,000), B=8 x S=1024 x 1024, hidden
+    states bf16, embedding f32, with ignored targets: loss, gradients,
+    time and the peak memory of forward + backward above the inputs.
+    Tolerances: loss 1e-5 relative; dh (bf16) one bf16 ulp of each value
+    plus 1e-6 of the largest (two float32 sums in different orders, each
+    rounded to bf16); dembed 1e-4 of its largest (8,192-term float32 sums,
+    chunk by chunk)."""
+    losses = port["losses"]
+    b, s, d, v = 8, 1024, 1024, port["tfm"].PRESETS["LM-base"].vocab_size
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    h = torch.randn((b, s, d), generator=gen, device=DEVICE).to(
+        torch.bfloat16)
+    emb = torch.randn((v, d), generator=gen, device=DEVICE) * 0.02
+    tg = torch.randint(0, v, (b, s), generator=gen, device=DEVICE)
+    tg[:, -1] = port["lm"].IGNORE
+    tg[0, :100] = port["lm"].IGNORE
+    res = {}
+    for impl in ("dense", "chunked"):
+        for rep in range(2):  # the second run is timed and measured
+            hh = h.clone().requires_grad_(True)
+            ee = emb.clone().requires_grad_(True)
+            sync(torch)
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            ce, n = losses.head_loss(hh, ee, tg, loss_impl=impl)
+            loss = ce / n
+            loss.backward()
+            sync(torch)
+            res[impl] = {"loss": loss.item(),
+                         "ms": (time.perf_counter() - t0) * 1e3,
+                         "peak_above_inputs_gb":
+                             (torch.cuda.max_memory_allocated() - base) / 1e9,
+                         "dh": hh.grad, "demb": ee.grad}
+    dn, ck = res["dense"], res["chunked"]
+    loss_rel = abs(ck["loss"] - dn["loss"]) / abs(dn["loss"])
+    dh_ok = ((ck["dh"].float() - dn["dh"].float()).abs()
+             <= HEAD_TOL["dh_rel"] * dn["dh"].float().abs()
+             + 1e-6 * dn["dh"].float().abs().max()).all().item()
+    demb_gap = ((ck["demb"] - dn["demb"]).abs().max()
+                / dn["demb"].abs().max()).item()
+    out = {"vocab": v, "chunk": losses.default_chunk(v),
+           "loss_dense": dn["loss"], "loss_chunked": ck["loss"],
+           "loss_rel_diff": loss_rel, "dh_within_tol": dh_ok,
+           "demb_gap_of_max": demb_gap,
+           "dh_max_abs_diff": (ck["dh"].float() - dn["dh"].float()).abs()
+           .max().item(),
+           "ms_dense": dn["ms"], "ms_chunked": ck["ms"],
+           "peak_gb_dense": dn["peak_above_inputs_gb"],
+           "peak_gb_chunked": ck["peak_above_inputs_gb"],
+           "tolerance": HEAD_TOL}
+    print(f"  head_loss dense vs chunked, V={v}: " + json.dumps(out))
+    if not (loss_rel <= HEAD_TOL["loss_rel"] and dh_ok
+            and demb_gap <= HEAD_TOL["demb_of_max"]):
+        fail(f"chunked head disagrees with the dense one: {out}")
+    del res, h, emb
+    torch.cuda.empty_cache()
+    return out
+
 
 T_START = time.perf_counter()
 
@@ -1899,13 +2312,14 @@ def main() -> int:
         from distributed_pytorch_tpu_torch import cli, lm, lm_cli, serve
         from distributed_pytorch_tpu_torch import generate as gen
         from distributed_pytorch_tpu_torch import train
-        from distributed_pytorch_tpu_torch.data import cifar10
+        from distributed_pytorch_tpu_torch.data import cifar10, lm_corpus
         from distributed_pytorch_tpu_torch.models import transformer as tfm
         from distributed_pytorch_tpu_torch.models import vgg
         from distributed_pytorch_tpu_torch.ops import _build
         from distributed_pytorch_tpu_torch.ops import attention as attn
         from distributed_pytorch_tpu_torch.ops import fused_bn
-        from distributed_pytorch_tpu_torch.ops import nn
+        from distributed_pytorch_tpu_torch.ops import losses, nn
+        from distributed_pytorch_tpu_torch.ops import quantized as qz
     except ImportError as e:
         print(f"chip_smoke: the port's package is not importable: {e}",
               file=sys.stderr)
@@ -1914,7 +2328,8 @@ def main() -> int:
     port = {"tfm": tfm, "gen": gen, "serve": serve, "attn": attn, "lm": lm,
             "lm_cli": lm_cli, "dev": "cuda", "cfg": tfm.PRESETS["LM-base"],
             "train": train, "cli": cli, "vgg": vgg, "fused_bn": fused_bn,
-            "cifar10": cifar10, "nn": nn}
+            "cifar10": cifar10, "nn": nn, "qz": qz, "losses": losses,
+            "corpus": lm_corpus}
 
     # 1. card facts
     facts = card_facts(torch)
@@ -1927,7 +2342,8 @@ def main() -> int:
 
     # 2. build every kernel library, one nvcc per source, all at once
     t0 = time.perf_counter()
-    libs = ("decode_attention", "flash_attention", "fused_bn")
+    libs = ("decode_attention", "flash_attention", "fused_bn",
+            "int8_matmul")
     _build.build_all(libs)
     for lib in libs:
         _build.load_library(lib)
@@ -1991,6 +2407,19 @@ def main() -> int:
                for dt, extra in (("float32", []),
                                  ("bfloat16", ["--compute-dtype",
                                                "bfloat16"]))}
+    phase(15, "int8 matmul kernel (K5) against its plain version")
+    k5_worst = check_int8_kernel(torch, qz)
+    k5_timing = time_int8(torch, qz, facts)
+    phase(16, "LM-base bf16 int8 training through lm_cli --matmul-dtype "
+              "int8")
+    int8_res = training_run(torch, port, extra=("--matmul-dtype", "int8"),
+                            label="LM-base bf16 int8 training")
+    int8_bf16_windows(torch, port)
+    int8_step_check(torch, port)
+    phase(17, "remat and the chunked head at LM-base width")
+    remat_runs(torch, port)
+    chunked_head_check(torch, port)
+    print(f"  phases done at {time.perf_counter() - T_START:.0f} s")
 
     kernels = []
     src = "distributed_pytorch_tpu_torch/csrc/decode_attention.cu"
@@ -2070,6 +2499,24 @@ def main() -> int:
             "ms_largest_layer_bf16": b16["largest_layer"][name],
             "bound_ms_largest_layer_bf16":
                 b16["largest_layer"][f"bound_{name}"]})
+    k5 = k5_timing["per_layer"]
+    kernels.append({
+        "name": "int8_matmul (K5)", "route": "cuda",
+        "source": "distributed_pytorch_tpu_torch/csrc/int8_matmul.cu",
+        "replaces": "distributed_pytorch_tpu/ops/quantized.py:91",
+        "launches": int8_res["launches"]["K5"],
+        "max_abs_err": k5_worst["max_abs_err"],
+        "tolerance": "bitwise (max_abs_err must be 0)",
+        "shapes": "one LM-base layer at B=8 x S=1024: 4 x (8192, 1024) @ "
+                  "(1024, 1024), 2 x @ (1024, 4096), 1 x (8192, 4096) @ "
+                  "(4096, 1024), summed; per shape in per_shape",
+        "ms": k5["ms"], "plain_ms": k5["plain_ms"],
+        "plain": "the float64 integer product + epilogue on the quantized "
+                 "operands",
+        "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
+        "library_ms": k5["library_ms"],
+        "library": "torch._int_mm (cuBLASLt) + the same epilogue",
+        "per_shape": k5_timing["shapes"]})
     if not all(k["launches"] for k in kernels):
         fail("a kernel of the main path was never launched")
     print(json.dumps({"kernels": kernels}))

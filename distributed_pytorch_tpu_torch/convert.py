@@ -13,7 +13,11 @@ and layouts already (``from_jax_cache``).
 The optimizer state crosses too: the Adam moments and step count of an
 optax ``chain(clip_by_global_norm, adamw)`` state (its ``ScaleByAdamState``
 ``count``/``mu``/``nu``) become the port's ``{"count", "mu", "nu"}`` dict
-(lm.py), and back, so a JAX run can continue in the port.
+(lm.py), and back, so a JAX run can continue in the port.  The int8
+matmul (``matmul_dtype="int8"``), ``remat`` and the chunked head
+(``loss_impl="chunked"``) have no parameters or optimizer state of their
+own: they are ways of computing the same model, so these converters carry
+a run that uses them as they are.
 
 VGG, unlike the transformer, crosses with a transpose: the JAX package's
 conv kernels are HWIO over NHWC activations, the port's OIHW in

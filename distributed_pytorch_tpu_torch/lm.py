@@ -7,10 +7,14 @@ over one mesh; this slice ports its single-device path.  A step is the JAX
 - the dense transformer forward (``models/transformer.apply``) in
   ``compute_dtype`` with float32 params (embedding rows cast at lookup,
   weights cast at use), flash attention by default (hand-written kernels
-  K2, K3 and K4 on the GPU, ops/attention.py);
-- the dense masked cross-entropy head (``ops/losses.head_loss``), the loss
-  being ``ce_sum / max(n_total, 1) + aux_coef * aux`` with ``n_total``
-  counted over the whole batch before the loss;
+  K2, K3 and K4 on the GPU, ops/attention.py), the dense projections
+  through the int8 matmul with ``matmul_dtype="int8"`` (kernel K5,
+  ops/quantized.py), each layer recomputed in the backward with
+  ``remat="full"`` or ``"selective"``;
+- the masked cross-entropy head (``ops/losses.head_loss``, dense or, with
+  ``loss_impl="chunked"``, streamed over ``loss_chunk`` vocabulary rows),
+  the loss being ``ce_sum / max(n_total, 1) + aux_coef * aux`` with
+  ``n_total`` counted over the whole batch before the loss;
 - ``grad_accum`` microbatches split interleaved (microbatch j holds rows
   j, j + A, ...), their gradients summed;
 - the update of ``optax.chain(clip_by_global_norm(grad_clip),
@@ -116,10 +120,6 @@ _LATER = {
     "staleness": (0, SYSTEMS_SLICE),
     "pp_size": (0, SYSTEMS_SLICE),
     "microbatches": (0, SYSTEMS_SLICE),
-    "remat": ("none", tfm.LM_SCALE_SLICE),
-    "loss_impl": ("dense", tfm.LM_SCALE_SLICE),
-    "loss_chunk": (None, tfm.LM_SCALE_SLICE),
-    "matmul_dtype": (None, tfm.LM_SCALE_SLICE),
 }
 
 
@@ -128,18 +128,45 @@ def validate_lm_cfg(cfg: LMTrainConfig) -> None:
     ``NotImplementedError`` for any knob of a later slice."""
     if cfg.grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {cfg.grad_accum}")
+    pipelined = cfg.pp > 1 or cfg.pp_size > 0
+    if cfg.matmul_dtype is not None:
+        if cfg.matmul_dtype != "int8":
+            raise ValueError(f"matmul_dtype must be None or 'int8', got "
+                             f"{cfg.matmul_dtype!r}")
+        if pipelined:
+            raise ValueError(
+                "matmul_dtype does not compose with pipeline parallelism "
+                "(pp/pp_size): the stage runners call the block body "
+                "directly without the matmul_dtype plumbing; drop one")
     if cfg.loss_impl not in ("dense", "chunked"):
         raise ValueError(f"loss_impl must be 'dense' or 'chunked', got "
                          f"{cfg.loss_impl!r}")
+    if cfg.loss_chunk is not None:
+        if cfg.loss_impl != "chunked":
+            raise ValueError(
+                f"loss_chunk={cfg.loss_chunk} only applies to "
+                "loss_impl='chunked'; the dense head has no chunk size "
+                "(set loss_impl='chunked' or drop loss_chunk)")
+        v = cfg.model.vocab_size
+        if cfg.loss_chunk <= 0 or v % cfg.loss_chunk:
+            raise ValueError(
+                f"loss_chunk={cfg.loss_chunk} must be a positive divisor "
+                f"of the per-rank vocab rows ({v}) — the streaming scan "
+                "needs equal-sized chunks")
     if cfg.remat not in ("none", "full", "selective"):
         raise ValueError(f"remat must be 'none', 'full' or 'selective', got "
                          f"{cfg.remat!r}")
+    if cfg.remat != "none" and pipelined:
+        raise ValueError(
+            "remat does not compose with pipeline parallelism (pp/pp_size): "
+            "the pipeline schedulers own their own rematerialization; drop "
+            "one")
     for name, (off, where) in _LATER.items():
         value = getattr(cfg, name)
         if value != off:
             raise tfm.not_ported(f"LMTrainConfig.{name}={value!r}", where)
     if cfg.model.n_experts:
-        raise tfm.not_ported("n_experts > 0 (MoE layers)", tfm.LM_SCALE_SLICE)
+        raise tfm.not_ported("n_experts > 0 (MoE layers)", tfm.MOE_SLICE)
 
 
 def make_schedule(cfg: LMTrainConfig):
@@ -244,7 +271,9 @@ def _loss_fn(cfg: LMTrainConfig, attn_impl: str, params, tokens, targets,
                    loss_impl=cfg.loss_impl, loss_chunk=cfg.loss_chunk)
     (ce_sum, _), aux = tfm.apply(params, tokens, cfg=cfg.model,
                                  dtype=cfg.dtype, attn_impl=attn_impl,
-                                 return_aux=True, head_fn=head)
+                                 return_aux=True, head_fn=head,
+                                 matmul_dtype=cfg.matmul_dtype,
+                                 remat=cfg.remat)
     return ce_sum / n_total.clamp_min(1) + aux_w * aux
 
 
@@ -289,7 +318,8 @@ def make_lm_train_step(cfg: LMTrainConfig, attn_impl: str = "flash"):
 
 def make_lm_eval_step(cfg: LMTrainConfig, attn_impl: str = "flash"):
     """Forward-only masked CE: ``(params, tokens, targets) -> (ce_sum,
-    count)``."""
+    count)``, with the training step's ``matmul_dtype`` and head; no remat
+    (there is no backward to keep activations for)."""
     validate_lm_cfg(cfg)
 
     @torch.no_grad()
@@ -297,7 +327,8 @@ def make_lm_eval_step(cfg: LMTrainConfig, attn_impl: str = "flash"):
         head = partial(losses.head_loss, targets=targets,
                        loss_impl=cfg.loss_impl, loss_chunk=cfg.loss_chunk)
         return tfm.apply(params, tokens, cfg=cfg.model, dtype=cfg.dtype,
-                         attn_impl=attn_impl, head_fn=head)
+                         attn_impl=attn_impl, head_fn=head,
+                         matmul_dtype=cfg.matmul_dtype)
 
     return eval_step
 

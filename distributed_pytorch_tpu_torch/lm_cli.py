@@ -7,10 +7,11 @@ package's lm_cli.py, with its parser and flag names plus ``--device``:
 It runs the single-device loop: the byte-level corpus (synthetic unless
 ``--corpus``), ``--eval-every`` on a 10% hold-out, ``--log-every`` loss and
 tok/s lines, and ``--generate`` through the port's ``generate``.  It runs
-on the GPU unless given ``--device cpu``.  Flags of later slices (parallel
-degrees, elastic membership, checkpoints, telemetry, profiling, the sync
-knobs, ``--matmul-dtype``, ``--loss-impl chunked``, ``--remat``, MoE) end
-the run with a usage error naming the slice.
+on the GPU unless given ``--device cpu``.  ``--matmul-dtype int8`` (the int8
+matmul, kernel K5), ``--remat full|selective`` and ``--loss-impl chunked
+[--loss-chunk N]`` work as in the JAX package.  Flags of later slices
+(parallel degrees, elastic membership, checkpoints, telemetry, profiling,
+the sync knobs, MoE) end the run with a usage error naming the slice.
 """
 
 from __future__ import annotations
@@ -154,9 +155,7 @@ _LATER_FLAGS = [
     *[(f"--{n}", n, 0, SYSTEMS_SLICE)
       for n in ("pp-size", "microbatches", "staleness", "rank")],
     ("--rendezvous", "rendezvous", "args", SYSTEMS_SLICE),
-    ("--matmul-dtype", "matmul-dtype", None, tfm.LM_SCALE_SLICE),
-    ("--loss-chunk", "loss-chunk", None, tfm.LM_SCALE_SLICE),
-    ("--n-experts", "n-experts", None, tfm.LM_SCALE_SLICE),
+    ("--n-experts", "n-experts", None, tfm.MOE_SLICE),
 ]
 
 
@@ -167,12 +166,6 @@ def refuse_later_flags(parser: argparse.ArgumentParser, args) -> None:
         if value != off:
             parser.error(f"{flag} {value!r} is not ported to PyTorch yet: "
                          f"{where}")
-    if args.loss_impl == "chunked":
-        parser.error(f"--loss-impl chunked is not ported to PyTorch yet: "
-                     f"{tfm.LM_SCALE_SLICE}")
-    if args.remat not in (None, "none"):
-        parser.error(f"--remat {args.remat} is not ported to PyTorch yet: "
-                     f"{tfm.LM_SCALE_SLICE}")
 
 
 def model_config(args) -> tfm.TransformerConfig:
@@ -197,6 +190,14 @@ def run(argv: list[str] | None = None, on_step=None) -> LMTrainer:
     if args.mmap_corpus and not args.corpus:
         parser.error("--mmap-corpus requires --corpus (the synthetic "
                      "fallback is generated in RAM)")
+    if args.loss_chunk is not None and args.loss_impl != "chunked":
+        parser.error("--loss-chunk tunes the chunked head; pass "
+                     "--loss-impl chunked (or drop the chunk size)")
+    if args.remat in ("full", "selective") and (args.pp > 1
+                                                or args.pp_size > 0):
+        parser.error("--remat does not compose with --pp/--pp-size: the "
+                     "pipeline schedulers own their own rematerialization; "
+                     "drop one")
     refuse_later_flags(parser, args)
     logging.basicConfig(
         level=args.log_level,
@@ -208,7 +209,9 @@ def run(argv: list[str] | None = None, on_step=None) -> LMTrainer:
         compute_dtype=(None if args.compute_dtype == "float32"
                        else args.compute_dtype),
         warmup_steps=args.warmup_steps, decay_steps=args.decay_steps,
-        grad_accum=args.grad_accum)
+        grad_accum=args.grad_accum, matmul_dtype=args.matmul_dtype,
+        loss_impl=args.loss_impl or "dense", loss_chunk=args.loss_chunk,
+        remat=args.remat or "none")
     trainer = LMTrainer(cfg, device=args.device)
     log.info("model: %s | device: %s", cfg.model, trainer.device)
 

@@ -13,8 +13,10 @@ cross between the two packages by renaming alone (convert.py):
 
 The dense single-device forward runs with ``attn_impl="flash"`` (the
 default, as in the JAX package: hand-written kernels K2-K4 on the GPU,
-ops/attention.py) or ``"reference"``.  MoE layers and the parallelism /
-remat / boundary / int8-matmul options are refused with
+ops/attention.py) or ``"reference"``.  ``matmul_dtype="int8"`` routes the
+dense projections through the int8 matmul (ops/quantized.py: kernel K5 on
+the GPU), and ``remat`` recomputes each layer in the backward.  MoE layers
+and the parallelism / boundary options are refused with
 ``NotImplementedError`` until the slice that ports them (ROADMAP.md
 queue 1).
 """
@@ -26,14 +28,15 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import attention as attn_ops
+from ..ops import quantized as qz
 from ..utils.device import resolve_device
 
 Params = dict[str, torch.Tensor]
 
-LM_SCALE_SLICE = ("ROADMAP.md queue 1, slice 6 (LM training at scale: "
-                  "MoE, int8 matmul, remat, chunked CE)")
+MOE_SLICE = "ROADMAP.md queue 1, slice 6b (MoE layers)"
 PARALLEL_SLICE = "ROADMAP.md queue 1, slice 5 (parallelism)"
 SYSTEMS_SLICE = ("ROADMAP.md queue 1, slice 5 (data parallel and the "
                  "systems layers)")
@@ -101,7 +104,7 @@ PRESETS = {
 
 def _refuse_moe(cfg: TransformerConfig) -> None:
     if cfg.n_experts:
-        raise not_ported("n_experts > 0 (MoE layers)", LM_SCALE_SLICE)
+        raise not_ported("n_experts > 0 (MoE layers)", MOE_SLICE)
 
 
 def init(seed_or_generator: int | torch.Generator, cfg: TransformerConfig,
@@ -200,42 +203,81 @@ def mlp(lp: Params, h: torch.Tensor) -> torch.Tensor:
     return (gate * up) @ lp["w_down"].to(h.dtype)
 
 
-def _check_options(attn_impl: str, **opts) -> None:
+def _check_options(attn_impl: str, matmul_dtype=None, **opts) -> None:
     if attn_impl not in ("flash", "reference"):
         raise ValueError(f"unknown attn_impl {attn_impl!r}")
+    if matmul_dtype not in (None, "int8"):
+        raise ValueError(f"matmul_dtype must be None or 'int8', got "
+                         f"{matmul_dtype!r}")
     for name, value in opts.items():
-        if value not in (None, "none"):
-            where = (PARALLEL_SLICE if name in ("seq_axis", "tp_axis",
-                                                "ep_axis", "boundary")
-                     else LM_SCALE_SLICE)
-            raise not_ported(f"{name}={value!r}", where)
+        if value is not None:
+            raise not_ported(f"{name}={value!r}", PARALLEL_SLICE)
 
 
 def block(lp: Params, x: torch.Tensor, *, cfg: TransformerConfig,
           is_moe: bool, pos: torch.Tensor, attn_impl: str = "flash",
           seq_axis=None, tp_axis=None, ep_axis=None, matmul_dtype=None,
+          attn_saved: list | None = None,
           ) -> tuple[torch.Tensor, torch.Tensor]:
     """One dense transformer block: (layer params, (B, S, D)) -> (x, aux),
     aux being the MoE load-balance loss (always 0 here).  GQA repeats the
     k/v heads to H before attention, so autograd sums their gradient back
-    over each group."""
-    _check_options(attn_impl, seq_axis=seq_axis, tp_axis=tp_axis,
-                   ep_axis=ep_axis, matmul_dtype=matmul_dtype)
+    over each group.
+
+    ``matmul_dtype="int8"`` runs q/k/v/o and the MLP's three products
+    through ``ops.quantized.quantized_matmul`` on 2-D views, as the JAX
+    block does: each weight cast to the compute dtype before it is
+    quantized, ``wq`` (D, H, Dh) as (D, H Dh), ``wo`` (H, Dh, D) as
+    (H Dh, D), the projected (B, S, H, Dh) moved to (B, H, S, Dh).
+    ``attn_saved`` is the flash forward's kept ``(o, lse)`` under
+    ``remat="selective"`` (``flash_attention(saved=...)``)."""
+    _check_options(attn_impl, matmul_dtype, seq_axis=seq_axis,
+                   tp_axis=tp_axis, ep_axis=ep_axis)
     if is_moe:
-        raise not_ported("MoE layers", LM_SCALE_SLICE)
+        raise not_ported("MoE layers", MOE_SLICE)
+    b, s, d = x.shape
+    q8 = matmul_dtype == "int8"
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    q, k, v = qkv(lp, h, pos, cfg.rope_theta)
+    if q8:
+        hf = h.reshape(b * s, d)
+
+        def head_proj(w):
+            heads, dh = w.shape[1], w.shape[2]
+            out = qz.quantized_matmul(hf, w.reshape(d, heads * dh)
+                                      .to(h.dtype))
+            return out.reshape(b, s, heads, dh).permute(0, 2, 1, 3)
+
+        q, k, v = head_proj(lp["wq"]), head_proj(lp["wk"]), \
+            head_proj(lp["wv"])
+        q = rotary(q, pos, cfg.rope_theta)
+        k = rotary(k, pos, cfg.rope_theta)
+    else:
+        q, k, v = qkv(lp, h, pos, cfg.rope_theta)
     if cfg.kv_heads != cfg.n_heads:
         rep = q.shape[1] // k.shape[1]
         k = k.repeat_interleave(rep, dim=1)
         v = v.repeat_interleave(rep, dim=1)
     if attn_impl == "flash":
-        o = attn_ops.flash_attention(q, k, v, causal=True)
+        o = attn_ops.flash_attention(q, k, v, causal=True, saved=attn_saved)
     else:
         o = attn_ops.attention_reference(q, k, v, causal=True)
-    x = x + attn_out(lp, o)
+    if q8:
+        of = o.permute(0, 2, 1, 3).reshape(b * s, -1)
+        o = qz.quantized_matmul(of, lp["wo"].reshape(-1, d).to(o.dtype)
+                                ).reshape(b, s, d)
+    else:
+        o = attn_out(lp, o)
+    x = x + o
     h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-    return x + mlp(lp, h), torch.zeros((), device=x.device)
+    if q8:
+        hf = h.reshape(b * s, d)
+        gate = F.silu(qz.quantized_matmul(hf, lp["w_gate"].to(h.dtype)))
+        up = qz.quantized_matmul(hf, lp["w_up"].to(h.dtype))
+        down = qz.quantized_matmul(gate * up, lp["w_down"].to(h.dtype)
+                                   ).reshape(b, s, d)
+    else:
+        down = mlp(lp, h)
+    return x + down, torch.zeros((), device=x.device)
 
 
 def apply(params: Params, tokens: torch.Tensor, *, cfg: TransformerConfig,
@@ -252,19 +294,39 @@ def apply(params: Params, tokens: torch.Tensor, *, cfg: TransformerConfig,
     place of the logits matmul, and its result is returned where the
     logits would be (the trainer's head-loss seam, ops/losses.py).  With
     ``return_aux`` the result is ``(out, aux)``, aux being the summed MoE
-    load-balance loss (0 for a dense model)."""
+    load-balance loss (0 for a dense model).
+
+    ``matmul_dtype="int8"``: the dense projections through the int8 matmul
+    (``block``).  ``remat``: ``"full"`` wraps each block in
+    ``torch.utils.checkpoint`` (only the layer's input is kept; the
+    backward recomputes the whole block, flash forward included);
+    ``"selective"`` also keeps the flash forward's ``(o, lse)``, so the
+    backward recomputes only the projections and the MLP, as the JAX
+    package's ``save_only_these_names("attn_out", "attn_lse")`` policy
+    does (with ``attn_impl="reference"`` it keeps nothing more than
+    ``"full"``, as there).  ``None``/``"none"`` runs the blocks as they
+    are; so does any ``remat`` while autograd is off."""
     _refuse_moe(cfg)
-    _check_options(attn_impl, seq_axis=seq_axis, tp_axis=tp_axis,
-                   ep_axis=ep_axis, boundary=boundary,
-                   matmul_dtype=matmul_dtype, remat=remat)
+    _check_options(attn_impl, matmul_dtype, seq_axis=seq_axis,
+                   tp_axis=tp_axis, ep_axis=ep_axis, boundary=boundary)
+    if remat not in (None, "none", "full", "selective"):
+        raise ValueError(f"unknown remat {remat!r}: expected 'none', 'full' "
+                         "or 'selective'")
+    use_remat = remat in ("full", "selective") and torch.is_grad_enabled()
     x = params["embed"][tokens]
     if dtype is not None:
         x = x.to(dtype)
     if pos is None:
         pos = pos0 + torch.arange(x.shape[1], device=x.device)
     for i in range(cfg.n_layers):
-        x, _ = block(layer(params, i), x, cfg=cfg, is_moe=False, pos=pos,
-                     attn_impl=attn_impl)
+        kw = dict(cfg=cfg, is_moe=False, pos=pos, attn_impl=attn_impl,
+                  matmul_dtype=matmul_dtype)
+        if use_remat:
+            kw["attn_saved"] = [] if remat == "selective" else None
+            x, _ = checkpoint(block, layer(params, i), x, use_reentrant=False,
+                              preserve_rng_state=False, **kw)
+        else:
+            x, _ = block(layer(params, i), x, **kw)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if head_fn is not None:
         out = head_fn(x, params["embed"])

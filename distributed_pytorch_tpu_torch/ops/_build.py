@@ -72,6 +72,13 @@ _SIGNATURES = {
             + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p]),
         "fused_bn_error": (ctypes.c_char_p, [ctypes.c_int]),
     },
+    "int8_matmul": {
+        "int8_matmul_launch": (
+            ctypes.c_int,
+            [ctypes.c_void_p] * 5  # qx, qwt, sx, sw, out
+            + [ctypes.c_int] * 3 + [ctypes.c_void_p]),  # M, N, K, stream
+        "int8_matmul_error": (ctypes.c_char_p, [ctypes.c_int]),
+    },
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

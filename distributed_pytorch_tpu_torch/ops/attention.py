@@ -269,12 +269,19 @@ class _FlashAttention(torch.autograd.Function):
     kernels, as the JAX ``_bwd`` does), then runs dQ and dK/dV."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, sm_scale):
-        o, lse = flash_attention_fwd(q, k, v, causal=causal,
-                                     sm_scale=sm_scale)
+    def forward(ctx, q, k, v, causal, sm_scale, saved):
+        if saved:  # a recompute: the first forward's (o, lse), kept
+            o, lse = saved
+        else:
+            o, lse = flash_attention_fwd(q, k, v, causal=causal,
+                                         sm_scale=sm_scale)
+            if saved is not None:
+                saved.extend((o, lse))
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.sm_scale = causal, sm_scale
         ctx.set_materialize_grads(False)
+        if saved is not None:  # outputs apart from the kept tensors
+            return o.view_as(o), lse.view_as(lse)
         return o, lse
 
     @staticmethod
@@ -289,12 +296,13 @@ class _FlashAttention(torch.autograd.Function):
         kw = dict(causal=ctx.causal, sm_scale=ctx.sm_scale)
         dq = flash_attention_bwd_dq(q, k, v, lse, do, delta, **kw)
         dk, dv = flash_attention_bwd_dkv(q, k, v, lse, do, delta, **kw)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = False,
                     sm_scale: float | None = None, block_q: int | None = None,
-                    block_k: int | None = None, with_lse: bool = False):
+                    block_k: int | None = None, with_lse: bool = False,
+                    saved: list | None = None):
     """Tiled attention over (B, H, S, D), differentiable.
 
     With ``with_lse`` also returns the float32 row logsumexp (B, H, S) as a
@@ -305,7 +313,13 @@ def flash_attention(q, k, v, *, causal: bool = False,
     the explicitly passed block.  The blocks decide only what is refused:
     the CUDA kernels use their own tiles.  On CUDA tensors the forward
     launches K2 and the backward K3 and K4; on CPU tensors the plain
-    versions run through the same autograd.Function."""
+    versions run through the same autograd.Function.
+
+    ``saved`` keeps the forward's ``(o, lse)`` across a rematerialized
+    forward (``apply(remat="selective")``, the JAX package's
+    ``attn_out``/``attn_lse`` checkpoint names): an empty list is filled by
+    the forward, and a filled one is returned as the output without running
+    the forward again, so the recompute launches no K2."""
     if q.ndim != 4:
         raise ValueError(f"expected (B, H, S, D) q, got {tuple(q.shape)}")
     b, h, sq, d = q.shape
@@ -324,7 +338,7 @@ def flash_attention(q, k, v, *, causal: bool = False,
     o, lse = _FlashAttention.apply(
         q.reshape(b * h, sq, d).contiguous(),
         k.reshape(b * h, sk, d).contiguous(),
-        v.reshape(b * h, sk, d).contiguous(), causal, sm_scale)
+        v.reshape(b * h, sk, d).contiguous(), causal, sm_scale, saved)
     o = o.reshape(b, h, sq, d)
     if with_lse:
         return o, lse.reshape(b, h, sq)

@@ -19,12 +19,15 @@ for n in names:
     importlib.import_module(n)
 from distributed_pytorch_tpu_torch import cli, eval, generate, serve, train
 from distributed_pytorch_tpu_torch.models import vgg
-from distributed_pytorch_tpu_torch.ops import attention, fused_bn
+from distributed_pytorch_tpu_torch.ops import attention, fused_bn, losses
+from distributed_pytorch_tpu_torch.ops import quantized
 for fn in (attention.decode_attention_paged,
            attention.decode_attention_paged_plain, generate.init_paged_cache,
            generate.verify_step_ragged, serve.prefix_page_hashes,
            train.Trainer, eval.evaluate, cli.main, vgg.init,
-           fused_bn.bn_relu_bwd, fused_bn.bn_relu_bwd_plain):
+           fused_bn.bn_relu_bwd, fused_bn.bn_relu_bwd_plain,
+           quantized.int8_matmul, quantized.int8_matmul_plain,
+           quantized.quantized_matmul, losses.masked_ce_chunked):
     assert callable(fn)
 bad = sorted(m for m in sys.modules
              if m in ("jax", "jaxlib") or m.startswith(("jax.", "jaxlib."))
@@ -44,7 +47,7 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "lm_cli", "ops.nn", "ops.losses", "data.lm_corpus",
                 "models.vgg", "ops.fused_bn", "train", "eval", "cli",
                 "data.cifar10", "data.sampler", "data.pipeline",
-                "data.augment", "utils.metrics"):
+                "data.augment", "utils.metrics", "ops.quantized"):
         assert f"distributed_pytorch_tpu_torch.{mod}" in got["modules"]
     assert got["bad"] == [], f"the port imported {got['bad']}"
 

@@ -9,12 +9,21 @@ carried by convert.py.  Losses agree to rtol 1e-5 / atol 1e-6; params after
 the steps to rtol 1e-4 / atol 5e-4, the bound tests/test_lm.py holds its
 own layouts to (Adam divides by sqrt(nu), which amplifies float32
 summation-order noise on near-zero gradient entries).
+
+The int8 matmul and the chunked head are held against the JAX package's
+forward, head loss and optimizer composed without the mesh
+(``_jax_oracle``): on this JAX version the trainer's shard_map'd step does
+not trace either option (a custom VJP and a scan whose varying-axis types
+do not match), while the unsharded functions run.
 """
 
 import dataclasses
+from functools import partial
 
 import jax
+import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -22,6 +31,7 @@ from distributed_pytorch_tpu import lm as jlm
 from distributed_pytorch_tpu import lm_cli as jcli
 from distributed_pytorch_tpu.data import lm_corpus as jcorpus
 from distributed_pytorch_tpu.models import transformer as jtfm
+from distributed_pytorch_tpu.ops import losses as jlosses
 from distributed_pytorch_tpu_torch import convert
 from distributed_pytorch_tpu_torch import lm as tlm
 from distributed_pytorch_tpu_torch import lm_cli as tcli
@@ -61,6 +71,35 @@ def _jax_run(steps, batches, **kw):
         losses.append(float(jtr.train_step(*batches[i % len(batches)])))
         states.append(_snapshot(jtr))
     return jtr, losses, states
+
+
+def _jax_oracle(steps, batches, **kw):
+    """The JAX single-device step without the mesh: ``jax.value_and_grad``
+    of ``head_loss(apply(...)) / n_total`` (flash, the config's
+    ``matmul_dtype`` / ``remat`` / head), then the trainer's own optax
+    chain; the losses and the params after each step, from the JAX init."""
+    cfg = jlm.LMTrainConfig(model=jtfm.TransformerConfig(**SHAPE),
+                            compute_dtype=None, **kw)
+    params = jtfm.init(jax.random.key(cfg.seed), cfg.model)
+    opt = jlm.make_optimizer(cfg)
+    opt_state = opt.init(params)
+
+    def loss_fn(p, tokens, targets):
+        head = partial(jlosses.head_loss, targets=targets,
+                       loss_impl=cfg.loss_impl, loss_chunk=cfg.loss_chunk)
+        ce, _ = jtfm.apply(p, tokens, cfg=cfg.model, head_fn=head,
+                           matmul_dtype=cfg.matmul_dtype, remat=cfg.remat)
+        return ce / jnp.maximum(jnp.sum(targets != jlm.IGNORE), 1)
+
+    grad_fn = jax.jit(jax.value_and_grad(loss_fn))
+    losses, states = [], [(jax.tree.map(np.array, params), None)]
+    for i in range(steps):
+        loss, g = grad_fn(params, *batches[i % len(batches)])
+        updates, opt_state = opt.update(g, opt_state, params)
+        params = optax.apply_updates(params, updates)
+        losses.append(float(loss))
+        states.append((jax.tree.map(np.array, params), None))
+    return losses, states
 
 
 def _port(states, i=0, with_opt=False, **kw):
@@ -185,8 +224,14 @@ def test_opt_state_round_trip(base):
 
 
 def test_losses_match_jax():
-    """masked_ce and the dense head on shared inputs; chunked is refused."""
-    from distributed_pytorch_tpu.ops import losses as jlosses
+    """masked_ce and the dense head on shared inputs; the chunked head
+    against JAX's ``masked_ce_chunked`` in value (rtol 1e-6 / atol 1e-6: the
+    online and one-shot logsumexps round differently) and gradients (rtol
+    1e-5 / atol 2e-6: a few float32 ulps of |grad| ~3, summed over the
+    chunks in another order) and
+    against the dense head, ignored targets included, for the default chunk
+    and one that tiles the vocabulary; a chunk that does not divide it is
+    a ValueError, as in JAX; the tensor-parallel head names slice 5."""
     rng = np.random.default_rng(4)
     h = rng.standard_normal((2, 8, 16)).astype(np.float32)
     emb = rng.standard_normal((32, 16)).astype(np.float32)
@@ -197,9 +242,32 @@ def test_losses_match_jax():
                             torch.from_numpy(tg))
     np.testing.assert_allclose(got[0].item(), float(want[0]), rtol=1e-6)
     assert int(got[1]) == int(want[1]) == 13
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    tol = dict(rtol=1e-6, atol=1e-6)
+    for chunk in (None, 8):
+        kw = dict(loss_impl="chunked", loss_chunk=chunk)
+        jval, (jdh, jde) = jax.value_and_grad(
+            lambda a, b: jlosses.head_loss(a, b, tg, **kw)[0],
+            argnums=(0, 1))(jnp.asarray(h), jnp.asarray(emb))
+        th, te = (torch.from_numpy(a).requires_grad_(True) for a in (h, emb))
+        ce, n = tlosses.head_loss(th, te, torch.from_numpy(tg), **kw)
+        assert int(n) == 13
+        np.testing.assert_allclose(ce.item(), float(jval), **tol)
+        np.testing.assert_allclose(ce.item(), got[0].item(), **tol)
+        ce.backward()
+        gtol = dict(rtol=1e-5, atol=2e-6)
+        np.testing.assert_allclose(th.grad.numpy(), np.asarray(jdh), **gtol)
+        np.testing.assert_allclose(te.grad.numpy(), np.asarray(jde), **gtol)
+        assert not th.grad[1, 5:].any()  # ignored positions: no gradient
+    assert tlosses.default_chunk(32) == jlosses.default_chunk(32) == 32
+    assert tlosses.default_chunk(32_000) == jlosses.default_chunk(32_000)
+    for mod, arr in ((jlosses, jnp.asarray), (tlosses, torch.from_numpy)):
+        with pytest.raises(ValueError, match="divisor"):
+            mod.head_loss(arr(h), arr(emb), arr(tg), loss_impl="chunked",
+                          loss_chunk=5)
+    with pytest.raises(NotImplementedError, match="slice 5"):
         tlosses.head_loss(torch.from_numpy(h), torch.from_numpy(emb),
-                          torch.from_numpy(tg), loss_impl="chunked")
+                          torch.from_numpy(tg), loss_impl="chunked",
+                          tp_axis="model", tp_size=2)
 
 
 def test_corpus_and_loader_match_jax():
@@ -262,14 +330,68 @@ REFUSED_FLAGS = [["--dp", "2"], ["--tp", "2"], ["--pp-size", "2"],
                  ["--matmul-dtype", "int8"], ["--loss-impl", "chunked"],
                  ["--remat", "full"], ["--n-experts", "2"],
                  ["--rendezvous", "env"]]
+# ported now: (the trainer config they set, how the run compares with the
+# same run without them)
+LIFTED_FLAGS = {"--matmul-dtype": dict(matmul_dtype="int8"),
+                "--loss-impl": dict(loss_impl="chunked"),
+                "--remat": dict(remat="full")}
+
+
+def _cli_losses(extra):
+    losses = []
+    trainer = tcli.run(CLI_BASE + ["--steps", "2"] + extra,
+                       on_step=lambda step, tr, loss: losses.append(
+                           float(loss)))
+    return trainer, losses
 
 
 @pytest.mark.parametrize("flag", REFUSED_FLAGS, ids=lambda f: f[0])
 def test_lm_cli_refuses_later_flags(flag, capsys):
+    """Flags of later slices end the run with a usage error naming the
+    slice.  Three are ported now and run instead: the trainer gets the
+    knob, and against the same run without it (bf16, two steps) ``--remat
+    full`` gives the same losses (the same forward), ``--loss-impl
+    chunked`` the same to rtol 1e-4 (the head's float32 sums in another
+    order, carried through a bf16 step), and ``--matmul-dtype int8``
+    within 1% of them but not equal (the int8 forward ran)."""
+    if flag[0] in LIFTED_FLAGS:
+        trainer, got = _cli_losses(flag)
+        for name, value in LIFTED_FLAGS[flag[0]].items():
+            assert getattr(trainer.cfg, name) == value
+        _, want = _cli_losses([])
+        if flag[0] == "--remat":
+            assert got == want
+        elif flag[0] == "--loss-impl":
+            np.testing.assert_allclose(got, want, rtol=1e-4)
+        else:
+            np.testing.assert_allclose(got, want, rtol=1e-2)
+            assert got != want
+        return
     with pytest.raises(SystemExit) as e:
         tcli.main(CLI_BASE + ["--steps", "1"] + flag)
     assert e.value.code == 2
     assert "ROADMAP.md" in capsys.readouterr().err
+
+
+def test_lm_cli_scale_flags_compose_and_check(capsys):
+    """``--matmul-dtype int8 --remat selective --loss-impl chunked
+    --loss-chunk 64`` train together; ``--loss-chunk`` without the chunked
+    head and a chunk that does not divide the vocabulary are refused, as
+    in the JAX CLI."""
+    trainer, losses = _cli_losses(["--matmul-dtype", "int8", "--remat",
+                                   "selective", "--loss-impl", "chunked",
+                                   "--loss-chunk", "64"])
+    assert (trainer.cfg.matmul_dtype, trainer.cfg.remat,
+            trainer.cfg.loss_impl, trainer.cfg.loss_chunk) == \
+        ("int8", "selective", "chunked", 64)
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    with pytest.raises(SystemExit) as e:
+        tcli.main(CLI_BASE + ["--steps", "1", "--loss-chunk", "64"])
+    assert e.value.code == 2 and "--loss-impl chunked" in \
+        capsys.readouterr().err
+    with pytest.raises(ValueError, match="divisor"):
+        tcli.main(CLI_BASE + ["--steps", "1", "--loss-impl", "chunked",
+                              "--loss-chunk", "100"])
 
 
 @pytest.mark.parametrize("kw", [
@@ -279,8 +401,86 @@ def test_lm_cli_refuses_later_flags(flag, capsys):
     ids=["dp", "fsdp", "sync_every", "pp_size", "remat", "loss_impl",
          "matmul_dtype", "n_experts"])
 def test_trainer_refuses_later_slices(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tlm.LMTrainer(tlm.LMTrainConfig(**kw), device="cpu")
+    """Knobs of later slices raise, naming their ROADMAP slice (MoE: slice
+    6b).  Three are ported now, and three f32 steps from the JAX initial
+    params are held against the JAX package instead:
+
+    - ``remat="full"``: the JAX remat trainer, at the module's tolerances;
+    - ``loss_impl="chunked"``: the JAX chunked head through ``_jax_oracle``,
+      at the module's tolerances;
+    - ``matmul_dtype="int8"``: the JAX int8 forward through ``_jax_oracle``,
+      losses at rtol 1e-4 and params within 2 lr x 3 steps.  The two
+      packages' activations differ by float32 ulps, and a value an ulp from
+      a rounding boundary quantizes one quantum apart (tests/
+      test_torch_transformer.py measures it), which moves the loss by about
+      1e-5 relative; Adam then moves a parameter whose gradient flips sign
+      by up to 2 lr a step."""
+    batches = [_data(), _data(seed=1)]
+    if "remat" in kw:
+        _, want, states = _jax_run(3, batches, **kw)
+    elif "loss_impl" in kw or "matmul_dtype" in kw:
+        want, states = _jax_oracle(3, batches, **kw)
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            tlm.LMTrainer(tlm.LMTrainConfig(**kw), device="cpu")
+        return
+    ttr = _port(states, **kw)
+    got = [float(ttr.train_step(*batches[i % 2])) for i in range(3)]
+    if "matmul_dtype" in kw:
+        np.testing.assert_allclose(got, want, rtol=1e-4)
+        want_p = convert.from_jax_params(states[3][0], device="cpu")
+        for name, p in ttr.params.items():
+            np.testing.assert_allclose(p.detach().numpy(),
+                                       want_p[name].numpy(),
+                                       atol=2 * ttr.cfg.lr * 3, err_msg=name)
+        return
+    np.testing.assert_allclose(got, want, **LOSS_TOL)
+    _assert_params_close(ttr, states[3][0])
+
+
+@pytest.mark.parametrize("remat", ["full", "selective"])
+def test_remat_grads_equal_no_remat_and_jax(base, remat):
+    """A rematerialized step recomputes the same forward: from the JAX
+    initial params the port's step-1 loss and every gradient equal the
+    no-remat step's (the same float32 operations, in the same order), and
+    the losses of three steps match the JAX remat trainer's (``remat=
+    "full"`` in test_trainer_refuses_later_slices, ``"selective"`` here)."""
+    batches, _, _, states = base
+    grads = {}
+    for mode in ("none", remat):
+        ttr = _port(states, remat=mode)
+        loss_fn = partial(tlm._loss_fn, ttr.cfg, "flash")
+        tokens, targets = ttr._batch(*batches[0])
+        n_total = (targets != tlm.IGNORE).sum().float()
+        loss = loss_fn(ttr.params, tokens, targets, n_total, 0.0)
+        loss.backward()
+        grads[mode] = (loss.item(), {n: p.grad for n, p in
+                                     ttr.params.items()})
+    assert grads[remat][0] == grads["none"][0]
+    for name, g in grads["none"][1].items():
+        torch.testing.assert_close(grads[remat][1][name], g, rtol=1e-6,
+                                   atol=1e-8)
+    if remat == "selective":
+        _, want, jstates = _jax_run(3, batches, remat=remat)
+        ttr = _port(jstates, remat=remat)
+        got = [float(ttr.train_step(*batches[i % 2])) for i in range(3)]
+        np.testing.assert_allclose(got, want, **LOSS_TOL)
+        _assert_params_close(ttr, jstates[3][0])
+
+
+def test_scale_knob_values_are_checked_as_in_jax():
+    """The value checks of the JAX ``validate_lm_cfg`` for the int8 matmul,
+    the chunked head and remat: ValueErrors on both sides."""
+    model = dict(model=ttfm.TransformerConfig(**SHAPE))
+    jmodel = dict(model=jtfm.TransformerConfig(**SHAPE))
+    for kw in (dict(matmul_dtype="int4"), dict(loss_chunk=64),
+               dict(loss_impl="chunked", loss_chunk=100),
+               dict(loss_impl="chunked", loss_chunk=0), dict(remat="some"),
+               dict(loss_impl="sparse")):
+        with pytest.raises(ValueError):
+            jlm.validate_lm_cfg(jlm.LMTrainConfig(**jmodel, **kw))
+        with pytest.raises(ValueError):
+            tlm.validate_lm_cfg(tlm.LMTrainConfig(**model, **kw))
 
 
 def test_trainer_refuses_checkpoints_and_the_cpu_by_default(monkeypatch):

@@ -15,10 +15,12 @@ import torch
 
 from distributed_pytorch_tpu.models import transformer as jtfm
 from distributed_pytorch_tpu.ops import attention as jattn
+from distributed_pytorch_tpu.ops import quantized as jqz
 from distributed_pytorch_tpu_torch import convert
 from distributed_pytorch_tpu_torch import generate as tgen
 from distributed_pytorch_tpu_torch.models import transformer as ttfm
 from distributed_pytorch_tpu_torch.ops import attention as tattn
+from distributed_pytorch_tpu_torch.ops import quantized as tqz
 from distributed_pytorch_tpu_torch.serve import ContinuousBatcher
 
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -151,27 +153,109 @@ REFUSED_APPLY = [dict(attn_impl="flash"), dict(seq_axis="seq"),
                  dict(matmul_dtype="int8")]
 
 
+def _int8_products(jp, jcfg, toks):
+    """The JAX int8 forward's logits and, for each of its int8 products,
+    the operands and output it computed (recorded eagerly)."""
+    calls, orig = [], jqz.quantized_matmul
+
+    def record(x, w, *args):
+        out = orig(x, w, *args)
+        calls.append(tuple(np.array(a) for a in (x, w, out)))
+        return out
+
+    jqz.quantized_matmul = record
+    try:
+        logits = jtfm.apply(jp, jnp.asarray(toks, jnp.int32), cfg=jcfg,
+                            attn_impl="flash", matmul_dtype="int8")
+    finally:
+        jqz.quantized_matmul = orig
+    return np.asarray(logits), calls
+
+
+def _check_int8_apply(jcfg, tcfg, jp, tp):
+    """``apply(matmul_dtype="int8")`` against the JAX package's.
+
+    Product by product on identical inputs it is bitwise: each of the 7 x
+    n_layers int8 products, given the JAX forward's own operands, returns
+    the JAX output bit for bit.  Whole-model, the port's activations differ
+    from JAX's by float32 ulps (rms_norm, silu, attention), and a value an
+    ulp from a rounding boundary then quantizes one quantum apart; so the
+    logits are held within twice the JAX package's own spread when its
+    embedding moves by one ulp (four random sign patterns), plus 1e-4."""
+    toks = np.random.default_rng(4).integers(0, 256, (2, 24))
+    want, calls = _int8_products(jp, jcfg, toks)
+    assert len(calls) == 7 * jcfg.n_layers
+    for x, w, out in calls:
+        got = tqz.quantized_matmul(torch.from_numpy(x), torch.from_numpy(w))
+        np.testing.assert_array_equal(got.numpy(), out)
+    got = ttfm.apply(tp, torch.from_numpy(toks), cfg=tcfg,
+                     matmul_dtype="int8").detach().numpy()
+    embed = np.asarray(jp["embed"])
+    spread = 0.0
+    for seed in range(4):
+        sign = np.random.default_rng(seed).choice([-1, 1], embed.shape)
+        moved = dict(jp, embed=jnp.asarray(np.nextafter(
+            embed, embed + sign.astype(np.float32))))
+        spread = max(spread, np.abs(_int8_products(moved, jcfg, toks)[0]
+                                    - want).max())
+    assert np.abs(got - want).max() <= 2 * spread + 1e-4
+    plain = ttfm.apply(tp, torch.from_numpy(toks), cfg=tcfg).detach()
+    assert not np.allclose(got, plain.numpy(), atol=1e-3)  # int8 ran
+
+
 @pytest.mark.parametrize("kw", REFUSED_APPLY,
                          ids=[next(iter(k)) for k in REFUSED_APPLY])
 def test_apply_refuses_unported_options(model, kw):
-    """Options of later slices raise, naming their ROADMAP slice.
-    ``attn_impl="flash"`` is ported now: it matches the JAX package's flash
-    apply (Pallas in interpret mode) on the CPU instead."""
+    """Options of later slices raise, naming their ROADMAP slice.  Three are
+    ported now and are held against the JAX package's apply on the CPU
+    instead: ``attn_impl="flash"`` (Pallas in interpret mode), ``remat``
+    (the forward of each rematerialized layer is the layer's, and the
+    gradients equal the plain apply's) and ``matmul_dtype="int8"``
+    (``_check_int8_apply``)."""
     jcfg, tcfg, jp, tp = model
+    toks = np.random.default_rng(4).integers(0, 256, (2, 24))
     if kw == dict(attn_impl="flash"):
-        toks = np.random.default_rng(4).integers(0, 256, (2, 24))
         want = np.asarray(jtfm.apply(jp, jnp.asarray(toks, jnp.int32),
                                      cfg=jcfg, attn_impl="flash"))
         got = ttfm.apply(tp, torch.from_numpy(toks), cfg=tcfg, **kw)
         np.testing.assert_allclose(got.numpy(), want, **TOL)
         return
+    if "remat" in kw:
+        want = np.asarray(jtfm.apply(jp, jnp.asarray(toks, jnp.int32),
+                                     cfg=jcfg, **kw))
+        grads = []
+        for remat in (None, kw["remat"]):
+            leaves = {n: p.clone().requires_grad_(True)
+                      for n, p in tp.items()}
+            got = ttfm.apply(leaves, torch.from_numpy(toks), cfg=tcfg,
+                             remat=remat)
+            np.testing.assert_allclose(got.detach().numpy(), want, **TOL)
+            got.square().mean().backward()
+            grads.append({n: p.grad for n, p in leaves.items()})
+        for n in tp:
+            torch.testing.assert_close(grads[1][n], grads[0][n], rtol=1e-6,
+                                       atol=1e-7)
+        return
+    if "matmul_dtype" in kw:
+        _check_int8_apply(jcfg, tcfg, jp, tp)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ttfm.apply(tp, torch.zeros((1, 4), dtype=torch.long), cfg=tcfg, **kw)
 
 
+def test_apply_rejects_bad_knob_values(model):
+    """Values neither package takes are ValueErrors, as in JAX."""
+    _, tcfg, _, tp = model
+    toks = torch.zeros((1, 4), dtype=torch.long)
+    with pytest.raises(ValueError, match="matmul_dtype"):
+        ttfm.apply(tp, toks, cfg=tcfg, matmul_dtype="int4")
+    with pytest.raises(ValueError, match="remat"):
+        ttfm.apply(tp, toks, cfg=tcfg, remat="some")
+
+
 def test_moe_config_is_refused():
     cfg = ttfm.TransformerConfig(**SHAPE, n_experts=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="slice 6b"):
         ttfm.init(0, cfg, device="cpu")
 
 
