@@ -7,7 +7,8 @@ Run from the repository root on a machine with one CUDA GPU:
 
 Phases, each of which raises on failure:
   1. card facts (name, power limit, torch version); TF32 off;
-  2. build the port's CUDA kernels from csrc/;
+  2. build the port's CUDA kernels from csrc/; the bf16 flash forward's
+     registers, spills and shared memory from ptxas (no spill allowed);
   3. every kernel against its plain PyTorch version on the card, on the
      main path's shapes plus ragged / tile-edge / garbage-past-pos cases,
      and timed beside its bound, its plain version and a library call;
@@ -19,14 +20,17 @@ Phases, each of which raises on failure:
      the launch counts show the main path went through the kernel;
   6. the flash-attention kernels (K2 forward, K3 dQ, K4 dK/dV) against
      their plain versions (f32 and bf16, head dims 64 and 128, causal or
-     not, ragged lengths, an lse cotangent, the training shape), timed at
-     the training shape beside their bounds, plain versions and SDPA;
+     not, ragged lengths, an lse cotangent, the training shape, and the
+     bf16 forward's tile edges: lengths 1 to 2048 around its 64- and
+     128-row tiles, 256 queries over 1000 keys; K2 run twice, bitwise
+     equal), timed at the training shape beside their bounds, plain
+     versions and SDPA (K2 and SDPA's forward in alternated windows);
   7. one LM-base-width float32 train step (2 layers) through the flash
      kernels against the same step through reference attention;
   8. LM-base (24 layers, byte vocabulary) trained 30 steps through lm_cli
      at batch 8 x 1024 in bf16: ms/step, tokens/s, peak memory, the
-     device's idle share, mfu, falling loss, and K2/K3/K4 launched once
-     per layer per step;
+     device's idle share, mfu, K2's share of the device time, falling
+     loss, and K2/K3/K4 launched once per layer per step;
   9. the paged decode kernels (K8, K9) against their plain versions over
      shuffled pools with poisoned table tails and garbage in unowned pages
      (f32, bf16 and int8 pools, head dims 64 and 128, g 1 and 4), bitwise
@@ -70,8 +74,10 @@ Phases, each of which raises on failure:
  17. LM-base bf16 3 steps through lm_cli with --remat none / full /
      selective (step-1 loss bitwise equal, grad-norm within 1e-3, peak
      memory, K2 launched twice per layer under full remat and once under
-     selective), and head_loss dense against chunked at vocab 32,000, B=8
-     x S=1024 x 1024 (loss within 1e-5, gradients, time and peak memory).
+     selective), full against selective in alternated 5-step windows (K2's
+     launches per window, one profiled step of each), and head_loss dense
+     against chunked at vocab 32,000, B=8 x S=1024 x 1024 (loss within
+     1e-5, gradients, time and peak memory).
 The second-to-last lines are the kernels' JSON record and the card's name
 and power limit; the last line is {"ok": true, "device": {...}}.
 
@@ -83,6 +89,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -111,6 +118,10 @@ def card_facts(torch) -> dict:
     return {"name": name, "smi": smi_line, "bw": bw,
             "count": torch.cuda.device_count()}
 
+
+# Every torch.profiler window here records the device's activity alone:
+# only its kernels and copies are read, and host-side events would
+# multiply the time key_averages() takes to parse a window.
 
 # Published dense peaks of one H100 SXM, operations per second.
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
@@ -431,7 +442,7 @@ def decode_window(torch, cb, prompts, n_blocks: int, profiled: bool,
     cb.step()  # admit and run one block
     sync(torch)
     steps0 = cb.stats["decode_steps"]
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+    prof = profile(activities=[ProfilerActivity.CUDA]) \
         if profiled else None
     t0 = time.perf_counter()
     if prof is not None:
@@ -592,6 +603,38 @@ FLASH_TOL = {"float32": {"o": (2e-5, 2e-5), "lse": (2e-5, 2e-5),
              "bfloat16": {"o_abs": 1e-2, "o_row_rms": 5e-2, "lse": 1e-3,
                           "grad_slab_rms": 5e-2, "ulp": 2.0 ** -7}}
 FLASH_KERNELS = ("K2", "K3", "K4")
+FLASH_EDGE_LENGTHS = (1, 63, 64, 65, 127, 128, 129, 1000, 2048)
+
+
+def ptxas_report(log: str, kernel: str) -> list[dict]:
+    """What ``nvcc -Xptxas -v`` says of each compiled entry whose name holds
+    ``kernel``: registers, spill stores and loads (bytes), stack frame and
+    static shared memory (bytes), and the template's first integer (the
+    head dim of the flash kernels)."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"function": m.group(1)} if kernel in m.group(1) else None
+            if cur is not None:
+                t = re.search(r"ILi(\d+)E", m.group(1))
+                cur["template_int"] = int(t.group(1)) if t else None
+                out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack_bytes=int(m.group(1)),
+                       spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem_bytes"] = int(sm.group(1)) if sm else 0
+    return out
 
 
 def flash_agreement(torch, name, got, ref, dtype: str) -> float:
@@ -618,17 +661,27 @@ def flash_agreement(torch, name, got, ref, dtype: str) -> float:
     return ratio
 
 
-def flash_case(torch, attn, *, bh, s, d, dtype, causal, dlse, seed):
-    """One case: K2, K3 and K4 on (bh, s, d) operands against the plain
-    versions; returns {kernel: (max abs err, worst err/tol)}."""
+def flash_case(torch, attn, *, bh, s, d, dtype, causal, dlse, seed,
+               sk=None):
+    """One case: K2, K3 and K4 on (bh, s, d) queries and (bh, sk, d) keys
+    (sk = s unless given) against the plain versions, and K2 run twice
+    (bitwise equal or it fails); returns {kernel: (max abs err, worst
+    err/tol)}."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
+    sk = s if sk is None else sk
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
-    q, k, v, do = (randn(bh, s, d) for _ in range(4))
+    q, do = randn(bh, s, d), randn(bh, s, d)
+    k, v = randn(bh, sk, d), randn(bh, sk, d)
     o, lse = attn.flash_attention_fwd(q, k, v, causal=causal)
+    o2, lse2 = attn.flash_attention_fwd(q, k, v, causal=causal)
     ro, rlse = attn.flash_attention_fwd_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+        fail(f"K2: two runs differ (bh={bh} s={s} sk={sk} d={d} "
+             f"causal={causal} {dtype})")
     delta = (do.float() * ro.float()).sum(-1)
     if dlse:  # the (o, lse) form with a nonzero lse cotangent
         delta = delta - torch.randn((bh, s), generator=gen, device="cuda")
@@ -670,13 +723,31 @@ def check_flash(torch, attn) -> dict:
     # the training shape: B=8 x H=8, S=1024, D=128, causal, bf16
     cases.append(dict(bh=64, s=1024, d=128, dtype=torch.bfloat16,
                       causal=True, dlse=False))
+    # the bf16 forward's tile edges (128-row query and key tiles, 64-row
+    # warpgroup halves): one (b, h) up to 129 rows, 64 of them at S = 1000,
+    # 8 at S = 2048; and non-causal queries over a longer key sequence.  At
+    # S = 1 the softmax has one key, so dq and dk vanish identically but
+    # for an lse cotangent: those cases carry one, or K3 and K4 would be
+    # held to a tolerance scaled by a zero gradient.
+    for s in FLASH_EDGE_LENGTHS:
+        for d in (64, 128):
+            for causal in (False, True):
+                cases.append(dict(bh=1 if s <= 129 else 64 if s == 1000
+                                  else 8, s=s, d=d, dtype=torch.bfloat16,
+                                  causal=causal, dlse=s == 1))
+        if s == 1000:
+            for d in (64, 128):
+                cases.append(dict(bh=8, s=256, sk=1000, d=d,
+                                  dtype=torch.bfloat16, causal=False,
+                                  dlse=False))
     for i, case in enumerate(cases):
         res = flash_case(torch, attn, seed=100 + i, **case)
         for k, (err, ratio) in res.items():
             worst[k][0] = max(worst[k][0], err)
             worst[k][1] = max(worst[k][1], ratio)
         print(f"  {str(case['dtype'])[6:]:8s} BH={case['bh']:2d} "
-              f"S={case['s']:4d} D={case['d']:3d} causal={case['causal']:d} "
+              f"S={case['s']:4d}x{case.get('sk', case['s']):4d} "
+              f"D={case['d']:3d} causal={case['causal']:d} "
               f"dlse={case['dlse']:d}: " + ", ".join(
                   f"{k} err {e:.2e} ({r:.3f} of tol)"
                   for k, (e, r) in res.items()))
@@ -684,7 +755,7 @@ def check_flash(torch, attn) -> dict:
         if bad:
             fail(f"{bad} disagree with their plain versions in case {case}")
     print(f"  K2/K3/K4 agree with their plain versions in all "
-          f"{len(cases)} cases")
+          f"{len(cases)} cases; K2 bitwise equal to itself in each")
     return {k: {"max_abs_err": e, "err_over_tol": r}
             for k, (e, r) in worst.items()}
 
@@ -695,8 +766,9 @@ def time_flash(torch, F, attn, facts) -> dict:
     matrix-product FLOPs over the bf16 peak, or the bytes each input read
     once and each output written once over the memory rate, whichever is
     larger), the plain version's time and a library yardstick (SDPA, which
-    the port never calls).  Each operand is 16 MB, so one call's inputs
-    already exceed the 50 MB L2."""
+    the port never calls).  K2 and SDPA's forward are timed in alternated
+    windows; K2's share of its bound is bound / ms.  Each operand is 16 MB,
+    so one call's inputs already exceed the 50 MB L2."""
     b, h, s, d = 8, 8, 1024, 128
     bh, dt = b * h, torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -713,7 +785,22 @@ def time_flash(torch, F, attn, facts) -> dict:
                                                   causal=True),
         "K4": lambda: attn.flash_attention_bwd_dkv(q, k, v, lse, do, delta,
                                                    causal=True)}
-    ms = {n: time_ms(torch, fn, iters=20) for n, fn in kernel.items()}
+    # library yardsticks: SDPA forward; SDPA's autograd backward (dq, dk
+    # and dv together) for both K3 and K4
+    q4, k4, v4 = (t.view(b, h, s, d).clone().requires_grad_(True)
+                  for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+
+    # K2 against SDPA's forward in alternated windows (K2, SDPA, SDPA, K2,
+    # twice): only readings taken in turns compare
+    windows = {"K2": [], "SDPA": []}
+    for name in ("K2", "SDPA", "SDPA", "K2") * 2:
+        windows[name].append(time_ms(torch, kernel["K2"] if name == "K2"
+                                     else sdpa, iters=50))
+    ms = {"K2": float(np.mean(windows["K2"]))}
+    ms.update({n: time_ms(torch, kernel[n], iters=20) for n in ("K3", "K4")})
     for f, n0 in zip(("flash_attention_fwd", "flash_attention_bwd_dq",
                       "flash_attention_bwd_dkv"), launches0):
         getattr(attn, f).launches = n0  # timing launches are not counted
@@ -721,13 +808,8 @@ def time_flash(torch, F, attn, facts) -> dict:
         q, k, v, causal=True), iters=5)
     plain_bwd = time_ms(torch, lambda: attn.flash_attention_bwd_plain(
         q, k, v, lse, do, delta, causal=True), iters=5)
-    # library yardsticks: SDPA forward; SDPA's autograd backward (dq, dk
-    # and dv together) for both K3 and K4
-    q4, k4, v4 = (t.view(b, h, s, d).clone().requires_grad_(True)
-                  for t in (q, k, v))
-    lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, is_causal=True))
-    o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    lib_fwd = float(np.mean(windows["SDPA"]))
+    o4 = sdpa()
     do4 = do.view(b, h, s, d)
     lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
         o4, (q4, k4, v4), do4, retain_graph=True))
@@ -752,7 +834,13 @@ def time_flash(torch, F, attn, facts) -> dict:
                   "bound_ms": max(tb, to),
                   "bound_by": "bytes" if tb >= to else "operations",
                   "flops": ops[n], "bytes": nbytes[n],
-                  "tflops_per_s": ops[n] / ms[n] / 1e9}
+                  "tflops_per_s": ops[n] / ms[n] / 1e9,
+                  "bound_share": max(tb, to) / ms[n]}
+    out["K2"].update(
+        ms_windows=windows["K2"], library_ms_windows=windows["SDPA"],
+        over_library=[a / b for a, b in zip(windows["K2"],
+                                            windows["SDPA"])])
+    out["K2"]["over_library_mean"] = ms["K2"] / lib_fwd
     return out
 
 
@@ -835,7 +923,7 @@ def training_run(torch, port, steps: int = 30, extra=(),
     argv = ["--preset", "LM-base", "--steps", str(steps), "--batch-size",
             str(b), "--seq-len", str(s), "--compute-dtype", "bfloat16",
             "--log-every", "10", "--device", DEVICE, *extra]
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof = profile(activities=[ProfilerActivity.CUDA])
     marks = (1, 10, 15, steps)  # windows (1, 10] and (15, steps] unprofiled
     losses, t = [], {}
 
@@ -891,6 +979,9 @@ def training_run(torch, port, steps: int = 30, extra=(),
            "device_ms_per_step": device_ms,
            "device_ops_per_step": n_ops / n_prof,
            "device_idle_share": 1.0 - device_ms / step_ms,
+           "K2_share_of_device_time": sum(
+               us for k, us in top.items() if "fwd_sm90_kernel" in k)
+           / max(device_us, 1e-9),
            "model_tflop_per_step": flops / 1e12,
            "mfu": flops / (step_ms / 1e3) / PEAK_OPS["bfloat16"],
            "top_kernels": [[k[:60], us / max(device_us, 1e-9)] for k, us in
@@ -1203,7 +1294,7 @@ def admission_profile(torch, port, prompts, prefix_cache: bool) -> dict:
         admit(p)
         sync(torch)
         walls.append(time.perf_counter() - t0)
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof = profile(activities=[ProfilerActivity.CUDA])
     with prof:
         for p in prompts[6:10]:
             admit(p)
@@ -1792,8 +1883,7 @@ def fused_plain_windows(torch, port, name, batch, images, labels, pairs,
     out = {"window_steps": window, "pairs": pairs, "launches": launches,
            "layout_copies": fb.bn_relu_bwd.copies - copies0}
     for fused, r in runs.items():
-        prof = profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA])
+        prof = profile(activities=[ProfilerActivity.CUDA])
         sync(torch)
         with prof:
             steps(r, 5)
@@ -1844,7 +1934,7 @@ def vgg_cli_run(torch, port, extra: list[str], label: str,
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     cli, fb = port["cli"], port["fused_bn"]
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof = profile(activities=[ProfilerActivity.CUDA])
     marks = {}
 
     def on_step(step):
@@ -2230,6 +2320,76 @@ def remat_runs(torch, port, steps: int = 3) -> dict:
     return out
 
 
+def remat_windows(torch, port, pairs: int = 4, window: int = 5) -> dict:
+    """--remat full against --remat selective on LM-base bf16 (B=8 x 1024):
+    two trainers from one seed on the same batches, timed in alternated
+    windows of ``window`` steps (full, selective, selective, full, ...),
+    K2's launches counted in each window (2 per layer per step under full
+    remat, the recompute; 1 under selective, the kept (o, lse)), then one
+    profiled step of each: device ms and operations, by kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    lm, corpus_mod, attn = port["lm"], port["corpus"], port["attn"]
+    model = lm_base_bytes(port)
+    loader = corpus_mod.LMDataLoader(corpus_mod.load_corpus(None), 8, 1024,
+                                     seed=1)
+    batches = [bt for _, bt in zip(range(window), loader)]
+    runs = {}
+    for mode in ("full", "selective"):
+        cfg = lm.LMTrainConfig(model=model, compute_dtype="bfloat16",
+                               remat=mode)
+        tr = lm.LMTrainer(cfg, device=DEVICE)
+        for tk, tg in batches[:2]:  # warm-up
+            tr.train_step(tk, tg)
+        runs[mode] = {"tr": tr, "ms": [], "K2": []}
+    order = ["full", "selective", "selective", "full"] * ((pairs + 1) // 2)
+    for mode in order[: 2 * pairs]:
+        tr = runs[mode]["tr"]
+        attn.flash_attention_fwd.launches = 0
+        sync(torch)
+        t0 = time.perf_counter()
+        for tk, tg in batches:
+            loss = tr.train_step(tk, tg)
+        float(loss)
+        sync(torch)
+        runs[mode]["ms"].append((time.perf_counter() - t0) / window * 1e3)
+        runs[mode]["K2"].append(attn.flash_attention_fwd.launches)
+    res = {"window_steps": window, "pairs": pairs}
+    for mode, r in runs.items():
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            r["tr"].train_step(*batches[0])
+            sync(torch)
+        dev = {}
+        n_ops = 0
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                dev[e.key] = dev.get(e.key, 0.0) + e.self_device_time_total
+                n_ops += e.count
+        total = sum(dev.values())
+        res[mode] = {"ms_windows": r["ms"],
+                     "ms_median": float(np.median(r["ms"])),
+                     "K2_launches_per_window": r["K2"],
+                     "profiled_step_device_ms": total / 1e3,
+                     "profiled_step_device_ops": n_ops,
+                     "profiled_step_top_kernels": [
+                         [k[:60], us / 1e3] for k, us in sorted(
+                             dev.items(), key=lambda kv: -kv[1])[:6]]}
+    res["selective_over_full_ms"] = res["selective"]["ms_median"] \
+        / res["full"]["ms_median"]
+    print("  remat full vs selective, alternated windows: "
+          + json.dumps(res))
+    n_layers = model.n_layers
+    for mode, per_layer in (("full", 2), ("selective", 1)):
+        if any(n != per_layer * n_layers * window
+               for n in res[mode]["K2_launches_per_window"]):
+            fail(f"remat {mode}: K2 launches per window "
+                 f"{res[mode]['K2_launches_per_window']}, want "
+                 f"{per_layer} x {n_layers} layers x {window} steps")
+    del runs
+    torch.cuda.empty_cache()
+    return res
+
+
 HEAD_TOL = {"loss_rel": 1e-5, "dh_rel": 2.0 ** -7, "demb_of_max": 1e-4}
 
 
@@ -2295,6 +2455,30 @@ def chunked_head_check(torch, port) -> dict:
     return out
 
 
+def k2_build_report(build, facts) -> list[dict]:
+    """The bf16 forward (fwd_sm90_kernel) as ptxas built it, per head dim:
+    registers at launch, spills, stack and shared memory (static from
+    ptxas, dynamic from the library); fails on any spill."""
+    lib = build.load_library("flash_attention")
+    rep = ptxas_report(build.build_info["flash_attention"]["log"],
+                       "fwd_sm90_kernel")
+    if len(rep) != 2:
+        fail(f"ptxas reported {len(rep)} fwd_sm90_kernel instances, want 2")
+    for r in rep:
+        r["dynamic_smem_bytes"] = lib.flash_fwd_sm90_smem(r["template_int"])
+        print(f"  K2 bf16 (fwd_sm90_kernel, D={r['template_int']}): "
+              f"{r.get('registers')} registers at launch, "
+              f"{r.get('spill_stores')} / {r.get('spill_loads')} bytes "
+              f"spilled (stores / loads), {r.get('stack_bytes')} bytes "
+              f"stack, {r['static_smem_bytes']} + "
+              f"{r['dynamic_smem_bytes']} bytes shared memory (static + "
+              f"dynamic); {facts['smi']}")
+        if r.get("spill_stores") or r.get("spill_loads") \
+                or "spill_stores" not in r:
+            fail(f"fwd_sm90_kernel spills or was not reported: {r}")
+    return rep
+
+
 T_START = time.perf_counter()
 
 
@@ -2352,8 +2536,9 @@ def main() -> int:
         info = _build.build_info[lib]
         print(f"  {lib} (nvcc {info['seconds']:.1f} s):")
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "warning" in line:
                 print("    " + line.strip())
+    k2_build = k2_build_report(_build, facts)
 
     phase(3, "decode kernels against their plain versions")
     worst = check_kernels(torch, attn)
@@ -2380,6 +2565,12 @@ def main() -> int:
     for name, t in flash_timing.items():
         print(f"  {name} timing (bf16, B=8 H=8 S=1024 D=128 causal): "
               + json.dumps(t))
+    k2 = flash_timing["K2"]
+    print(f"  K2 vs SDPA forward, alternated windows: K2 "
+          f"{k2['ms']:.4f} ms, SDPA {k2['library_ms']:.4f} ms, ratio "
+          f"{k2['over_library_mean']:.3f}; K2 {k2['tflops_per_s']:.1f} "
+          f"TFLOP/s, {k2['bound_share']:.3f} of its {k2['bound_ms']:.5f} ms "
+          f"bound ({k2['bound_by']}); {facts['smi']}")
     phase(7, "LM-base-width f32 train step, flash vs reference attention")
     train_step_check(torch, port)
     phase(8, "LM-base bf16 training through lm_cli")
@@ -2418,6 +2609,7 @@ def main() -> int:
     int8_step_check(torch, port)
     phase(17, "remat and the chunked head at LM-base width")
     remat_runs(torch, port)
+    remat_windows(torch, port)
     chunked_head_check(torch, port)
     print(f"  phases done at {time.perf_counter() - T_START:.0f} s")
 
@@ -2470,7 +2662,20 @@ def main() -> int:
             "tolerance": FLASH_TOL,
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"]})
+            "library_ms": t["library_ms"],
+            "tflops_per_s": t["tflops_per_s"],
+            "bound_share": t["bound_share"]})
+        if name == "K2":
+            kernels[-1].update(
+                over_library_windows=t["over_library"],
+                bf16_kernel="fwd_sm90_kernel (wgmma, TMA ring, "
+                            "warp-specialized)",
+                build=[{k: r.get(k) for k in (
+                    "template_int", "registers", "spill_stores",
+                    "spill_loads", "static_smem_bytes",
+                    "dynamic_smem_bytes")} for r in k2_build],
+                share_of_bf16_step_device_time=train_res[
+                    "K2_share_of_device_time"])
     src = "distributed_pytorch_tpu_torch/csrc/fused_bn.cu"
     for name, fn, line in (("K1a", "bn_relu_bwd_reduce", 106),
                            ("K1b", "bn_relu_bwd_apply", 121)):

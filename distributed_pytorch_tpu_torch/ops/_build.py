@@ -55,6 +55,7 @@ _SIGNATURES = {
             [ctypes.c_int, ctypes.c_int]
             + [ctypes.c_void_p] * 8  # q, k, v, do, lse, delta, dk, dv
             + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]),
+        "flash_fwd_sm90_smem": (ctypes.c_int, [ctypes.c_int]),
         "flash_attention_error": (ctypes.c_char_p, [ctypes.c_int]),
     },
     "fused_bn": {
@@ -84,7 +85,8 @@ _SIGNATURES = {
 _loaded: dict[str, ctypes.CDLL] = {}
 # name -> {"seconds": build time (0.0 when the library was already built;
 #          each nvcc's own wall time when several build at once),
-#          "log": nvcc's output (register / shared-memory report)}
+#          "log": nvcc's output (register / shared-memory report), kept
+#          beside the library as <library>.log}
 build_info: dict[str, dict] = {}
 
 
@@ -102,10 +104,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """The library's path, named by a hash of its source, the headers under
+    csrc/ (any source may include them) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names) -> None:
@@ -115,7 +120,10 @@ def build_all(names) -> None:
     for name in names:
         out = library_path(name)
         if out.exists():
-            build_info.setdefault(name, {"seconds": 0.0, "log": ""})
+            log = out.with_suffix(".log")
+            build_info.setdefault(name, {
+                "seconds": 0.0,
+                "log": log.read_text() if log.exists() else ""})
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -129,6 +137,7 @@ def build_all(names) -> None:
         if proc.returncode:
             failed.append(f"nvcc failed building {name}:\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
         build_info[name] = {"seconds": time.perf_counter() - t0, "log": log}
     if failed:

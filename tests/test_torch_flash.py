@@ -9,7 +9,18 @@ and rtol), the JAX tests' own tolerances.  On CPU tensors the port's
 autograd.Function runs the plain versions; the CUDA kernels (K2, K3, K4)
 are held against those plain versions on the card by the ``cuda``-marked
 tests at the end, which skip without a GPU.
+
+The bf16 forward kernel (``fwd_sm90_kernel`` in csrc/flash_attention.cu)
+has its own numeric recipe: 128-key tiles in ascending order for 64-row
+query halves, scores scaled into base 2, p rounded to bf16 per tile, the
+mask applied on diagonal and Sk-edge tiles only, o times 1/l.
+``_recipe_fwd`` replays it in numpy, and it is held against the Pallas
+kernel on bf16 inputs within chip_smoke.py's bf16 FLASH_TOL, before any
+card runs it.
 """
+
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -204,3 +215,164 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     q = torch.zeros((2, 128, 64), device=cuda, dtype=torch.float16)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         tattn.flash_attention_fwd(q, q, q)
+
+
+# -- the bf16 forward kernel's recipe, on the CPU ---------------------------
+
+CSRC = Path(tattn.__file__).resolve().parent.parent / "csrc"
+# chip_smoke.py's FLASH_TOL for bf16: o within min(1e-2, 5% of its row's
+# RMS) plus one bf16 ulp of the element; lse (f32 on both sides) 1e-3.
+BF16_O_ABS, BF16_O_ROW_RMS, BF16_LSE, BF16_ULP = 1e-2, 5e-2, 1e-3, 2.0 ** -7
+
+
+def _bf16(x):
+    """float32 rounded to the nearest bf16 (ties to even), as float32."""
+    u = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    u = (u + np.uint32(0x7FFF) + ((u >> 16) & np.uint32(1))) \
+        & np.uint32(0xFFFF0000)
+    return u.view(np.float32)
+
+
+def _kernel_tiles():
+    """(query rows per block, key rows per tile) of fwd_sm90_kernel, read
+    from its source so the replay follows the kernel."""
+    src = (CSRC / "flash_attention.cu").read_text()
+    return tuple(int(re.search(rf"constexpr int {name} = (\d+);", src)
+                     .group(1)) for name in ("kFwdM", "kFwdN"))
+
+
+def _recipe_fwd(q, k, v, *, causal, sm_scale):
+    """fwd_sm90_kernel's arithmetic in numpy float32 on (BH, S, D) bf16
+    values: per 64-row half of each query tile, key tiles in ascending
+    order (causal: only up to the diagonal), s = q.k in f32, masked to
+    -1e30 on tiles that cross the diagonal or Sk, m = max(m, max(s) *
+    scale log2 e), p = exp2(s * scale log2 e - m) (one rounding, as the
+    FMA), l = l * alpha + sum(p), o = o * alpha + bf16(p) . v, then o
+    times 1/max(l, 1e-30) to bf16 and lse = m ln 2 + log(max(l, 1e-30))."""
+    bm, bn = _kernel_tiles()
+    half = bm // 2
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    c = np.float32(sm_scale * np.log2(np.e))
+    o_out = np.zeros((bh, sq, d), np.float32)
+    lse_out = np.zeros((bh, sq), np.float32)
+    n_k = -(-sk // bn)
+    pad = n_k * bn - sk
+    kp = np.pad(k, ((0, 0), (0, pad), (0, 0)))
+    vp = np.pad(v, ((0, 0), (0, pad), (0, 0)))
+    for b in range(bh):
+        for q0 in range(0, sq, bm):
+            n = min(n_k, (q0 + bm - 1) // bn + 1) if causal else n_k
+            for qw in (q0, q0 + half):
+                rows = np.arange(qw, qw + half)
+                qt = np.zeros((half, d), np.float32)
+                live = rows[rows < sq]
+                qt[:len(live)] = q[b, live]
+                m = np.full(half, -1e30, np.float32)
+                l = np.zeros(half, np.float32)
+                acc = np.zeros((half, d), np.float32)
+                for j in range(n):
+                    k0 = j * bn
+                    s = qt @ kp[b, k0:k0 + bn].T
+                    if k0 + bn > sk or (causal and k0 + bn - 1 > qw):
+                        kj = np.arange(k0, k0 + bn)[None, :]
+                        masked = (kj >= sk) | (causal & (kj > rows[:, None]))
+                        s = np.where(masked, np.float32(-1e30), s)
+                    mx = np.maximum(m, s.max(1) * c)
+                    alpha = np.exp2(m - mx)
+                    p = np.exp2((s.astype(np.float64) * c
+                                 - mx[:, None]).astype(np.float32))
+                    l = l * alpha + p.sum(1, dtype=np.float32)
+                    acc = acc * alpha[:, None] + _bf16(p) @ vp[b, k0:k0 + bn]
+                    m = mx
+                safe = np.maximum(l, np.float32(1e-30))
+                out = _bf16(acc * (np.float32(1) / safe)[:, None])
+                lse = m * np.float32(np.log(2)) + np.log(safe)
+                o_out[b, live] = out[:len(live)]
+                lse_out[b, live] = lse[:len(live)]
+    return o_out, lse_out
+
+
+def _hold_bf16(o, lse, want_o, want_lse):
+    """chip_smoke.py's bf16 FLASH_TOL: o and lse against the reference."""
+    err = np.abs(o - want_o)
+    rms = np.sqrt((want_o ** 2).mean(-1, keepdims=True))
+    bound = np.minimum(BF16_O_ABS, BF16_O_ROW_RMS * rms) \
+        + BF16_ULP * np.abs(want_o)
+    assert (err <= bound).all(), float((err / bound).max())
+    np.testing.assert_allclose(lse, want_lse, atol=BF16_LSE, rtol=0)
+
+
+def test_bf16_rounding_helper_matches_torch():
+    x = np.random.default_rng(9).standard_normal(4096).astype(np.float32)
+    x[:4] = (1 + 2.0 ** -8, 1 + 3 * 2.0 ** -8, -2.5, 0.0)  # ties, exact
+    want = torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+    np.testing.assert_array_equal(_bf16(x), want)
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [128, 384])
+def test_bf16_kernel_recipe_matches_jax(s, d, causal):
+    """The bf16 forward kernel's recipe, replayed in numpy, against the
+    Pallas kernel in interpret mode on the same bf16 inputs (B=1, H=2,
+    blocks of 128)."""
+    rng = np.random.default_rng(11)
+    q, k, v = (_bf16(rng.standard_normal((1, 2, s, d)).astype(np.float32))
+               for _ in range(3))
+    o_j, lse_j = _jax_flash(*(jnp.asarray(a, jnp.bfloat16)
+                              for a in (q, k, v)), causal=causal,
+                            with_lse=True)
+    o_r, lse_r = _recipe_fwd(*(a.reshape(2, s, d) for a in (q, k, v)),
+                             causal=causal, sm_scale=1 / np.sqrt(d))
+    _hold_bf16(o_r, lse_r, np.asarray(o_j, np.float32).reshape(2, s, d),
+               np.asarray(lse_j, np.float32).reshape(2, s))
+
+
+def test_recipe_reads_the_kernel_tiles():
+    """The replay's tiles are the kernel's: 128 query rows in two 64-row
+    warpgroup halves, 128-key tiles; and a ragged, non-causal Sq != Sk case
+    agrees with the plain forward (which the JAX kernel does not take)."""
+    assert _kernel_tiles() == (128, 128)
+    rng = np.random.default_rng(12)
+    q = _bf16(rng.standard_normal((2, 200, 64)).astype(np.float32))
+    k, v = (_bf16(rng.standard_normal((2, 333, 64)).astype(np.float32))
+            for _ in range(2))
+    o_r, lse_r = _recipe_fwd(q, k, v, causal=False, sm_scale=0.125)
+    o_p, lse_p = tattn.flash_attention_fwd_plain(
+        *(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)),
+        sm_scale=0.125)
+    _hold_bf16(o_r, lse_r, o_p.float().numpy(), lse_p.numpy())
+
+
+# -- the bf16 forward kernel on the card ------------------------------------
+
+EDGE_LENGTHS = (1, 63, 64, 65, 127, 128, 129, 1000, 2048)
+EDGE_CASES = [(1 if s <= 129 else 64 if s == 1000 else 8, s, s, d, causal)
+              for s in EDGE_LENGTHS for d in (64, 128)
+              for causal in (False, True)] \
+    + [(8, 256, 1000, d, False) for d in (64, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,sq,sk,d,causal", EDGE_CASES,
+                         ids=[f"bh{c[0]}-{c[1]}x{c[2]}-d{c[3]}-"
+                              f"{'causal' if c[4] else 'full'}"
+                              for c in EDGE_CASES])
+def test_bf16_kernel_tile_edges_on_card(cuda, bh, sq, sk, d, causal):
+    """K2's bf16 kernel against ``flash_attention_fwd_plain`` at the tile
+    edges (lengths around 64 and 128, one row, long rows, Sq != Sk), BH 1
+    to 64, D 64 and 128, within the bf16 FLASH_TOL; two runs bitwise
+    equal."""
+    gen = torch.Generator(device=cuda).manual_seed(sq * 7 + sk + d)
+    q = torch.randn((bh, sq, d), generator=gen, device=cuda).bfloat16()
+    k, v = (torch.randn((bh, sk, d), generator=gen, device=cuda).bfloat16()
+            for _ in range(2))
+    o, lse = tattn.flash_attention_fwd(q, k, v, causal=causal)
+    o2, lse2 = tattn.flash_attention_fwd(q, k, v, causal=causal)
+    want_o, want_lse = tattn.flash_attention_fwd_plain(q, k, v,
+                                                       causal=causal)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    _hold_bf16(o.float().cpu().numpy(), lse.cpu().numpy(),
+               want_o.float().cpu().numpy(), want_lse.cpu().numpy())
