@@ -664,7 +664,7 @@ def flash_agreement(torch, name, got, ref, dtype: str) -> float:
 def flash_case(torch, attn, *, bh, s, d, dtype, causal, dlse, seed,
                sk=None):
     """One case: K2, K3 and K4 on (bh, s, d) queries and (bh, sk, d) keys
-    (sk = s unless given) against the plain versions, and K2 run twice
+    (sk = s unless given) against the plain versions, each kernel run twice
     (bitwise equal or it fails); returns {kernel: (max abs err, worst
     err/tol)}."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -685,13 +685,17 @@ def flash_case(torch, attn, *, bh, s, d, dtype, causal, dlse, seed,
     delta = (do.float() * ro.float()).sum(-1)
     if dlse:  # the (o, lse) form with a nonzero lse cotangent
         delta = delta - torch.randn((bh, s), generator=gen, device="cuda")
-    dq = attn.flash_attention_bwd_dq(q, k, v, rlse, do, delta,
-                                     causal=causal)
-    dk, dv = attn.flash_attention_bwd_dkv(q, k, v, rlse, do, delta,
-                                          causal=causal)
+    dq, dq2 = (attn.flash_attention_bwd_dq(q, k, v, rlse, do, delta,
+                                           causal=causal) for _ in range(2))
+    (dk, dv), (dk2, dv2) = (attn.flash_attention_bwd_dkv(
+        q, k, v, rlse, do, delta, causal=causal) for _ in range(2))
     rdq, rdk, rdv = attn.flash_attention_bwd_plain(q, k, v, rlse, do, delta,
                                                    causal=causal)
     torch.cuda.synchronize()
+    for name, a, b in (("K3", (dq,), (dq2,)), ("K4", (dk, dv), (dk2, dv2))):
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            fail(f"{name}: two runs differ (bh={bh} s={s} sk={sk} d={d} "
+                 f"causal={causal} {dtype})")
     out = {}
     for kname, pairs in (("K2", (("o", o, ro), ("lse", lse, rlse))),
                          ("K3", (("grad", dq, rdq),)),
@@ -755,20 +759,24 @@ def check_flash(torch, attn) -> dict:
         if bad:
             fail(f"{bad} disagree with their plain versions in case {case}")
     print(f"  K2/K3/K4 agree with their plain versions in all "
-          f"{len(cases)} cases; K2 bitwise equal to itself in each")
+          f"{len(cases)} cases; each bitwise equal to itself in each")
     return {k: {"max_abs_err": e, "err_over_tol": r}
             for k, (e, r) in worst.items()}
 
 
-def time_flash(torch, F, attn, facts) -> dict:
+def time_flash(torch, F, attn, facts, bwd_only: bool = False) -> dict:
     """K2, K3 and K4 at the training shape (B=8, H=8, S=1024, D=128,
     causal, bf16): device ms by CUDA events, the bound (the causal work's
     matrix-product FLOPs over the bf16 peak, or the bytes each input read
     once and each output written once over the memory rate, whichever is
     larger), the plain version's time and a library yardstick (SDPA, which
     the port never calls).  K2 and SDPA's forward are timed in alternated
-    windows; K2's share of its bound is bound / ms.  Each operand is 16 MB,
-    so one call's inputs already exceed the 50 MB L2."""
+    windows; so are K3, K4, K3 + K4 and the port's whole backward (delta
+    = rowsum(do * o), then K3 and K4, as ``_FlashAttention.backward`` runs
+    it) against SDPA's autograd backward (dq, dk and dv together, its own
+    delta pass included).  A share of the bound is bound / ms.  Each
+    operand is 16 MB, so one call's inputs already exceed the 50 MB L2.
+    ``bwd_only`` skips K2's windows and the plain versions."""
     b, h, s, d = 8, 8, 1024, 128
     bh, dt = b * h, torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -779,40 +787,62 @@ def time_flash(torch, F, attn, facts) -> dict:
     launches0 = [getattr(attn, f).launches for f in
                  ("flash_attention_fwd", "flash_attention_bwd_dq",
                   "flash_attention_bwd_dkv")]
-    kernel = {
-        "K2": lambda: attn.flash_attention_fwd(q, k, v, causal=True),
-        "K3": lambda: attn.flash_attention_bwd_dq(q, k, v, lse, do, delta,
-                                                  causal=True),
-        "K4": lambda: attn.flash_attention_bwd_dkv(q, k, v, lse, do, delta,
-                                                   causal=True)}
+
+    def run_k3():
+        return attn.flash_attention_bwd_dq(q, k, v, lse, do, delta,
+                                           causal=True)
+
+    def run_k4():
+        return attn.flash_attention_bwd_dkv(q, k, v, lse, do, delta,
+                                            causal=True)
+
+    def run_k34():
+        run_k3()
+        run_k4()
+
+    def full():  # the port's backward: delta, then K3 and K4
+        dl = (do.float() * o.float()).sum(-1)
+        attn.flash_attention_bwd_dq(q, k, v, lse, do, dl, causal=True)
+        attn.flash_attention_bwd_dkv(q, k, v, lse, do, dl, causal=True)
+
     # library yardsticks: SDPA forward; SDPA's autograd backward (dq, dk
-    # and dv together) for both K3 and K4
+    # and dv together) for K3, K4 and both
     q4, k4, v4 = (t.view(b, h, s, d).clone().requires_grad_(True)
                   for t in (q, k, v))
 
     def sdpa():
         return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
 
-    # K2 against SDPA's forward in alternated windows (K2, SDPA, SDPA, K2,
-    # twice): only readings taken in turns compare
-    windows = {"K2": [], "SDPA": []}
-    for name in ("K2", "SDPA", "SDPA", "K2") * 2:
-        windows[name].append(time_ms(torch, kernel["K2"] if name == "K2"
-                                     else sdpa, iters=50))
-    ms = {"K2": float(np.mean(windows["K2"]))}
-    ms.update({n: time_ms(torch, kernel[n], iters=20) for n in ("K3", "K4")})
+    o4 = sdpa()
+    do4 = do.view(b, h, s, d)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True)
+
+    # only readings taken in turns compare: K2 against SDPA's forward (K2,
+    # SDPA, SDPA, K2, twice); the backward kernels against SDPA's backward
+    # in a palindrome, twice
+    windows = {n: [] for n in ("K2", "SDPA", "K3", "K4", "K3+K4", "full",
+                               "SDPA bwd")}
+    fns = {"K2": lambda: attn.flash_attention_fwd(q, k, v, causal=True),
+           "SDPA": sdpa, "K3": run_k3, "K4": run_k4, "K3+K4": run_k34,
+           "full": full, "SDPA bwd": sdpa_bwd}
+    order = () if bwd_only else ("K2", "SDPA", "SDPA", "K2") * 2
+    order += ("K3", "K4", "SDPA bwd", "K3+K4", "full", "full", "K3+K4",
+              "SDPA bwd", "K4", "K3") * 2
+    for name in order:
+        windows[name].append(time_ms(torch, fns[name], iters=50))
+    ms = {n: float(np.mean(w)) for n, w in windows.items() if w}
     for f, n0 in zip(("flash_attention_fwd", "flash_attention_bwd_dq",
                       "flash_attention_bwd_dkv"), launches0):
         getattr(attn, f).launches = n0  # timing launches are not counted
-    plain_fwd = time_ms(torch, lambda: attn.flash_attention_fwd_plain(
-        q, k, v, causal=True), iters=5)
-    plain_bwd = time_ms(torch, lambda: attn.flash_attention_bwd_plain(
-        q, k, v, lse, do, delta, causal=True), iters=5)
-    lib_fwd = float(np.mean(windows["SDPA"]))
-    o4 = sdpa()
-    do4 = do.view(b, h, s, d)
-    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
-        o4, (q4, k4, v4), do4, retain_graph=True))
+    plain_fwd = plain_bwd = None
+    if not bwd_only:
+        plain_fwd = time_ms(torch, lambda: attn.flash_attention_fwd_plain(
+            q, k, v, causal=True), iters=5)
+        plain_bwd = time_ms(torch, lambda: attn.flash_attention_bwd_plain(
+            q, k, v, lse, do, delta, causal=True), iters=5)
+    lib_bwd = ms["SDPA bwd"]
     pairs = bh * s * (s + 1) // 2  # live (query, key) pairs, causal
     t_bytes = 2 * bh * s * d       # one bf16 (BH, S, D) operand
     ops = {"K2": 4 * pairs * d, "K3": 6 * pairs * d, "K4": 8 * pairs * d}
@@ -821,11 +851,13 @@ def time_flash(torch, F, attn, facts) -> dict:
               "K4": 6 * t_bytes + 8 * bh * s}
     out = {}
     for n in FLASH_KERNELS:
+        if n not in ms:
+            continue
         tb = nbytes[n] / facts["bw"] * 1e3
         to = ops[n] / PEAK_OPS["bfloat16"] * 1e3
-        out[n] = {"ms": ms[n], "plain_ms": plain_fwd if n == "K2"
-                  else plain_bwd,
-                  "library_ms": lib_fwd if n == "K2" else lib_bwd,
+        out[n] = {"ms": ms[n], "ms_windows": windows[n],
+                  "plain_ms": plain_fwd if n == "K2" else plain_bwd,
+                  "library_ms": ms["SDPA"] if n == "K2" else lib_bwd,
                   "library": ("F.scaled_dot_product_attention forward"
                               if n == "K2" else
                               "SDPA autograd backward, dq+dk+dv together"),
@@ -836,11 +868,23 @@ def time_flash(torch, F, attn, facts) -> dict:
                   "flops": ops[n], "bytes": nbytes[n],
                   "tflops_per_s": ops[n] / ms[n] / 1e9,
                   "bound_share": max(tb, to) / ms[n]}
-    out["K2"].update(
-        ms_windows=windows["K2"], library_ms_windows=windows["SDPA"],
-        over_library=[a / b for a, b in zip(windows["K2"],
-                                            windows["SDPA"])])
-    out["K2"]["over_library_mean"] = ms["K2"] / lib_fwd
+    if "K2" in out:
+        out["K2"].update(
+            library_ms_windows=windows["SDPA"],
+            over_library=[a / b for a, b in zip(windows["K2"],
+                                                windows["SDPA"])])
+        out["K2"]["over_library_mean"] = ms["K2"] / ms["SDPA"]
+    # K3 + K4 and the whole backward against SDPA's backward: SDPA's five
+    # products, 2 (forward S recomputed) + 8 (dq, dk, dv, dp) pairs.d flops
+    bound = out["K3"]["bound_ms"] + out["K4"]["bound_ms"]
+    for n in ("K3+K4", "full"):
+        out[n] = {"ms": ms[n], "ms_windows": windows[n],
+                  "library_ms": lib_bwd, "library_ms_windows":
+                  windows["SDPA bwd"], "over_library": ms[n] / lib_bwd,
+                  "tflops_per_s": (ops["K3"] + ops["K4"]) / ms[n] / 1e9,
+                  "bound_ms": bound, "bound_share": bound / ms[n]}
+    out["SDPA bwd"] = {"ms": lib_bwd, "tflops_per_s": 10 * pairs * d
+                       / lib_bwd / 1e9}
     return out
 
 
@@ -979,9 +1023,9 @@ def training_run(torch, port, steps: int = 30, extra=(),
            "device_ms_per_step": device_ms,
            "device_ops_per_step": n_ops / n_prof,
            "device_idle_share": 1.0 - device_ms / step_ms,
-           "K2_share_of_device_time": sum(
-               us for k, us in top.items() if "fwd_sm90_kernel" in k)
-           / max(device_us, 1e-9),
+           "flash_share_of_device_time": {
+               n: sum(us for k, us in top.items() if fn in k)
+               / max(device_us, 1e-9) for n, fn in SM90_KERNELS.items()},
            "model_tflop_per_step": flops / 1e12,
            "mfu": flops / (step_ms / 1e3) / PEAK_OPS["bfloat16"],
            "top_kernels": [[k[:60], us / max(device_us, 1e-9)] for k, us in
@@ -2455,28 +2499,61 @@ def chunked_head_check(torch, port) -> dict:
     return out
 
 
-def k2_build_report(build, facts) -> list[dict]:
-    """The bf16 forward (fwd_sm90_kernel) as ptxas built it, per head dim:
-    registers at launch, spills, stack and shared memory (static from
-    ptxas, dynamic from the library); fails on any spill."""
+SM90_KERNELS = {"K2": "fwd_sm90_kernel", "K3": "bwd_dq_sm90_kernel",
+                "K4": "bwd_dkv_sm90_kernel"}
+
+
+def sm90_build_report(build, facts) -> dict:
+    """The bf16 flash kernels (K2 fwd_sm90_kernel, K3 bwd_dq_sm90_kernel,
+    K4 bwd_dkv_sm90_kernel) as ptxas built them, per head dim: registers
+    at launch, spills, stack and shared memory (static from ptxas, dynamic
+    from the library); fails on any spill."""
     lib = build.load_library("flash_attention")
-    rep = ptxas_report(build.build_info["flash_attention"]["log"],
-                       "fwd_sm90_kernel")
-    if len(rep) != 2:
-        fail(f"ptxas reported {len(rep)} fwd_sm90_kernel instances, want 2")
-    for r in rep:
-        r["dynamic_smem_bytes"] = lib.flash_fwd_sm90_smem(r["template_int"])
-        print(f"  K2 bf16 (fwd_sm90_kernel, D={r['template_int']}): "
-              f"{r.get('registers')} registers at launch, "
-              f"{r.get('spill_stores')} / {r.get('spill_loads')} bytes "
-              f"spilled (stores / loads), {r.get('stack_bytes')} bytes "
-              f"stack, {r['static_smem_bytes']} + "
-              f"{r['dynamic_smem_bytes']} bytes shared memory (static + "
-              f"dynamic); {facts['smi']}")
-        if r.get("spill_stores") or r.get("spill_loads") \
-                or "spill_stores" not in r:
-            fail(f"fwd_sm90_kernel spills or was not reported: {r}")
-    return rep
+    log = build.build_info["flash_attention"]["log"]
+    out = {}
+    for which, (name, fn) in enumerate(SM90_KERNELS.items()):
+        rep = ptxas_report(log, fn)
+        if len(rep) != 2:
+            fail(f"ptxas reported {len(rep)} {fn} instances, want 2")
+        for r in rep:
+            r["dynamic_smem_bytes"] = lib.flash_sm90_smem(
+                which, r["template_int"])
+            print(f"  {name} bf16 ({fn}, D={r['template_int']}): "
+                  f"{r.get('registers')} registers at launch, "
+                  f"{r.get('spill_stores')} / {r.get('spill_loads')} bytes "
+                  f"spilled (stores / loads), {r.get('stack_bytes')} bytes "
+                  f"stack, {r['static_smem_bytes']} + "
+                  f"{r['dynamic_smem_bytes']} bytes shared memory (static "
+                  f"+ dynamic); {facts['smi']}")
+            if r.get("spill_stores") or r.get("spill_loads") \
+                    or "spill_stores" not in r:
+                fail(f"{fn} spills or was not reported: {r}")
+        out[name] = rep
+    return out
+
+
+def print_flash_ratios(timing: dict, facts) -> None:
+    """One line each: K2 against SDPA's forward, and K3 + K4 and the
+    port's whole backward against SDPA's backward (alternated windows)."""
+    if "K2" in timing:
+        k2 = timing["K2"]
+        print(f"  K2 vs SDPA forward, alternated windows: K2 "
+              f"{k2['ms']:.4f} ms, SDPA {k2['library_ms']:.4f} ms, ratio "
+              f"{k2['over_library_mean']:.3f}; K2 {k2['tflops_per_s']:.1f} "
+              f"TFLOP/s, {k2['bound_share']:.3f} of its "
+              f"{k2['bound_ms']:.5f} ms bound ({k2['bound_by']}); "
+              f"{facts['smi']}")
+    for n, what in (("K3+K4", "K3 + K4"),
+                    ("full", "the port's backward (delta + K3 + K4)")):
+        t = timing[n]
+        print(f"  {what} vs SDPA backward, alternated windows: "
+              f"{t['ms']:.4f} ms, SDPA {t['library_ms']:.4f} ms, ratio "
+              f"{t['over_library']:.3f}; {t['tflops_per_s']:.1f} TFLOP/s, "
+              f"{t['bound_share']:.3f} of its {t['bound_ms']:.5f} ms bound "
+              f"(K3 {timing['K3']['ms']:.4f} ms, "
+              f"{timing['K3']['bound_share']:.3f} of its bound; K4 "
+              f"{timing['K4']['ms']:.4f} ms, "
+              f"{timing['K4']['bound_share']:.3f}); {facts['smi']}")
 
 
 T_START = time.perf_counter()
@@ -2538,7 +2615,7 @@ def main() -> int:
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line or "warning" in line:
                 print("    " + line.strip())
-    k2_build = k2_build_report(_build, facts)
+    sm90_build = sm90_build_report(_build, facts)
 
     phase(3, "decode kernels against their plain versions")
     worst = check_kernels(torch, attn)
@@ -2565,12 +2642,7 @@ def main() -> int:
     for name, t in flash_timing.items():
         print(f"  {name} timing (bf16, B=8 H=8 S=1024 D=128 causal): "
               + json.dumps(t))
-    k2 = flash_timing["K2"]
-    print(f"  K2 vs SDPA forward, alternated windows: K2 "
-          f"{k2['ms']:.4f} ms, SDPA {k2['library_ms']:.4f} ms, ratio "
-          f"{k2['over_library_mean']:.3f}; K2 {k2['tflops_per_s']:.1f} "
-          f"TFLOP/s, {k2['bound_share']:.3f} of its {k2['bound_ms']:.5f} ms "
-          f"bound ({k2['bound_by']}); {facts['smi']}")
+    print_flash_ratios(flash_timing, facts)
     phase(7, "LM-base-width f32 train step, flash vs reference attention")
     train_step_check(torch, port)
     phase(8, "LM-base bf16 training through lm_cli")
@@ -2664,18 +2736,22 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
             "tflops_per_s": t["tflops_per_s"],
-            "bound_share": t["bound_share"]})
+            "bound_share": t["bound_share"],
+            "bf16_kernel": f"{SM90_KERNELS[name]} (wgmma, TMA rings, "
+                           f"persistent, warp-specialized)",
+            "build": [{k: r.get(k) for k in (
+                "template_int", "registers", "spill_stores", "spill_loads",
+                "static_smem_bytes", "dynamic_smem_bytes")}
+                for r in sm90_build[name]],
+            "share_of_bf16_step_device_time": train_res[
+                "flash_share_of_device_time"][name]})
         if name == "K2":
-            kernels[-1].update(
-                over_library_windows=t["over_library"],
-                bf16_kernel="fwd_sm90_kernel (wgmma, TMA ring, "
-                            "warp-specialized)",
-                build=[{k: r.get(k) for k in (
-                    "template_int", "registers", "spill_stores",
-                    "spill_loads", "static_smem_bytes",
-                    "dynamic_smem_bytes")} for r in k2_build],
-                share_of_bf16_step_device_time=train_res[
-                    "K2_share_of_device_time"])
+            kernels[-1]["over_library_windows"] = t["over_library"]
+        else:
+            kernels[-1]["k3_plus_k4_over_library"] = flash_timing[
+                "K3+K4"]["over_library"]
+            kernels[-1]["backward_over_library"] = flash_timing[
+                "full"]["over_library"]
     src = "distributed_pytorch_tpu_torch/csrc/fused_bn.cu"
     for name, fn, line in (("K1a", "bn_relu_bwd_reduce", 106),
                            ("K1b", "bn_relu_bwd_apply", 121)):

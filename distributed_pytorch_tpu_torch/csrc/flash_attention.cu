@@ -23,67 +23,90 @@
 //       dv += T(p)^T . do, dk += T(ds)^T . q.
 // Everything accumulates in float32.
 //
-// K2 in bf16 (fwd_sm90_kernel) is built for Hopper's own machinery:
-// - Persistent: one block of 384 threads per SM walks a list of work tiles
-//   (128 query rows of one (b, h)), heaviest causal tiles first, dealt to
-//   the blocks in snake order so heavy and light tiles even out.
-//   Warpgroups 0 and 1 (the consumers) own 64 rows each; warpgroup 2 is
-//   the producer, one thread of which issues every TMA load.
-// - TMA brings q once per work tile (two stages, so the next tile's q
-//   lands while this one runs) and k, v in tiles of 128 rows through two
-//   rings of shared-memory stages (2 each at D = 128: 224 KB in all with
-//   q and the o staging tile; 4 each at D = 64), each stage with a "full"
-//   mbarrier (the expected bytes, counted down by TMA) and an "empty" one
-//   (one arrival per consumer warpgroup).  The producer streams across
-//   work tiles without a break.  Tiles arrive 128-byte swizzled, the layout the
-//   wgmma descriptors name.  Rows past Sq or Sk arrive as zeros; keys past
-//   Sk are still masked.
-// - S = q.k^T is wgmma m64n128k16 from shared memory (both K-major) into
-//   64 f32 registers a thread; the online softmax runs on that register
-//   layout (a row's max and sum combine over the 4 lanes that share it), in
-//   base 2: the max is taken on raw scores and scaled, p = 2^(s *
-//   scale*log2(e) - m) is one FMA and one ex2.approx.ftz (2 ulp, results
-//   under 2^-126 flushed), and lse converts back (m ln 2 + log l).  The
-//   mask is applied only on tiles that cross the diagonal or Sk.
-// - p is rounded to bf16 in registers and is the register A operand of the
-//   P.V wgmma (v from shared memory, MN-major); o stays in registers for
-//   the whole key loop.  Each step issues S of tile j, rescales o while S
-//   runs, issues P.V of tile j-1 and runs tile j's softmax while P.V is on
-//   the tensor cores.  setmaxnreg gives the consumers 240 registers and
-//   leaves the producer 24.
-// - The epilogue multiplies o by 1/l, writes bf16 into a staging tile in
-//   shared memory (swizzled) and TMA stores it, which also drops rows past
-//   Sq; the f32 lse goes out per row.
-// No atomics and a fixed order: two runs are bitwise equal.
+// The bf16 instances are built for Hopper's own machinery, on sm90.cuh:
+// K2 fwd_sm90_kernel, K3 bwd_dq_sm90_kernel, K4 bwd_dkv_sm90_kernel.
+// - Persistent and warp-specialized: one block of 384 threads per SM walks
+//   a list of work tiles of 128 rows of one (b, h), heaviest causal tiles
+//   first (query tiles from the last in K2 and K3, key tiles from the
+//   first in K4), dealt to the blocks in snake order so heavy and light
+//   tiles even out.  Warpgroups 0 and 1 (the consumers) own 64 rows each;
+//   warpgroup 2 is the producer, one thread of which issues every TMA
+//   load.  setmaxnreg gives the consumers 240 registers and the producer
+//   24.
+// - TMA brings the work tile's own operands once (two stages, so the next
+//   tile's land while this one runs) and streams the others through rings
+//   of shared-memory stages, each stage with a "full" mbarrier (the
+//   expected bytes, counted down by TMA) and an "empty" one (one arrival
+//   per consumer warpgroup).  The producer streams across work tiles
+//   without a break.  Tiles arrive 128-byte swizzled, the layout the wgmma
+//   descriptors name; rows past Sq or Sk arrive as zeros.
+//   K2: q once; k and v in 128-row tiles (2 stages each at D = 128, 4 at
+//       D = 64), k issued a tile ahead of v.
+//   K3: q and do once; k and v in 64-row tiles (3 stages each at D = 128,
+//       4 at D = 64: a k stage is held until the dq product that reads it
+//       is done, so a third stage gives its refill a whole step); each
+//       thread keeps its two rows' lse (in base 2) and delta in
+//       registers.
+//   K4: k and v once; q, do and their 64 rows' lse and delta (flat f32
+//       arrays through a 1-D tensor map) in 64-row tiles through one ring
+//       (3 stages at D = 128, 4 at D = 64).
+// - Every product is wgmma with f32 accumulators in registers: the scores
+//   (S = q.k^T in K2 and K3; S^T = k.q^T in K4) and dP (do.v^T; v.do^T)
+//   from shared memory, both operands K-major (m64n128k16 in K2,
+//   m64n64k16 in K3 and K4).  The exponent runs on the accumulator layout
+//   in base 2: p = 2^(s * scale log2 e - m) in K2 (online softmax, the max
+//   taken on raw scores), p = 2^(s * scale log2 e - lse log2 e) in K3 and
+//   K4; one FMA and one ex2.approx.ftz (2 ulp, results under 2^-126
+//   flushed) an element, the mask applied only on tiles that cross the
+//   diagonal, Sk or (K4) Sq.  The accumulator layout is the A layout:
+//   p (K2, K4: dv += p^T . do) and ds (K3: dq += ds . k; K4: dk += ds^T .
+//   q) are rounded to bf16 in registers and are the register A operand of
+//   the next wgmma, whose B (v, k, do, q) is the tile already in shared
+//   memory, read MN-major.  The accumulators (o; dq; dk and dv) stay in
+//   registers for the whole loop: no product goes through shared memory.
+// - Overlap: K2 issues S of key tile j and P.V of tile j-1, rescaling o
+//   while S runs and taking tile j's softmax while P.V runs.  K3 issues S
+//   and dP of key tile j with the dq product of tile j-1 still running and
+//   takes p while dP runs.  K4 takes p while dP runs, then issues dv and
+//   dk together (holding S, dP, dk and dv, 192 registers, leaves no room
+//   for the next tile's products); its two warpgroups interleave on the
+//   tensor cores instead.  Each issue opens its own wgmma.fence after
+//   every register it touches is final, or ptxas serializes the products.
+// - Under the causal mask a warpgroup skips the streamed tile that is
+//   masked out for its 64 rows alone (K3: warpgroup 0's last key tile;
+//   K4: warpgroup 1's first query tile): it waits for the tile and
+//   releases it unread.
+// - Epilogues: the outputs are written in bf16 into swizzled staging
+//   rows and stored by TMA, which drops rows past Sq or Sk.  K2 stages o
+//   (times 1/l; lse per row) in a tile of its own; K3 stages dq in the
+//   warpgroup's own rows of the q tile and K4 dk and dv in its own rows
+//   of the k and v tiles they came from, and each releases that stage
+//   once the stores have read it (the 32 KB K3 saves are its third k/v
+//   stage).
+// No atomics and a fixed order: two runs are bitwise equal.  K3 and K4
+// stay two kernels, as in the JAX package.
 //
-// K3, K4 and K2's float32 instance keep the first layout: a block of 4
-// warps owns a 64-row tile (query rows in K2/K3, key rows in K4) and
-// streams the other operand through shared memory in tiles of N rows (64
-// for bf16, 32 for float32); warp w owns rows 16w..16w+15 of every
-// per-block matrix.  K4 is one block per key tile accumulating over query
-// tiles: no atomics, deterministic, like the Pallas version.  Causal blocks
-// loop only over the tiles that hold live entries.  The float32 instance
-// runs on the CUDA cores in full float32 (no TF32): it is the numerics
-// reference on the card.
+// The float32 instances keep the first layout: a block of 4 warps owns a
+// 64-row tile (query rows in K2/K3, key rows in K4) and streams the other
+// operand through shared memory in tiles of 32 rows; warp w owns rows
+// 16w..16w+15 of every per-block matrix.  K4 is one block per key tile
+// accumulating over query tiles.  Causal blocks loop only over the tiles
+// that hold live entries.  They run on the CUDA cores in full float32 (no
+// TF32): they are the numerics reference on the card.
 //
 // What bounds them: at the LM-base training shape (B*H = 64, S = 1024,
 // D = 128, causal) the forward does 17.2 GFLOP of products against 67.4 MB
 // of operands read and written once (255 operations per byte, just under
 // the card's ~295 bf16 balance point, so bytes bound it by a hair); K3
 // (306) and K4 (340) sit just above it.  Either way the bound is tens of
-// microseconds.  K2 in bf16 reaches about 44% of it; what it still pays
-// is per work tile: the first S product and softmax, the last P.V and the
-// epilogue overlap nothing, and both consumer warpgroups run them at the
-// same time.  What still holds K3 and K4 far from it: their bf16
-// products run through WMMA 16x16x16 fragments whose accumulators
-// round-trip through shared memory every tile (strip_abt, strip_acc), with
-// no register blocking and no overlap of loads and compute; sm90.cuh has
-// the TMA, mbarrier and wgmma pieces to rebuild them as K2 is built.
+// microseconds.  The bf16 kernels reach 40-45% of it (PERF.md); what they
+// still pay is per work tile (the first products and exponent and the
+// last product overlap nothing, and both consumer warpgroups run them at
+// the same time) and, in K4, the exponent between its products.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <algorithm>
@@ -93,47 +116,35 @@
 
 namespace {
 
-using namespace nvcuda;
-
 constexpr int kThreads = 128;  // 4 warps
 constexpr int kM = 64;         // rows of the owned tile: 4 warps x 16 rows
 constexpr float kNegInf = -1e30f;  // finite, as NEG_INF in ops/attention.py
 
 constexpr size_t align128(size_t x) { return (x + 127) / 128 * 128; }
 
+// Tiles of the float32 kernels (fwd_kernel, bwd_dq_kernel, bwd_dkv_kernel).
 template <typename T, int D>
 struct Cfg {
-  static constexpr bool kF32 = std::is_same<T, float>::value;
-  static constexpr int N = kF32 ? 32 : 64;  // rows of the streamed tile
-  static constexpr int kCpl = N / 32;       // score columns per lane
-  // leading dimensions in elements: +1 float keeps the scalar path's
-  // column reads conflict-free; +8 bf16 / +4 float keep WMMA's 32-byte
-  // fragment alignment while breaking the power-of-two row stride
-  static constexpr int LDT = kF32 ? D + 1 : D + 8;  // T tiles (rows x D)
-  static constexpr int LDS = kF32 ? N + 1 : N + 4;  // float scores (kM x N)
-  static constexpr int LDP = kF32 ? LDS : N + 8;    // T probabilities / ds
-  static constexpr int LDO = kF32 ? D + 1 : D + 4;  // float accumulators
+  static_assert(std::is_same<T, float>::value,
+                "the bf16 kernels are the *_sm90_kernel ones");
+  static constexpr int N = 32;          // rows of the streamed tile
+  static constexpr int kCpl = N / 32;   // score columns per lane
+  // leading dimensions in elements: +1 float keeps the column reads
+  // conflict-free
+  static constexpr int LDT = D + 1;  // T tiles (rows x D)
+  static constexpr int LDS = N + 1;  // float scores (kM x N)
+  static constexpr int LDP = LDS;    // p / ds overwrite the scores
+  static constexpr int LDO = D + 1;  // float accumulators
   static constexpr size_t tile_m = align128(size_t(kM) * LDT * sizeof(T));
   static constexpr size_t tile_n = align128(size_t(N) * LDT * sizeof(T));
   static constexpr size_t score = align128(size_t(kM) * LDS * 4);
-  // float32: the T copy of p / ds is the float score buffer itself
-  static constexpr size_t prob = kF32 ? 0 : align128(size_t(kM) * LDP * 2);
   static constexpr size_t acc = align128(size_t(kM) * LDO * 4);
-  static constexpr size_t fwd_smem = tile_m + 2 * tile_n + score + prob + acc;
+  static constexpr size_t fwd_smem = tile_m + 2 * tile_n + score + acc;
   static constexpr size_t dq_smem =
-      2 * tile_m + 2 * tile_n + 2 * score + prob + acc + 2 * kM * 4;
+      2 * tile_m + 2 * tile_n + 2 * score + acc + 2 * kM * 4;
   static constexpr size_t dkv_smem =
-      2 * tile_m + 2 * tile_n + 2 * score + prob + 2 * acc + 2 * N * 4;
+      2 * tile_m + 2 * tile_n + 2 * score + 2 * acc + 2 * N * 4;
 };
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -185,40 +196,19 @@ template <typename T, int D>
 __device__ __forceinline__ void strip_abt(float* S, const T* A, const T* B,
                                           int warp, int lane) {
   using C = Cfg<T, D>;
-  if constexpr (C::kF32) {
-    float acc[16];
+  float acc[16];
 #pragma unroll
-    for (int r = 0; r < 16; ++r) acc[r] = 0.f;
-    const T* a = A + warp * 16 * C::LDT;
-    const T* b = B + lane * C::LDT;  // N == 32: one column per lane
+  for (int r = 0; r < 16; ++r) acc[r] = 0.f;
+  const T* a = A + warp * 16 * C::LDT;
+  const T* b = B + lane * C::LDT;  // N == 32: one column per lane
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float bv = b[d];
+  for (int d = 0; d < D; ++d) {
+    const float bv = b[d];
 #pragma unroll
-      for (int r = 0; r < 16; ++r) acc[r] += a[r * C::LDT + d] * bv;
-    }
-#pragma unroll
-    for (int r = 0; r < 16; ++r) S[(warp * 16 + r) * C::LDS + lane] = acc[r];
-  } else {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>
-        fa;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major>
-        fb;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> fc;
-#pragma unroll
-    for (int cb = 0; cb < C::N / 16; ++cb) {
-      wmma::fill_fragment(fc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::load_matrix_sync(fa, A + warp * 16 * C::LDT + kk * 16, C::LDT);
-        // col-major B: element (k, n) at B[(cb*16 + n) * LDT + kk*16 + k]
-        wmma::load_matrix_sync(fb, B + cb * 16 * C::LDT + kk * 16, C::LDT);
-        wmma::mma_sync(fc, fa, fb, fc);
-      }
-      wmma::store_matrix_sync(S + warp * 16 * C::LDS + cb * 16, fc, C::LDS,
-                              wmma::mem_row_major);
-    }
+    for (int r = 0; r < 16; ++r) acc[r] += a[r * C::LDT + d] * bv;
   }
+#pragma unroll
+  for (int r = 0; r < 16; ++r) S[(warp * 16 + r) * C::LDS + lane] = acc[r];
 }
 
 // O[16w + r][n] += sum_j P[16w + r][j] * V[j][n] for the calling warp's 16
@@ -227,51 +217,31 @@ template <typename T, int D>
 __device__ __forceinline__ void strip_acc(float* O, const T* P, const T* V,
                                           int warp, int lane) {
   using C = Cfg<T, D>;
-  if constexpr (C::kF32) {
-    constexpr int kCols = D / 32;
-    float acc[16][kCols];
+  constexpr int kCols = D / 32;
+  float acc[16][kCols];
 #pragma unroll
-    for (int r = 0; r < 16; ++r)
+  for (int r = 0; r < 16; ++r)
 #pragma unroll
-      for (int t = 0; t < kCols; ++t)
-        acc[r][t] = O[(warp * 16 + r) * C::LDO + lane + 32 * t];
-    const T* p = P + warp * 16 * C::LDP;
+    for (int t = 0; t < kCols; ++t)
+      acc[r][t] = O[(warp * 16 + r) * C::LDO + lane + 32 * t];
+  const T* p = P + warp * 16 * C::LDP;
 #pragma unroll 2
-    for (int j = 0; j < C::N; ++j) {
-      float vv[kCols];
+  for (int j = 0; j < C::N; ++j) {
+    float vv[kCols];
 #pragma unroll
-      for (int t = 0; t < kCols; ++t) vv[t] = V[j * C::LDT + lane + 32 * t];
+    for (int t = 0; t < kCols; ++t) vv[t] = V[j * C::LDT + lane + 32 * t];
 #pragma unroll
-      for (int r = 0; r < 16; ++r) {
-        const float pv = p[r * C::LDP + j];
+    for (int r = 0; r < 16; ++r) {
+      const float pv = p[r * C::LDP + j];
 #pragma unroll
-        for (int t = 0; t < kCols; ++t) acc[r][t] += pv * vv[t];
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 16; ++r)
-#pragma unroll
-      for (int t = 0; t < kCols; ++t)
-        O[(warp * 16 + r) * C::LDO + lane + 32 * t] = acc[r][t];
-  } else {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>
-        fa;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>
-        fb;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> fc;
-    float* o = O + warp * 16 * C::LDO;
-#pragma unroll
-    for (int nb = 0; nb < D / 16; ++nb) {
-      wmma::load_matrix_sync(fc, o + nb * 16, C::LDO, wmma::mem_row_major);
-#pragma unroll
-      for (int jj = 0; jj < C::N / 16; ++jj) {
-        wmma::load_matrix_sync(fa, P + warp * 16 * C::LDP + jj * 16, C::LDP);
-        wmma::load_matrix_sync(fb, V + jj * 16 * C::LDT + nb * 16, C::LDT);
-        wmma::mma_sync(fc, fa, fb, fc);
-      }
-      wmma::store_matrix_sync(o + nb * 16, fc, C::LDO, wmma::mem_row_major);
+      for (int t = 0; t < kCols; ++t) acc[r][t] += pv * vv[t];
     }
   }
+#pragma unroll
+  for (int r = 0; r < 16; ++r)
+#pragma unroll
+    for (int t = 0; t < kCols; ++t)
+      O[(warp * 16 + r) * C::LDO + lane + 32 * t] = acc[r][t];
 }
 
 // Zero the calling warp's 16 rows of a float (kM x D, LDO) accumulator.
@@ -296,8 +266,7 @@ __device__ __forceinline__ void store_rows(T* __restrict__ dst,
     if (row >= total) break;
     for (int n = lane; n < D; n += 32)
       dst[static_cast<size_t>(row) * D + n] =
-          from_float<T>(O[(warp * 16 + r) * C::LDO + n] *
-                        (mul ? mul[r] : 1.f));
+          O[(warp * 16 + r) * C::LDO + n] * (mul ? mul[r] : 1.f);
   }
 }
 
@@ -319,7 +288,6 @@ struct Args {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) fwd_kernel(Args a) {
   using C = Cfg<T, D>;
-  static_assert(C::kF32, "the bf16 forward is fwd_sm90_kernel");
   extern __shared__ __align__(128) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem);
   T* Ks = reinterpret_cast<T*>(smem + C::tile_m);
@@ -375,7 +343,7 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(Args a) {
       for (int t = 0; t < C::kCpl; ++t) {
         const float p = expf(s[t] - m_new);
         sum += p;
-        Ps[row * C::LDP + lane + 32 * t] = from_float<T>(p);  // p in T
+        Ps[row * C::LDP + lane + 32 * t] = p;
       }
       l_run[r] = alpha[r] * l_run[r] + warp_sum(sum);
       m_run[r] = m_new;
@@ -731,7 +699,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
   }
 }
 
-// ---------------------------------------------------------------- K3 ----
+// ------------------------------------------------------- K3, float32 ----
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) bwd_dq_kernel(Args a) {
   using C = Cfg<T, D>;
@@ -749,8 +717,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_kernel(Args a) {
   off += C::score;
   float* dPs = reinterpret_cast<float*>(smem + off);
   off += C::score;
-  T* Ps = C::kF32 ? reinterpret_cast<T*>(Ss) : reinterpret_cast<T*>(smem + off);
-  off += C::prob;
+  T* Ps = Ss;  // ds overwrites the scores it came from
   float* dQs = reinterpret_cast<float*>(smem + off);
   off += C::acc;
   float* lse_s = reinterpret_cast<float*>(smem + off);
@@ -792,7 +759,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_kernel(Args a) {
         if (kj >= a.Sk || (a.causal && kj > qi)) x = kNegInf;
         const float p = expf(x - lse);
         const float ds = p * (dPs[row * C::LDS + c] - delta) * a.scale;
-        Ps[row * C::LDP + c] = from_float<T>(ds);  // ds in k's type
+        Ps[row * C::LDP + c] = ds;
       }
     }
     __syncwarp();
@@ -803,7 +770,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_kernel(Args a) {
                    a.Sq, warp, lane);
 }
 
-// ---------------------------------------------------------------- K4 ----
+// ------------------------------------------------------- K4, float32 ----
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) bwd_dkv_kernel(Args a) {
   using C = Cfg<T, D>;
@@ -821,8 +788,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dkv_kernel(Args a) {
   off += C::score;
   float* dPs = reinterpret_cast<float*>(smem + off);  // dp^T
   off += C::score;
-  T* Ps = C::kF32 ? reinterpret_cast<T*>(Ss) : reinterpret_cast<T*>(smem + off);
-  off += C::prob;
+  T* Ps = Ss;  // p, then ds, overwrite the scores they came from
   float* dKs = reinterpret_cast<float*>(smem + off);
   off += C::acc;
   float* dVs = reinterpret_cast<float*>(smem + off);
@@ -866,8 +832,6 @@ __global__ void __launch_bounds__(kThreads) bwd_dkv_kernel(Args a) {
         if (qi >= a.Sq || kj >= a.Sk || (a.causal && kj > qi)) x = kNegInf;
         const float p = expf(x - lse_s[c]);
         Ss[row * C::LDS + c] = p;
-        if constexpr (!C::kF32)
-          Ps[row * C::LDP + c] = from_float<T>(p);  // p in do's type
       }
     }
     __syncwarp();
@@ -882,7 +846,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dkv_kernel(Args a) {
         const int c = lane + 32 * t;
         const float ds = Ss[row * C::LDS + c] *
                          (dPs[row * C::LDS + c] - delta_s[c]) * a.scale;
-        Ps[row * C::LDP + c] = from_float<T>(ds);  // ds in q's type
+        Ps[row * C::LDP + c] = ds;
       }
     }
     __syncwarp();
@@ -893,6 +857,526 @@ __global__ void __launch_bounds__(kThreads) bwd_dkv_kernel(Args a) {
                    a.Sk, warp, lane);
   store_rows<T, D>(static_cast<T*>(a.out1) + bh * a.Sk * D, dVs, nullptr, k0,
                    a.Sk, warp, lane);
+}
+
+// ------------------------------------------------- K3 and K4, bf16 ----
+constexpr int kBwdM = 128;  // rows of a work tile: 2 consumer warpgroups x 64
+constexpr int kBwdN = 64;   // rows of a streamed tile (keys in K3, queries
+                            // in K4)
+static_assert(kBwdM == kFwdM, "K3 walks K2's work tiles (work_tile)");
+
+// Shared memory of bwd_dq_sm90_kernel, in bytes from a 1024-aligned base.
+// A tile is D / 64 panels of rows x 128 bytes (sm90.cuh).
+template <int D>
+struct BwdDq {
+  static constexpr int kPanels = D / 64;
+  static constexpr int kStages = D == 64 ? 4 : 3;  // per ring (k and v)
+  static constexpr uint32_t m_panel = kBwdM * 128;
+  static constexpr uint32_t n_panel = kBwdN * 128;
+  static constexpr uint32_t m_tile = kPanels * m_panel;  // q (dq staged), do
+  static constexpr uint32_t n_tile = kPanels * n_panel;  // one k or v
+  // work-tile stage s: q at 2 s m_tile, do at (2 s + 1) m_tile
+  static constexpr uint32_t k_off = 4 * m_tile;
+  static constexpr uint32_t v_off = k_off + kStages * n_tile;
+  static constexpr uint32_t bar_off = v_off + kStages * n_tile;
+  // barriers, 8 bytes each: per work-tile stage full, empty; then per k / v
+  // stage k full, k empty, v full, v empty
+  static constexpr uint32_t smem = bar_off + 8 * (4 + 4 * kStages) + 1024;
+};
+
+// Shared memory of bwd_dkv_sm90_kernel.  dk and dv are staged for their
+// TMA stores in the warpgroup's own rows of the k and v tiles they came
+// from, so the work-tile stage is released after the stores have read it.
+template <int D>
+struct BwdDkv {
+  static constexpr int kPanels = D / 64;
+  static constexpr int kStages = D == 64 ? 4 : 3;  // q / do / lse / delta
+  static constexpr uint32_t m_panel = kBwdM * 128;
+  static constexpr uint32_t n_panel = kBwdN * 128;
+  static constexpr uint32_t m_tile = kPanels * m_panel;  // k or v (dk, dv)
+  static constexpr uint32_t n_tile = kPanels * n_panel;  // q or do
+  // work-tile stage s: k at 2 s m_tile, v at (2 s + 1) m_tile
+  static constexpr uint32_t q_off = 4 * m_tile;
+  // ring stage s: q at q_off + 2 s n_tile, do at q_off + (2 s + 1) n_tile;
+  // its 64 lse at vec_off + 512 s and 64 delta 256 bytes further
+  static constexpr uint32_t vec_off = q_off + 2 * kStages * n_tile;
+  static constexpr uint32_t bar_off = vec_off + 512 * kStages;
+  // barriers: per work-tile stage full, empty; then per ring stage full,
+  // empty
+  static constexpr uint32_t smem = bar_off + 8 * (4 + 2 * kStages) + 1024;
+};
+
+// d (64 x 64) = A . B^T, both 64-row bf16 tiles K-major in shared memory
+// (A this warpgroup's rows of a tile whose panels are a_panel bytes apart,
+// B a 64-row tile with panels b_panel apart), issued and committed.
+template <int D>
+__device__ __forceinline__ void bwd_ss(float (&d)[32], uint32_t a,
+                                       uint32_t a_panel, uint32_t b,
+                                       uint32_t b_panel) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    sm90::wgmma_m64n64k16_ss(
+        d, sm90::desc_sw128(a + (kk / 4) * a_panel + (kk % 4) * 32, 16, 1024),
+        sm90::desc_sw128(b + (kk / 4) * b_panel + (kk % 4) * 32, 16, 1024),
+        kk > 0);
+  sm90::wgmma_commit();
+}
+
+// acc (64 x D) += A (64 x 64: bf16 fragments, 4 per 16-wide step) . B (a
+// 64-row bf16 tile in shared memory read MN-major, panels b_panel apart),
+// issued and committed.
+template <int D>
+__device__ __forceinline__ void bwd_rs(float (&acc)[D / 2],
+                                       const uint32_t (&a)[16], uint32_t b,
+                                       uint32_t b_panel) {
+#pragma unroll
+  for (int kk = 0; kk < kBwdN / 16; ++kk) {
+    const uint64_t desc = sm90::desc_sw128(b + kk * 16 * 128, b_panel, 1024);
+    if constexpr (D == 128)
+      sm90::wgmma_m64n128k16_rs(acc, a + 4 * kk, desc);
+    else
+      sm90::wgmma_m64n64k16_rs(acc, a + 4 * kk, desc);
+  }
+  sm90::wgmma_commit();
+}
+
+// dQ.  Persistent and warp-specialized as fwd_sm90_kernel, over the same
+// work tiles (128 query rows of one (b, h), heaviest causal tiles first):
+// the producer brings q and do once per work tile and k, v in 64-row key
+// tiles through two rings; each consumer warpgroup owns 64 query rows,
+// keeps its rows' lse and delta in registers and dq in registers for the
+// whole key loop, and stages dq for its TMA store in its own q rows, so
+// the work-tile stage is released after the store has read it.  The
+// layout, the pipeline and the numerics are in the header comment.
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       const __grid_constant__ CUtensorMap tm_do,
+                       const __grid_constant__ CUtensorMap tm_dq,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta, int Sq, int Sk,
+                       int causal, float scale, float scale_log2, int BH) {
+  using L = BwdDq<D>;
+  extern __shared__ __align__(1024) unsigned char bwd_smem[];
+  const uint32_t base = (sm90::smem_addr(bwd_smem) + 1023u) & ~1023u;
+  // work-tile stage s (work tile r uses stage r % 2): full, empty
+  auto q_full = [&](int s) { return base + L::bar_off + 16 * s; };
+  auto q_empty = [&](int s) { return base + L::bar_off + 16 * s + 8; };
+  // stage s of ring x (0 k full, 1 k empty, 2 v full, 3 v empty)
+  auto bar = [&](int x, int s) {
+    return base + L::bar_off + 32 + 8 * (4 * s + x);
+  };
+  const int nq = (Sq + kBwdM - 1) / kBwdM, n_work = nq * BH;
+  const int nk = (Sk + kBwdN - 1) / kBwdN;
+  // key tiles that hold a live entry for query rows up to q_last
+  auto key_tiles = [&](int q_last) {
+    return causal ? min(nk, q_last / kBwdN + 1) : nk;
+  };
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2; ++s) {
+      sm90::mbar_init(q_full(s), 1);
+      sm90::mbar_init(q_empty(s), 2);
+    }
+    for (int s = 0; s < L::kStages; ++s)
+      for (int x = 0; x < 4; ++x) sm90::mbar_init(bar(x, s), x % 2 ? 2 : 1);
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // ------------------------------------------- producer
+    sm90::regs_dec<kProducerRegs>();
+    if (threadIdx.x != 256) return;
+    // key tile ``it`` (counted over all work tiles) of ring x goes to
+    // stage it % S once the stage's previous use is released
+    auto load = [&](int x, int it, int row, int bh) {
+      const int s = it % L::kStages;
+      sm90::mbar_wait(bar(x + 1, s), ((it / L::kStages) & 1) ^ 1);
+      sm90::mbar_arrive_expect_tx(bar(x, s), L::n_tile);
+      const uint32_t dst = base + (x ? L::v_off : L::k_off) + s * L::n_tile;
+      for (int p = 0; p < L::kPanels; ++p)
+        sm90::tma_load_3d(dst + p * L::n_panel, x ? &tm_v : &tm_k, bar(x, s),
+                          64 * p, row, bh);
+    };
+    int it = 0;
+    for (int r = 0;; ++r) {
+      const int i = work_index(r);
+      if (i >= n_work) break;
+      int bh, q0;
+      work_tile(i, BH, nq, bh, q0);
+      const int qs = r % 2;
+      sm90::mbar_wait(q_empty(qs), ((r / 2) & 1) ^ 1);
+      sm90::mbar_arrive_expect_tx(q_full(qs), 2 * L::m_tile);
+      for (int x = 0; x < 2; ++x)  // q, do
+        for (int w = 0; w < 2; ++w)
+          for (int p = 0; p < L::kPanels; ++p)
+            sm90::tma_load_3d(base + (2 * qs + x) * L::m_tile +
+                                  p * L::m_panel + w * 64 * 128,
+                              x ? &tm_do : &tm_q, q_full(qs), 64 * p,
+                              q0 + 64 * w, bh);
+      const int n = key_tiles(q0 + kBwdM - 1);
+      for (int j = 0; j < n; ++j, ++it) {
+        load(0, it, j * kBwdN, bh);
+        load(2, it, j * kBwdN, bh);
+      }
+    }
+  } else {  // ----------------------------------------------- consumers
+    sm90::regs_inc<kConsumerRegs>();
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int cq = 2 * (lane % 4);  // d[4j + e]: column 8j + cq + e%2,
+    const int rl = 16 * warp + lane / 4;  //   row rl + 8(e/2) of the 64
+    float dq[D / 2];
+    float sc[32], dp[32];  // S, then p; dP of the newest key tile
+    uint32_t pk[16];       // ds of the key tile before, bf16: dq's A operand
+    auto wait_ring = [&](int x, int it) {
+      sm90::mbar_wait(bar(x, it % L::kStages), (it / L::kStages) & 1);
+    };
+    auto release = [&](uint32_t b) {
+      if (t == 0) sm90::mbar_arrive(b);
+    };
+
+    int it = 0;  // key tiles consumed so far, over all work tiles
+    for (int r = 0;; ++r) {
+      const int i = work_index(r);
+      if (i >= n_work) break;
+      int bh, q0;
+      work_tile(i, BH, nq, bh, q0);
+      const int qw = q0 + 64 * wg, r0 = qw + rl, qs = r % 2;
+      // the work tile's key tiles, and those live for this warpgroup's
+      // rows (under the causal mask warpgroup 0's last one is masked out)
+      const int n = key_tiles(q0 + kBwdM - 1), mine = key_tiles(qw + 63);
+      const uint32_t q_base = base + 2 * qs * L::m_tile + wg * 64 * 128;
+      const uint32_t do_base = q_base + L::m_tile;
+      const float* row_lse = lse + static_cast<size_t>(bh) * Sq;
+      const float* row_delta = delta + static_cast<size_t>(bh) * Sq;
+      // this lane's two rows: lse in base 2, delta (0 past Sq)
+      const float l0 = r0 < Sq ? row_lse[r0] * kLog2e : 0.f;
+      const float l1 = r0 + 8 < Sq ? row_lse[r0 + 8] * kLog2e : 0.f;
+      const float d0 = r0 < Sq ? row_delta[r0] : 0.f;
+      const float d1 = r0 + 8 < Sq ? row_delta[r0 + 8] : 0.f;
+#pragma unroll
+      for (int x = 0; x < D / 2; ++x) dq[x] = 0.f;
+
+      // Step j issues S of key tile j and dP, with the dq product of tile
+      // j-1 still on the tensor cores; takes p = exp2(s scale log2 e -
+      // lse log2 e) while dP runs; then ds = p (dp - delta) scale, rounded
+      // to bf16 in registers as dq's A operand, and issues dq += ds . k
+      // (k of the same stage, read MN-major).  Each issue opens its own
+      // wgmma.fence after every register it touches is final.
+      sm90::mbar_wait(q_full(qs), (r / 2) & 1);
+      for (int j = 0; j < mine; ++j) {
+        const int c = it + j, s = c % L::kStages;
+        const uint32_t k_base = base + L::k_off + s * L::n_tile;
+        const uint32_t v_base = base + L::v_off + s * L::n_tile;
+        wait_ring(0, c);
+        sm90::fence_regs(sc);
+        sm90::wgmma_fence();
+        bwd_ss<D>(sc, q_base, L::m_panel, k_base, L::n_panel);
+        wait_ring(2, c);
+        sm90::fence_regs(dp);
+        sm90::wgmma_fence();
+        bwd_ss<D>(dp, do_base, L::m_panel, v_base, L::n_panel);
+        sm90::wgmma_wait<1>();  // S is in, and tile j-1's dq product
+        sm90::fence_regs(sc);
+        sm90::fence_regs(dq);
+        sm90::fence_regs(pk);
+        if (j > 0) release(bar(1, (c - 1) % L::kStages));  // k of j-1 read
+        const int k0 = j * kBwdN;
+        if (k0 + kBwdN > Sk || (causal && k0 + kBwdN - 1 > qw)) {
+#pragma unroll
+          for (int x = 0; x < 32; ++x) {
+            const int kj = k0 + 8 * (x / 4) + cq + (x % 2);
+            const int qi = r0 + 8 * ((x / 2) % 2);
+            if (kj >= Sk || (causal && kj > qi)) sc[x] = kNegInf;
+          }
+        }
+#pragma unroll
+        for (int x = 0; x < 32; x += 4) {
+          sc[x] = sm90::exp2_ftz(fmaf(sc[x], scale_log2, -l0));
+          sc[x + 1] = sm90::exp2_ftz(fmaf(sc[x + 1], scale_log2, -l0));
+          sc[x + 2] = sm90::exp2_ftz(fmaf(sc[x + 2], scale_log2, -l1));
+          sc[x + 3] = sm90::exp2_ftz(fmaf(sc[x + 3], scale_log2, -l1));
+        }
+        sm90::wgmma_wait<0>();  // dP is in
+        sm90::fence_regs(dp);
+        release(bar(3, s));  // v read
+#pragma unroll
+        for (int x = 0; x < 32; x += 4) {
+          pk[x / 2] = sm90::pack_bf16(sc[x] * (dp[x] - d0) * scale,
+                                      sc[x + 1] * (dp[x + 1] - d0) * scale);
+          pk[x / 2 + 1] =
+              sm90::pack_bf16(sc[x + 2] * (dp[x + 2] - d1) * scale,
+                              sc[x + 3] * (dp[x + 3] - d1) * scale);
+        }
+        sm90::fence_regs(dq);
+        sm90::fence_regs(pk);
+        sm90::wgmma_fence();
+        bwd_rs<D>(dq, pk, k_base, L::n_panel);
+      }
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(dq);
+      sm90::fence_regs(pk);
+      release(bar(1, (it + mine - 1) % L::kStages));
+      // key tiles past this warpgroup's diagonal: released unread
+      for (int j = mine; j < n; ++j) {
+        wait_ring(0, it + j);
+        wait_ring(2, it + j);
+        release(bar(1, (it + j) % L::kStages));
+        release(bar(3, (it + j) % L::kStages));
+      }
+      it += n;
+
+      // epilogue: dq to bf16, staged (swizzled) in this warpgroup's q rows
+      // and stored (rows past Sq dropped); the stage is released once the
+      // store has read it
+      const uint32_t dq_base = q_base;
+      sm90::named_barrier_sync(1 + wg, 128);  // every warp's last read done
+#pragma unroll
+      for (int jb = 0; jb < D / 8; ++jb) {
+        const uint32_t a = dq_base + (jb / 8) * L::m_panel + rl * 128 +
+                           (((jb % 8) ^ (rl % 8)) * 16) + cq * 2;
+        sm90::st_shared_u32(a, sm90::pack_bf16(dq[4 * jb], dq[4 * jb + 1]));
+        sm90::st_shared_u32(a + 8 * 128, sm90::pack_bf16(dq[4 * jb + 2],
+                                                         dq[4 * jb + 3]));
+      }
+      sm90::fence_proxy_async_smem();
+      sm90::named_barrier_sync(1 + wg, 128);
+      if (t == 0) {
+        for (int p = 0; p < L::kPanels; ++p)
+          sm90::tma_store_3d(&tm_dq, dq_base + p * L::m_panel, 64 * p, qw,
+                             bh);
+        sm90::tma_store_commit();
+        sm90::tma_store_wait_read();
+        sm90::mbar_arrive(q_empty(qs));
+      }
+    }
+    if (t == 0) sm90::tma_store_wait_all();
+  }
+}
+
+// dK and dV.  Persistent and warp-specialized over work tiles of 128 key
+// rows of one (b, h), key tile 0 first (under the causal mask it sees
+// every query tile): the producer brings k and v once per work tile (two
+// stages) and q, do and their rows' lse and delta in 64-row query tiles
+// through one ring; each consumer warpgroup owns 64 key rows and keeps dk
+// and dv in registers for the whole query loop.  The layout, the pipeline
+// and the numerics are in the header comment.
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v,
+                        const __grid_constant__ CUtensorMap tm_do,
+                        const __grid_constant__ CUtensorMap tm_dk,
+                        const __grid_constant__ CUtensorMap tm_dv,
+                        const __grid_constant__ CUtensorMap tm_lse,
+                        const __grid_constant__ CUtensorMap tm_delta, int Sq,
+                        int Sk, int causal, float scale, float scale_log2,
+                        int BH) {
+  using L = BwdDkv<D>;
+  extern __shared__ __align__(1024) unsigned char bwd_smem[];
+  const uint32_t base = (sm90::smem_addr(bwd_smem) + 1023u) & ~1023u;
+  const unsigned char* gbase = bwd_smem + (base - sm90::smem_addr(bwd_smem));
+  // work-tile stage s (k and v of work tile r in stage r % 2): full, empty
+  auto kv_full = [&](int s) { return base + L::bar_off + 16 * s; };
+  auto kv_empty = [&](int s) { return base + L::bar_off + 16 * s + 8; };
+  // ring stage s (q, do, lse, delta of one query tile): full, empty
+  auto q_full = [&](int s) { return base + L::bar_off + 32 + 16 * s; };
+  auto q_empty = [&](int s) { return base + L::bar_off + 40 + 16 * s; };
+  const int nkt = (Sk + kBwdM - 1) / kBwdM, n_work = nkt * BH;
+  const int nqt = (Sq + kBwdN - 1) / kBwdN;
+  // the first query tile with a live entry for key rows from k0 on
+  auto first_tile = [&](int k0) { return causal ? k0 / kBwdN : 0; };
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2; ++s) {
+      sm90::mbar_init(kv_full(s), 1);
+      sm90::mbar_init(kv_empty(s), 2);
+    }
+    for (int s = 0; s < L::kStages; ++s) {
+      sm90::mbar_init(q_full(s), 1);
+      sm90::mbar_init(q_empty(s), 2);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // ------------------------------------------- producer
+    sm90::regs_dec<kProducerRegs>();
+    if (threadIdx.x != 256) return;
+    int it = 0;  // query tiles loaded, over all work tiles
+    for (int r = 0;; ++r) {
+      const int i = work_index(r);
+      if (i >= n_work) break;
+      const int bh = i % BH, k0 = (i / BH) * kBwdM, ks = r % 2;
+      // the stores of work tile r-2 have read this stage
+      sm90::mbar_wait(kv_empty(ks), ((r / 2) & 1) ^ 1);
+      sm90::mbar_arrive_expect_tx(kv_full(ks), 2 * L::m_tile);
+      for (int x = 0; x < 2; ++x)  // k, v
+        for (int w = 0; w < 2; ++w)
+          for (int p = 0; p < L::kPanels; ++p)
+            sm90::tma_load_3d(base + (2 * ks + x) * L::m_tile +
+                                  p * L::m_panel + w * 64 * 128,
+                              x ? &tm_v : &tm_k, kv_full(ks), 64 * p,
+                              k0 + 64 * w, bh);
+      for (int qt = first_tile(k0); qt < nqt; ++qt, ++it) {
+        const int s = it % L::kStages;
+        sm90::mbar_wait(q_empty(s), ((it / L::kStages) & 1) ^ 1);
+        sm90::mbar_arrive_expect_tx(q_full(s), 2 * L::n_tile + 512);
+        for (int x = 0; x < 2; ++x)  // q, do
+          for (int p = 0; p < L::kPanels; ++p)
+            sm90::tma_load_3d(base + L::q_off + (2 * s + x) * L::n_tile +
+                                  p * L::n_panel,
+                              x ? &tm_do : &tm_q, q_full(s), 64 * p,
+                              qt * kBwdN, bh);
+        // lse and delta are flat (BH * Sq) arrays: values past this (b, h)
+        // arrive too, and those queries are masked
+        const int v0 = bh * Sq + qt * kBwdN;
+        sm90::tma_load_1d(base + L::vec_off + 512 * s, &tm_lse, q_full(s),
+                          v0);
+        sm90::tma_load_1d(base + L::vec_off + 512 * s + 256, &tm_delta,
+                          q_full(s), v0);
+      }
+    }
+  } else {  // ----------------------------------------------- consumers
+    sm90::regs_inc<kConsumerRegs>();
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int cq = 2 * (lane % 4);  // d[4j + e]: query column 8j + cq +
+    const int rl = 16 * warp + lane / 4;  //   e%2, key row rl + 8(e/2)
+    float dk[D / 2], dv[D / 2];
+    float sc[32], dp[32];   // S^T, then p^T; dP^T, then ds^T
+    uint32_t pp[16], pd[16];  // p^T and ds^T in bf16: the A operands
+    auto release = [&](uint32_t b) {
+      if (t == 0) sm90::mbar_arrive(b);
+    };
+
+    int it = 0;  // query tiles consumed, over all work tiles
+    for (int r = 0;; ++r) {
+      const int i = work_index(r);
+      if (i >= n_work) break;
+      const int bh = i % BH, k0 = (i / BH) * kBwdM, ks = r % 2;
+      const int kw = k0 + 64 * wg, kr = kw + rl;
+      const uint32_t k_base = base + 2 * ks * L::m_tile + wg * 64 * 128;
+      const uint32_t v_base = k_base + L::m_tile;
+      // query tiles of the work tile, and the first live for this
+      // warpgroup's rows (under the causal mask warpgroup 1's first one
+      // is masked out)
+      const int first = first_tile(k0), mine = first_tile(kw);
+#pragma unroll
+      for (int x = 0; x < D / 2; ++x) dk[x] = dv[x] = 0.f;
+      sm90::mbar_wait(kv_full(ks), (r / 2) & 1);
+
+      // Per query tile: S^T = k . q^T and dP^T = v . do^T issued together;
+      // p^T = exp2(s scale log2 e - lse log2 e) while dP^T runs; then
+      // ds^T = p^T (dp^T - delta) scale; both rounded to bf16 in registers
+      // as the A operands of dv += p^T . do and dk += ds^T . q (do and q
+      // of the same stage, read MN-major).
+      for (int qt = first; qt < nqt; ++qt, ++it) {
+        const int s = it % L::kStages;
+        sm90::mbar_wait(q_full(s), (it / L::kStages) & 1);
+        if (qt < mine) {  // masked out for these key rows: released unread
+          release(q_empty(s));
+          continue;
+        }
+        const uint32_t q_s = base + L::q_off + 2 * s * L::n_tile;
+        const uint32_t do_s = q_s + L::n_tile;
+        const float* lse_s =
+            reinterpret_cast<const float*>(gbase + L::vec_off + 512 * s);
+        const float* delta_s = lse_s + 64;
+        sm90::fence_regs(sc);
+        sm90::wgmma_fence();
+        bwd_ss<D>(sc, k_base, L::m_panel, q_s, L::n_panel);
+        sm90::fence_regs(dp);
+        sm90::wgmma_fence();
+        bwd_ss<D>(dp, v_base, L::m_panel, do_s, L::n_panel);
+        sm90::wgmma_wait<1>();  // S^T is in
+        sm90::fence_regs(sc);
+        const int i0 = qt * kBwdN;
+        // queries past Sq (their lse belongs to the next (b, h)), keys past
+        // Sk, and the causal diagonal
+        if (i0 + kBwdN > Sq || kw + 64 > Sk ||
+            (causal && kw + 63 > i0)) {
+#pragma unroll
+          for (int x = 0; x < 32; ++x) {
+            const int kj = kr + 8 * ((x / 2) % 2);
+            const int qi = i0 + 8 * (x / 4) + cq + (x % 2);
+            if (qi >= Sq || kj >= Sk || (causal && kj > qi)) sc[x] = kNegInf;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 l = *reinterpret_cast<const float2*>(lse_s + 8 * j + cq);
+          const float la = l.x * kLog2e, lb = l.y * kLog2e;
+          sc[4 * j] = sm90::exp2_ftz(fmaf(sc[4 * j], scale_log2, -la));
+          sc[4 * j + 1] = sm90::exp2_ftz(fmaf(sc[4 * j + 1], scale_log2, -lb));
+          sc[4 * j + 2] = sm90::exp2_ftz(fmaf(sc[4 * j + 2], scale_log2, -la));
+          sc[4 * j + 3] = sm90::exp2_ftz(fmaf(sc[4 * j + 3], scale_log2, -lb));
+        }
+        sm90::wgmma_wait<0>();  // dP^T is in
+        sm90::fence_regs(dp);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 dl =
+              *reinterpret_cast<const float2*>(delta_s + 8 * j + cq);
+          pp[2 * j] = sm90::pack_bf16(sc[4 * j], sc[4 * j + 1]);
+          pp[2 * j + 1] = sm90::pack_bf16(sc[4 * j + 2], sc[4 * j + 3]);
+          pd[2 * j] = sm90::pack_bf16(
+              sc[4 * j] * (dp[4 * j] - dl.x) * scale,
+              sc[4 * j + 1] * (dp[4 * j + 1] - dl.y) * scale);
+          pd[2 * j + 1] = sm90::pack_bf16(
+              sc[4 * j + 2] * (dp[4 * j + 2] - dl.x) * scale,
+              sc[4 * j + 3] * (dp[4 * j + 3] - dl.y) * scale);
+        }
+        sm90::fence_regs(dv);
+        sm90::fence_regs(dk);
+        sm90::fence_regs(pp);
+        sm90::fence_regs(pd);
+        sm90::wgmma_fence();
+        bwd_rs<D>(dv, pp, do_s, L::n_panel);
+        bwd_rs<D>(dk, pd, q_s, L::n_panel);
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(dv);
+        sm90::fence_regs(dk);
+        sm90::fence_regs(pp);
+        sm90::fence_regs(pd);
+        release(q_empty(s));  // q, do, lse and delta read
+      }
+
+      // epilogue: dk and dv to bf16, staged (swizzled) in this warpgroup's
+      // rows of the k and v tiles, and stored (rows past Sk dropped); the
+      // stage is released once the stores have read it
+      sm90::named_barrier_sync(1 + wg, 128);  // every warp's last read done
+#pragma unroll
+      for (int jb = 0; jb < D / 8; ++jb) {
+        const uint32_t a = (jb / 8) * L::m_panel + rl * 128 +
+                           (((jb % 8) ^ (rl % 8)) * 16) + cq * 2;
+        sm90::st_shared_u32(k_base + a,
+                            sm90::pack_bf16(dk[4 * jb], dk[4 * jb + 1]));
+        sm90::st_shared_u32(k_base + a + 8 * 128,
+                            sm90::pack_bf16(dk[4 * jb + 2], dk[4 * jb + 3]));
+        sm90::st_shared_u32(v_base + a,
+                            sm90::pack_bf16(dv[4 * jb], dv[4 * jb + 1]));
+        sm90::st_shared_u32(v_base + a + 8 * 128,
+                            sm90::pack_bf16(dv[4 * jb + 2], dv[4 * jb + 3]));
+      }
+      sm90::fence_proxy_async_smem();
+      sm90::named_barrier_sync(1 + wg, 128);
+      if (t == 0) {
+        for (int p = 0; p < L::kPanels; ++p) {
+          sm90::tma_store_3d(&tm_dk, k_base + p * L::m_panel, 64 * p, kw, bh);
+          sm90::tma_store_3d(&tm_dv, v_base + p * L::m_panel, 64 * p, kw, bh);
+        }
+        sm90::tma_store_commit();
+        sm90::tma_store_wait_read();
+        sm90::mbar_arrive(kv_empty(ks));
+      }
+    }
+    if (t == 0) sm90::tma_store_wait_all();
+  }
 }
 
 // cuTensorMapEncodeTiled, a driver function, taken from the runtime so the
@@ -938,6 +1422,37 @@ bool encode_slab(EncodeTiled enc, CUtensorMap* map, const void* ptr, int BH,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// A contiguous float32 array of ``n`` values as a 1-D tensor, moved in
+// boxes of 64 values; values past ``n`` read as zeros.
+bool encode_f32_vec(EncodeTiled enc, CUtensorMap* map, const void* ptr,
+                    size_t n) {
+  const cuuint64_t dims[1] = {cuuint64_t(n)};
+  const cuuint64_t strides[1] = {4};  // rank 1 has no strides to give
+  const cuuint32_t box[1] = {64};
+  const cuuint32_t unit[1] = {1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<void*>(ptr),
+             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The persistent kernels' grid: one block per SM, at most one per work
+// tile.  Also sets the kernel's dynamic shared memory.
+template <typename Kernel>
+cudaError_t persistent_grid(Kernel kernel, uint32_t smem, int n_work,
+                            int* blocks) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  int device, sms;
+  if (err != cudaSuccess || (err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    device)) != cudaSuccess)
+    return err;
+  *blocks = std::min(n_work, sms);
+  return cudaSuccess;
+}
+
 template <int D>
 int launch_fwd_sm90(const Args& a, int BH, cudaStream_t stream) {
   const EncodeTiled enc = tensor_map_encoder();
@@ -948,19 +1463,61 @@ int launch_fwd_sm90(const Args& a, int BH, cudaStream_t stream) {
       !encode_slab(enc, &tv, a.v, BH, a.Sk, D, kFwdN) ||
       !encode_slab(enc, &to, a.out0, BH, a.Sq, D, 64))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      fwd_sm90_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(Fwd<D>::smem));
+  int blocks;
+  const cudaError_t err =
+      persistent_grid(fwd_sm90_kernel<D>, Fwd<D>::smem,
+                      (a.Sq + kFwdM - 1) / kFwdM * BH, &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int device, sms;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    device)) != cudaSuccess)
-    return static_cast<int>(err);
-  const int n_work = (a.Sq + kFwdM - 1) / kFwdM * BH;  // one block per SM
-  fwd_sm90_kernel<D><<<std::min(n_work, sms), kFwdThreads, Fwd<D>::smem,
-                       stream>>>(tq, tk, tv, to, a.lse, a.Sq, a.Sk,
-                                 a.causal, a.scale * kLog2e, BH);
+  fwd_sm90_kernel<D><<<blocks, kFwdThreads, Fwd<D>::smem, stream>>>(
+      tq, tk, tv, to, a.lse, a.Sq, a.Sk, a.causal, a.scale * kLog2e, BH);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_bwd_dq_sm90(const Args& a, int BH, cudaStream_t stream) {
+  const EncodeTiled enc = tensor_map_encoder();
+  if (!enc) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap tq, tk, tv, tdo, tdq;
+  if (!encode_slab(enc, &tq, a.q, BH, a.Sq, D, 64) ||
+      !encode_slab(enc, &tk, a.k, BH, a.Sk, D, kBwdN) ||
+      !encode_slab(enc, &tv, a.v, BH, a.Sk, D, kBwdN) ||
+      !encode_slab(enc, &tdo, a.dout, BH, a.Sq, D, 64) ||
+      !encode_slab(enc, &tdq, a.out0, BH, a.Sq, D, 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int blocks;
+  const cudaError_t err =
+      persistent_grid(bwd_dq_sm90_kernel<D>, BwdDq<D>::smem,
+                      (a.Sq + kBwdM - 1) / kBwdM * BH, &blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  bwd_dq_sm90_kernel<D><<<blocks, kFwdThreads, BwdDq<D>::smem, stream>>>(
+      tq, tk, tv, tdo, tdq, a.lse_in, a.delta, a.Sq, a.Sk, a.causal,
+      a.scale, a.scale * kLog2e, BH);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_bwd_dkv_sm90(const Args& a, int BH, cudaStream_t stream) {
+  const EncodeTiled enc = tensor_map_encoder();
+  if (!enc) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap tq, tk, tv, tdo, tdk, tdv, tlse, tdelta;
+  const size_t rows = static_cast<size_t>(BH) * a.Sq;
+  if (!encode_slab(enc, &tq, a.q, BH, a.Sq, D, kBwdN) ||
+      !encode_slab(enc, &tk, a.k, BH, a.Sk, D, 64) ||
+      !encode_slab(enc, &tv, a.v, BH, a.Sk, D, 64) ||
+      !encode_slab(enc, &tdo, a.dout, BH, a.Sq, D, kBwdN) ||
+      !encode_slab(enc, &tdk, a.out0, BH, a.Sk, D, 64) ||
+      !encode_slab(enc, &tdv, a.out1, BH, a.Sk, D, 64) ||
+      !encode_f32_vec(enc, &tlse, a.lse_in, rows) ||
+      !encode_f32_vec(enc, &tdelta, a.delta, rows))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int blocks;
+  const cudaError_t err =
+      persistent_grid(bwd_dkv_sm90_kernel<D>, BwdDkv<D>::smem,
+                      (a.Sk + kBwdM - 1) / kBwdM * BH, &blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  bwd_dkv_sm90_kernel<D><<<blocks, kFwdThreads, BwdDkv<D>::smem, stream>>>(
+      tq, tk, tv, tdo, tdk, tdv, tlse, tdelta, a.Sq, a.Sk, a.causal, a.scale,
+      a.scale * kLog2e, BH);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -968,34 +1525,36 @@ enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
 
 template <typename T, int D>
 int launch(Which which, const Args& a, int BH, cudaStream_t stream) {
-  using C = Cfg<T, D>;
-  void (*kernel)(Args);
-  size_t smem;
-  int rows;
-  if (which == kFwd) {
-    if constexpr (C::kF32) {
+  if constexpr (!std::is_same<T, float>::value) {  // bf16: the sm90 kernels
+    if (which == kFwd) return launch_fwd_sm90<D>(a, BH, stream);
+    if (which == kDq) return launch_bwd_dq_sm90<D>(a, BH, stream);
+    return launch_bwd_dkv_sm90<D>(a, BH, stream);
+  } else {
+    using C = Cfg<T, D>;
+    void (*kernel)(Args);
+    size_t smem;
+    int rows;
+    if (which == kFwd) {
       kernel = fwd_kernel<T, D>;
       smem = C::fwd_smem;
       rows = a.Sq;
+    } else if (which == kDq) {
+      kernel = bwd_dq_kernel<T, D>;
+      smem = C::dq_smem;
+      rows = a.Sq;
     } else {
-      return launch_fwd_sm90<D>(a, BH, stream);
+      kernel = bwd_dkv_kernel<T, D>;
+      smem = C::dkv_smem;
+      rows = a.Sk;
     }
-  } else if (which == kDq) {
-    kernel = bwd_dq_kernel<T, D>;
-    smem = C::dq_smem;
-    rows = a.Sq;
-  } else {
-    kernel = bwd_dkv_kernel<T, D>;
-    smem = C::dkv_smem;
-    rows = a.Sk;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dim3 grid((rows + kM - 1) / kM, BH);
+    kernel<<<grid, kThreads, smem, stream>>>(a);
+    return static_cast<int>(cudaGetLastError());
   }
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((rows + kM - 1) / kM, BH);
-  kernel<<<grid, kThreads, smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -1052,10 +1611,16 @@ extern "C" int flash_bwd_dkv_launch(int dtype, int D, const void* q,
   return dispatch(kDkv, dtype, D, a, BH, stream);
 }
 
-// Dynamic shared memory of the bf16 forward at head dim D (0 if none).
-extern "C" int flash_fwd_sm90_smem(int D) {
-  return D == 64 ? static_cast<int>(Fwd<64>::smem)
-                 : D == 128 ? static_cast<int>(Fwd<128>::smem) : 0;
+// Dynamic shared memory of the bf16 kernel ``which`` (0 K2, 1 K3, 2 K4;
+// fwd_sm90_kernel, bwd_dq_sm90_kernel, bwd_dkv_sm90_kernel) at head dim D
+// (0 if none).
+extern "C" int flash_sm90_smem(int which, int D) {
+  if (D != 64 && D != 128) return 0;
+  const bool d64 = D == 64;
+  if (which == kFwd) return d64 ? Fwd<64>::smem : Fwd<128>::smem;
+  if (which == kDq) return d64 ? BwdDq<64>::smem : BwdDq<128>::smem;
+  if (which == kDkv) return d64 ? BwdDkv<64>::smem : BwdDkv<128>::smem;
+  return 0;
 }
 
 extern "C" const char* flash_attention_error(int code) {

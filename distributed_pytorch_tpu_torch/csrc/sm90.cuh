@@ -2,7 +2,7 @@
 // and stores, wgmma shared-memory descriptors and the bf16 wgmma products,
 // register hand-over between warpgroups.  Header-only; included by the
 // kernels under csrc/ that stream tiles through a TMA / mbarrier ring into
-// wgmma (flash_attention.cu's bf16 forward).
+// wgmma (flash_attention.cu's bf16 forward and backward).
 //
 // Conventions every user of this header keeps:
 // - Tiles are stored the way TMA writes them with CU_TENSOR_MAP_SWIZZLE_128B:
@@ -108,6 +108,17 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2)
+      : "memory");
+}
+
+// The 1-D form: ``map`` describes a flat array (float32 row vectors).
+__device__ __forceinline__ void tma_load_1d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
       : "memory");
 }
 
@@ -233,6 +244,20 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SM90_OPS64
       ", %64, %65, p, 1, 1, 0, 0;\n\t}"
       : SM90_F32(d, 0), SM90_F32(d, 32)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 64, f32) = (scale_d ? d : 0) + A (64 x 16) . B (16 x 64), both
+// bf16 operands in shared memory, K-major.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
+                                                   uint64_t desc_a,
+                                                   uint64_t desc_b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %34, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SM90_OPS32
+      ", %32, %33, p, 1, 1, 0, 0;\n\t}"
+      : SM90_F32(d, 0)
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 

@@ -55,7 +55,7 @@ _SIGNATURES = {
             [ctypes.c_int, ctypes.c_int]
             + [ctypes.c_void_p] * 8  # q, k, v, do, lse, delta, dk, dv
             + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]),
-        "flash_fwd_sm90_smem": (ctypes.c_int, [ctypes.c_int]),
+        "flash_sm90_smem": (ctypes.c_int, [ctypes.c_int, ctypes.c_int]),
         "flash_attention_error": (ctypes.c_char_p, [ctypes.c_int]),
     },
     "fused_bn": {

@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
 """Build and check the port's flash-attention kernels on one CUDA GPU, then
-time K2 against SDPA's forward: chip_smoke.py's phases 2 and 6 without the
-rest, for work on the flash kernels.  Run from the repository root:
+time them against SDPA: chip_smoke.py's phases 2 and 6 without the rest,
+for work on the flash kernels.  Run from the repository root:
 
     python3 scripts/flash_fwd_probe.py [--no-check] [--no-time]
+        [--bwd-only] [--sweep]
 
-First, for each head dim, one small bf16 case of the forward against its
-plain version with the error split by 8-column group and by row (a wrong
+First, for each head dim, small bf16 cases of the forward (K2) and of the
+backward (K3's dq, K4's dk and dv) against their plain versions, with the
+error split by 8-column group and by row within a tile (a wrong
 shared-memory layout or descriptor shows as a pattern there); then
-chip_smoke.check_flash (every case, K2 bitwise against itself) and
-chip_smoke.time_flash (K2 and SDPA in alternated windows, K3, K4).
+chip_smoke.check_flash (every case, each kernel bitwise against itself)
+and chip_smoke.time_flash (K2 and SDPA's forward, K3, K4, K3 + K4 and
+delta + K3 + K4 against SDPA's backward, all in alternated windows).
+``--bwd-only`` diagnoses and times the backward alone.
 """
 
 from __future__ import annotations
@@ -25,30 +29,60 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke as cs  # noqa: E402
 
 
+def _split(err, rows) -> dict:
+    """An error tensor (BH, S, D) split by 8-column group, by row mod 16
+    (a warp's rows), and by 64-row half of each 128-row work tile."""
+    s = err.shape[1]
+    return {"max_err": err.max().item(),
+            "by_col8": [round(x, 4) for x in
+                        err.amax(dim=(0, 1)).view(-1, 8).amax(-1).tolist()],
+            "by_row_mod16": [round(err[:, rows % 16 == r].max().item(), 4)
+                             for r in range(16) if s > r],
+            "by_half_tile": [round(err[:, (rows % 128) // 64 == h].max()
+                                   .item(), 4) for h in range(2)
+                             if s > 64 * h]}
+
+
 def diagnose(torch, attn, *, bh: int, s: int, d: int, causal: bool) -> dict:
     """One bf16 forward against the plain version: the worst lse error, and
-    o's worst error per 8-column group and per row mod 16 / per 64-row
-    half of each 128-row tile."""
+    o's error split as ``_split`` does."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     q, k, v = (torch.randn((bh, s, d), generator=gen, device="cuda")
                .to(torch.bfloat16) for _ in range(3))
     o, lse = attn.flash_attention_fwd(q, k, v, causal=causal)
     ro, rlse = attn.flash_attention_fwd_plain(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    err = (o.float() - ro.float()).abs()
     rows = torch.arange(s, device="cuda")
     return {"bh": bh, "s": s, "d": d, "causal": causal,
             "lse_max_err": (lse - rlse).abs().max().item(),
-            "o_max_err": err.max().item(),
-            "o_ref_max": ro.float().abs().max().item(),
-            "o_err_by_col8": [round(x, 4) for x in
-                              err.amax(dim=(0, 1)).view(-1, 8).amax(-1)
-                              .tolist()],
-            "o_err_by_row_mod16": [round(err[:, rows % 16 == r].max()
-                                         .item(), 4) for r in range(16)],
-            "o_err_by_half_tile": [round(err[:, (rows % 128) // 64 == h]
-                                         .max().item(), 4)
-                                   for h in range(2) if s > 64 * h]}
+            "o": dict(_split((o.float() - ro.float()).abs(), rows),
+                      ref_max=ro.float().abs().max().item())}
+
+
+def diagnose_bwd(torch, attn, *, bh: int, s: int, d: int, causal: bool,
+                 dlse: bool) -> dict:
+    """One bf16 backward (K3 and K4 on the plain forward's lse) against
+    ``flash_attention_bwd_plain``: dq, dk and dv errors, each split as
+    ``_split`` does, beside each reference's largest magnitude."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v, do = (torch.randn((bh, s, d), generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    o, lse = attn.flash_attention_fwd_plain(q, k, v, causal=causal)
+    delta = (do.float() * o.float()).sum(-1)
+    if dlse:
+        delta = delta - torch.randn((bh, s), generator=gen, device="cuda")
+    dq = attn.flash_attention_bwd_dq(q, k, v, lse, do, delta, causal=causal)
+    dk, dv = attn.flash_attention_bwd_dkv(q, k, v, lse, do, delta,
+                                          causal=causal)
+    want = attn.flash_attention_bwd_plain(q, k, v, lse, do, delta,
+                                          causal=causal)
+    torch.cuda.synchronize()
+    rows = torch.arange(s, device="cuda")
+    out = {"bh": bh, "s": s, "d": d, "causal": causal, "dlse": dlse}
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        out[name] = dict(_split((got.float() - ref.float()).abs(), rows),
+                         ref_max=ref.float().abs().max().item())
+    return out
 
 
 SWEEP = ((64, 1024, True), (64, 1024, False), (16, 4096, True),
@@ -85,6 +119,8 @@ def main() -> int:
     ap.add_argument("--no-time", action="store_true")
     ap.add_argument("--sweep", action="store_true",
                     help="also time K2 and SDPA over the SWEEP shapes")
+    ap.add_argument("--bwd-only", action="store_true",
+                    help="diagnose and time the backward (K3, K4) alone")
     args = ap.parse_args()
     import torch
     import torch.nn.functional as F
@@ -103,21 +139,29 @@ def main() -> int:
     for line in _build.build_info["flash_attention"]["log"].splitlines():
         if "registers" in line or "spill" in line or "warning" in line:
             print("  " + line.strip())
-    cs.k2_build_report(_build, facts)
+    cs.sm90_build_report(_build, facts)
     for d in (64, 128):
         for s, causal in ((128, False), (200, True)):
             try:
-                print("  diagnose: " + json.dumps(diagnose(
-                    torch, attn, bh=2, s=s, d=d, causal=causal)), flush=True)
-            except RuntimeError as e:  # a launch or a fault: report, go on
+                if not args.bwd_only:
+                    print("  diagnose: " + json.dumps(diagnose(
+                        torch, attn, bh=2, s=s, d=d, causal=causal)),
+                        flush=True)
+                print("  diagnose backward: " + json.dumps(diagnose_bwd(
+                    torch, attn, bh=2, s=s, d=d, causal=causal,
+                    dlse=causal)), flush=True)
+            except RuntimeError as e:  # a launch or a fault: report, stop
                 print(f"  diagnose D={d} S={s}: {e}", flush=True)
                 return 1
     if not args.no_check:
         cs.check_flash(torch, attn)
     if not args.no_time:
-        for name, t in cs.time_flash(torch, F, attn, facts).items():
+        timing = cs.time_flash(torch, F, attn, facts,
+                               bwd_only=args.bwd_only)
+        for name, t in timing.items():
             print(f"  {name} timing (bf16, B=8 H=8 S=1024 D=128 causal): "
                   + json.dumps(t))
+        cs.print_flash_ratios(timing, facts)
     if args.sweep:
         sweep(torch, F, attn, facts)
     print(f"card: {facts['smi']}")

@@ -16,7 +16,9 @@ query halves, scores scaled into base 2, p rounded to bf16 per tile, the
 mask applied on diagonal and Sk-edge tiles only, o times 1/l.
 ``_recipe_fwd`` replays it in numpy, and it is held against the Pallas
 kernel on bf16 inputs within chip_smoke.py's bf16 FLASH_TOL, before any
-card runs it.
+card runs it.  The bf16 backward kernels (``bwd_dq_sm90_kernel``,
+``bwd_dkv_sm90_kernel``) are replayed the same way by ``_recipe_bwd_dq``
+and ``_recipe_bwd_dkv`` and held against the Pallas VJP.
 """
 
 import re
@@ -233,12 +235,20 @@ def _bf16(x):
     return u.view(np.float32)
 
 
-def _kernel_tiles():
-    """(query rows per block, key rows per tile) of fwd_sm90_kernel, read
-    from its source so the replay follows the kernel."""
+def _kernel_tiles(names=("kFwdM", "kFwdN")):
+    """Tile constants of csrc/flash_attention.cu, read from the source so a
+    replay follows its kernel: by default fwd_sm90_kernel's (query rows per
+    work tile, key rows per tile)."""
     src = (CSRC / "flash_attention.cu").read_text()
     return tuple(int(re.search(rf"constexpr int {name} = (\d+);", src)
-                     .group(1)) for name in ("kFwdM", "kFwdN"))
+                     .group(1)) for name in names)
+
+
+def _bwd_tiles():
+    """(rows per work tile, rows per streamed tile) of bwd_dq_sm90_kernel
+    (query rows, key rows) and bwd_dkv_sm90_kernel (key rows, query
+    rows)."""
+    return _kernel_tiles(("kBwdM", "kBwdN"))
 
 
 def _recipe_fwd(q, k, v, *, causal, sm_scale):
@@ -293,6 +303,119 @@ def _recipe_fwd(q, k, v, *, causal, sm_scale):
     return o_out, lse_out
 
 
+LOG2E = np.float32(np.log2(np.e))
+
+
+def _exp2_fma(s, c, l):
+    """exp2(s * c - l) with the product and the difference rounded once,
+    as the kernels' fmaf."""
+    return np.exp2((s.astype(np.float64) * np.float64(c)
+                    - np.asarray(l, np.float64)).astype(np.float32))
+
+
+def _recipe_bwd_dq(q, k, v, do, lse, delta, *, causal, sm_scale):
+    """bwd_dq_sm90_kernel's arithmetic in numpy float32 on (BH, S, D) bf16
+    values: per 64-row half of each 128-row query tile, 64-key tiles in
+    ascending order (causal: only up to the half's diagonal), s = q.k and
+    dp = do.v in f32, s masked to -1e30 on tiles that cross the half's
+    diagonal or Sk, p = exp2(s * scale log2 e - lse log2 e) (one rounding,
+    as the FMA), ds = p (dp - delta) scale rounded to bf16 per tile, dq +=
+    bf16(ds) . k, and dq to bf16."""
+    bm, bn = _bwd_tiles()
+    half = bm // 2
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    scale = np.float32(sm_scale)
+    c = scale * LOG2E
+    n_k = -(-sk // bn)
+    kp, vp = (np.pad(a, ((0, 0), (0, n_k * bn - sk), (0, 0))) for a in (k, v))
+    dq = np.zeros((bh, sq, d), np.float32)
+    for b in range(bh):
+        for qw in range(0, sq, half):  # each query tile's two halves
+            rows = np.arange(qw, qw + half)
+            live = rows[rows < sq]
+            qt, dot = (np.zeros((half, d), np.float32) for _ in range(2))
+            qt[:len(live)], dot[:len(live)] = q[b, live], do[b, live]
+            l, dl = (np.zeros(half, np.float32) for _ in range(2))
+            l[:len(live)] = lse[b, live] * LOG2E
+            dl[:len(live)] = delta[b, live]
+            n = min(n_k, (qw + half - 1) // bn + 1) if causal else n_k
+            acc = np.zeros((half, d), np.float32)
+            for j in range(n):
+                k0 = j * bn
+                kt, vt = kp[b, k0:k0 + bn], vp[b, k0:k0 + bn]
+                s = qt @ kt.T
+                if k0 + bn > sk or (causal and k0 + bn - 1 > qw):
+                    kj = np.arange(k0, k0 + bn)[None, :]
+                    masked = (kj >= sk) | (causal & (kj > rows[:, None]))
+                    s = np.where(masked, np.float32(-1e30), s)
+                p = _exp2_fma(s, c, l[:, None])
+                ds = p * (dot @ vt.T - dl[:, None]) * scale
+                acc = acc + _bf16(ds) @ kt
+            dq[b, live] = _bf16(acc)[:len(live)]
+    return dq
+
+
+def _recipe_bwd_dkv(q, k, v, do, lse, delta, *, causal, sm_scale):
+    """bwd_dkv_sm90_kernel's arithmetic in numpy float32 on (BH, S, D) bf16
+    values: per 64-row half of each 128-row key tile, 64-query tiles in
+    ascending order (causal: from the half's diagonal on), s^T = k.q and
+    dp^T = v.do in f32, s^T masked to -1e30 on tiles that cross Sq, Sk or
+    the diagonal, p^T = exp2(s^T scale log2 e - lse log2 e), ds^T = p^T
+    (dp^T - delta) scale, dv += bf16(p^T) . do and dk += bf16(ds^T) . q,
+    and dk, dv to bf16."""
+    bm, bn = _bwd_tiles()
+    half = bm // 2
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    scale = np.float32(sm_scale)
+    c = scale * LOG2E
+    n_q = -(-sq // bn)
+    pad = ((0, 0), (0, n_q * bn - sq))
+    qp, dop = (np.pad(a, pad + ((0, 0),)) for a in (q, do))
+    lp, dlp = np.pad(lse, pad) * LOG2E, np.pad(delta, pad)
+    dk_out, dv_out = (np.zeros((bh, sk, d), np.float32) for _ in range(2))
+    for b in range(bh):
+        for kw in range(0, sk, half):  # each key tile's two halves
+            rows = np.arange(kw, kw + half)
+            live = rows[rows < sk]
+            kt, vt = (np.zeros((half, d), np.float32) for _ in range(2))
+            kt[:len(live)], vt[:len(live)] = k[b, live], v[b, live]
+            dk, dv = (np.zeros((half, d), np.float32) for _ in range(2))
+            for t in range(kw // bn if causal else 0, n_q):
+                i0 = t * bn
+                qt, dot = qp[b, i0:i0 + bn], dop[b, i0:i0 + bn]
+                s = kt @ qt.T
+                if i0 + bn > sq or kw + half > sk or \
+                        (causal and kw + half - 1 > i0):
+                    qi = np.arange(i0, i0 + bn)[None, :]
+                    kj = rows[:, None]
+                    masked = (qi >= sq) | (kj >= sk) | (causal & (kj > qi))
+                    s = np.where(masked, np.float32(-1e30), s)
+                p = _exp2_fma(s, c, lp[b, None, i0:i0 + bn])
+                ds = p * (vt @ dot.T - dlp[b, None, i0:i0 + bn]) * scale
+                dv = dv + _bf16(p) @ dot
+                dk = dk + _bf16(ds) @ qt
+            dk_out[b, live] = _bf16(dk)[:len(live)]
+            dv_out[b, live] = _bf16(dv)[:len(live)]
+    return dk_out, dv_out
+
+
+# chip_smoke.py's FLASH_TOL for bf16 gradients: each within 5% of the
+# reference's RMS over its (b*h) slab plus one bf16 ulp of the element.
+BF16_GRAD_SLAB_RMS = 5e-2
+
+
+def _hold_bf16_grads(got, want):
+    """chip_smoke.py's bf16 FLASH_TOL for dq, dk and dv (each (BH, S, D))
+    against the reference."""
+    for g, w in zip(got, want):
+        err = np.abs(g - w)
+        rms = np.sqrt((w ** 2).mean(axis=(-2, -1), keepdims=True))
+        bound = BF16_GRAD_SLAB_RMS * rms + BF16_ULP * np.abs(w)
+        assert (err <= bound).all(), float((err / bound).max())
+
+
 def _hold_bf16(o, lse, want_o, want_lse):
     """chip_smoke.py's bf16 FLASH_TOL: o and lse against the reference."""
     err = np.abs(o - want_o)
@@ -345,7 +468,80 @@ def test_recipe_reads_the_kernel_tiles():
     _hold_bf16(o_r, lse_r, o_p.float().numpy(), lse_p.numpy())
 
 
-# -- the bf16 forward kernel on the card ------------------------------------
+def _jax_bwd(q, k, v, do, dlse, causal):
+    """The JAX package's flash_attention VJP (Pallas in interpret mode,
+    blocks of 128) on bf16 (B, H, S, D) values: (dq, dk, dv) as float32,
+    and the forward's lse and the backward's delta = rowsum(do * o) - dlse
+    that the kernels are given.  Without ``dlse`` the VJP is the o-only
+    one; with it, the (o, lse) one with that lse cotangent."""
+    qj, kj, vj, doj = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v, do))
+    o, lse = _jax_flash(qj, kj, vj, causal=causal, with_lse=True)
+    delta = jnp.sum(doj.astype(jnp.float32) * o.astype(jnp.float32), -1)
+    if dlse is None:
+        _, vjp = jax.vjp(lambda *a: _jax_flash(*a, causal=causal), qj, kj,
+                         vj)
+        grads = vjp(doj)
+    else:
+        _, vjp = jax.vjp(lambda *a: _jax_flash(*a, causal=causal,
+                                               with_lse=True), qj, kj, vj)
+        grads = vjp((doj, jnp.asarray(dlse, jnp.float32)))
+        delta = delta - jnp.asarray(dlse, jnp.float32)
+    return ([np.asarray(g, np.float32) for g in grads],
+            np.asarray(lse, np.float32), np.asarray(delta, np.float32))
+
+
+BWD_RECIPE_CASES = [(s, d, causal, False) for s in (128, 384)
+                    for d in (64, 128) for causal in (False, True)] \
+    + [(256, 64, True, True)]
+
+
+@pytest.mark.parametrize(
+    "s,d,causal,with_lse", BWD_RECIPE_CASES,
+    ids=[f"s{c[0]}-d{c[1]}-{'causal' if c[2] else 'full'}"
+         + ("-lse" if c[3] else "") for c in BWD_RECIPE_CASES])
+def test_bf16_bwd_recipes_match_jax(s, d, causal, with_lse):
+    """The bf16 backward kernels' recipes (K3's dq, K4's dk and dv),
+    replayed in numpy, against the Pallas VJP in interpret mode on the same
+    bf16 inputs (B=1, H=2, blocks of 128), given its lse and delta, within
+    chip_smoke.py's bf16 gradient tolerance: 5% of the reference's RMS over
+    its (b*h) slab plus one bf16 ulp of the element."""
+    rng = np.random.default_rng(13 + s + d)
+    q, k, v, do = (_bf16(rng.standard_normal((1, 2, s, d)).astype(np.float32))
+                   for _ in range(4))
+    dlse = rng.standard_normal((1, 2, s)).astype(np.float32) \
+        if with_lse else None
+    want, lse, delta = _jax_bwd(q, k, v, do, dlse, causal)
+    args = [a.reshape(2, s, d) for a in (q, k, v, do)] \
+        + [lse.reshape(2, s), delta.reshape(2, s)]
+    kw = dict(causal=causal, sm_scale=1 / np.sqrt(d))
+    got = (_recipe_bwd_dq(*args, **kw), *_recipe_bwd_dkv(*args, **kw))
+    _hold_bf16_grads(got, [w.reshape(2, s, d) for w in want])
+
+
+def test_bwd_recipes_read_the_kernel_tiles():
+    """The backward replays' tiles are the kernels': 128-row work tiles in
+    two 64-row warpgroup halves, 64-row streamed tiles; and a ragged,
+    non-causal Sq != Sk case (which the JAX kernel does not take) agrees
+    with ``flash_attention_bwd_plain``."""
+    assert _bwd_tiles() == (128, 64)
+    rng = np.random.default_rng(14)
+    q, do = (_bf16(rng.standard_normal((2, 200, 64)).astype(np.float32))
+             for _ in range(2))
+    k, v = (_bf16(rng.standard_normal((2, 333, 64)).astype(np.float32))
+            for _ in range(2))
+    qt, kt, vt, dot = (torch.from_numpy(a).to(torch.bfloat16)
+                       for a in (q, k, v, do))
+    o, lse = tattn.flash_attention_fwd_plain(qt, kt, vt, sm_scale=0.125)
+    delta = (dot.float() * o.float()).sum(-1)
+    want = tattn.flash_attention_bwd_plain(qt, kt, vt, lse, dot, delta,
+                                           sm_scale=0.125)
+    args = (q, k, v, do, lse.numpy(), delta.numpy())
+    got = (_recipe_bwd_dq(*args, causal=False, sm_scale=0.125),
+           *_recipe_bwd_dkv(*args, causal=False, sm_scale=0.125))
+    _hold_bf16_grads(got, [w.float().numpy() for w in want])
+
+
+# -- the bf16 kernels on the card -------------------------------------------
 
 EDGE_LENGTHS = (1, 63, 64, 65, 127, 128, 129, 1000, 2048)
 EDGE_CASES = [(1 if s <= 129 else 64 if s == 1000 else 8, s, s, d, causal)
@@ -376,3 +572,35 @@ def test_bf16_kernel_tile_edges_on_card(cuda, bh, sq, sk, d, causal):
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
     _hold_bf16(o.float().cpu().numpy(), lse.cpu().numpy(),
                want_o.float().cpu().numpy(), want_lse.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,sq,sk,d,causal", EDGE_CASES,
+                         ids=[f"bh{c[0]}-{c[1]}x{c[2]}-d{c[3]}-"
+                              f"{'causal' if c[4] else 'full'}"
+                              for c in EDGE_CASES])
+def test_bf16_bwd_kernels_tile_edges_on_card(cuda, bh, sq, sk, d, causal):
+    """K3's and K4's bf16 kernels against ``flash_attention_bwd_plain`` at
+    the tile edges, within the bf16 gradient tolerance; each run twice,
+    bitwise equal.  At S = 1 the softmax has one key, so dq and dk vanish
+    but for an lse cotangent: those cases carry one, as in chip_smoke.py."""
+    gen = torch.Generator(device=cuda).manual_seed(sq * 5 + sk + d)
+    q, do = (torch.randn((bh, sq, d), generator=gen, device=cuda).bfloat16()
+             for _ in range(2))
+    k, v = (torch.randn((bh, sk, d), generator=gen, device=cuda).bfloat16()
+            for _ in range(2))
+    o, lse = tattn.flash_attention_fwd_plain(q, k, v, causal=causal)
+    delta = (do.float() * o.float()).sum(-1)
+    if sq == 1:
+        delta = delta - torch.randn((bh, sq), generator=gen, device=cuda)
+    kw = dict(causal=causal)
+    dq, dq2 = (tattn.flash_attention_bwd_dq(q, k, v, lse, do, delta, **kw)
+               for _ in range(2))
+    (dk, dv), (dk2, dv2) = (tattn.flash_attention_bwd_dkv(
+        q, k, v, lse, do, delta, **kw) for _ in range(2))
+    want = tattn.flash_attention_bwd_plain(q, k, v, lse, do, delta, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(dq, dq2) and torch.equal(dk, dk2) \
+        and torch.equal(dv, dv2)
+    _hold_bf16_grads([g.float().cpu().numpy() for g in (dq, dk, dv)],
+                     [w.float().cpu().numpy() for w in want])
