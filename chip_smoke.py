@@ -7,11 +7,16 @@ Run from the repository root on a machine with one CUDA GPU:
 
 Phases, each of which raises on failure:
   1. card facts (name, power limit, torch version); TF32 off;
-  2. build the port's CUDA kernels from csrc/; the bf16 flash forward's
-     registers, spills and shared memory from ptxas (no spill allowed);
-  3. every kernel against its plain PyTorch version on the card, on the
-     main path's shapes plus ragged / tile-edge / garbage-past-pos cases,
-     and timed beside its bound, its plain version and a library call;
+  2. build the port's CUDA kernels from csrc/; the bf16 flash kernels'
+     registers, spills and shared memory from ptxas (no spill allowed),
+     and every decode instance's;
+  3. the decode kernels (K6, K7) against their plain PyTorch version on
+     the card, on the main path's shapes plus ragged / tile-edge /
+     garbage-past-pos cases and the split plan's edges (depths on both
+     sides of every split edge, a short sequence beside full-depth ones,
+     one (b, h) with every split live), each launch repeated 51 times
+     bitwise equal; timed beside their bound and plain version, and
+     against SDPA in alternated windows;
   4. LM-base in float32: the continuous batcher's greedy tokens against
      static generate() per request, and the first decode step's logits
      through the kernel against the plain path;
@@ -33,9 +38,11 @@ Phases, each of which raises on failure:
      loss, and K2/K3/K4 launched once per layer per step;
   9. the paged decode kernels (K8, K9) against their plain versions over
      shuffled pools with poisoned table tails and garbage in unowned pages
-     (f32, bf16 and int8 pools, head dims 64 and 128, g 1 and 4), bitwise
-     equal to K6/K7 over the same rows laid out contiguously, and timed at
-     the serving shape beside their bound, plain versions and SDPA;
+     (f32, bf16 and int8 pools, head dims 64 and 128, g 1 and 4, and
+     phase 3's split edges), bitwise equal to K6/K7 over the same rows
+     laid out contiguously and to themselves over 52 launches, and timed
+     at the serving shape beside their bound and plain versions, and
+     against SDPA in alternated windows;
  10. LM-base in float32 through the paged batcher: an oversubscribed pool
      (evictions and swap-ins) and shared-prefix admissions against static
      generate() per request, and one decode step's logits through K8
@@ -218,29 +225,68 @@ def agreement(torch, out, ref) -> tuple[float, float]:
     return err.max().item(), ratio
 
 
+def repeat_bitwise(torch, fn, first, name: str, n: int = 50) -> None:
+    """``fn`` (one launch) run again, then ``n`` times back to back: each
+    output bitwise equal to ``first``.  An arrival counter left non-zero by
+    one launch, or a merge whose order followed the arrivals, shows here."""
+    again = fn()
+    outs = [fn() for _ in range(n)]
+    torch.cuda.synchronize()
+    if not torch.equal(again, first):
+        fail(f"{name}: two runs differ")
+    bad = [i for i, o in enumerate(outs) if not torch.equal(o, first)]
+    if bad:
+        fail(f"{name}: {len(bad)} of {n} back-to-back launches differ from "
+             f"the first (the first at launch {bad[0]})")
+
+
+def split_cases(torch, s: int = 2048) -> list[tuple[dict, list[int]]]:
+    """The split plan's edges: at B=8 x 8 kv heads x 128 (L = 256 slots
+    a split) depths on both sides of every split edge, and a short
+    sequence beside full-depth ones (its later splits empty); one (b, h)
+    at full depth, all splits live (L = 32: 64 splits merged), at g = 1
+    and 4.  Each shape in f32 and bf16, bf16 and int8 caches."""
+    out = []
+    edges = [e + o for e in range(256, s, 256) for o in (-1, 0)]
+    for qdtype in (torch.float32, torch.bfloat16):
+        for quant in (False, True):
+            big = dict(b=8, h=8, hkv=8, s=s, d=128, qdtype=qdtype,
+                       quant=quant)
+            out.append((big, edges[:8]))
+            out.append((big, edges[8:] + [s - 1, 256 + 1]))
+            out.append((big, [s - 1, s - 1, 3, s - 1, 0, s - 1, 40, s - 1]))
+            for h, d in ((1, 128), (4, 64)):
+                out.append((dict(b=1, h=h, hkv=1, s=s, d=d, qdtype=qdtype,
+                                 quant=quant), [s - 1]))
+    return out
+
+
 def check_kernels(torch, attn) -> dict:
-    """Every case of the kernel against the plain version; returns the
-    worst error per kernel (K6 / K7) and the worst error/tolerance."""
+    """Every case of the kernel against the plain version, each launch
+    repeated (``repeat_bitwise``); returns the worst error per kernel (K6 /
+    K7) and the worst error/tolerance."""
     worst = {"K6": 0.0, "K7": 0.0}
     worst_ratio = {"K6": 0.0, "K7": 0.0}
-    shapes = []
+    cases = []
     for qdtype in (torch.float32, torch.bfloat16):
         for d in (128, 64):
             for g in (1, 4):
-                shapes.append(dict(b=4, h=4 * g, hkv=4, s=1000, d=d,
-                                   qdtype=qdtype, quant=False))
+                cases.append(dict(b=4, h=4 * g, hkv=4, s=1000, d=d,
+                                  qdtype=qdtype, quant=False))
         # the serving path's shapes: LM-base (8 slots x 8 heads x 128) over
         # a 2048-slot cache, both cache types
         for quant in (False, True):
-            shapes.append(dict(b=8, h=8, hkv=8, s=2048, d=128,
-                               qdtype=qdtype, quant=quant))
-        shapes.append(dict(b=4, h=8, hkv=2, s=1000, d=64, qdtype=qdtype,
-                           quant=True))
-    for i, sh in enumerate(shapes):
+            cases.append(dict(b=8, h=8, hkv=8, s=2048, d=128,
+                              qdtype=qdtype, quant=quant))
+        cases.append(dict(b=4, h=8, hkv=2, s=1000, d=64, qdtype=qdtype,
+                          quant=True))
+    # ragged pos: 0, the last slot of a tile, the first of the next, S-1,
+    # and mid-cache depths
+    cases = [(sh, ([0, 31, 32, sh["s"] - 1]
+                   + [100 + 37 * j for j in range(sh["b"])])[:sh["b"]])
+             for sh in cases] + split_cases(torch)
+    for i, (sh, pos) in enumerate(cases):
         s, b = sh["s"], sh["b"]
-        # ragged pos: 0, the last slot of a tile, the first of the next,
-        # S-1, and mid-cache depths
-        pos = ([0, 31, 32, s - 1] + [100 + 37 * j for j in range(b)])[:b]
         case = make_case(torch, pos=pos, seed=i, **sh)
         out, ref = run_case(attn, case)
         torch.cuda.synchronize()
@@ -248,12 +294,18 @@ def check_kernels(torch, attn) -> dict:
         name = "K7" if sh["quant"] else "K6"
         worst[name] = max(worst[name], err)
         worst_ratio[name] = max(worst_ratio[name], ratio)
+        split_len = attn.decode_split_plan(b, sh["hkv"], sh["h"] // sh["hkv"],
+                                           s)[0]
         print(f"  {name} {str(sh['qdtype'])[6:]:8s} D={sh['d']:3d} "
-              f"g={sh['h'] // sh['hkv']:2d} B={b} S={s} pos={pos}: "
-              f"max_abs_err {err:.3e}, err/tol {ratio:.3f}")
+              f"g={sh['h'] // sh['hkv']:2d} B={b} S={s} L={split_len} "
+              f"pos={pos}: max_abs_err {err:.3e}, err/tol {ratio:.3f}")
         if not ratio <= 1.0:
             fail(f"{name} disagrees with decode_attention_plain: {err} "
                  f"({ratio} x the tolerance)")
+        repeat_bitwise(torch, lambda: attn.decode_attention(
+            case["q"], case["k"], case["v"], case["pos"],
+            k_scale=case["k_scale"], v_scale=case["v_scale"]), out,
+            f"{name} case {i}")
         # garbage past pos: a dead tail of +-1e4 must not change the output
         k2, v2 = case["k"].clone(), case["v"].clone()
         fill = 100 if sh["quant"] else 1e4
@@ -265,15 +317,33 @@ def check_kernels(torch, attn) -> dict:
                                       v_scale=case["v_scale"])
         if not torch.equal(dirty, out):
             fail(f"{name}: garbage past pos changed the output")
-    print(f"  garbage-past-pos: output unchanged in all {len(shapes)} cases")
+    print(f"  all {len(cases)} cases within tolerance; each bitwise equal "
+          f"to itself over 52 launches; garbage past pos changed no output")
     return {"max_abs_err": worst, "err_over_tol": worst_ratio}
+
+
+def alternated(torch, kernel, library, iters: int = 30) -> dict:
+    """A kernel and its library yardstick timed in turns (kernel, library,
+    library, kernel, twice): the mean of each, every window, and the mean
+    of the per-pair ratios kernel / library."""
+    windows = {"kernel": [], "library": []}
+    fns = {"kernel": kernel, "library": library}
+    for name in ("kernel", "library", "library", "kernel") * 2:
+        windows[name].append(time_ms(torch, fns[name], iters=iters))
+    ratios = [a / b for a, b in zip(windows["kernel"], windows["library"])]
+    return {"ms": float(np.mean(windows["kernel"])),
+            "library_ms": float(np.mean(windows["library"])),
+            "ms_windows": windows["kernel"],
+            "library_ms_windows": windows["library"],
+            "over_library": float(np.mean(ratios))}
 
 
 def time_kernel(torch, F, attn, *, quant: bool, qdtype, facts) -> dict:
     """Kernel, plain and library times at the LM-base decode shape: 8
     slots x 8 kv heads x head_dim 128, a 2048-slot cache, ragged depths
-    drawn from [64, 1984] (seeded).  Caches rotate over enough copies to exceed the 50 MB
-    L2, as the 24 layers of a decode step do."""
+    drawn from [64, 1984] (seeded).  Caches rotate over enough copies to
+    exceed the 50 MB L2, as the 24 layers of a decode step do.  The kernel
+    and SDPA are timed in alternated windows."""
     b, h, hkv, s, d = 8, 8, 8, 2048, 128
     rng = np.random.default_rng(7)
     pos = [int(p) for p in rng.integers(64, 1985, b)]
@@ -321,11 +391,10 @@ def time_kernel(torch, F, attn, *, quant: bool, qdtype, facts) -> dict:
         F.scaled_dot_product_attention(qq, kd, vd, attn_mask=mask)
 
     launches0 = attn.decode_attention.launches
-    ms = time_ms(torch, kernel)
+    res = alternated(torch, kernel, library)
     wrapper_us = host_us(torch, kernel)
     attn.decode_attention.launches = launches0  # timing launches not counted
     plain_ms = time_ms(torch, plain, iters=10)
-    library_ms = time_ms(torch, library)
     rows = sum(p + 1 for p in pos) * hkv
     itemsize = 1 if quant else torch.empty((), dtype=qdtype).element_size()
     qsize = torch.empty((), dtype=qdtype).element_size()
@@ -334,11 +403,15 @@ def time_kernel(torch, F, attn, *, quant: bool, qdtype, facts) -> dict:
     ops = 4 * d * sum(p + 1 for p in pos) * h
     t_bytes = nbytes / facts["bw"] * 1e3
     t_ops = ops / PEAK_OPS[str(qdtype)[6:]] * 1e3
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "host_us_per_call": wrapper_us, "pos": pos,
-            "max_abs_err": err, "err_over_tol": ratio}
+    bound = max(t_bytes, t_ops)
+    split_len, n_splits = attn.decode_split_plan(b, hkv, h // hkv, s)[:2]
+    res.update({"plain_ms": plain_ms, "bound_ms": bound,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bound_share": bound / res["ms"], "bytes": nbytes,
+                "host_us_per_call": wrapper_us, "pos": pos,
+                "split_len": split_len, "n_splits": n_splits,
+                "max_abs_err": err, "err_over_tol": ratio})
+    return res
 
 
 # -- phases 4 and 5: the slice ---------------------------------------------
@@ -1095,27 +1168,29 @@ def run_paged(attn, pc, plain: bool = False):
 
 
 def check_paged_kernels(torch, attn) -> dict:
-    """K8/K9 against ``decode_attention_paged_plain`` in every case, and
-    bitwise against K6/K7 (``decode_attention``) over the same rows laid
-    out contiguously; returns the worst error and error/tolerance per
-    kernel."""
+    """K8/K9 against ``decode_attention_paged_plain`` in every case, bitwise
+    against K6/K7 (``decode_attention``) over the same rows laid out
+    contiguously, and each launch repeated (``repeat_bitwise``); returns
+    the worst error and error/tolerance per kernel."""
     worst = {"K8": 0.0, "K9": 0.0}
     worst_ratio = {"K8": 0.0, "K9": 0.0}
-    shapes = []
+    cases = []
     for quant in (False, True):
         for qdtype in (torch.float32, torch.bfloat16):
             for d in (128, 64):
                 for g in (1, 4):
-                    shapes.append(dict(b=5, h=4 * g, hkv=4, s=2048, d=d,
-                                       qdtype=qdtype, quant=quant))
+                    cases.append(dict(b=5, h=4 * g, hkv=4, s=2048, d=d,
+                                      qdtype=qdtype, quant=quant))
         # the serving shape: 8 slots x 8 heads x 128, 4 pages per sequence
-        shapes.append(dict(b=8, h=8, hkv=8, s=2048, d=128,
-                           qdtype=torch.bfloat16, quant=quant))
-    for i, sh in enumerate(shapes):
+        cases.append(dict(b=8, h=8, hkv=8, s=2048, d=128,
+                          qdtype=torch.bfloat16, quant=quant))
+    # 0, a tile edge, the last row of page 0, the first of page 1, S-1, and
+    # deep ragged depths; then phase 3's split edges
+    cases = [(sh, ([0, 31, 511, 512, sh["s"] - 1]
+                   + [700 + 97 * j for j in range(sh["b"])])[:sh["b"]])
+             for sh in cases] + split_cases(torch)
+    for i, (sh, pos) in enumerate(cases):
         s, b = sh["s"], sh["b"]
-        # 0, a tile edge, the last row of page 0, the first of page 1,
-        # S-1, and deep ragged depths
-        pos = ([0, 31, 511, 512, s - 1] + [700 + 97 * j for j in range(b)])[:b]
         case = make_case(torch, pos=pos, seed=300 + i, **sh)
         pc = make_paged(torch, case, seed=i)
         out, ref = run_paged(attn, pc), run_paged(attn, pc, plain=True)
@@ -1134,9 +1209,12 @@ def check_paged_kernels(torch, attn) -> dict:
         if not torch.equal(out, dense):
             fail(f"{name} is not bitwise equal to {twin} over the same rows "
                  f"laid out contiguously (case {i})")
-    print(f"  K8/K9: all {len(shapes)} cases within tolerance of the plain "
-          f"version and bitwise equal to K6/K7 on the same rows, with "
-          f"poisoned table tails and garbage in unowned pages and rows")
+        repeat_bitwise(torch, lambda: run_paged(attn, pc), out,
+                       f"{name} case {i}")
+    print(f"  K8/K9: all {len(cases)} cases within tolerance of the plain "
+          f"version, bitwise equal to K6/K7 on the same rows and to "
+          f"themselves over 52 launches, with poisoned table tails and "
+          f"garbage in unowned pages and rows")
     return {"max_abs_err": worst, "err_over_tol": worst_ratio}
 
 
@@ -1146,7 +1224,7 @@ def time_paged_kernel(torch, F, attn, *, quant: bool, facts) -> dict:
     pools rotated over enough copies to exceed the 50 MB L2.  Beside it the
     plain version, and SDPA over the contiguous view gathered from the
     pool through the table (the gather excluded from its time; a yardstick
-    the port never calls)."""
+    the port never calls), timed in alternated windows with the kernel."""
     b, h, hkv, s, d = 8, 8, 8, 2048, 128
     qdtype = torch.bfloat16
     rng = np.random.default_rng(7)
@@ -1193,11 +1271,10 @@ def time_paged_kernel(torch, F, attn, *, quant: bool, facts) -> dict:
         F.scaled_dot_product_attention(qq, kd, vd, attn_mask=mask)
 
     launches0 = attn.decode_attention_paged.launches
-    ms = time_ms(torch, kernel)
+    res = alternated(torch, kernel, library)
     wrapper_us = host_us(torch, kernel)
     attn.decode_attention_paged.launches = launches0  # not counted
     plain_ms = time_ms(torch, plain, iters=10)
-    library_ms = time_ms(torch, library)
     rows = sum(p + 1 for p in pos) * hkv
     itemsize = 1 if quant else 2
     # K6/K7's bytes plus the table entries the live tiles read (one int32
@@ -1208,13 +1285,19 @@ def time_paged_kernel(torch, F, attn, *, quant: bool, facts) -> dict:
     ops = 4 * d * sum(p + 1 for p in pos) * h
     t_bytes = nbytes / facts["bw"] * 1e3
     t_ops = ops / PEAK_OPS["bfloat16"] * 1e3
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "library": "F.scaled_dot_product_attention over the contiguous "
-                       "view gathered through the table (gather excluded)",
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "host_us_per_call": wrapper_us, "pos": pos,
-            "max_abs_err": err, "err_over_tol": ratio}
+    bound = max(t_bytes, t_ops)
+    split_len, n_splits = attn.decode_split_plan(b, hkv, h // hkv, s)[:2]
+    res.update({"plain_ms": plain_ms,
+                "library": "F.scaled_dot_product_attention over the "
+                           "contiguous view gathered through the table "
+                           "(gather excluded)",
+                "bound_ms": bound,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bound_share": bound / res["ms"], "bytes": nbytes,
+                "host_us_per_call": wrapper_us, "pos": pos,
+                "split_len": split_len, "n_splits": n_splits,
+                "max_abs_err": err, "err_over_tol": ratio})
+    return res
 
 
 def paged_exactness(torch, port) -> dict:
@@ -2532,6 +2615,38 @@ def sm90_build_report(build, facts) -> dict:
     return out
 
 
+def decode_build_report(build, facts) -> list[dict]:
+    """Every decode_kernel instance as ptxas built it: (q, cache) types,
+    head dim, query heads a block, dense or paged; registers, spills,
+    stack, and static + dynamic shared memory (dynamic from the
+    library)."""
+    lib = build.load_library("decode_attention")
+    rep = ptxas_report(build.build_info["decode_attention"]["log"],
+                       "decode_kernel")
+    if len(rep) != 32:
+        fail(f"ptxas reported {len(rep)} decode_kernel instances, want 32")
+    for r in rep:
+        m = re.search(r"decode_kernelI(.+?)Li(\d+)ELi(\d+)ELb([01])E",
+                      r["function"])
+        tp = m.group(1)
+        ctype = 0 if tp == "ff" else 2 if tp.endswith("a") else 1
+        qname = "f32" if tp.startswith("f") else "bf16"
+        r.update(types=f"{qname}/{('f32', 'bf16', 'int8')[ctype]}",
+                 d=int(m.group(2)), heads=int(m.group(3)),
+                 paged=m.group(4) == "1")
+        r["dynamic_smem_bytes"] = lib.decode_attention_smem(
+            ctype, r["d"], r["heads"])
+        print(f"  decode_kernel {r['types']:9s} D={r['d']:3d} "
+              f"G={r['heads']} {'paged' if r['paged'] else 'dense'}: "
+              f"{r.get('registers')} registers, {r.get('spill_stores')} / "
+              f"{r.get('spill_loads')} bytes spilled (stores / loads), "
+              f"{r.get('stack_bytes')} bytes stack, "
+              f"{r['static_smem_bytes']} + {r['dynamic_smem_bytes']} bytes "
+              f"shared memory (static + dynamic)")
+    print(f"  (decode instances built on {facts['smi']})")
+    return rep
+
+
 def print_flash_ratios(timing: dict, facts) -> None:
     """One line each: K2 against SDPA's forward, and K3 + K4 and the
     port's whole backward against SDPA's backward (alternated windows)."""
@@ -2554,6 +2669,30 @@ def print_flash_ratios(timing: dict, facts) -> None:
               f"{timing['K3']['bound_share']:.3f} of its bound; K4 "
               f"{timing['K4']['ms']:.4f} ms, "
               f"{timing['K4']['bound_share']:.3f}); {facts['smi']}")
+
+
+def decode_extras(t: dict, build: list[dict], paged: bool) -> dict:
+    """A decode kernel's record beyond the contract's keys: its ratio to
+    SDPA in alternated windows, its share of the bound, the split plan at
+    the timed shape, and the bf16 g = 1 D = 128 instance's build."""
+    inst = [r for r in build if r["paged"] == paged and r["d"] == 128
+            and r["heads"] == 1 and r["types"].startswith("bf16")]
+    return {"over_library": t["over_library"],
+            "bound_share": t["bound_share"], "split_len": t["split_len"],
+            "n_splits": t["n_splits"],
+            "build": [{k: r.get(k) for k in (
+                "types", "registers", "spill_stores", "spill_loads",
+                "static_smem_bytes", "dynamic_smem_bytes")} for r in inst]}
+
+
+def print_decode_ratio(name: str, t: dict, facts) -> None:
+    """One line: a decode kernel against SDPA in alternated windows, and
+    its share of its bound."""
+    print(f"  {name} vs SDPA, alternated windows: {name} {t['ms']:.4f} ms, "
+          f"SDPA {t['library_ms']:.4f} ms, ratio {t['over_library']:.3f}; "
+          f"{t['bound_share']:.3f} of its {t['bound_ms']:.5f} ms bound "
+          f"({t['bound_by']}); L = {t['split_len']}, {t['n_splits']} "
+          f"splits; {facts['smi']}")
 
 
 T_START = time.perf_counter()
@@ -2616,6 +2755,7 @@ def main() -> int:
             if "registers" in line or "spill" in line or "warning" in line:
                 print("    " + line.strip())
     sm90_build = sm90_build_report(_build, facts)
+    decode_build = decode_build_report(_build, facts)
 
     phase(3, "decode kernels against their plain versions")
     worst = check_kernels(torch, attn)
@@ -2625,6 +2765,7 @@ def main() -> int:
                                    qdtype=torch.bfloat16, facts=facts)
         print(f"  {name} timing (bf16, B=8 H=8 D=128 S=2048): "
               + json.dumps(timing[name]))
+        print_decode_ratio(name, timing[name], facts)
     phase(4, "slice exactness, LM-base f32")
     exactness(torch, port)
     phase(5, "serving run, LM-base bf16")
@@ -2655,6 +2796,7 @@ def main() -> int:
                                                facts=facts)
         print(f"  {name} timing (bf16 q, B=8 H=8 D=128, 4 pages of 512): "
               + json.dumps(paged_timing[name]))
+        print_decode_ratio(name, paged_timing[name], facts)
     phase(10, "paged exactness, LM-base f32")
     paged_exactness(torch, port)
     phase(11, "paged serving, LM-base bf16")
@@ -2702,7 +2844,8 @@ def main() -> int:
                                       f"{TOL_ROW_RMS['bfloat16']} x row RMS)"},
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"]})
+            "library_ms": t["library_ms"],
+            **decode_extras(t, decode_build, paged=False)})
     for name, line, load in (("K8", 684, "a"), ("K9", 696, "d")):
         t = paged_timing[name]
         kernels.append({
@@ -2720,7 +2863,8 @@ def main() -> int:
             "bitwise_equal_to": "K7" if name == "K9" else "K6",
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"]})
+            "library_ms": t["library_ms"],
+            **decode_extras(t, decode_build, paged=True)})
     src = "distributed_pytorch_tpu_torch/csrc/flash_attention.cu"
     for name, fn, line in (("K2", "flash_fwd", 97), ("K3", "flash_bwd_dq", 206),
                            ("K4", "flash_bwd_dkv", 252)):

@@ -29,14 +29,17 @@ _SIGNATURES = {
         "decode_attention_launch": (
             ctypes.c_int,
             [ctypes.c_int, ctypes.c_int, ctypes.c_int]
-            + [ctypes.c_void_p] * 7  # q, k, v, ks, vs, pos, out
-            + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]),
+            + [ctypes.c_void_p] * 9  # q, k, v, ks, vs, pos, out, ws, counters
+            + [ctypes.c_int] * 5  # B, H, Hkv, S, split_len
+            + [ctypes.c_float, ctypes.c_void_p]),
         "decode_attention_paged_launch": (
             ctypes.c_int,
             [ctypes.c_int, ctypes.c_int, ctypes.c_int]
-            + [ctypes.c_void_p] * 8  # q, k, v, ks, vs, pos, table, out
-            + [ctypes.c_int] * 5  # B, H, Hkv, page, n_pages
+            + [ctypes.c_void_p] * 10  # q, k, v, ks, vs, pos, table, out, ws,
+            #                           counters
+            + [ctypes.c_int] * 6  # B, H, Hkv, page, n_pages, split_len
             + [ctypes.c_float, ctypes.c_void_p]),
+        "decode_attention_smem": (ctypes.c_int, [ctypes.c_int] * 3),
         "decode_attention_error": (ctypes.c_char_p, [ctypes.c_int]),
     },
     "flash_attention": {

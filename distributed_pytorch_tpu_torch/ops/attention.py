@@ -447,7 +447,7 @@ def decode_attention(q, k_cache, v_cache, pos, *, k_scale=None, v_scale=None,
     pos_v = _pos_vector(pos, b, q.device)
     out = torch.empty_like(q)
     _decode_launch("decode_attention_launch", q, k_cache, v_cache, k_scale,
-                   v_scale, pos_v, out, (b, h, hkv, s), sm_scale)
+                   v_scale, pos_v, out, (b, h, hkv, s), s, sm_scale)
     decode_attention.launches += 1
     return out
 
@@ -464,25 +464,87 @@ def _check_decode_operands(name: str, q, tensors) -> None:
             raise ValueError(f"{name}: operands must be 16-byte aligned")
 
 
+# Query heads one block of the decode kernel holds when g > 1 (kHeadGroup in
+# csrc/decode_attention.cu); at g = 1 a block holds one.
+KERNEL_HEAD_GROUP = 4
+# The kernel splits every sequence into splits of L slots; L grows with
+# the (sequence, kv head, head group) units a split index covers: one
+# 32-key tile per DECODE_SPLIT_UNITS units, rounded down to a power of two,
+# between 1 and DECODE_MAX_SPLIT_TILES tiles (LM-base serving: 8 slots x 8
+# kv heads -> L = 256).
+DECODE_SPLIT_UNITS = 8
+DECODE_MAX_SPLIT_TILES = 64
+
+
+def decode_split_plan(b: int, hkv: int, g: int,
+                      capacity: int) -> tuple[int, int, int, int]:
+    """The decode kernel's split of each (sequence, kv head) row: (L, the
+    number of splits, head groups, query heads per group).  Split i covers
+    logical slots [i*L, (i+1)*L); a launch has ceil(capacity / L) of them
+    (capacity = S dense, page * n_pages paged) and only those that start at
+    or before pos[b] do any work.  The plan reads no ``pos``: it depends on
+    host-known sizes only, and L on B * Hkv * head groups only, so the
+    dense and paged instances split alike."""
+    group = 1 if g == 1 else KERNEL_HEAD_GROUP
+    n_groups = -(-g // group)
+    want = min(b * hkv * n_groups // DECODE_SPLIT_UNITS,
+               DECODE_MAX_SPLIT_TILES)
+    tiles = 1
+    while tiles * 2 <= want:
+        tiles *= 2
+    split_len = tiles * KERNEL_PAGE_MULTIPLE
+    return split_len, -(-capacity // split_len), n_groups, group
+
+
+# (device, stream) -> (workspace, arrival counters) of the decode kernel's
+# in-launch merge: float32 partials that every launch overwrites before it
+# reads them, and int32 counters that every launch leaves at 0.  Launches
+# on one stream run in turn, so they may share a pair; launches on two
+# streams may overlap, so each stream has its own.  Grown, never shrunk;
+# nothing is cleared per call.
+_DECODE_WORKSPACE: dict = {}
+
+
+def _decode_workspace(device, stream: int, n_floats: int, n_counters: int):
+    key = (device, stream)
+    ws, counters = _DECODE_WORKSPACE.get(key, (None, None))
+    if ws is None or ws.numel() < n_floats:
+        ws = torch.empty(n_floats, dtype=torch.float32, device=device)
+    if counters is None or counters.numel() < n_counters:
+        counters = torch.zeros(n_counters, dtype=torch.int32, device=device)
+    _DECODE_WORKSPACE[key] = (ws, counters)
+    return ws, counters
+
+
 def _decode_launch(entry: str, q, k, v, k_scale, v_scale, pos_v, out,
-                   dims: tuple[int, ...], sm_scale: float,
+                   dims: tuple[int, ...], capacity: int, sm_scale: float,
                    table=None) -> None:
     """Call ``entry`` of csrc/decode_attention.cu as (qtype, ctype, D, q,
-    k, v, ks, vs, pos, [table,] out, *dims, sm_scale, stream) on q's
-    current stream; raise on the CUDA error it returns."""
+    k, v, ks, vs, pos, [table,] out, ws, counters, *dims, L, sm_scale,
+    stream) on q's current stream, with the split plan for ``capacity``
+    slots and that stream's workspace; raise on the CUDA error it
+    returns."""
     from ._build import load_library
     lib = load_library("decode_attention")
     null = ctypes.c_void_p(0)
     quant = k_scale is not None
+    b, h, _, d = q.shape
+    hkv = k.shape[1]
+    split_len, n_splits, n_groups, group = decode_split_plan(
+        b, hkv, h // hkv, capacity)
+    units = b * hkv * n_groups
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ws, counters = _decode_workspace(
+        q.device, stream, units * n_splits * group * (d + 2), units)
     ptrs = [_ptr(q), _ptr(k), _ptr(v),
             _ptr(k_scale) if quant else null,
             _ptr(v_scale) if quant else null, _ptr(pos_v)]
     if table is not None:
         ptrs.append(_ptr(table))
     err = getattr(lib, entry)(
-        _QTYPES[q.dtype], _CTYPES[k.dtype], q.shape[-1], *ptrs, _ptr(out),
-        *dims, ctypes.c_float(sm_scale),
-        ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
+        _QTYPES[q.dtype], _CTYPES[k.dtype], d, *ptrs, _ptr(out), _ptr(ws),
+        _ptr(counters), *dims, split_len, ctypes.c_float(sm_scale),
+        ctypes.c_void_p(stream))
     if err:
         raise RuntimeError(f"{entry} failed: CUDA error {err} "
                            f"({lib.decode_attention_error(err).decode()})")
@@ -614,7 +676,8 @@ def decode_attention_paged(q, k_pool, v_pool, table, pos, *, k_scale=None,
     out = torch.empty_like(q)
     _decode_launch("decode_attention_paged_launch", q, k_pool, v_pool,
                    k_scale, v_scale, pos_v, out,
-                   (b, h, hkv, page, table.shape[1]), sm_scale, table=table)
+                   (b, h, hkv, page, table.shape[1]), page * table.shape[1],
+                   sm_scale, table=table)
     decode_attention_paged.launches += 1
     return out
 

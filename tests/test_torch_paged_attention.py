@@ -6,6 +6,9 @@ interpret mode on the CPU as tests/test_attention.py runs it.
 Inputs are made with numpy from a seed.  float32 on both sides, atol/rtol
 2e-5 (summation order differs).  The CUDA kernels K8/K9 are checked on the
 card by the ``cuda``-marked tests at the end, which skip without a GPU.
+The kernel's split recipe (``_recipe_decode`` of test_torch_attention.py)
+is held against the Pallas paged kernel on bf16 inputs here, reading the
+pool through the table's live entries as K8/K9 do.
 """
 
 import jax.numpy as jnp
@@ -17,6 +20,12 @@ from distributed_pytorch_tpu import generate as jgen
 from distributed_pytorch_tpu.ops import attention as jattn
 from distributed_pytorch_tpu_torch import generate as tgen
 from distributed_pytorch_tpu_torch.ops import attention as tattn
+# by its module name (pytest puts tests/ on sys.path): an installed
+# package named ``tests`` would shadow ``tests.test_torch_attention``
+from test_torch_attention import (CARD_SPLIT_CASES, _bf16_case,
+                                  _hold_bf16_rows, _recipe_decode,
+                                  card_agreement, card_split_case,
+                                  repeats_bitwise)
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 
@@ -209,6 +218,65 @@ def test_paged_cache_helpers():
     assert c["layer1"]["vs"].shape == (5, 2, 128, 1)
 
 
+PAGED_RECIPE_CASES = [(g, d, quant) for g in (1, 4) for d in (64, 128)
+                      for quant in (False, True)]
+
+
+@pytest.mark.parametrize(
+    "g,d,quant", PAGED_RECIPE_CASES,
+    ids=[f"g{g}-d{d}-{'int8' if q else 'bf16'}"
+         for g, d, q in PAGED_RECIPE_CASES])
+def test_paged_split_recipe_matches_jax(g, d, quant):
+    """The kernel's split recipe against the Pallas paged kernel in
+    interpret mode on the same bf16 inputs: 7 sequences x 4 kv heads, 4
+    pages of 128 per sequence scattered over a shuffled pool whose spare
+    pages hold garbage (L = 64 slots): pos at 0, 31, 32, L-1, L, L+1 and
+    S-1.  The replay gathers each sequence's logical rows through its
+    live table entries only, the rest of the table being poisoned."""
+    b, hkv, page, n_pages = 7, 4, 128, 4
+    s = page * n_pages
+    split_len = tattn.decode_split_plan(b, hkv, g, s)[0]
+    assert split_len == tattn.decode_split_plan(b, hkv, g, 2048)[0] == 64
+    pos = np.array([0, 31, 32, split_len - 1, split_len, split_len + 1,
+                    s - 1], np.int32)
+    q, kc, vc, ks, vs = _bf16_case(60 + g + d, b, hkv * g, hkv, s, d, quant)
+    table = (np.random.default_rng(g + d).permutation(b * n_pages) + 2) \
+        .reshape(b, n_pages).astype(np.int32)
+
+    def pool(x, fill):
+        w = x.shape[-1]
+        p = np.full((b * n_pages + 2, hkv, page, w), fill, x.dtype)
+        p[table.reshape(-1)] = (x.reshape(b, hkv, n_pages, page, w)
+                                .transpose(0, 2, 1, 3, 4)
+                                .reshape(b * n_pages, hkv, page, w))
+        return p
+
+    big = 100 if quant else 1e4
+    pools = [pool(kc, big), pool(vc, -big)]
+    if quant:
+        pools += [pool(ks, 100.0), pool(vs, 100.0)]
+    jpools = [jnp.asarray(pools[0], jnp.int8 if quant else jnp.bfloat16),
+              jnp.asarray(pools[1], jnp.int8 if quant else jnp.bfloat16)]
+    scales = {} if not quant else dict(k_scale=jnp.asarray(pools[2]),
+                                       v_scale=jnp.asarray(pools[3]))
+    want = jattn.decode_attention_paged(
+        jnp.asarray(q, jnp.bfloat16), *jpools,
+        jnp.asarray(_poison(table, pos, page, 0)), jnp.asarray(pos),
+        **scales)
+
+    def gather(p):  # each sequence's live pages, read through the table
+        view = np.zeros((b, hkv, s, p.shape[-1]), p.dtype)
+        for bb, last in enumerate(pos):
+            for j in range(int(last) // page + 1):
+                view[bb, :, j * page:(j + 1) * page] = p[table[bb, j]]
+        return view
+
+    views = [gather(p) for p in pools] + [None] * (4 - len(pools))
+    got = _recipe_decode(q[:, :, 0], views[0], views[1], pos,
+                         split_len=split_len, ks=views[2], vs=views[3])
+    _hold_bf16_rows(got, np.asarray(want, np.float32)[:, :, 0])
+
+
 # -- on the card ----------------------------------------------------------
 
 @pytest.fixture
@@ -271,3 +339,43 @@ def test_paged_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="int32"):
         tattn.decode_attention_paged(q, pool[:, :, :128], pool[:, :, :128],
                                      table.long(), 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdtype,quant", [
+    (torch.float32, False), (torch.bfloat16, False), (torch.bfloat16, True)])
+def test_paged_kernel_split_edges_on_card(cuda, qdtype, quant):
+    """test_torch_attention.py's split-edge cases through 4 pages of 512
+    over a shuffled pool with poisoned table tails: within chip_smoke.py's
+    tolerance of the plain version, bitwise equal to the dense kernel on
+    the same rows, and to itself over 51 more launches."""
+    page, n_pages = 512, 4
+    for i, (b, hkv, pos) in enumerate(CARD_SPLIT_CASES):
+        q, kd, vd, pt, dkw = card_split_case(cuda, b, hkv, pos, qdtype,
+                                             quant, seed=i)
+        pids = torch.from_numpy(np.random.default_rng(i).permutation(
+            b * n_pages) + 2).to(cuda)
+        table = pids.reshape(b, n_pages).to(torch.int32)
+
+        def pool(x):
+            w = x.shape[-1]
+            p = torch.zeros((b * n_pages + 2, hkv, page, w), dtype=x.dtype,
+                            device=cuda)
+            p[pids] = (x.reshape(b, hkv, n_pages, page, w).transpose(1, 2)
+                       .reshape(b * n_pages, hkv, page, w))
+            return p
+
+        kw = {name: pool(t) for name, t in dkw.items()}
+        kp, vp = pool(kd), pool(vd)
+        tt = table.clone()
+        for j, p in enumerate(pos):
+            tt[j, p // page + 1:] = 999_999
+        out = tattn.decode_attention_paged(q, kp, vp, tt, pt, **kw)
+        ref = tattn.decode_attention_paged_plain(q, kp, vp, tt, pt, **kw)
+        dense = tattn.decode_attention(q, kd, vd, pt, **dkw)
+        torch.cuda.synchronize()
+        assert card_agreement(out, ref), (b, hkv, pos)
+        assert torch.equal(out, dense)
+        assert repeats_bitwise(
+            lambda: tattn.decode_attention_paged(q, kp, vp, tt, pt, **kw),
+            out)
