@@ -1668,6 +1668,17 @@ def check_bn_kernels(torch, fb, nn, vgg) -> dict:
              for dt in (torch.float32, torch.bfloat16)]
     cases += [(100003, 64, torch.float32), (777, 512, torch.bfloat16),
               (12345, 8, torch.float32)]
+    # the plan's largest partial count: one channel tile (C = 64 bf16) and
+    # rows enough for every one of its row blocks, M no multiple of them
+    big = (300007, 64, torch.bfloat16)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = fb._plan(fb._lib(), big[0], big[1], 8, 2, n_sm)
+    tiles, blocks = plan["tiles"], plan["blocks"]
+    if tiles != 1 or blocks != fb._plan(fb._lib(), 2 ** 24, big[1], 8, 2,
+                                        n_sm)["blocks"]:
+        fail(f"the largest-partial case is not: {tiles} tiles x {blocks} "
+             f"blocks on {n_sm} SMs")
+    cases.append(big)
     worst = {k: [0.0, 0.0] for k in BN_KERNELS}
     for i, (m, c, dt) in enumerate(cases):
         res = bn_check_case(torch, fb, nn, m, c, dt, seed=200 + i)
@@ -1687,6 +1698,20 @@ def check_bn_kernels(torch, fb, nn, vgg) -> dict:
                  f"{res}")
         if not (res["y_zero"] and res["y_tiny"]):
             fail(f"the case M={m} C={c} {dt} has no y on or next to 0")
+    # an arrival counter left non-zero, or a merge that follows the
+    # arrivals, shows in back-to-back launches on one input
+    for m, c, dt in ((VGG_BATCH * 32 * 32, 64, torch.bfloat16), big,
+                     (VGG_BATCH * 2 * 2, 512, torch.float32)):
+        args = bn_case(torch, m, c, dt, 250)
+        s = fb.bn_relu_bwd_reduce(*args)
+        repeat_bitwise(torch, lambda: torch.cat(
+            fb.bn_relu_bwd_reduce(*args)), torch.cat(s),
+            f"K1a M={m} C={c} {dt}", n=50)
+        repeat_bitwise(torch, lambda: fb.bn_relu_bwd_apply(*args, *s),
+                       fb.bn_relu_bwd_apply(*args, *s),
+                       f"K1b M={m} C={c} {dt}", n=50)
+    print(f"  K1a and K1b each 52 launches bitwise equal on one input, at "
+          f"three shapes (one with {blocks} partials a tile)")
     # the 4-D path: channels_last activation, a gradient in NCHW order
     n, h, c = 32, 16, 128
     dr, a, mean, rstd, gamma, beta = bn_case(torch, n * h * h, c,
@@ -1712,8 +1737,9 @@ def check_bn_kernels(torch, fb, nn, vgg) -> dict:
 
 def _rotation(torch, fb, nn, n, h, c, dtype, nbytes_each: int) -> list:
     """Enough independent input sets of one layer to rotate past the 50 MB
-    L2: (args, (s1, s2), dy4, a4) per set, dy4 the masked gradient as the
-    library call takes it."""
+    L2: (args, (s1, s2), dy4, a4, dr4) per set, dy4 the masked gradient as
+    the library call takes it, dr4 and a4 the (N, C, H, W) channels_last
+    views bn_relu_bwd takes in the step."""
     sets = []
     for i in range(max(2, math.ceil(150e6 / nbytes_each))):
         args = bn_case(torch, n * h * h, c, dtype, 400 + i)
@@ -1723,28 +1749,62 @@ def _rotation(torch, fb, nn, n, h, c, dtype, nbytes_each: int) -> list:
         dy = torch.where(y > 0, dr, torch.zeros((), dtype=dtype,
                                                 device=DEVICE))
         sets.append((args, s) + tuple(t.view(n, h, h, c).permute(0, 3, 1, 2)
-                                      for t in (dy, a)))
+                                      for t in (dy, a, dr)))
     return sets
 
 
+def _summed_windows(step_rows: list) -> dict:
+    """K1a + K1b as the step runs them against the library, over layers:
+    each alternated window summed over the layers (a layer as often as the
+    model has it), then the mean of the per-pair ratios.  Each window
+    holds a producer kernel before every call (see ``time_bn_kernels``):
+    the ratio is of the windows as measured, ``ms`` and ``library_ms`` net
+    of the producer's own time."""
+    k = np.sum([r["ms_windows"] for r in step_rows], axis=0)
+    lib = np.sum([r["library_ms_windows"] for r in step_rows], axis=0)
+    prod = float(np.sum([r["producer_ms"] for r in step_rows]))
+    return {"ms": float(np.mean(k)) - prod,
+            "library_ms": float(np.mean(lib)) - prod, "producer_ms": prod,
+            "ms_windows": k.tolist(), "library_ms_windows": lib.tolist(),
+            "over_library": float(np.mean(k / lib))}
+
+
 def time_bn_kernels(torch, fb, nn, vgg, facts) -> dict:
-    """K1a and K1b at every VGG-11 batch-256 BN layer, float32 and bf16,
-    inputs rotated past the L2: device ms by CUDA events beside the byte
-    bound (each input read once, each output written once, over the
-    memory rate), the plain closed form (bn_relu_bwd_plain, both kernels'
-    work) and the library yardstick: aten native_batch_norm_backward in
-    train mode, given the saved mean and invstd, on the already-masked dy
-    (it has no ReLU mask; the port never calls it).  Reported per layer,
-    for the largest layer and summed over the eight."""
+    """K1a and K1b at every VGG-11 batch-256 BN layer, float32 and bf16.
+
+    Each kernel alone, inputs rotated past the L2: device ms by CUDA events
+    beside the byte bound (each input read once, each output written once,
+    over the memory rate), the plain closed form (bn_relu_bwd_plain, both
+    kernels' work) and the library yardstick: aten
+    native_batch_norm_backward in train mode, given the saved mean and
+    invstd, on the already-masked dy (it has no ReLU mask; the port never
+    calls it).  Then both kernels as the step runs them (bn_relu_bwd on one
+    rotated input set: K1a, then K1b on the same rows) against the library
+    call, in alternated windows.  Reported per layer, for the largest
+    layer and summed over the eight.
+
+    In the step K1a follows a kernel that does not launch its dependents
+    early (the convolution backward that makes dr), so K1a's programmatic
+    launch gets no overlap there; K1b follows K1a, which does.  So every
+    K1a call here, alone or as the step runs it, and every library call
+    in the alternated windows, comes after such a producer kernel (a
+    one-element fill); the K1a time and the windows' ``ms`` are net of
+    the producer's own time alone, the windows' ratio is as measured
+    (the same producer on both sides)."""
     out = {}
     layers = vgg_bn_layers(vgg, "VGG11", VGG_BATCH)
     launches0 = (fb.bn_relu_bwd_reduce.launches,
                  fb.bn_relu_bwd_apply.launches)
+    tick = torch.zeros(1, device=DEVICE)
+
+    def producer():
+        tick.zero_()
+
     for dtype in (torch.bfloat16, torch.float32):
         dt, isz = str(dtype)[6:], torch.finfo(dtype).bits // 8
         rows, tot = [], {k: 0.0 for k in ("K1a", "K1b", "plain", "library",
                                           "bound_K1a", "bound_K1b")}
-        timed = {}
+        timed, step_rows = {}, []
         for n, h, c in layers:
             key = (n, h, c)
             if key not in timed:
@@ -1758,51 +1818,95 @@ def time_bn_kernels(torch, fb, nn, vgg, facts) -> dict:
                     return sets[it[0]]
 
                 def k1a():
-                    args, _, _, _ = pick()
+                    args = pick()[0]
+                    producer()
                     fb.bn_relu_bwd_reduce(*args)
 
                 def k1b():
-                    args, s, _, _ = pick()
+                    args, s = pick()[:2]
                     fb.bn_relu_bwd_apply(*args, *s)
 
+                def step():
+                    args, _, _, a4, dr4 = pick()
+                    producer()
+                    fb.bn_relu_bwd(dr4, a4, *args[2:])
+
                 def plain():
-                    args, _, _, _ = pick()
+                    args = pick()[0]
                     fb.bn_relu_bwd_plain(*args)
 
                 def library():
-                    args, _, dy4, a4 = pick()
+                    args, _, dy4, a4, _ = pick()
                     _, _, mean, rstd, gamma, _ = args
                     torch.ops.aten.native_batch_norm_backward(
                         dy4, a4, gamma, None, None, mean, rstd, True, 1e-5,
                         [True, True, True])
 
+                def library_step():
+                    producer()
+                    library()
+
+                prod = time_ms(torch, producer, iters=20)
                 row = {"M": m, "C": c,
-                       "K1a": time_ms(torch, k1a, iters=20),
+                       "K1a": time_ms(torch, k1a, iters=20) - prod,
                        "K1b": time_ms(torch, k1b, iters=20),
-                       "plain": time_ms(torch, plain, iters=5)}
+                       "plain": time_ms(torch, plain, iters=5),
+                       "producer": prod}
                 try:
                     row["library"] = time_ms(torch, library, iters=20)
                 except RuntimeError as e:  # a yardstick only
                     print(f"  library call refused at {key} {dt}: {e}")
                     row["library"] = None
+                row["step"] = None
+                if row["library"] is not None:
+                    st = alternated(torch, step, library_step, iters=20)
+                    st.update(ms=st["ms"] - prod, producer_ms=prod,
+                              library_ms=st["library_ms"] - prod)
+                    row["step"] = st
                 row["bound_K1a"] = (2 * m * c * isz + 24 * c) / facts["bw"] \
                     * 1e3
                 row["bound_K1b"] = (3 * m * c * isz + 32 * c) / facts["bw"] \
                     * 1e3
+                for k in BN_KERNELS:
+                    row[f"share_{k}"] = row[f"bound_{k}"] / row[k]
                 timed[key] = row
+                st = row["step"] or {"ms": float("nan"),
+                                     "library_ms": float("nan"),
+                                     "over_library": float("nan")}
+                print(f"  {dt:8s} M={m:6d} C={c:3d}: K1a {row['K1a']:.4f} ms "
+                      f"({row['share_K1a']:.2f} of its {row['bound_K1a']:.5f}"
+                      f" bound), K1b {row['K1b']:.4f} ({row['share_K1b']:.2f}"
+                      f" of {row['bound_K1b']:.5f}), library "
+                      f"{row['library'] or float('nan'):.4f}; as the step "
+                      f"runs them {st['ms']:.4f} vs library "
+                      f"{st['library_ms']:.4f}, ratio {st['over_library']:.3f}"
+                      f" (alternated, after a producer of {prod:.4f})")
                 del sets
             row = timed[key]
             rows.append(row)
+            if row["step"] is not None:
+                step_rows.append(row["step"])
             for k in tot:
                 tot[k] = None if (tot[k] is None or row[k] is None) \
                     else tot[k] + row[k]
         largest = max(rows, key=lambda r: r["M"] * r["C"])
+        steps = _summed_windows(step_rows) \
+            if len(step_rows) == len(rows) else None
         out[dt] = {"layers": list(timed.values()), "sum_8_layers": tot,
-                   "largest_layer": largest}
+                   "largest_layer": largest, "step_8_layers": steps}
         print(f"  {dt} over the 8 VGG-11 layers (batch 256): "
               + json.dumps(tot))
         print(f"  {dt} largest layer (M={largest['M']}, C={largest['C']}): "
               + json.dumps({k: largest[k] for k in tot}))
+        if steps:
+            print(f"  {dt} K1a + K1b as the step runs them, 8 layers: "
+                  f"{steps['ms']:.4f} ms vs native_batch_norm_backward "
+                  f"{steps['library_ms']:.4f} ms, ratio "
+                  f"{steps['over_library']:.3f} (alternated windows "
+                  f"{[round(x, 4) for x in steps['ms_windows']]} / "
+                  f"{[round(x, 4) for x in steps['library_ms_windows']]}, "
+                  f"each with {steps['producer_ms']:.4f} ms of producer "
+                  f"kernels); {facts['smi']}")
     fb.bn_relu_bwd_reduce.launches, fb.bn_relu_bwd_apply.launches = \
         launches0  # timing launches are not counted
     torch.cuda.empty_cache()
@@ -2615,6 +2719,40 @@ def sm90_build_report(build, facts) -> dict:
     return out
 
 
+def bn_build_report(build, facts) -> list[dict]:
+    """Every fused_bn.cu instance (K1a reduce_kernel, K1b apply_kernel x
+    float32 / bf16 x 16-byte vectors or one channel) as ptxas built it:
+    registers, spills, stack, static shared memory, and the resident
+    blocks an SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+    Fails on a spill in the instances VGG-11's shapes launch (16-byte
+    vectors)."""
+    lib = build.load_library("fused_bn")
+    log = build.build_info["fused_bn"]["log"]
+    rep = ptxas_report(log, "reduce_kernel") + ptxas_report(log,
+                                                            "apply_kernel")
+    if len(rep) != 8:
+        fail(f"ptxas reported {len(rep)} fused_bn instances, want 8")
+    for r in rep:
+        m = re.search(r"(reduce|apply)_kernelI(f|13__nv_bfloat16)Li(\d+)E",
+                      r["function"])
+        r.update(kernel="K1a" if m.group(1) == "reduce" else "K1b",
+                 dtype="f32" if m.group(2) == "f" else "bf16",
+                 vec=int(m.group(3)))
+        r["blocks_per_sm"] = lib.fused_bn_occupancy(
+            int(r["kernel"] == "K1b"), int(r["dtype"] == "bf16"), r["vec"])
+        print(f"  {r['kernel']} {r['dtype']:4s} vec {r['vec']}: "
+              f"{r.get('registers')} registers, {r.get('spill_stores')} / "
+              f"{r.get('spill_loads')} bytes spilled (stores / loads), "
+              f"{r.get('stack_bytes')} bytes stack, {r['static_smem_bytes']} "
+              f"bytes shared memory, {r['blocks_per_sm']} blocks of 256 "
+              f"threads an SM")
+        if r["vec"] > 1 and (r.get("spill_stores") or r.get("spill_loads")
+                             or "spill_stores" not in r):
+            fail(f"{r['function']} spills or was not reported: {r}")
+    print(f"  (fused_bn instances built on {facts['smi']})")
+    return rep
+
+
 def decode_build_report(build, facts) -> list[dict]:
     """Every decode_kernel instance as ptxas built it: (q, cache) types,
     head dim, query heads a block, dense or paged; registers, spills,
@@ -2756,6 +2894,7 @@ def main() -> int:
                 print("    " + line.strip())
     sm90_build = sm90_build_report(_build, facts)
     decode_build = decode_build_report(_build, facts)
+    bn_build = bn_build_report(_build, facts)
 
     phase(3, "decode kernels against their plain versions")
     worst = check_kernels(torch, attn)
@@ -2923,7 +3062,16 @@ def main() -> int:
             "bound_ms_f32": f32["sum_8_layers"][f"bound_{name}"],
             "ms_largest_layer_bf16": b16["largest_layer"][name],
             "bound_ms_largest_layer_bf16":
-                b16["largest_layer"][f"bound_{name}"]})
+                b16["largest_layer"][f"bound_{name}"],
+            "k1a_plus_k1b_as_step_runs_them": {
+                dt: None if t["step_8_layers"] is None else {
+                    k: t["step_8_layers"][k] for k in (
+                        "ms", "library_ms", "over_library", "producer_ms")}
+                for dt, t in (("bf16", b16), ("f32", f32))},
+            "build": [{k: r.get(k) for k in (
+                "dtype", "vec", "registers", "spill_stores", "spill_loads",
+                "static_smem_bytes", "blocks_per_sm")}
+                for r in bn_build if r["kernel"] == name]})
     k5 = k5_timing["per_layer"]
     kernels.append({
         "name": "int8_matmul (K5)", "route": "cuda",

@@ -42,7 +42,6 @@ import torch
 from . import nn
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_THREADS = 256  # threads per block of csrc/fused_bn.cu
 
 
 def _mask_dy_xhat(dr, a, mean, rstd, gamma, beta):
@@ -111,26 +110,83 @@ def _check(name: str, dr, a, *vecs) -> tuple[int, int]:
     return m, c
 
 
-def _geometry(m: int, c: int, itemsize: int, ptrs) -> tuple[int, int]:
-    """(vec, strips): channels per thread load (16-byte vectors where C and
-    the pointers allow, else 1) and K1a's row strips — about 1024 blocks
-    over the card, each thread walking at least 8 rows of its strip."""
+def _vec(c: int, itemsize: int, ptrs) -> int:
+    """Channels a thread loads at once: 16-byte vectors where C and every
+    pointer allow, else 1."""
     vec = 16 // itemsize
-    if c % vec or any(p % 16 for p in ptrs):
-        vec = 1
-    cv = c // vec
-    tx = min(32, 1 << (cv - 1).bit_length())
-    ty = _THREADS // tx
-    gy = -(-cv // tx)
-    strips = max(1, min(-(-m // (ty * 8)), max(1, 1024 // gy)))
-    return vec, strips
+    return 1 if c % vec or any(p % 16 for p in ptrs) else vec
+
+
+_PLAN_FIELDS = ("tile", "tiles", "ty_n", "blocks", "rows", "stride",
+                "workspace_floats")
+# (library path, M, C, vec, itemsize, SMs) -> the plan
+_PLANS: dict = {}
+
+
+def _plan(lib: ctypes.CDLL, m: int, c: int, vec: int, itemsize: int,
+          n_sm: int) -> dict:
+    """The launch plan of K1a and K1b over (M, C) rows of ``itemsize``-byte
+    values, ``vec`` channels a load, on ``n_sm`` SMs, as csrc/fused_bn.cu
+    computes it for each launch (``make_plan``, read through
+    ``fused_bn_plan``): channel tiles of ``tile`` vectors (one 128-byte
+    line of a row, or all of C), ``tiles`` of them across C, ``ty_n``
+    threads down a block; ``blocks`` row blocks of ``rows`` rows a tile,
+    one wave over the card; K1a's partial rows of ``stride`` floats and
+    its workspace of ``workspace_floats``.  ``lib`` is the kernels'
+    library, or that file's plan alone built by the host compiler.
+    ValueError for arguments no launch takes."""
+    key = (lib._name, m, c, vec, itemsize, n_sm)
+    if key not in _PLANS:
+        fn = lib["fused_bn_plan"]  # its own prototype, not ops/_build.py's
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int64)]
+        out = (ctypes.c_int64 * len(_PLAN_FIELDS))()
+        if fn(m, c, vec, itemsize, n_sm, out):
+            raise ValueError(f"fused_bn: no launch plan for M={m} C={c} "
+                             f"vec={vec} itemsize={itemsize} on {n_sm} SMs")
+        _PLANS[key] = dict(zip(_PLAN_FIELDS, out))
+    return _PLANS[key]
+
+
+# device index -> its SM count
+_SMS: dict = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
+# (device, stream) -> K1a's workspace as csrc/fused_bn.cu lays it out:
+# arrival counters, which every launch leaves at 0 and which keep their
+# place whatever the plan, then partials, which every launch writes before
+# it reads them.  Launches on one stream run in turn, so they may share
+# one; each stream has its own.  Grown (zeroed), never shrunk; nothing is
+# cleared per call.
+_WORKSPACE: dict = {}
+
+
+def _workspace(device, stream: int, n_floats: int) -> torch.Tensor:
+    key = (device, stream)
+    ws = _WORKSPACE.get(key)
+    if ws is None or ws.numel() < n_floats:
+        ws = _WORKSPACE[key] = torch.zeros(n_floats, dtype=torch.float32,
+                                           device=device)
+    return ws
+
+
+def _lib() -> ctypes.CDLL:
+    from ._build import load_library
+    return load_library("fused_bn")
 
 
 def _launch(entry: str, a: torch.Tensor, *args) -> None:
     """Call ``entry`` of csrc/fused_bn.cu on a's current stream; raise on the
     CUDA error it returns."""
-    from ._build import load_library
-    lib = load_library("fused_bn")
+    lib = _lib()
     stream = ctypes.c_void_p(torch.cuda.current_stream(a.device).cuda_stream)
     err = getattr(lib, entry)(*args, stream)
     if err:
@@ -141,29 +197,32 @@ def _launch(entry: str, a: torch.Tensor, *args) -> None:
 def bn_relu_bwd_reduce(dr, a, mean, rstd, gamma, beta):
     """K1a: per-channel ``(s1, s2)`` float32 over (M, C) rows.
 
-    On CUDA tensors this launches the strip pass and the fixed-order sum of
-    its partials (two launches, no float atomics: bitwise repeatable) and
-    adds one to ``bn_relu_bwd_reduce.launches``; on CPU tensors it runs the
-    plain sums."""
+    On CUDA tensors this launches the one kernel that sums each row block
+    and merges the blocks' partials in the same launch (the last block of
+    a channel tile to arrive sums them in a fixed order: no float atomics,
+    bitwise repeatable) and adds one to ``bn_relu_bwd_reduce.launches``; on
+    CPU tensors it runs the plain sums."""
     if a.device.type == "cpu":
         return _sums_plain(dr, a, mean, rstd, gamma, beta)
     m, c = _check("bn_relu_bwd_reduce", dr, a, mean, rstd, gamma, beta)
-    vec, strips = _geometry(m, c, a.element_size(),
-                            (dr.data_ptr(), a.data_ptr()))
-    partial = torch.empty((strips, 2, c), dtype=torch.float32,
-                          device=a.device)
+    isz = a.element_size()
+    vec = _vec(c, isz, (dr.data_ptr(), a.data_ptr()))
+    plan = _plan(_lib(), m, c, vec, isz, _sm_count(a.device))
+    ws = _workspace(a.device,
+                    torch.cuda.current_stream(a.device).cuda_stream,
+                    plan["workspace_floats"])
     s1 = torch.empty(c, dtype=torch.float32, device=a.device)
     s2 = torch.empty_like(s1)
     _launch("bn_relu_bwd_reduce_launch", a, _DTYPES[a.dtype], vec, _ptr(dr),
             _ptr(a), _ptr(mean), _ptr(rstd), _ptr(gamma), _ptr(beta),
-            _ptr(partial), _ptr(s1), _ptr(s2), m, c, strips)
+            _ptr(ws), _ptr(s1), _ptr(s2), m, c, ws.numel())
     bn_relu_bwd_reduce.launches += 1
     return s1, s2
 
 
 def bn_relu_bwd_apply(dr, a, mean, rstd, gamma, beta, s1, s2):
     """K1b: ``da`` over (M, C) rows in a's dtype.  On CUDA tensors this
-    launches the elementwise kernel and adds one to
+    launches the elementwise kernel over the same plan and adds one to
     ``bn_relu_bwd_apply.launches``; on CPU tensors it runs the plain
     version."""
     if a.device.type == "cpu":
@@ -171,8 +230,8 @@ def bn_relu_bwd_apply(dr, a, mean, rstd, gamma, beta, s1, s2):
     m, c = _check("bn_relu_bwd_apply", dr, a, mean, rstd, gamma, beta, s1,
                   s2)
     da = torch.empty_like(a)
-    vec, _ = _geometry(m, c, a.element_size(),
-                       (dr.data_ptr(), a.data_ptr(), da.data_ptr()))
+    vec = _vec(c, a.element_size(),
+               (dr.data_ptr(), a.data_ptr(), da.data_ptr()))
     _launch("bn_relu_bwd_apply_launch", a, _DTYPES[a.dtype], vec, _ptr(dr),
             _ptr(a), _ptr(mean), _ptr(rstd), _ptr(gamma), _ptr(beta),
             _ptr(s1), _ptr(s2), _ptr(da), m, c, ctypes.c_float(1.0 / m))

@@ -10,6 +10,10 @@ NCHW (channels_last) here; the tolerance is its own, rtol 2e-5 / atol 1e-5
 the plain version on the card and skip without a GPU.
 """
 
+import ctypes
+import shutil
+import subprocess
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +22,7 @@ import torch
 
 from distributed_pytorch_tpu.ops import fused_bn as jfused
 from distributed_pytorch_tpu.ops import nn as jnn
+from distributed_pytorch_tpu_torch.ops import _build
 from distributed_pytorch_tpu_torch.ops import fused_bn as tfused
 from distributed_pytorch_tpu_torch.ops import nn as tnn
 
@@ -244,16 +249,112 @@ def test_rows_are_views_and_other_layouts_are_counted_copies():
     assert tfused.bn_relu_bwd.copies == copies + 1
 
 
+THREADS = 256  # threads a block of csrc/fused_bn.cu (kThreads)
+BLOCKS_PER_SM = 2  # row blocks an SM in its one wave (kBlocksPerSm)
+MAX_TILES = 65535  # the arrival counters at the workspace's head (kMaxTiles)
+
+
+@pytest.fixture(scope="module")
+def plan_lib(tmp_path_factory):
+    """csrc/fused_bn.cu's launch plan, the part of the file that is plain
+    C++, built alone by the host compiler: the plan every launch computes,
+    checked without nvcc or a card."""
+    cxx = shutil.which("c++") or shutil.which("g++")
+    if cxx is None:
+        pytest.skip("needs a host C++ compiler to build the launch plan")
+    out = tmp_path_factory.mktemp("fused_bn_plan") / "libfused_bn_plan.so"
+    subprocess.run([cxx, "-x", "c++", "-std=c++17", "-O1", "-shared",
+                    "-fPIC", str(_build.CSRC / "fused_bn.cu"), "-o",
+                    str(out)], check=True)
+    return ctypes.CDLL(str(out))
+
+
 @pytest.mark.parametrize("m,c,itemsize,vec", [
     (262144, 64, 4, 4), (1024, 512, 2, 8), (4096, 512, 4, 4), (1000, 8, 2, 8),
-    (1001, 12, 4, 4), (77, 6, 2, 1)])
-def test_kernel_geometry(m, c, itemsize, vec):
-    """The launch geometry: 16-byte channel vectors where C allows, row
-    strips that leave no row out and never outnumber the rows."""
-    got_vec, strips = tfused._geometry(m, c, itemsize, (0, 256))
-    assert got_vec == vec
-    assert 1 <= strips <= m and -(-m // -(-m // strips)) <= strips
-    assert tfused._geometry(m, c, itemsize, (0, 8))[0] == 1  # misaligned
+    (1001, 12, 4, 4), (77, 6, 2, 1), (262144, 64, 2, 8), (300007, 64, 2, 8),
+    (16384, 256, 2, 8), (1, 512, 2, 8), (5, 4096, 4, 4), (333, 97, 4, 1)])
+@pytest.mark.parametrize("n_sm", [132, 7])
+def test_kernel_geometry(plan_lib, m, c, itemsize, vec, n_sm):
+    """The launch plan: 16-byte channel vectors where C and every pointer
+    allow; channel tiles of at most one 128-byte line that cover C; row
+    blocks that cover every row once, none empty and none past M; at most
+    ``BLOCKS_PER_SM`` blocks an SM over the tiles (so K1a merges a
+    bounded number of partials a tile), fewer only where the rows run
+    out; a workspace that holds the counters and every block's partial
+    row."""
+    assert tfused._vec(c, itemsize, (0, 256)) == vec
+    for ptrs in ((0, 8), (8, 0), (0, 256, 4)):  # a misaligned pointer
+        assert tfused._vec(c, itemsize, ptrs) == 1
+    p = tfused._plan(plan_lib, m, c, vec, itemsize, n_sm)
+    tile, tiles, blocks, rows = p["tile"], p["tiles"], p["blocks"], p["rows"]
+    cv = c // vec
+    assert tile * vec * itemsize <= 128
+    assert tile == cv or tile * vec * itemsize == 128
+    assert (tiles - 1) * tile < cv <= tiles * tile
+    assert p["ty_n"] == THREADS // tile
+    assert (blocks - 1) * rows < m <= blocks * rows
+    cap = -(-BLOCKS_PER_SM * n_sm // tiles)
+    assert 1 <= blocks <= cap
+    assert blocks == cap or rows <= p["ty_n"]
+    stride = p["stride"]
+    assert stride % 4 == 0 and 2 * tile * vec <= stride < 2 * tile * vec + 4
+    assert p["workspace_floats"] == MAX_TILES + 1 + tiles * blocks * stride
+
+
+@pytest.mark.parametrize("m,c,vec,itemsize", [
+    (0, 64, 8, 2), (64, 0, 8, 2), (64, 12, 8, 2), (64, 64, 2, 2),
+    (64, 64, 4, 8), (2 ** 24, 128, 8, 2), (1, 32 * 65536, 1, 4)])
+def test_kernel_plan_refuses_what_no_launch_takes(plan_lib, m, c, vec,
+                                                  itemsize):
+    """No plan (so no launch) for an empty side, a vector width C does not
+    divide or that is neither 16 bytes nor one channel, an itemsize the
+    kernels lack, M * C past 2^31, or more channel tiles than counters."""
+    with pytest.raises(ValueError, match="no launch plan"):
+        tfused._plan(plan_lib, m, c, vec, itemsize, 132)
+
+
+def _walk(p, m, cv, x, y, t, last_first):
+    """csrc/fused_bn.cu's walk, replayed for thread t of block (x, y): the
+    (row, channel vector) pairs it loads, in batches of kRowsInFlight rows
+    ty_n apart; K1a walks its rows first to last, K1b last batch first."""
+    tile, ty_n, rows = p["tile"], p["ty_n"], p["rows"]
+    tx, ty = t % tile, t // tile
+    v = y * tile + tx
+    r0, r1 = x * rows + ty, min(m, (x + 1) * rows)
+    if not (ty < ty_n and v < cv and r0 < r1):  # `on`
+        return []
+    step = 4 * ty_n
+    starts = list(range(r0, r1, step))
+    if last_first:
+        assert starts[-1] == r0 + (r1 - 1 - r0) // step * step  # `last`
+        starts.reverse()
+    return [(r, v) for s in starts for r in range(s, s + step, ty_n)
+            if r < r1]
+
+
+@pytest.mark.parametrize("m,c,itemsize", [(1000, 8, 2), (77, 6, 2),
+                                          (4099, 512, 4), (300, 97, 4),
+                                          (333, 32, 2)])
+@pytest.mark.parametrize("kernel", ["K1a", "K1b"])
+def test_kernel_row_walk_covers_each_element_once(plan_lib, m, c, itemsize,
+                                                  kernel):
+    """csrc/fused_bn.cu's walk over the plan, replayed for every thread of
+    every block, K1a's first to last and K1b's last batch first: each
+    thread loads only rows of its own row block, below M, and every (row,
+    channel vector) is loaded exactly once.  (1000, 8) and (333, 32) give
+    row blocks with fewer rows than threads down them."""
+    vec = tfused._vec(c, itemsize, (0,))
+    p = tfused._plan(plan_lib, m, c, vec, itemsize, 132)
+    cv = c // vec
+    seen = np.zeros((m, cv), np.int32)
+    for x in range(p["blocks"]):
+        lo, hi = x * p["rows"], min(m, (x + 1) * p["rows"])
+        for y in range(p["tiles"]):
+            for t in range(THREADS):
+                for r, v in _walk(p, m, cv, x, y, t, kernel == "K1b"):
+                    assert lo <= r < hi
+                    seen[r, v] += 1
+    assert (seen == 1).all()
 
 
 # -- on the card ----------------------------------------------------------
@@ -291,13 +392,16 @@ def _near_zero_case(m, c, dtype, seed, dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,c", [(4096, 64), (1000, 8), (1003, 512),
-                                 (333, 32)])
+                                 (333, 32),
+                                 # VGG-11's BN layers at batch 16
+                                 (16384, 64), (4096, 128), (1024, 256),
+                                 (256, 512), (64, 512)])
 def test_kernels_match_plain_on_card(cuda, dtype, m, c):
     """K1a/K1b against the plain version on the same inputs: s1, s2 within
     1e-5 of max|s|, da float32 within 1e-5 of max|da| and bf16 within one
     bf16 ulp (plus that float32 bound), the masks identical (read back
-    from da: dy = da / coef + (s1 + xhat s2) / M), and two runs bitwise
-    equal."""
+    from da: dy = da / coef + (s1 + xhat s2) / M), and 50 launches more of
+    each bitwise equal to the first (a stale arrival counter shows)."""
     dr, a, mean, rstd, gamma, beta = _near_zero_case(m, c, dtype, 5, cuda)
     s1, s2 = tfused.bn_relu_bwd_reduce(dr, a, mean, rstd, gamma, beta)
     da = tfused.bn_relu_bwd_apply(dr, a, mean, rstd, gamma, beta, s1, s2)
@@ -318,10 +422,12 @@ def test_kernels_match_plain_on_card(cuda, dtype, m, c):
     xhat = (a.float() - mean) * rstd
     dy = da.float() / (gamma * rstd) + (s1 + xhat * s2) / m
     assert torch.equal(dy.abs() > 0.25, mask)
-    s1b, s2b = tfused.bn_relu_bwd_reduce(dr, a, mean, rstd, gamma, beta)
-    dab = tfused.bn_relu_bwd_apply(dr, a, mean, rstd, gamma, beta, s1b, s2b)
-    assert torch.equal(s1, s1b) and torch.equal(s2, s2b)
-    assert torch.equal(da, dab)
+    for _ in range(50):
+        s1b, s2b = tfused.bn_relu_bwd_reduce(dr, a, mean, rstd, gamma, beta)
+        dab = tfused.bn_relu_bwd_apply(dr, a, mean, rstd, gamma, beta, s1b,
+                                       s2b)
+        assert torch.equal(s1, s1b) and torch.equal(s2, s2b)
+        assert torch.equal(da, dab)
 
 
 @pytest.mark.cuda
