@@ -66,14 +66,20 @@ Phases, each of which raises on failure:
  14. VGG-11 one epoch of synthetic CIFAR-10 through the port's cli (f32 and
      bf16): the reference's time windows, samples/s, mfu, idle share,
      falling loss and test accuracy above chance;
- 15. the int8 matmul kernel (K5) against its plain version: the three
-     LM-base shapes at m=8192 (bf16 and f32 inputs), 33x77 @ 77x19,
-     m=8191, k=1000, n=4100, a zero row and rows at +-127, bitwise in
-     every case and two runs bitwise equal; timed per shape beside its
-     bound, the plain integer product and torch._int_mm + the epilogue;
+ 15. the int8 matmul kernel (K5) against its plain version, in float32
+     and bf16 output: the three LM-base shapes at m=8192 (bf16 and f32
+     inputs; through its sm90 route and its mma_sync route), 33x77 @
+     77x19, m=8191, k=1000, n=4100, k=1040, a zero row and rows at +-127,
+     bitwise in every case, the route each took, two runs bitwise equal,
+     52 back-to-back launches bitwise at two shapes; the sm90 instances'
+     ptxas report (no spill, no stack); timed per shape, the sm90 route
+     against the mma_sync route in alternated windows, beside the bound of
+     each output dtype, the plain integer product, torch._int_mm alone
+     and with the epilogue;
  16. LM-base bf16 trained 30 steps through lm_cli --matmul-dtype int8 (as
-     phase 8: ms/step, tokens/s, idle share, peak memory, mfu over the
-     bf16 peak, falling loss; K5 launched 7 x 24 times per step and
+     phase 8: ms/step, tokens/s, idle share, peak memory, device
+     operations a step, mfu over the bf16 peak, falling loss; K5 launched
+     7 x 24 times per step, every launch through its sm90 route, and
      K2/K3/K4 24), alternated int8/bf16 windows (4 pairs x 10 steps) and
      the int8-vs-bf16 argmax flip rate (reported), and one 2-layer
      LM-base-width f32 int8 step through K5 against the plain product
@@ -1032,7 +1038,8 @@ def training_run(torch, port, steps: int = 30, extra=(),
     run under torch.profiler for device time.  The flash (K2-K4) and int8
     matmul (K5) launch counts are set to 0 before the run and read after
     it: flash once per layer per step; K5 7 times per layer per step with
-    ``--matmul-dtype int8`` and never without it."""
+    ``--matmul-dtype int8``, every one through its sm90 route, and never
+    without it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     attn, cli, qz = port["attn"], port["lm_cli"], port["qz"]
@@ -1058,6 +1065,7 @@ def training_run(torch, port, steps: int = 30, extra=(),
               "flash_attention_bwd_dkv"):
         getattr(attn, f).launches = 0
     qz.int8_matmul_q.launches = 0
+    qz.int8_matmul_q.route_launches = dict.fromkeys(qz.ROUTES, 0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1066,6 +1074,7 @@ def training_run(torch, port, steps: int = 30, extra=(),
                 "K3": attn.flash_attention_bwd_dq.launches,
                 "K4": attn.flash_attention_bwd_dkv.launches,
                 "K5": qz.int8_matmul_q.launches}
+    k5_routes_run = dict(qz.int8_matmul_q.route_launches)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     cfg = trainer.cfg.model
     n_params = sum(p.numel() for p in trainer.params.values())
@@ -1076,12 +1085,13 @@ def training_run(torch, port, steps: int = 30, extra=(),
                (t[marks[3]] - t[marks[2]]) / (marks[3] - marks[2])]
     step_ms = (t[marks[1]] - t[marks[0]] + t[marks[3]] - t[marks[2]]) \
         / (marks[1] - marks[0] + marks[3] - marks[2]) * 1e3
-    device_us, n_ops, top = 0.0, 0, {}
+    device_us, n_ops, top, counts = 0.0, 0, {}, {}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
             device_us += e.self_device_time_total
             n_ops += e.count
             top[e.key] = top.get(e.key, 0.0) + e.self_device_time_total
+            counts[e.key] = counts.get(e.key, 0) + e.count
     n_prof = marks[2] - marks[1]
     device_ms = device_us / 1e3 / n_prof
     flops = lm_cfg_flops(cfg, n_params, b, s)
@@ -1093,6 +1103,10 @@ def training_run(torch, port, steps: int = 30, extra=(),
            "tokens_per_s": b * s / (step_ms / 1e3),
            "first_step_s": t[1] - t0,  # with model and corpus setup
            "peak_mem_gb": peak_gb, "launches": launches,
+           "k5_route_launches": k5_routes_run,
+           "k5_device_ops_per_step": {
+               k[:60]: c / n_prof for k, c in counts.items()
+               if "int8_matmul" in k},
            "device_ms_per_step": device_ms,
            "device_ops_per_step": n_ops / n_prof,
            "device_idle_share": 1.0 - device_ms / step_ms,
@@ -1114,6 +1128,9 @@ def training_run(torch, port, steps: int = 30, extra=(),
         if n != per_step[k] * cfg.n_layers * steps:
             fail(f"{k}: {n} launches for {steps} steps x {cfg.n_layers} "
                  f"layers, want {per_step[k]} per layer per step")
+    if k5_routes_run["sm90"] != launches["K5"]:
+        fail(f"K5: {k5_routes_run} launches by route, want all "
+             f"{launches['K5']} through sm90")
     del trainer
     torch.cuda.empty_cache()
     return res
@@ -2185,12 +2202,13 @@ def vgg_cli_run(torch, port, extra: list[str], label: str,
     (ep,) = out["epochs"]
     windows = [r.value * 1e3 for r in ep["time_meter"].records]
     loss_windows = [r.value for r in ep["loss_meter"].records]
-    device_us, n_ops, top = 0.0, 0, {}
+    device_us, n_ops, top, counts = 0.0, 0, {}, {}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
             device_us += e.self_device_time_total
             n_ops += e.count
             top[e.key] = top.get(e.key, 0.0) + e.self_device_time_total
+            counts[e.key] = counts.get(e.key, 0) + e.count
     ms = float(np.median(windows))
     sps = batch / (ms / 1e3)
     dtype = "bfloat16" if "bfloat16" in extra else "float32"
@@ -2247,47 +2265,163 @@ def int8_operands(torch, m, k, n, dtype, seed):
             torch.from_numpy(w).to(DEVICE, dtype))
 
 
+K5_OUT = {"f32": "float32", "bf16": "bfloat16"}  # K5's output dtypes
+
+
+def k5_routes(qz) -> dict:
+    """A copy of K5's launches per route so far."""
+    return dict(qz.int8_matmul_q.route_launches)
+
+
+def k5_route_of(qz, before: dict) -> str:
+    """The route of the one K5 launch since ``before``."""
+    now = k5_routes(qz)
+    taken = [r for r in now if now[r] != before[r]]
+    if len(taken) != 1 or now[taken[0]] != before[taken[0]] + 1:
+        fail(f"K5: want one launch since {before}, got {now}")
+    return taken[0]
+
+
+def int8_build_report(build, facts) -> list[dict]:
+    """K5's sm90 instances (int8_matmul_sm90_kernel, float32 and bf16
+    output) as ptxas built them: registers at launch, spills, stack,
+    static and dynamic shared memory; fails on a spill or a stack frame."""
+    lib = build.load_library("int8_matmul")
+    rep = ptxas_report(build.build_info["int8_matmul"]["log"],
+                       "int8_matmul_sm90_kernel")
+    if len(rep) != 2:
+        fail(f"ptxas reported {len(rep)} int8_matmul_sm90_kernel instances, "
+             f"want 2")
+    for r in rep:
+        r["out"] = "bf16" if "bfloat16" in r["function"] else "f32"
+        r["dynamic_smem_bytes"] = lib.int8_matmul_sm90_smem()
+        print(f"  K5 sm90 ({r['out']} out): "
+              f"{r.get('registers')} registers at launch, "
+              f"{r.get('spill_stores')} / {r.get('spill_loads')} bytes "
+              f"spilled (stores / loads), {r.get('stack_bytes')} bytes "
+              f"stack, {r['static_smem_bytes']} + {r['dynamic_smem_bytes']} "
+              f"bytes shared memory (static + dynamic); {facts['smi']}")
+        if r.get("spill_stores") or r.get("spill_loads") \
+                or r.get("stack_bytes") or "spill_stores" not in r:
+            fail(f"int8_matmul_sm90_kernel spills, keeps a stack frame (its "
+                 f"accumulators in local memory) or was not reported: {r}")
+    return rep
+
+
 def check_int8_kernel(torch, qz) -> dict:
-    """K5 against int8_matmul_plain on the card: the three LM-base shapes
-    (bf16 and f32 inputs), 33 x 77 @ 77 x 19, m = 8191, k = 1000 (not a
-    multiple of 16: the byte-wise loads), n = 4100; bitwise in every case,
-    two runs bitwise equal, the zero row exactly 0."""
+    """K5 against int8_matmul_plain on the card, in float32 and bf16
+    output: the three LM-base shapes (bf16 and f32 inputs; each through
+    the sm90 route the plan picks and through the mma_sync route asked
+    for), 33 x 77 @ 77 x 19, m = 8191, k = 1000 (not a multiple of 16:
+    the mma_sync route's byte-wise loads), n = 4100 (its bf16 rows are not
+    whole 16-byte units: the mma_sync route), k = 1040 (a k tail in the
+    sm90 route's last 128-byte slice); bitwise in every case, two runs
+    bitwise equal, the zero row exactly 0; then 52 back-to-back launches
+    at two shapes, all bitwise equal to the first (the persistent walk and
+    the ring's phase bits over many launches)."""
     cases = [(m, k, n, dt) for (m, k, n) in K5_SHAPES
              for dt in (torch.bfloat16, torch.float32)]
     cases += [(33, 77, 19, torch.float32), (33, 77, 19, torch.bfloat16),
               (8191, 1024, 1024, torch.bfloat16),
               (1024, 1000, 1024, torch.bfloat16),
-              (1024, 1024, 4100, torch.float32)]
-    worst = 0.0
+              (1024, 1024, 4100, torch.float32),
+              (1000, 1040, 1032, torch.bfloat16)]
+    worst, routes_seen = 0.0, {}
     for i, (m, k, n, dt) in enumerate(cases):
         x, w = int8_operands(torch, m, k, n, dt, 200 + i)
-        got = qz.int8_matmul(x, w)
-        again = qz.int8_matmul(x, w)
-        ref = qz.int8_matmul_plain(x, w)
-        torch.cuda.synchronize()
-        err = (got - ref).abs().max().item()
-        ok = (torch.equal(got, ref), torch.equal(got, again),
-              not bool(got[1].any()), bool(torch.isfinite(got).all()))
-        print(f"  {str(dt)[6:]:8s} m={m:5d} k={k:5d} n={n:5d}: max|K5 - "
-              f"plain| {err:.3e}, bitwise {ok[0]}, repeat bitwise {ok[1]}, "
-              f"zero row {ok[2]}")
-        if not all(ok):
-            fail(f"K5 disagrees with int8_matmul_plain (bitwise, repeat, "
-                 f"zero row, finite = {ok}) at m={m} k={k} n={n} {dt}")
-        worst = max(worst, err)
+        qx, sx = qz.quantize_rowwise(x)
+        qwt, sw = qz.quantize_rowwise(w.t())
+        qwt = qwt.contiguous()
+        asked = [None] + (["mma_sync"] if (m, k, n) in K5_SHAPES else [])
+        for out in K5_OUT:
+            odt = getattr(torch, K5_OUT[out])
+            ref = qz.int8_matmul_plain(x, w, odt)
+            for route in asked:
+                before = k5_routes(qz)
+                if route is None:
+                    got = qz.int8_matmul(x, w, out_dtype=odt)
+                else:
+                    got = qz.int8_matmul_q(qx, qwt, sx, sw, odt, route=route)
+                took = k5_route_of(qz, before)
+                again = qz.int8_matmul_q(qx, qwt, sx, sw, odt, route=took)
+                torch.cuda.synchronize()
+                err = (got.float() - ref.float()).abs().max().item()
+                ok = (got.dtype == odt, torch.equal(got, ref),
+                      torch.equal(got, again), not bool(got[1].any()),
+                      bool(torch.isfinite(got).all()))
+                print(f"  {str(dt)[6:]:8s} m={m:5d} k={k:5d} n={n:5d} "
+                      f"{out:4s} out, {took:8s} route: max|K5 - plain| "
+                      f"{err:.3e}, bitwise {ok[1]}, repeat bitwise {ok[2]}, "
+                      f"zero row {ok[3]}")
+                if not all(ok):
+                    fail(f"K5 disagrees with int8_matmul_plain (dtype, "
+                         f"bitwise, repeat, zero row, finite = {ok}) at "
+                         f"m={m} k={k} n={n} {dt}, {out} out, {took} route")
+                if route is None:
+                    routes_seen[f"{m}x{k}x{n} {out}"] = took
+                worst = max(worst, err)
+            del ref
+    want = {f"{m}x{k}x{n} {out}": "sm90" for m, k, n in K5_SHAPES
+            for out in K5_OUT}
+    want.update({"1024x1000x1024 f32": "mma_sync",
+                 "1024x1024x4100 bf16": "mma_sync"})
+    for shape, route in want.items():
+        if routes_seen[shape] != route:
+            fail(f"K5 took the {routes_seen[shape]} route at {shape}, want "
+                 f"{route}")
     print(f"  K5 bitwise equal to its plain version in all {len(cases)} "
-          f"cases")
-    return {"max_abs_err": worst, "cases": len(cases)}
+          f"cases, each in f32 and bf16 output; routes: "
+          + json.dumps(routes_seen))
+    n_rep = 52
+    for (m, k, n), out in (((8192, 1024, 4096), "bf16"),
+                           ((8191, 1024, 1024), "f32")):
+        x, w = int8_operands(torch, m, k, n, torch.bfloat16, 77)
+        qx, sx = qz.quantize_rowwise(x)
+        qwt, sw = qz.quantize_rowwise(w.t())
+        qwt = qwt.contiguous()
+        odt = getattr(torch, K5_OUT[out])
+        before = k5_routes(qz)
+        outs = [qz.int8_matmul_q(qx, qwt, sx, sw, odt) for _ in range(n_rep)]
+        torch.cuda.synchronize()
+        ref = qz.int8_matmul_plain(x, w, odt)
+        same = sum(torch.equal(o, ref) for o in outs)
+        routes = {r: v - before[r] for r, v in k5_routes(qz).items()}
+        print(f"  {n_rep} back-to-back launches at m={m} k={k} n={n} ({out} "
+              f"out, routes {routes}): {same} bitwise equal to the plain "
+              f"version")
+        if same != n_rep or routes["sm90"] != n_rep:
+            fail(f"K5 back-to-back launches: {same} of {n_rep} bitwise, "
+                 f"routes {routes}")
+        del outs, ref
+    torch.cuda.empty_cache()
+    return {"max_abs_err": worst, "cases": len(cases), "routes": routes_seen}
+
+
+def int8_bounds(facts, m, k, n) -> dict:
+    """K5's bound at (m, k, n) per output dtype: max(2 m n k over 1,979
+    int8 TOP/s, (m k + n k + 4 (m + n) + out_bytes m n) over the memory
+    rate), in ms, and which of the two sets it."""
+    ops = 2 * m * n * k
+    to = ops / PEAK_OPS["int8"] * 1e3
+    res = {"ops": ops}
+    for out, nb in (("f32", 4), ("bf16", 2)):
+        nbytes = m * k + k * n + 4 * (m + n) + nb * m * n
+        tb = nbytes / facts["bw"] * 1e3
+        res[out] = {"bytes": nbytes, "bound_ms": max(tb, to),
+                    "bound_by": "bytes" if tb >= to else "operations"}
+    return res
 
 
 def time_int8(torch, qz, facts) -> dict:
-    """K5 at the three LM-base shapes on quantized bf16 operands: device ms
-    by CUDA events with the operands rotated past the 50 MB L2; the bound
-    max(2 m n k over 1,979 int8 TOP/s, (m k + k n + 4 (m + n) + 4 m n)
-    bytes over the memory rate); the plain version of the kernel's work
-    (the float64 integer product and the epilogue) and the library
-    yardstick torch._int_mm (cuBLASLt) plus the same epilogue, which the
-    port never calls.  Also the per-layer sums (7 launches)."""
+    """K5 at the three LM-base shapes on quantized bf16 operands, device ms
+    by CUDA events with the operands rotated past the 50 MB L2: the sm90
+    route (the plan's) against the mma_sync route in alternated windows
+    (sm90, mma_sync, mma_sync, sm90) for each output dtype; the bound of
+    each output dtype (int8_bounds); the plain version of the kernel's
+    work (the float64 integer product and the epilogue); torch._int_mm
+    (cuBLASLt's int8 product, int32 out) alone, and with the epilogue
+    (and the bf16 cast) as the library yardstick, which the port never
+    calls.  Also the per-layer sums (7 launches)."""
     out = {}
     for (m, k, n) in K5_SHAPES:
         x, w = int8_operands(torch, m, k, n, torch.bfloat16, 7)
@@ -2301,40 +2435,69 @@ def time_int8(torch, qz, facts) -> dict:
         del x, w
         it = iter(range(10 ** 9))
 
-        def kernel():
-            qz.int8_matmul_q(*sets[next(it) % n_rot])
+        def k5(o, route):
+            odt = getattr(torch, K5_OUT[o])
+            return lambda: qz.int8_matmul_q(*sets[next(it) % n_rot], odt,
+                                            route=route)
 
         def plain():
             a, b, c, d = sets[next(it) % n_rot]
             qz._dequant(qz._int_product(a, b.t()), c, d.view(1, -1))
 
-        def library():
+        def int_mm():
             a, b, c, d = sets[next(it) % n_rot]
-            torch._int_mm(a, b.t()).float() * (c * d.view(1, -1))
+            torch._int_mm(a, b.t())
 
-        n0 = qz.int8_matmul_q.launches
-        ms = time_ms(torch, kernel)
-        qz.int8_matmul_q.launches = n0  # timing launches are not counted
-        plain_ms = time_ms(torch, plain, iters=5)
-        library_ms = time_ms(torch, library)
-        nbytes = m * k + k * n + 4 * (m + n) + 4 * m * n
-        ops = 2 * m * n * k
-        tb = nbytes / facts["bw"] * 1e3
-        to = ops / PEAK_OPS["int8"] * 1e3
-        out[(m, k, n)] = {
-            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": max(tb, to),
-            "bound_by": "bytes" if tb >= to else "operations",
-            "bytes": nbytes, "ops": ops, "tops": ops / ms / 1e9}
-        print(f"  K5 m={m} k={k} n={n}: " + json.dumps(out[(m, k, n)]))
+        def library(o):
+            def run():
+                a, b, c, d = sets[next(it) % n_rot]
+                y = torch._int_mm(a, b.t()).float() * (c * d.view(1, -1))
+                if o == "bf16":
+                    y.to(torch.bfloat16)
+            return run
+
+        res = {"bounds": int8_bounds(facts, m, k, n), "launches_per_layer":
+               K5_SHAPES[(m, k, n)]}
+        counts = (qz.int8_matmul_q.launches, k5_routes(qz))
+        for o in K5_OUT:
+            w_ = {"sm90": [], "mma_sync": []}
+            for route in ("sm90", "mma_sync", "mma_sync", "sm90"):
+                w_[route].append(time_ms(torch, k5(o, route)))
+            ratios = [a / b for a, b in zip(w_["sm90"], w_["mma_sync"])]
+            res[o] = {"ms": float(np.mean(w_["sm90"])),
+                      "mma_sync_ms": float(np.mean(w_["mma_sync"])),
+                      "ms_windows": w_["sm90"],
+                      "mma_sync_ms_windows": w_["mma_sync"],
+                      "sm90_over_mma_sync": float(np.mean(ratios)),
+                      "library_ms": time_ms(torch, library(o))}
+            b = res["bounds"][o]
+            res[o]["bound_share"] = b["bound_ms"] / res[o]["ms"]
+            res[o]["tops"] = res["bounds"]["ops"] / res[o]["ms"] / 1e9
+        # timing launches are not counted
+        qz.int8_matmul_q.launches = counts[0]
+        qz.int8_matmul_q.route_launches = counts[1]
+        res["int_mm_ms"] = time_ms(torch, int_mm)
+        res["plain_ms"] = time_ms(torch, plain, iters=5)
+        out[(m, k, n)] = res
+        print(f"  K5 m={m} k={k} n={n}: " + json.dumps(res))
         del sets
-    layer = {key: sum(cnt * out[s][key] for s, cnt in K5_SHAPES.items())
-             for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    by_bytes = sum(cnt * out[s]["bound_ms"] for s, cnt in K5_SHAPES.items()
-                   if out[s]["bound_by"] == "bytes")
-    layer["bound_by"] = ("bytes" if by_bytes >= layer["bound_ms"] / 2
-                         else "operations")
-    print("  K5 per layer (7 launches): " + json.dumps(layer))
+    layer = {}
+    for o in K5_OUT:
+        layer[o] = {key: sum(cnt * out[s][o][key]
+                             for s, cnt in K5_SHAPES.items())
+                    for key in ("ms", "mma_sync_ms", "library_ms")}
+        layer[o]["bound_ms"] = sum(cnt * out[s]["bounds"][o]["bound_ms"]
+                                   for s, cnt in K5_SHAPES.items())
+        by_bytes = sum(cnt * out[s]["bounds"][o]["bound_ms"]
+                       for s, cnt in K5_SHAPES.items()
+                       if out[s]["bounds"][o]["bound_by"] == "bytes")
+        layer[o]["bound_by"] = ("bytes" if by_bytes >= layer[o]["bound_ms"]
+                                / 2 else "operations")
+        layer[o]["bound_share"] = layer[o]["bound_ms"] / layer[o]["ms"]
+    for key in ("int_mm_ms", "plain_ms"):
+        layer[key] = sum(cnt * out[s][key] for s, cnt in K5_SHAPES.items())
+    print("  K5 per layer (7 launches): " + json.dumps(layer) + "; "
+          + facts["smi"])
     torch.cuda.empty_cache()
     return {"shapes": {f"{m}x{k}x{n}": v for (m, k, n), v in out.items()},
             "per_layer": layer}
@@ -2895,6 +3058,7 @@ def main() -> int:
     sm90_build = sm90_build_report(_build, facts)
     decode_build = decode_build_report(_build, facts)
     bn_build = bn_build_report(_build, facts)
+    k5_build = int8_build_report(_build, facts)
 
     phase(3, "decode kernels against their plain versions")
     worst = check_kernels(torch, attn)
@@ -3078,17 +3242,33 @@ def main() -> int:
         "source": "distributed_pytorch_tpu_torch/csrc/int8_matmul.cu",
         "replaces": "distributed_pytorch_tpu/ops/quantized.py:91",
         "launches": int8_res["launches"]["K5"],
+        "k5_routes": {"main_path": int8_res["k5_route_launches"],
+                      "phase_15_cases": k5_worst["routes"]},
         "max_abs_err": k5_worst["max_abs_err"],
-        "tolerance": "bitwise (max_abs_err must be 0)",
+        "tolerance": "bitwise (max_abs_err must be 0), f32 and bf16 out",
         "shapes": "one LM-base layer at B=8 x S=1024: 4 x (8192, 1024) @ "
                   "(1024, 1024), 2 x @ (1024, 4096), 1 x (8192, 4096) @ "
-                  "(4096, 1024), summed; per shape in per_shape",
-        "ms": k5["ms"], "plain_ms": k5["plain_ms"],
+                  "(4096, 1024), summed; bf16 output as the main path "
+                  "writes it (f32 beside); per shape in per_shape",
+        "ms": k5["bf16"]["ms"], "plain_ms": k5["plain_ms"],
         "plain": "the float64 integer product + epilogue on the quantized "
                  "operands",
-        "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
-        "library_ms": k5["library_ms"],
-        "library": "torch._int_mm (cuBLASLt) + the same epilogue",
+        "bound_ms": k5["bf16"]["bound_ms"],
+        "bound_by": k5["bf16"]["bound_by"],
+        "library_ms": k5["bf16"]["library_ms"],
+        "library": "torch._int_mm (cuBLASLt) + the same epilogue + the "
+                   "bf16 cast",
+        "int_mm_alone_ms": k5["int_mm_ms"],
+        "mma_sync_route_ms": k5["bf16"]["mma_sync_ms"],
+        "ms_f32": k5["f32"]["ms"], "bound_ms_f32": k5["f32"]["bound_ms"],
+        "bound_by_f32": k5["f32"]["bound_by"],
+        "mma_sync_route_ms_f32": k5["f32"]["mma_sync_ms"],
+        "library_ms_f32": k5["f32"]["library_ms"],
+        "sm90_kernel": "int8_matmul_sm90_kernel (wgmma s8, TMA ring, "
+                       "persistent, warp-specialized)",
+        "build": [{k: r.get(k) for k in (
+            "out", "registers", "spill_stores", "spill_loads",
+            "static_smem_bytes", "dynamic_smem_bytes")} for r in k5_build],
         "per_shape": k5_timing["shapes"]})
     if not all(k["launches"] for k in kernels):
         fail("a kernel of the main path was never launched")

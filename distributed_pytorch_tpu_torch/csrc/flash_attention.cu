@@ -109,7 +109,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <algorithm>
 #include <type_traits>
 
 #include "sm90.cuh"
@@ -1379,38 +1378,11 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
   }
 }
 
-// cuTensorMapEncodeTiled, a driver function, taken from the runtime so the
-// library needs no -lcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled tensor_map_encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // A contiguous (BH, S, D) bf16 slab as the 3-D tensor {D, S, BH}
 // (innermost first), moved in boxes of 64 columns x ``rows`` rows of one
 // (b, h), 128-byte swizzled; boxes past S read as zeros.
-bool encode_slab(EncodeTiled enc, CUtensorMap* map, const void* ptr, int BH,
-                 int S, int D, int rows) {
+bool encode_slab(sm90::EncodeTiled enc, CUtensorMap* map, const void* ptr,
+                 int BH, int S, int D, int rows) {
   const cuuint64_t dims[3] = {cuuint64_t(D), cuuint64_t(S), cuuint64_t(BH)};
   const cuuint64_t strides[2] = {cuuint64_t(D) * 2, cuuint64_t(S) * D * 2};
   const cuuint32_t box[3] = {64, cuuint32_t(rows), 1};
@@ -1424,7 +1396,7 @@ bool encode_slab(EncodeTiled enc, CUtensorMap* map, const void* ptr, int BH,
 
 // A contiguous float32 array of ``n`` values as a 1-D tensor, moved in
 // boxes of 64 values; values past ``n`` read as zeros.
-bool encode_f32_vec(EncodeTiled enc, CUtensorMap* map, const void* ptr,
+bool encode_f32_vec(sm90::EncodeTiled enc, CUtensorMap* map, const void* ptr,
                     size_t n) {
   const cuuint64_t dims[1] = {cuuint64_t(n)};
   const cuuint64_t strides[1] = {4};  // rank 1 has no strides to give
@@ -1436,26 +1408,9 @@ bool encode_f32_vec(EncodeTiled enc, CUtensorMap* map, const void* ptr,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The persistent kernels' grid: one block per SM, at most one per work
-// tile.  Also sets the kernel's dynamic shared memory.
-template <typename Kernel>
-cudaError_t persistent_grid(Kernel kernel, uint32_t smem, int n_work,
-                            int* blocks) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  int device, sms;
-  if (err != cudaSuccess || (err = cudaGetDevice(&device)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    device)) != cudaSuccess)
-    return err;
-  *blocks = std::min(n_work, sms);
-  return cudaSuccess;
-}
-
 template <int D>
 int launch_fwd_sm90(const Args& a, int BH, cudaStream_t stream) {
-  const EncodeTiled enc = tensor_map_encoder();
+  const sm90::EncodeTiled enc = sm90::tensor_map_encoder();
   if (!enc) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap tq, tk, tv, to;
   if (!encode_slab(enc, &tq, a.q, BH, a.Sq, D, 64) ||
@@ -1465,8 +1420,8 @@ int launch_fwd_sm90(const Args& a, int BH, cudaStream_t stream) {
     return static_cast<int>(cudaErrorInvalidValue);
   int blocks;
   const cudaError_t err =
-      persistent_grid(fwd_sm90_kernel<D>, Fwd<D>::smem,
-                      (a.Sq + kFwdM - 1) / kFwdM * BH, &blocks);
+      sm90::persistent_grid(fwd_sm90_kernel<D>, Fwd<D>::smem,
+                            (a.Sq + kFwdM - 1) / kFwdM * BH, &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
   fwd_sm90_kernel<D><<<blocks, kFwdThreads, Fwd<D>::smem, stream>>>(
       tq, tk, tv, to, a.lse, a.Sq, a.Sk, a.causal, a.scale * kLog2e, BH);
@@ -1475,7 +1430,7 @@ int launch_fwd_sm90(const Args& a, int BH, cudaStream_t stream) {
 
 template <int D>
 int launch_bwd_dq_sm90(const Args& a, int BH, cudaStream_t stream) {
-  const EncodeTiled enc = tensor_map_encoder();
+  const sm90::EncodeTiled enc = sm90::tensor_map_encoder();
   if (!enc) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap tq, tk, tv, tdo, tdq;
   if (!encode_slab(enc, &tq, a.q, BH, a.Sq, D, 64) ||
@@ -1486,8 +1441,8 @@ int launch_bwd_dq_sm90(const Args& a, int BH, cudaStream_t stream) {
     return static_cast<int>(cudaErrorInvalidValue);
   int blocks;
   const cudaError_t err =
-      persistent_grid(bwd_dq_sm90_kernel<D>, BwdDq<D>::smem,
-                      (a.Sq + kBwdM - 1) / kBwdM * BH, &blocks);
+      sm90::persistent_grid(bwd_dq_sm90_kernel<D>, BwdDq<D>::smem,
+                            (a.Sq + kBwdM - 1) / kBwdM * BH, &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
   bwd_dq_sm90_kernel<D><<<blocks, kFwdThreads, BwdDq<D>::smem, stream>>>(
       tq, tk, tv, tdo, tdq, a.lse_in, a.delta, a.Sq, a.Sk, a.causal,
@@ -1497,7 +1452,7 @@ int launch_bwd_dq_sm90(const Args& a, int BH, cudaStream_t stream) {
 
 template <int D>
 int launch_bwd_dkv_sm90(const Args& a, int BH, cudaStream_t stream) {
-  const EncodeTiled enc = tensor_map_encoder();
+  const sm90::EncodeTiled enc = sm90::tensor_map_encoder();
   if (!enc) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap tq, tk, tv, tdo, tdk, tdv, tlse, tdelta;
   const size_t rows = static_cast<size_t>(BH) * a.Sq;
@@ -1512,8 +1467,8 @@ int launch_bwd_dkv_sm90(const Args& a, int BH, cudaStream_t stream) {
     return static_cast<int>(cudaErrorInvalidValue);
   int blocks;
   const cudaError_t err =
-      persistent_grid(bwd_dkv_sm90_kernel<D>, BwdDkv<D>::smem,
-                      (a.Sk + kBwdM - 1) / kBwdM * BH, &blocks);
+      sm90::persistent_grid(bwd_dkv_sm90_kernel<D>, BwdDkv<D>::smem,
+                            (a.Sk + kBwdM - 1) / kBwdM * BH, &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
   bwd_dkv_sm90_kernel<D><<<blocks, kFwdThreads, BwdDkv<D>::smem, stream>>>(
       tq, tk, tv, tdo, tdk, tdv, tlse, tdelta, a.Sq, a.Sk, a.causal, a.scale,

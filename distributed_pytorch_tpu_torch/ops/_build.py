@@ -80,7 +80,10 @@ _SIGNATURES = {
         "int8_matmul_launch": (
             ctypes.c_int,
             [ctypes.c_void_p] * 5  # qx, qwt, sx, sw, out
-            + [ctypes.c_int] * 3 + [ctypes.c_void_p]),  # M, N, K, stream
+            + [ctypes.c_int] * 5  # M, N, K, out_dtype, route
+            + [ctypes.POINTER(ctypes.c_int),  # route_taken
+               ctypes.c_void_p]),  # stream
+        "int8_matmul_sm90_smem": (ctypes.c_int, []),
         "int8_matmul_error": (ctypes.c_char_p, [ctypes.c_int]),
     },
 }
