@@ -44,9 +44,10 @@ Phases, each of which raises on failure:
      at the serving shape beside their bound and plain versions, and
      against SDPA in alternated windows;
  10. LM-base in float32 through the paged batcher: an oversubscribed pool
-     (evictions and swap-ins) and shared-prefix admissions against static
-     generate() per request, and one decode step's logits through K8
-     against the plain paged path;
+     (evictions and swap-ins), shared-prefix admissions and in-block
+     refill handoffs against static generate() per request (the handoffs
+     also against K8's plain version, tokens equal), and one decode
+     step's logits through K8 against the plain paged path;
  11. LM-base bf16 paged serving: phase 5's load on the default pool
      without compaction (tokens equal to phase 5's, request by request),
      with compaction, on an oversubscribed pool, the int8 pool (K9), and a
@@ -90,7 +91,25 @@ Phases, each of which raises on failure:
      selective), full against selective in alternated 5-step windows (K2's
      launches per window, one profiled step of each), and head_loss dense
      against chunked at vocab 32,000, B=8 x S=1024 x 1024 (loss within
-     1e-5, gradients, time and peak memory).
+     1e-5, gradients, time and peak memory);
+ 18. serving scheduling at LM-base width: (a) f32 against static
+     generate() per request, with near-ties allowed as in phase 4: the
+     batcher with prefill_chunk=64 and with speculate=4 (dense and paged),
+     generate_lookup, and generate_speculative with a 2-layer draft
+     (acceptance reported); (b) bf16 overlapped dispatch on against off on
+     phase 5's load in alternated windows (A B B A, twice; tokens/s, wall
+     ms per decode step, chained dispatches; tokens bitwise equal), and in
+     pure-decode windows where every block chains (wall ms per decode
+     step; idle share and device operations per emitted token from one
+     profiled window a side; scripts/serving_overlap_ab.py also profiles
+     the load); (c) phase 5's load with in-block refill off
+     against phase 5's run (utilization, refills, tokens/s, TTFT; bf16
+     token flips counted); (d) speculate=4 against 0 on a lookup-friendly
+     load (acceptance, emissions per slot-step, verify rounds per token;
+     no decode-kernel launch in the speculative run); (e) phase 5's load
+     with prefill_chunk=128 against phase 5's run (TTFT, tokens/s).
+Phases 4, 5, 10, 11 and 18 run the batcher's defaults, in-block refill and
+overlapped dispatch on, as the JAX batcher's are.
 The second-to-last lines are the kernels' JSON record and the card's name
 and power limit; the last line is {"ok": true, "device": {...}}.
 
@@ -422,20 +441,33 @@ def time_kernel(torch, F, attn, *, quant: bool, qdtype, facts) -> dict:
 
 # -- phases 4 and 5: the slice ---------------------------------------------
 
-def check_greedy(torch, port, params, prompts, got, max_new,
-                 label: str) -> int:
-    """Each request's batcher tokens ``got[rid]`` against static
-    generate(); a difference is allowed only at a near-tie (top-2 logit
-    gap < 1e-3) of the reference stream's first diverging position.
-    Returns the number of such flips."""
-    tfm, gen = port["tfm"], port["gen"]
-    cfg, dev = port["cfg"], port["dev"]
-    flips = 0
-    for rid, p in enumerate(prompts):
+def greedy_refs(port, params, prompts, max_new) -> list:
+    """Static generate()'s greedy output for each prompt."""
+    gen, cfg, dev = port["gen"], port["cfg"], port["dev"]
+    wants = []
+    for p in prompts:
         want = gen.generate(params, p[None], cfg=cfg, max_new=max_new,
                             temperature=0.0, device=dev)[0].cpu().numpy()
         if not np.isfinite(want).all() or len(want) != len(p) + max_new:
             fail("generate() output malformed")
+        wants.append(want)
+    return wants
+
+
+def check_greedy(torch, port, params, prompts, got, max_new,
+                 label: str, wants=None) -> int:
+    """Each request's tokens ``got[rid]`` against static generate()
+    (``wants``, from ``greedy_refs``, when given); a difference is allowed
+    only at a near-tie (top-2 logit gap < 1e-3) of the reference stream's
+    first diverging position.  Returns the number of such flips."""
+    tfm, cfg, dev = port["tfm"], port["cfg"], port["dev"]
+    if wants is None:
+        wants = greedy_refs(port, params, prompts, max_new)
+    flips = 0
+    for rid, (p, want) in enumerate(zip(prompts, wants)):
+        if len(got[rid]) != len(want):
+            fail(f"{label}: request {rid} has {len(got[rid])} tokens, "
+                 f"want {len(want)}")
         diff = np.nonzero(got[rid] != want)[0]
         if len(diff):
             t = int(diff[0])
@@ -502,6 +534,21 @@ def exactness(torch, port) -> None:
     torch.cuda.empty_cache()
 
 
+def device_events(prof) -> dict[str, list]:
+    """{name: [device us, count]} of the kernels, copies and sets a stopped
+    CUDA-activity profile recorded, from its raw events: key_averages()
+    first builds a Python event for each, ~150 us apiece on the card's
+    host, minutes for a whole serving load (~1.5 M of them)."""
+    from torch.autograd import DeviceType
+    by_name: dict[str, list] = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and not e.is_hidden_event():
+            acc = by_name.setdefault(e.name(), [0.0, 0])
+            acc[0] += e.duration_ns() / 1e3
+            acc[1] += 1
+    return by_name
+
+
 def decode_window(torch, cb, prompts, n_blocks: int, profiled: bool,
                   max_new: int = 64) -> dict:
     """Admit ``prompts`` into the drained batcher, run one block, then
@@ -512,7 +559,6 @@ def decode_window(torch, cb, prompts, n_blocks: int, profiled: bool,
     ms per decode step and device operations (kernels and copies) per step,
     summed over CUDA events (one stream, so they do not overlap), and the
     operations that take the most device time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     if cb.pending():
         fail("decode window started on a busy batcher")
@@ -539,12 +585,7 @@ def decode_window(torch, cb, prompts, n_blocks: int, profiled: bool,
            wall * 1e3 / max(steps, 1)}
     if prof is None:
         return res
-    by_name: dict[str, list] = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            acc = by_name.setdefault(e.key, [0.0, 0])
-            acc[0] += e.self_device_time_total
-            acc[1] += e.count
+    by_name = device_events(prof)
     total_us = sum(us for us, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     res.update({
@@ -568,7 +609,7 @@ def phase5_load(cfg, n_req: int, budgets: tuple[int, int]):
 
 
 def serving_run(torch, port, *, label, prompts, max_new,
-                window_blocks: int = 2, window_new: int = 64,
+                window_blocks: int = 1, window_new: int = 64,
                 **batcher_kw) -> dict:
     """One LM-base bf16 serving load through the batcher (8 slots x 2048,
     buckets (128, 512), 16 steps per block unless ``batcher_kw`` says
@@ -620,22 +661,30 @@ def serving_run(torch, port, *, label, prompts, max_new,
              f"{other_launches} of {other.__name__} for "
              f"{st['decode_steps']} decode steps x {cfg.n_layers} layers")
     ts = cb.timing_stats()
+    lat = cb.latency_stats()
     res = {"label": label, "requests": len(prompts),
            "emitted_tokens": st["emitted_tokens"],
            "decode_steps": st["decode_steps"], "launches": launches,
            "kernel": kern.__name__,
            "wall_s": wall, "tokens_per_s": st["emitted_tokens"] / wall,
            "ms_per_decode_step": (ts["dispatch"]["total_s"]
-                                  / st["decode_steps"] * 1e3),
+                                  / st["decode_steps"] * 1e3
+                                  if st["decode_steps"] else None),
            "ms_per_prefill": (ts["prefill"]["total_s"]
-                              / st["prefill_dispatches"] * 1e3),
+                              / st["prefill_dispatches"] * 1e3
+                              if st["prefill_dispatches"] else None),
            "prefill_dispatches": st["prefill_dispatches"],
            "utilization": utilization,
+           "emitted_per_slot_step": cb.emitted_per_slot_step(),
+           "ttft_p50_s": lat["ttft_p50"], "ttft_p95_s": lat["ttft_p95"],
            "peak_mem_gb": peak_mem_gb,
            "timing_total_s": {k: v["total_s"] for k, v in ts.items()
                               if k != "_total_s"}}
-    for k in ("decode_dispatches", "evictions", "swap_ins",
-              "compact_dispatches", "prefix_hits", "prefix_pages_shared",
+    for k in ("decode_dispatches", "slot_steps", "batch_admissions",
+              "inblock_prefill_steps", "inblock_refills",
+              "chained_dispatches", "evictions", "swap_ins",
+              "compact_dispatches", "spec_rounds", "spec_proposed",
+              "spec_accepted", "prefix_hits", "prefix_pages_shared",
               "prefix_reclaimed"):
         res[k] = st[k]
     if opts.get("paged"):
@@ -1320,11 +1369,13 @@ def time_paged_kernel(torch, F, attn, *, quant: bool, facts) -> dict:
 def paged_exactness(torch, port) -> dict:
     """LM-base in float32 through the paged batcher: (1) two requests that
     both cross page 0's boundary on a 2-page pool (one is evicted and
-    swapped back in) and (2) shared-prefix admissions over a 520-token
-    common prompt, each against static generate() per request (flips only
-    at near-ties); (3) one decode step's logits through K8 against the
-    plain paged path, on a prefilled cache scattered into a shuffled
-    pool."""
+    swapped back in), (2) shared-prefix admissions over a 520-token
+    common prompt and (3) in-block refill handoffs (rows switching table
+    rows mid-block), each against static generate() per request (flips
+    only at near-ties), (3) also against the same run through K8's plain
+    version (tokens equal); (4) one decode step's logits through K8
+    against the plain paged path, on a prefilled cache scattered into a
+    shuffled pool."""
     tfm, gen, attn, serve = port["tfm"], port["gen"], port["attn"], \
         port["serve"]
     cfg, dev = port["cfg"], port["dev"]
@@ -1360,7 +1411,45 @@ def paged_exactness(torch, port) -> dict:
                               "shared prefix")}
     if cb.stats["prefix_hits"] < 1:
         fail(f"no shared-prefix admission: {cb.stats}")
-    # (3) one decode step, K8 against the plain paged version
+    # (3) in-block refill handoffs on the pool: ragged budgets through two
+    # slots, so rows switch to a staged refill's table row mid-block on
+    # the device; against generate() and against the same run through
+    # K8's plain version
+    prompts = [rng.integers(0, v, (n,)).astype(np.int32)
+               for n in (9, 30, 17, 12, 25)]
+    budgets = [3, 20, 6, 14, 9]
+    runs = []
+    routed = gen.decode_attention_paged
+    for plain in (False, True):
+        cb = serve.ContinuousBatcher(
+            params, cfg, slots=2, max_len=1024, temperature=0.0,
+            prompt_buckets=(64,), paged=True, steps_per_sync=8, device=dev)
+        if plain:
+            gen.decode_attention_paged = attn.decode_attention_paged_plain
+        try:
+            rids = [cb.submit(p, max_new=b) for p, b in zip(prompts, budgets)]
+            while cb.pending():
+                cb.step()
+        finally:
+            gen.decode_attention_paged = routed
+        runs.append((cb, [cb.result(r) for r in rids]))
+    (cb, got), (_, plain_got) = runs
+    flips = 0
+    for p, b, out in zip(prompts, budgets, got):
+        flips += check_greedy(torch, port, params, [p], [out], b,
+                              "paged handoffs")
+    res["handoffs"] = {
+        "inblock_refills": cb.stats["inblock_refills"],
+        "chained_dispatches": cb.stats["chained_dispatches"],
+        "flips": flips,
+        "tokens_equal_to_K8_plain": all(
+            np.array_equal(x, y) for x, y in zip(got, plain_got))}
+    if cb.stats["inblock_refills"] < 1:
+        fail(f"paged handoffs: no in-block refill: {cb.stats}")
+    if not res["handoffs"]["tokens_equal_to_K8_plain"]:
+        fail("paged handoffs: tokens through K8 differ from its plain "
+             "version's")
+    # (4) one decode step, K8 against the plain paged version
     b, s0 = 4, 200
     toks = torch.from_numpy(rng.integers(0, v, (b, s0))).to(dev)
     cache = gen.init_cache(cfg, b, PAGE, device=dev)
@@ -1459,7 +1548,7 @@ def admission_profile(torch, port, prompts, prefix_cache: bool) -> dict:
     return res
 
 
-def paired_decode(torch, port, prompts, pairs: int = 4) -> dict:
+def paired_decode(torch, port, prompts, pairs: int = 2) -> dict:
     """The paged decode step's wall time against the dense one's within
     one stretch of the host's time: a dense and a paged batcher (compaction
     off, so both dispatch all 8 rows) run the same unprofiled decode window
@@ -1498,7 +1587,7 @@ def paged_serving(torch, port, dense_tokens) -> dict:
     cfg = port["cfg"]
     load16 = phase5_load(cfg, 16, (64, 256))
     load8 = phase5_load(cfg, 8, (32, 64))
-    short = dict(window_blocks=1, window_new=32)  # lighter idle-share window
+    short = dict(window_new=32)  # lighter idle-share window
     res = {"a": serving_run(torch, port, label="(a) paged, default pool, "
                             "compact_tail=False", prompts=load16[0],
                             max_new=load16[1], paged=True,
@@ -1512,12 +1601,12 @@ def paged_serving(torch, port, dense_tokens) -> dict:
           f"{len(dense_tokens)} requests")
     res["b"] = serving_run(torch, port, label="(b) paged, compact_tail=True",
                            prompts=load16[0], max_new=load16[1], paged=True,
-                           **short)
+                           window_blocks=0)
     if res["b"]["compact_dispatches"] < 1:
         fail("(b): no compact dispatch")
     res["c"] = serving_run(torch, port, label="(c) paged, pool_pages=9",
                            prompts=load16[0], max_new=load16[1], paged=True,
-                           pool_pages=9, **short)
+                           pool_pages=9, window_blocks=0)
     if not (res["c"]["evictions"] >= 1
             and res["c"]["swap_ins"] == res["c"]["evictions"]):
         fail(f"(c): evictions {res['c']['evictions']}, swap-ins "
@@ -1535,12 +1624,16 @@ def paged_serving(torch, port, dense_tokens) -> dict:
               prompt_buckets=(128, 512, 1536))
     res["e"] = serving_run(torch, port, label="(e) shared 1024-token "
                            "system prompt, prefix cache", prefix_cache=True,
-                           **short, **kw)
+                           window_blocks=0, **kw)
     if res["e"]["prefix_hits"] != 15 or res["e"]["prefix_pages_shared"] != 30:
         fail(f"(e): {res['e']['prefix_hits']} prefix hits sharing "
              f"{res['e']['prefix_pages_shared']} pages (want 15 and 30)")
+    # batched prefills on both sides: a cached prefix never admits
+    # in-block, and in-block refill would teacher-force these 1,040-1,224
+    # token prompts a token a step
     res["e0"] = serving_run(torch, port, label="(e) the same load without "
-                            "the prefix cache", window_blocks=0, **kw)
+                            "the prefix cache, in-block refill off",
+                            window_blocks=0, inblock_refill=False, **kw)
     print(f"  (e) ms per prefill: {res['e']['ms_per_prefill']:.3f} with the "
           f"prefix cache, {res['e0']['ms_per_prefill']:.3f} without "
           f"({res['e0']['ms_per_prefill'] / res['e']['ms_per_prefill']:.2f}"
@@ -1555,6 +1648,288 @@ def paged_serving(torch, port, dense_tokens) -> dict:
     res["paired"] = paired_decode(torch, port, load16[0])
     print("  dense and paged decode windows, alternated: "
           + json.dumps(res["paired"]))
+    return res
+
+
+# -- phase 18: serving scheduling ------------------------------------------
+
+def scheduling_exactness(torch, port) -> dict:
+    """Phase 18 (a): LM-base f32 against static generate() (check_greedy),
+    on phase 4's prompts: the batcher with prefill_chunk=64 and with
+    speculate=4 (dense and paged), generate_lookup, and
+    generate_speculative with a 2-layer LM-base-width draft (random
+    weights: its acceptance is reported, not gated)."""
+    import dataclasses
+    tfm, gen, serve = port["tfm"], port["gen"], port["serve"]
+    cfg, dev = port["cfg"], port["dev"]
+    params = tfm.init(0, cfg, device=dev, dtype=torch.float32)
+    rng = np.random.default_rng(1)
+    lens, max_new = (7, 45, 130, 300), 24   # phase 4's load
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in lens]
+    wants = greedy_refs(port, params, prompts, max_new)
+    res = {}
+    # four slots for the chunked run: every prompt admits chunk by chunk
+    # from the idle pool (300 tokens: 5 chunks)
+    for label, kw in (("prefill_chunk=64", dict(prefill_chunk=64, slots=4)),
+                      ("speculate=4", dict(speculate=4, slots=2)),
+                      ("speculate=4 paged", dict(speculate=4, slots=2,
+                                                 paged=True))):
+        cb = serve.ContinuousBatcher(
+            params, cfg, max_len=512, temperature=0.0,
+            prompt_buckets=(64, 512), device=dev, **kw)
+        got = cb.run(prompts, max_new=max_new)
+        st = cb.stats
+        res[label] = {"flips": check_greedy(torch, port, params, prompts,
+                                            got, max_new, label, wants),
+                      **{k: st[k] for k in (
+                          "prefill_dispatches", "batch_admissions",
+                          "inblock_refills", "spec_rounds", "spec_proposed",
+                          "spec_accepted")}}
+        if kw.get("speculate") and not st["spec_rounds"]:
+            fail(f"{label}: no speculation round ran: {st}")
+        if kw.get("prefill_chunk") and \
+                st["prefill_dispatches"] <= st["batch_admissions"]:
+            fail(f"{label}: no admission took more than one chunk: {st}")
+    outs, rounds = [], 0
+    for p in prompts:
+        toks, st = gen.generate_lookup(params, p[None], cfg=cfg,
+                                       max_new=max_new, device=dev)
+        outs.append(toks[0].cpu().numpy())
+        rounds += st["rounds"]
+    res["generate_lookup"] = {
+        "flips": check_greedy(torch, port, params, prompts, outs, max_new,
+                              "generate_lookup", wants),
+        "rounds": rounds}
+    dcfg = dataclasses.replace(cfg, n_layers=2)
+    draft = tfm.init(1, dcfg, device=dev, dtype=torch.float32)
+    outs, acc = [], {"rounds": 0, "drafted": 0, "accepted": 0}
+    for p in prompts:
+        toks, st = gen.generate_speculative(
+            params, draft, p[None], cfg=cfg, draft_cfg=dcfg,
+            max_new=max_new, n_spec=4, device=dev)
+        outs.append(toks[0].cpu().numpy())
+        acc = {k: acc[k] + st[k] for k in acc}
+    res["generate_speculative"] = {
+        "flips": check_greedy(torch, port, params, prompts, outs, max_new,
+                              "generate_speculative", wants),
+        **acc, "acceptance": acc["accepted"] / max(acc["drafted"], 1)}
+    print("  f32 scheduling paths vs static generate: " + json.dumps(res))
+    del params, draft
+    torch.cuda.empty_cache()
+    return res
+
+
+def overlap_windows(torch, port, load, pairs: int = 2,
+                    decode_pairs: int = 1, decode_blocks: int = 3,
+                    profile_load: bool = False) -> dict:
+    """Phase 18 (b): LM-base bf16, phase 5's batcher (8 slots, 16 steps a
+    block, in-block refill on) with overlap on (A) against off (B).
+
+    Load windows: each serves ``load`` (phase 5's 16 requests at their
+    64-256 budgets) from a drained batcher to its end, alternated A B B A
+    ``pairs`` times; with ``profile_load``, then one profiled load window
+    of each (CUDA activity only: the load's device time and operations
+    per emitted token; ~75 s each with the profile's parse).  Decode
+    windows (decode_window): the load's first 8 prompts admitted, then
+    ``decode_blocks`` blocks with every slot decoding, each one chained
+    under overlap (the steady state the mechanism is for), alternated A B
+    B A ``decode_pairs`` times, then one profiled window of each (device
+    time and operations a step, the idle share).  Fails unless every load
+    window gives the first one's tokens bitwise, and only the overlapped
+    side chained."""
+    from torch.profiler import ProfilerActivity, profile
+    tfm, serve, cfg, dev = port["tfm"], port["serve"], port["cfg"], \
+        port["dev"]
+    prompts, budgets = load
+    params = tfm.init(0, cfg, device=dev, dtype=torch.bfloat16)
+    opts = dict(slots=8, max_len=2048, temperature=0.0, dtype=torch.bfloat16,
+                prompt_buckets=(128, 512), steps_per_sync=16, device=dev)
+    cbs = {on: serve.ContinuousBatcher(params, cfg, overlap=on, **opts)
+           for on in (True, False)}
+    keys = ("emitted_tokens", "decode_steps", "decode_dispatches",
+            "chained_dispatches")
+
+    def window(cb, profiled=False):
+        st0 = dict(cb.stats)
+        rids = [cb.submit(p, max_new=m) for p, m in zip(prompts, budgets)]
+        sync(torch)
+        prof = profile(activities=[ProfilerActivity.CUDA]) \
+            if profiled else None
+        if prof is not None:
+            prof.start()
+        t0 = time.perf_counter()
+        while cb.pending():
+            cb.step()
+        sync(torch)
+        wall = time.perf_counter() - t0
+        if prof is not None:
+            prof.stop()
+        d = {k: cb.stats[k] - st0[k] for k in keys}
+        d.update(wall_s=wall, tokens=[cb.result(r) for r in rids])
+        if prof is not None:
+            ev = device_events(prof).values()
+            d.update(device_ms=sum(us for us, _ in ev) / 1e3,
+                     device_ops=sum(n for _, n in ev))
+        return d
+
+    def alternate(fn, n_pairs):
+        runs = {True: [], False: []}
+        for i in range(2 * n_pairs):
+            for on in ((True, False), (False, True))[i % 2]:
+                runs[on].append(fn(cbs[on]))
+        return runs
+
+    def decode(cb, profiled=False):
+        c0 = cb.stats["chained_dispatches"]
+        w = decode_window(torch, cb, prompts[:8], decode_blocks,
+                          profiled=profiled,
+                          max_new=16 * (decode_blocks + 2))
+        w["chained_dispatches"] = cb.stats["chained_dispatches"] - c0
+        return w
+
+    runs = alternate(window, pairs)
+    profs = {on: window(cbs[on], profiled=True) for on in (True, False)} \
+        if profile_load else {}
+    ref = runs[True][0]["tokens"]
+    for on, ws in runs.items():
+        for w in ws + ([profs[on]] if profs else []):
+            bad = [i for i, (x, y) in enumerate(zip(w["tokens"], ref))
+                   if not np.array_equal(x, y)]
+            if bad:
+                fail(f"(b) overlap={on}: tokens differ from the first "
+                     f"window's for requests {bad}")
+    dec = alternate(decode, decode_pairs)
+    dprof = {on: decode(cbs[on], profiled=True) for on in (True, False)}
+    res = {}
+    for on, ws in runs.items():
+        walls = [w["wall_s"] for w in ws]
+        emitted, steps = ws[0]["emitted_tokens"], ws[0]["decode_steps"]
+        dp = dprof[on]
+        dwall = [w["wall_ms_per_decode_step"] for w in dec[on]]
+        side = {
+            "wall_s": walls,
+            "tokens_per_s": [emitted / w for w in walls],
+            "wall_ms_per_decode_step": [w * 1e3 / steps for w in walls],
+            **{k: ws[0][k] for k in keys},
+            "decode_windows": {
+                "wall_ms_per_decode_step": dwall,
+                "decode_steps": dp["decode_steps"],
+                "chained_dispatches": dp["chained_dispatches"],
+                "device_ms_per_decode_step": dp["device_ms_per_decode_step"],
+                "device_ops_per_decode_step":
+                    dp["device_ops_per_decode_step"],
+                "device_ops_per_emitted_token":
+                    dp["device_ops_per_decode_step"] / 8,
+                "device_idle_share": 1.0 - dp["device_ms_per_decode_step"]
+                / float(np.mean(dwall)),
+                "top_kernels": dp["top_kernels"][:3]}}
+        if profs:
+            pw = profs[on]
+            side["profiled_load_window"] = {k: pw[k] for k in (
+                "wall_s", "emitted_tokens", "decode_steps", "device_ms",
+                "device_ops")}
+            side["device_idle_share"] = 1.0 - pw["device_ms"] / (
+                float(np.mean(walls)) * 1e3)
+            side["device_ops_per_emitted_token"] = pw["device_ops"] \
+                / pw["emitted_tokens"]
+        res["on" if on else "off"] = side
+    for name, get in (
+            ("on_over_off_tokens_per_s",
+             lambda s: np.mean(res[s]["tokens_per_s"])),
+            ("decode_windows_on_over_off_ms_per_step",
+             lambda s: np.mean(res[s]["decode_windows"][
+                 "wall_ms_per_decode_step"]))):
+        res[name] = float(get("on") / get("off"))
+    on, off = res["on"], res["off"]
+    if not on["chained_dispatches"] or off["chained_dispatches"] or \
+            on["decode_windows"]["chained_dispatches"] < decode_blocks or \
+            off["decode_windows"]["chained_dispatches"]:
+        fail(f"(b) chained dispatches: {res}")
+    print("  (b) overlap on against off, phase 5's load and pure-decode "
+          "windows, alternated: " + json.dumps(res))
+    del params, cbs
+    torch.cuda.empty_cache()
+    return res
+
+
+def token_flips(a_tokens, b_tokens, prompts) -> list:
+    """(request, first differing generated position) for each request
+    whose two token streams differ."""
+    flips = []
+    for i, (a, b, p) in enumerate(zip(a_tokens, b_tokens, prompts)):
+        diff = np.nonzero(a != b)[0]
+        if len(diff):
+            flips.append([i, int(diff[0]) - len(p)])
+    return flips
+
+
+def lookup_load(cfg, n_req: int = 16, max_new: int = 32):
+    """Phase 18 (d)'s lookup-friendly load: each prompt a random 16-token
+    motif tiled to 128-480 tokens (seed 7)."""
+    rng = np.random.default_rng(7)
+    prompts = []
+    for n in rng.integers(128, 481, n_req):
+        motif = rng.integers(0, cfg.vocab_size, (16,)).astype(np.int32)
+        prompts.append(np.tile(motif, -(-int(n) // 16))[:int(n)])
+    return prompts, [max_new] * n_req
+
+
+def scheduling_serving(torch, port, base) -> dict:
+    """Phase 18 (b)-(e) at LM-base bf16.  ``base`` is phase 5's K6 run: the
+    16-request load under the default scheduler (in-block refill and
+    overlap on, unchunked), the side each comparison below is held
+    against."""
+    cfg = port["cfg"]
+    load16 = phase5_load(cfg, 16, (64, 256))
+    res = {"b": overlap_windows(torch, port, load16)}
+    keys = ("tokens_per_s", "utilization", "emitted_per_slot_step",
+            "inblock_refills", "inblock_prefill_steps",
+            "chained_dispatches", "ttft_p50_s", "ttft_p95_s",
+            "decode_steps", "wall_s")
+    off = serving_run(torch, port, label="(c) inblock_refill=False",
+                      prompts=load16[0], max_new=load16[1],
+                      inblock_refill=False, window_blocks=0)
+    res["c"] = {"on": {k: base[k] for k in keys},
+                "off": {k: off[k] for k in keys},
+                "bf16_token_flips_on_vs_off": token_flips(
+                    base["tokens"], off["tokens"], load16[0])}
+    print("  (c) in-block refill on (phase 5's run) against off: "
+          + json.dumps(res["c"]))
+    prompts, max_new = lookup_load(cfg)
+    spec = serving_run(torch, port, label="(d) speculate=4, lookup-friendly "
+                       "load", prompts=prompts, max_new=max_new,
+                       speculate=4, window_blocks=0)
+    plain = serving_run(torch, port, label="(d) speculate=0, the same load",
+                        prompts=prompts, max_new=max_new, window_blocks=0)
+    if spec["launches"] or spec["decode_steps"] or not spec["spec_rounds"]:
+        fail(f"(d): the speculative run launched the decode kernel "
+             f"{spec['launches']} times over {spec['decode_steps']} "
+             f"lockstep steps ({spec['spec_rounds']} verify rounds)")
+    sampled = spec["emitted_tokens"] - spec["batch_admissions"]
+    res["d"] = {
+        "speculate=4": {k: spec[k] for k in keys + (
+            "spec_rounds", "spec_proposed", "spec_accepted")},
+        "speculate=0": {k: plain[k] for k in keys},
+        "acceptance": spec["spec_accepted"] / max(spec["spec_proposed"], 1),
+        "verify_rounds_per_emitted_token": spec["spec_rounds"]
+        / max(sampled, 1),
+        "tokens_per_s_spec_over_plain": spec["tokens_per_s"]
+        / plain["tokens_per_s"],
+        "bf16_token_flips_spec_vs_plain": token_flips(
+            spec["tokens"], plain["tokens"], prompts)}
+    print("  (d) speculation: " + json.dumps(res["d"]))
+    chunk = serving_run(torch, port, label="(e) prefill_chunk=128",
+                        prompts=load16[0], max_new=load16[1],
+                        prefill_chunk=128, window_blocks=0)
+    res["e"] = {"chunked": {k: chunk[k] for k in keys + (
+        "prefill_dispatches", "batch_admissions")},
+        "unchunked": {k: base[k] for k in keys + (
+            "prefill_dispatches", "batch_admissions")},
+        "bf16_token_flips_chunked_vs_unchunked": token_flips(
+            chunk["tokens"], base["tokens"], load16[0])}
+    print("  (e) chunked prefill against phase 5's unchunked run: "
+          + json.dumps(res["e"]))
     return res
 
 
@@ -3128,6 +3503,9 @@ def main() -> int:
     remat_runs(torch, port)
     remat_windows(torch, port)
     chunked_head_check(torch, port)
+    phase(18, "serving scheduling at LM-base width")
+    scheduling_exactness(torch, port)
+    scheduling_serving(torch, port, serve_res["K6"])
     print(f"  phases done at {time.perf_counter() - T_START:.0f} s")
 
     kernels = []

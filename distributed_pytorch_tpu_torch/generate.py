@@ -12,12 +12,17 @@ signature's sake).
 Single-token decode goes through ``ops.attention.decode_attention`` (the
 CUDA decode kernel on the GPU) when ``use_decode_kernel`` is set, and
 through ``decode_attention_paged`` over a pool; prefill and the
-multi-token ragged window (``verify_step_ragged``, the suffix prefill of
-prefix caching) attend through ``attention_reference`` with a
-cache-validity bias.  Tensor-parallel decode (``tp_axis``) is refused
-until slice 5 (ROADMAP.md queue 1); speculative decoding
-(``generate_speculative``, ``generate_lookup``) is not ported yet
-(slice 3b).
+multi-token ragged window (``verify_step_ragged``: the suffix prefill of
+prefix caching, the verify window of speculation) attend through
+``attention_reference`` with a cache-validity bias.  Speculative decoding
+comes in two static flavours, ``generate_speculative`` (a draft model
+proposes) and ``generate_lookup`` (prompt lookup proposes), and its
+primitives (``lookup_proposals``, the rejection sampler) also serve the
+batcher's in-block speculation (serve.py).  Each ``jax.lax.while_loop``
+of the JAX package is a Python loop over device tensors here, and each
+``jax.random`` split a draw from the caller's ``torch.Generator``.
+Tensor-parallel decode (``tp_axis``) is refused until slice 5
+(ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -346,10 +351,15 @@ def verify_step_ragged(params, cache: Cache, tokens: torch.Tensor,
 
 
 def _gumbel_argmax(generator: torch.Generator | None,
-                   logits: torch.Tensor) -> torch.Tensor:
+                   logits: torch.Tensor, u: torch.Tensor | None = None
+                   ) -> torch.Tensor:
     """A categorical draw per row by the Gumbel-max trick (what
-    ``jax.random.categorical`` does; the draws are not JAX's)."""
-    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    ``jax.random.categorical`` does; the draws are not JAX's).  ``u``,
+    uniforms of ``logits``' shape drawn by the caller, replaces the draw
+    from ``generator``."""
+    if u is None:
+        u = torch.rand(logits.shape, generator=generator,
+                       device=logits.device)
     u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
     return torch.argmax(logits - torch.log(-torch.log(u)), -1)
 
@@ -415,14 +425,47 @@ def filter_per_seq(logits, temperature, top_k, top_p):
     return torch.where((top_p[:, None] < 1.0) & (scaled < pth), neg, masked)
 
 
-def sample_per_seq(generator, logits, temperature, top_k, top_p):
+def sample_per_seq(generator, logits, temperature, top_k, top_p, u=None):
     """Sampling with PER-ROW parameters: ``logits`` (B, V); ``temperature``
     (B,) float32, <= 0 means greedy; ``top_k`` (B,) int, 0 disables;
-    ``top_p`` (B,) float32, >= 1 disables."""
+    ``top_p`` (B,) float32, >= 1 disables.  ``u`` (B, V) uniforms, drawn
+    by the caller, replace the draw from ``generator``."""
     greedy = torch.argmax(logits, -1).to(torch.int32)
     masked = filter_per_seq(logits, temperature, top_k, top_p)
-    sampled = _gumbel_argmax(generator, masked).to(torch.int32)
-    return torch.where(temperature <= 0.0, greedy, sampled)
+    sampled = _gumbel_argmax(generator, masked, u)
+    return torch.where(temperature <= 0.0, greedy, sampled.to(torch.int32))
+
+
+def lookup_proposals(stream: torch.Tensor, last_i: torch.Tensor, n_spec: int,
+                     ngram: int) -> torch.Tensor:
+    """PROMPT-LOOKUP proposals, shared by ``generate_lookup`` and the
+    batcher's in-block speculation (serve.py): for each row of ``stream``
+    (B, T), find the most recent earlier occurrence of the trailing
+    ``ngram`` ending at index ``last_i`` (B,) and copy the ``n_spec``
+    tokens that followed it; rows with no match (or a prefix shorter than
+    the ngram) repeat the last token.  Proposals are free to be wrong:
+    verification rejects them at the cost of a round's speculation."""
+    b, total = stream.shape
+    dev = stream.device
+    last_i = last_i.long()
+    nwin = total - ngram + 1
+    jgrid = torch.arange(nwin, device=dev)[None]
+    win_ok = torch.ones((b, nwin), dtype=torch.bool, device=dev)
+    for o in range(ngram):
+        tail = torch.gather(stream, 1, torch.clamp(
+            last_i - (ngram - 1) + o, 0, total - 1)[:, None])
+        win_ok &= stream[:, o:nwin + o] == tail
+    # exclude the trailing ngram matching itself; window tokens and at
+    # least the first continuation token must be already written
+    win_ok &= jgrid <= (last_i - ngram)[:, None]
+    win_ok &= (ngram <= last_i)[:, None]
+    jbest = torch.amax(torch.where(win_ok, jgrid, -1), 1)
+    base = torch.where(jbest >= 0, jbest + ngram, 0)
+    idx = torch.clamp(base[:, None] + torch.arange(n_spec, device=dev)[None],
+                      0, total - 1)
+    props = torch.gather(stream, 1, idx)
+    lastv = torch.gather(stream, 1, torch.clamp(last_i, 0, total - 1)[:, None])
+    return torch.where((jbest >= 0)[:, None], props, lastv.expand(b, n_spec))
 
 
 def generate(params, prompt, generator: torch.Generator | int | None = None,
@@ -479,3 +522,284 @@ def generate(params, prompt, generator: torch.Generator | int | None = None,
             toks.append(tok)
         start = end
     return torch.cat([prompt, torch.stack(toks, 1)], 1)
+
+
+def _spec_prefill(params, prompt, cfg, dtype, max_len_pad):
+    """Shared speculative prologue: prefill the model over the prompt and
+    return ``(cache, (B, vocab) last-position logits)``."""
+    b, s0 = prompt.shape
+    dev = prompt.device
+    cache = init_cache(cfg, b, max_len_pad, dtype=dtype or torch.float32,
+                       kv_heads=params["layers.0.wk"].shape[1], device=dev)
+    logits, cache = _forward_cached(
+        params, cache, prompt.long(), torch.arange(s0, device=dev), 0,
+        cfg=cfg, dtype=dtype, unembed_last_only=True, k_len=s0)
+    return cache, logits[:, 0]
+
+
+def _spec_epilogue(prompt, out, state, eos_id):
+    """Shared speculative epilogue: eos-repeat padding (generate()'s
+    fixed-shape convention), prompt concat, and the stats dict."""
+    if eos_id is not None:
+        seen = torch.cumsum((out == eos_id).to(torch.int32), 1) > 0
+        out = torch.where(seen, torch.full_like(out, eos_id), out)
+    tokens = torch.cat([prompt, out], 1)
+    stats = {k: int(state[k]) for k in ("rounds", "drafted", "accepted")}
+    return tokens, stats
+
+
+def _spec_reject_tokens(generator, drafts, q, p):
+    """Draft-distribution REJECTION SAMPLING (Leviathan / Chen et al.),
+    over every speculated position at once: ``drafts`` (B, k) tokens drawn
+    from the draft distributions ``q`` (B, k, V); ``p`` (B, k+1, V) the
+    target's warped distributions at the same positions plus the one
+    after.  Returns ``(match, g)``: ``match[b, j]`` accepts position j's
+    draft with probability ``min(1, p_j(x_j) / q_j(x_j))``; ``g[b, j]`` is
+    the token emitted after accepting a length-j prefix, a sample from the
+    residual ``norm(max(p_j - q_j, 0))`` for j < k and from ``p_k`` for
+    j = k (every draft accepted: the bonus token).  A zero residual can
+    only arise where acceptance is certain; it falls back to p_j."""
+    b, k, _ = q.shape
+    d = drafts.long()[..., None]
+    px = torch.gather(p[:, :k], 2, d)[..., 0]
+    qx = torch.gather(q, 2, d)[..., 0]
+    u = torch.rand((b, k), generator=generator, device=q.device)
+    match = u * qx < px                              # u < p(x)/q(x)
+    resid = torch.clamp(p[:, :k] - q, min=0.0)
+    rs = resid.sum(-1, keepdim=True)
+    resid = torch.where(rs > 0, resid / torch.where(rs > 0, rs, 1.0),
+                        p[:, :k])
+    repl = _gumbel_argmax(generator, torch.log(resid + 1e-38))
+    bonus = _gumbel_argmax(generator, torch.log(p[:, -1] + 1e-38))
+    return match, torch.cat([repl, bonus[:, None]], 1).to(torch.int32)
+
+
+def _spec_accept_emit(drafts, g, done, n, buf, buf_off, n_spec, max_new,
+                      eos_id, match=None):
+    """One speculative round's accept + emit + scatter, shared by the
+    draft-model and prompt-lookup paths.  ``drafts`` (B, n_spec)
+    proposals, ``g`` (B, n_spec+1) the per-prefix-length continuation
+    tokens (greedy: the target's argmaxes; sampled: the rejection
+    sampler's); returns (``buf`` with the emissions written at columns
+    ``buf_off + n``, n_emit, accepted count m, last emitted token, new
+    done mask).  Greedy by default (``match=None``: draft j is accepted
+    iff it equals the target's argmax after the accepted prefix).  The
+    round emits drafts[:m] plus g[m], capped by eos and max_new."""
+    b = drafts.shape[0]
+    dev = drafts.device
+    k_tok = n_spec + 1
+    if match is None:
+        match = drafts == g[:, :n_spec]
+    m = torch.cumprod(match.to(torch.int32), 1).sum(1)
+    j = torch.arange(k_tok, device=dev)[None]
+    gm = torch.gather(g, 1, m[:, None].long())
+    emit = torch.where(j < m[:, None], torch.cat([drafts, drafts[:, -1:]], 1),
+                       gm.expand(b, k_tok))
+    n_emit = torch.where(done, 0, m + 1)
+    if eos_id is not None:
+        # stop at the first emitted eos (inclusive)
+        is_eos = emit == eos_id
+        first_eos = torch.argmax(is_eos.to(torch.int32), 1)
+        has_eos = torch.any(is_eos & (j < n_emit[:, None]), 1)
+        n_emit = torch.where(has_eos, torch.minimum(n_emit, first_eos + 1),
+                             n_emit)
+    n_emit = torch.minimum(n_emit, max_new - n)
+    cols = buf_off + n[:, None] + j
+    valid = j < n_emit[:, None]
+    width = buf.shape[1]
+    # invalid entries land in a dropped extra column
+    wide = torch.cat([buf, torch.zeros_like(buf[:, :1])], 1)
+    wide.scatter_(1, torch.where(valid, cols, width).long(),
+                  torch.where(valid, emit, 0).to(buf.dtype))
+    buf = wide[:, :width]
+    new_done = done | (n + n_emit >= max_new)
+    if eos_id is not None:
+        new_done = new_done | torch.any((emit == eos_id) & valid, 1)
+    last_new = torch.gather(emit, 1, torch.clamp(
+        n_emit - 1, min=0)[:, None].long())[:, 0]
+    return buf, n_emit, m, last_new, new_done
+
+
+def _spec_start(generator, logits0, b, temperature, top_k, top_p, eos_id):
+    """The first emitted token (a warped sample, or the argmax) and the
+    initial done mask."""
+    if temperature > 0.0:
+        t0 = _sample(generator, logits0, temperature, top_k, top_p)
+    else:
+        t0 = torch.argmax(logits0, -1).to(torch.int32)
+    done0 = ((t0 == eos_id) if eos_id is not None
+             else torch.zeros((b,), dtype=torch.bool, device=t0.device))
+    return t0, done0
+
+
+def generate_speculative(params, draft_params, prompt,
+                         generator: torch.Generator | int | None = None, *,
+                         cfg: tfm.TransformerConfig,
+                         draft_cfg: tfm.TransformerConfig, max_new: int,
+                         n_spec: int = 4, temperature: float = 0.0,
+                         top_k: int | None = None, top_p: float | None = None,
+                         dtype=None, eos_id: int | None = None,
+                         decode_kernel: bool | None = None,
+                         device: str | torch.device = "cuda"):
+    """SPECULATIVE decoding: a small draft model proposes ``n_spec`` tokens
+    per round, the target verifies them all in ONE (B, n_spec+1)-token
+    forward, and the longest accepted prefix plus one continuation token
+    are emitted.
+
+    ``temperature == 0`` (default): greedy speculation, identical to the
+    target's plain greedy decode.  ``temperature > 0``: the draft samples
+    its proposals from its warped distribution q, the target accepts each
+    with probability min(1, p/q) and a rejection resamples from the
+    residual (``_spec_reject_tokens``): the emitted tokens are distributed
+    exactly as the target's warped distribution.  Needs ``generator`` (a
+    ``torch.Generator`` on ``device``, or an int seed).
+
+    Cache rewind after a rejection is free: reads are position-bounded and
+    stale rows are overwritten before the bound reaches them.  The draft
+    decodes through the decode kernel on CUDA (``decode_kernel``); the
+    verify window attends through ``attention_reference``.  Returns
+    ``(tokens (B, S0 + max_new) int32, {"rounds", "drafted",
+    "accepted"})``."""
+    dev = resolve_device(device)
+    if isinstance(generator, int):
+        generator = torch.Generator(device=dev).manual_seed(generator)
+    tfm._refuse_moe(cfg)
+    tfm._refuse_moe(draft_cfg)
+    prompt = torch.as_tensor(prompt, device=dev).to(torch.int32)
+    b, s0 = prompt.shape
+    k_tok = n_spec + 1
+    sampled = temperature > 0.0
+    if sampled and generator is None:
+        raise ValueError("sampled speculative decoding (temperature > 0) "
+                         "needs a generator")
+    use_kernel = default_decode_kernel(decode_kernel, dev)
+    max_len = pad_cache_len(s0 + max_new + k_tok)
+    # prefill BOTH models over the prompt; t0 = the target's first token
+    cache, logits0 = _spec_prefill(params, prompt, cfg, dtype, max_len)
+    dcache, _ = _spec_prefill(draft_params, prompt, draft_cfg, dtype, max_len)
+    t0, done = _spec_start(generator, logits0, b, temperature, top_k, top_p,
+                           eos_id)
+    out = torch.zeros((b, max_new), dtype=torch.int32, device=dev)
+    out[:, 0] = t0
+    pos = torch.full((b,), s0 - 1, dtype=torch.int32, device=dev)
+    last = t0
+    n = torch.ones((b,), dtype=torch.int32, device=dev)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    st = {"rounds": 0, "drafted": zero, "accepted": zero}
+    kgrid = torch.arange(k_tok, device=dev)[None]
+    while bool(((n < max_new) & ~done).any()):
+        # 1. the draft proposes n_spec tokens (greedy argmaxes, or samples
+        # from its warped distribution).  One EXTRA step writes the last
+        # proposal's own K/V row, which the next round reads when every
+        # draft is accepted.
+        tok, p, drafts, qprobs = last, pos, [], []
+        for _ in range(n_spec + 1):
+            p = p + 1
+            lg, dcache = decode_step_ragged(
+                draft_params, dcache, tok.long(), p, cfg=draft_cfg,
+                dtype=dtype, use_decode_kernel=use_kernel)
+            if sampled:
+                warped = _filter_logits(lg, temperature, top_k, top_p)
+                tok = _gumbel_argmax(generator, warped).to(torch.int32)
+                qprobs.append(torch.softmax(warped, -1))
+            else:
+                tok = torch.argmax(lg, -1).to(torch.int32)
+            drafts.append(tok)
+        drafts = torch.stack(drafts[:n_spec], 1)
+        # 2. the target verifies every proposal in ONE (B, k_tok) forward
+        tokens_in = torch.cat([last[:, None], drafts], 1)
+        vpos = pos[:, None] + 1 + kgrid
+        vlogits, cache = _forward_cached(
+            params, cache, tokens_in.long(), vpos, vpos, cfg=cfg,
+            dtype=dtype, k_len=max_len)
+        if sampled:
+            pprobs = torch.softmax(
+                _filter_logits(vlogits, temperature, top_k, top_p), -1)
+            match, g = _spec_reject_tokens(
+                generator, drafts, torch.stack(qprobs[:n_spec], 1), pprobs)
+        else:
+            match = None
+            g = torch.argmax(vlogits, -1).to(torch.int32)
+        # 3. accept the longest accepted prefix and write the emissions
+        out, n_emit, m, last_new, new_done = _spec_accept_emit(
+            drafts, g, done, n, out, 0, n_spec, max_new, eos_id, match=match)
+        pos = torch.where(done, pos, pos + n_emit)
+        last = torch.where(done | (n_emit == 0), last, last_new)
+        st["rounds"] += 1
+        st["drafted"] = st["drafted"] + torch.where(done, 0, n_spec).sum()
+        st["accepted"] = st["accepted"] + torch.where(done, 0, m).sum()
+        n = n + n_emit
+        done = new_done
+    return _spec_epilogue(prompt, out, st, eos_id)
+
+
+def generate_lookup(params, prompt,
+                    generator: torch.Generator | int | None = None, *,
+                    cfg: tfm.TransformerConfig, max_new: int,
+                    n_spec: int = 8, ngram: int = 2,
+                    temperature: float = 0.0, top_k: int | None = None,
+                    top_p: float | None = None, dtype=None,
+                    eos_id: int | None = None,
+                    device: str | torch.device = "cuda"):
+    """PROMPT-LOOKUP speculative decoding: each round proposes the
+    continuation of the most recent earlier occurrence of the trailing
+    ``ngram`` in the prompt + generated stream (``lookup_proposals``), and
+    the target verifies the ``n_spec`` proposals in one forward, as in
+    ``generate_speculative``.  Greedy by default (identical to the
+    target's greedy decode); at ``temperature > 0`` (needs ``generator``)
+    a proposal is a point-mass draft: accepted with probability p(x),
+    resampled from p without x on rejection, so the emitted tokens follow
+    the target's warped distribution exactly.  Returns ``(tokens,
+    stats)`` as ``generate_speculative``."""
+    dev = resolve_device(device)
+    if isinstance(generator, int):
+        generator = torch.Generator(device=dev).manual_seed(generator)
+    tfm._refuse_moe(cfg)
+    prompt = torch.as_tensor(prompt, device=dev).to(torch.int32)
+    b, s0 = prompt.shape
+    k_tok = n_spec + 1
+    sampled = temperature > 0.0
+    if sampled and generator is None:
+        raise ValueError("sampled lookup decoding (temperature > 0) needs a "
+                         "generator")
+    total = s0 + max_new
+    max_len = pad_cache_len(total + k_tok)
+    cache, logits0 = _spec_prefill(params, prompt, cfg, dtype, max_len)
+    t0, done = _spec_start(generator, logits0, b, temperature, top_k, top_p,
+                           eos_id)
+    stream = torch.zeros((b, total), dtype=torch.int32, device=dev)
+    stream[:, :s0] = prompt
+    stream[:, s0] = t0
+    pos = torch.full((b,), s0 - 1, dtype=torch.int32, device=dev)
+    n = torch.ones((b,), dtype=torch.int32, device=dev)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    st = {"rounds": 0, "drafted": zero, "accepted": zero}
+    kgrid = torch.arange(k_tok, device=dev)[None]
+    while bool(((n < max_new) & ~done).any()):
+        last_i = s0 + n - 1
+        last = torch.gather(stream, 1, last_i[:, None].long())[:, 0]
+        drafts = lookup_proposals(stream, last_i, n_spec, ngram)
+        tokens_in = torch.cat([last[:, None], drafts], 1)
+        vpos = pos[:, None] + 1 + kgrid
+        vlogits, cache = _forward_cached(
+            params, cache, tokens_in.long(), vpos, vpos, cfg=cfg,
+            dtype=dtype, k_len=max_len)
+        if sampled:
+            pprobs = torch.softmax(
+                _filter_logits(vlogits, temperature, top_k, top_p), -1)
+            q = torch.nn.functional.one_hot(
+                drafts.long(), cfg.vocab_size).to(torch.float32)
+            match, g = _spec_reject_tokens(generator, drafts, q, pprobs)
+        else:
+            match = None
+            g = torch.argmax(vlogits, -1).to(torch.int32)
+        stream, n_emit, m, _, new_done = _spec_accept_emit(
+            drafts, g, done, n, stream, s0, n_spec, max_new, eos_id,
+            match=match)
+        pos = torch.where(done, pos, pos + n_emit)
+        st["rounds"] += 1
+        st["drafted"] = st["drafted"] + torch.where(done, 0, n_spec).sum()
+        st["accepted"] = st["accepted"] + torch.where(done, 0, m).sum()
+        n = n + n_emit
+        done = new_done
+    return _spec_epilogue(prompt, stream[:, s0:], st, eos_id)

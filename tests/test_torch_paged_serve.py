@@ -230,13 +230,15 @@ def test_drained_tail_batch_compaction(params):
     """Once the queue drains, paged blocks run over just the live rows:
     exact, pages recycled, compact dispatches counted, utilization above
     the dense batcher's on the same load; compact_tail=False keeps every
-    block full width."""
+    block full width.  On the serial path (in-block refill and overlap
+    off), where every step the device runs is a counted slot-step."""
     jp, tp = params
     rng = np.random.default_rng(27)
     prompts = [rng.integers(0, 256, (L,)).astype(np.int32)
                for L in (5, 17, 9, 23)]
     budgets = [4, 6, 8, 40]   # one long request left alone at the tail
-    kw = dict(slots=4, prompt_buckets=(32,), steps_per_sync=8)
+    kw = dict(slots=4, prompt_buckets=(32,), steps_per_sync=8,
+              inblock_refill=False, overlap=False)
     cb = _batcher(tp, decode_kernel=True, **kw)
     _assert_exact(jp, cb, _drive(cb, prompts, budgets), prompts, budgets)
     assert cb.stats["compact_dispatches"] >= 2, cb.stats
@@ -321,9 +323,9 @@ def test_scheduler_parity_with_jax_batcher(params):
     prompts = [rng.integers(0, 256, (500,)).astype(np.int32)
                for _ in range(2)]
     kw = dict(slots=2, max_len=1024, temperature=0.0, prompt_buckets=(512,),
-              paged=True, pool_pages=3, decode_kernel=True)
-    jcb = jserve.ContinuousBatcher(jp, JCFG, inblock_refill=False,
-                                   overlap=False, **kw)
+              paged=True, pool_pages=3, decode_kernel=True,
+              inblock_refill=False, overlap=False)
+    jcb = jserve.ContinuousBatcher(jp, JCFG, **kw)
     tcb = tserve.ContinuousBatcher(tp, TCFG, device="cpu", **kw)
     for cb in (jcb, tcb):
         _drive(cb, prompts, [80, 80])
@@ -351,7 +353,7 @@ def test_prefix_page_hashes_equal_jax(page):
 
 def test_paged_refusals_name_their_slice(params):
     _, tp = params
-    with pytest.raises(NotImplementedError, match="slice 3b"):
-        _batcher(tp, inblock_refill=True)
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        _batcher(tp, mesh=object())
     assert tgen.init_paged_cache(TCFG, 2, 512, device="cpu")[
         "layer0"]["v"].shape == (2, 2, 512, 32)

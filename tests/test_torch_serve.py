@@ -55,15 +55,16 @@ def _batcher(tp, **kw):
 
 @pytest.mark.parametrize("schedule", ["fifo", "longest_first"])
 def test_matches_jax_oracle_with_slot_recycling(params, schedule):
-    """5 ragged requests through 2 slots: every sequence decodes exactly as
-    the JAX static generation does; recycled slots' stale K/V never
-    leaks."""
+    """5 ragged requests through 2 slots on the serial path (in-block
+    refill and overlap off, so every admission is a batched prefill):
+    every sequence decodes exactly as the JAX static generation does;
+    recycled slots' stale K/V never leaks."""
     jp, tp = params
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, 256, (L,)).astype(np.int32)
                for L in (5, 17, 40, 9, 23)]
     cb = _batcher(tp, slots=2, temperature=0.0, prompt_buckets=(32, 64),
-                  schedule=schedule)
+                  schedule=schedule, inblock_refill=False, overlap=False)
     results = cb.run(prompts, max_new=10)
     for rid, prompt in enumerate(prompts):
         np.testing.assert_array_equal(results[rid],
@@ -181,9 +182,7 @@ def test_submission_validation(params):
         _batcher(tp, max_len=16, prompt_buckets=(1024,))
 
 
-REFUSED = [dict(speculate=2), dict(prefill_chunk=16), dict(mesh=object()),
-           dict(inblock_refill=True), dict(overlap=True),
-           dict(spec_ngram=3), dict(tp_axis="tp")]
+REFUSED = [dict(mesh=object()), dict(tp_axis="tp")]
 
 
 @pytest.mark.parametrize("kw", REFUSED, ids=[next(iter(k)) for k in REFUSED])
