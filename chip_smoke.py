@@ -64,9 +64,10 @@ Phases, each of which raises on failure:
      after 10 SGD steps within stated bounds, K1a/K1b once per BN layer),
      then alternated fused/plain bf16 windows (ms/step, device time, idle
      share, peak memory);
- 14. VGG-11 one epoch of synthetic CIFAR-10 through the port's cli (f32 and
-     bf16): the reference's time windows, samples/s, mfu, idle share,
-     falling loss and test accuracy above chance;
+ 14. VGG-11 one epoch of synthetic CIFAR-10 through the port's cli (f32 at
+     --strategy none, bf16 at the default ddp over a one-rank NCCL group):
+     the reference's time windows, samples/s, mfu, idle share, falling
+     loss and test accuracy above chance, no process group left after;
  15. the int8 matmul kernel (K5) against its plain version, in float32
      and bf16 output: the three LM-base shapes at m=8192 (bf16 and f32
      inputs; through its sm90 route and its mma_sync route), 33x77 @
@@ -107,7 +108,16 @@ Phases, each of which raises on failure:
      token flips counted); (d) speculate=4 against 0 on a lookup-friendly
      load (acceptance, emissions per slot-step, verify rounds per token;
      no decode-kernel launch in the speculative run); (e) phase 5's load
-     with prefill_chunk=128 against phase 5's run (TTFT, tokens/s).
+     with prefill_chunk=128 against phase 5's run (TTFT, tokens/s);
+ 19. data-parallel VGG-11 at world size 1 over a one-rank NCCL group, bf16,
+     batch 256: every strategy on one saved set of gradients (the exact
+     ones and the rings bitwise, quantized within half a quantum), 20
+     steps each (the exact ones within the spread of two plain runs, the
+     others a falling loss), the collectives one step issues by strategy
+     (gated: 34 all-reduces for all_reduce, one a bucket for bucketed, 68
+     for quantized, one for ddp), ddp against none in A B B A windows,
+     and ddp with fused_bn=True (K1a/K1b 8 a step, params within the
+     spread of two plain fused runs).
 Phases 4, 5, 10, 11 and 18 run the batcher's defaults, in-block refill and
 overlapped dispatch on, as the JAX batcher's are.
 The second-to-last lines are the kernels' JSON record and the card's name
@@ -2397,8 +2407,8 @@ def vgg_fused_check(torch, port, name: str = "VGG11",
         step = tr.make_train_step(cfg, fused_bn=fused)
         losses = []
         for i in range(10):
-            loss, state, _, _ = step(params, state, opt, i, images[i],
-                                     labels[i])
+            loss, state, _, _, _ = step(params, state, opt, i, images[i],
+                                        labels[i])
             losses.append(loss)
         sync(torch)
         return ({k: p.detach() for k, p in vgg.flatten(params).items()},
@@ -2475,9 +2485,9 @@ def fused_plain_windows(torch, port, name, batch, images, labels, pairs,
     def steps(r, k):
         for _ in range(k):
             j = r["i"] % images.shape[0]
-            loss, r["state"], _, _ = r["step"](r["params"], r["state"],
-                                               r["opt"], r["i"], images[j],
-                                               labels[j])
+            loss, r["state"], _, _, _ = r["step"](
+                r["params"], r["state"], r["opt"], r["i"], images[j],
+                labels[j])
             r["losses"].append(loss)
             r["i"] += 1
 
@@ -2545,10 +2555,12 @@ def fused_plain_windows(torch, port, name, batch, images, labels, pairs,
 
 def vgg_cli_run(torch, port, extra: list[str], label: str,
                 batch: int = VGG_BATCH, model: str = "VGG11",
-                profile_at: int = 170) -> dict:
+                profile_at: int = 170, strategy: str | None = "none"
+                ) -> dict:
     """Phase 14: one epoch of synthetic CIFAR-10 through the port's
-    ``cli.run`` (--strategy none, the reference's main.py), then its test
-    evaluation.  ms/step and samples/s come from the reference's 40-step
+    ``cli.run`` (``strategy`` "none" is the reference's main.py; None
+    leaves the CLI's default, ddp over a one-rank NCCL group, which
+    ``cli.run`` destroys when it returns), then its test evaluation.  ms/step and samples/s come from the reference's 40-step
     time windows; 5 steps after the last window run under torch.profiler
     for device time, operations per step and the idle share; mfu is
     bench.py's 916.6 MFLOP per sample times samples/s over the card's peak
@@ -2566,8 +2578,9 @@ def vgg_cli_run(torch, port, extra: list[str], label: str,
             marks[step] = time.perf_counter()
             (prof.start if step == profile_at else prof.stop)()
 
-    argv = ["--strategy", "none", "--epochs", "1", "--batch-size",
-            str(batch), "--model", model, "--device", DEVICE] + extra
+    argv = (["--strategy", strategy] if strategy else []) + [
+        "--epochs", "1", "--batch-size", str(batch), "--model", model,
+        "--device", DEVICE] + extra
     k1 = (fb.bn_relu_bwd_reduce.launches, fb.bn_relu_bwd_apply.launches)
     sync(torch)
     torch.cuda.reset_peak_memory_stats()
@@ -2589,6 +2602,8 @@ def vgg_cli_run(torch, port, extra: list[str], label: str,
     dtype = "bfloat16" if "bfloat16" in extra else "float32"
     flops = vgg11_train_flops_per_sample() if model == "VGG11" else None
     res = {"label": label, "steps": out["trainer"]._step, "batch": batch,
+           "strategy": out["trainer"].strategy.name,
+           "process_group_left": torch.distributed.is_initialized(),
            "synthetic": out["synthetic"],
            "ms_per_step_windows": windows, "ms_per_step": ms,
            "samples_per_s": sps,
@@ -2616,6 +2631,8 @@ def vgg_cli_run(torch, port, extra: list[str], label: str,
         fail(f"{label}: the loss did not fall: {loss_windows}")
     if not ep["eval"][1] > 0.1:
         fail(f"{label}: test accuracy {ep['eval'][1]} is not above chance")
+    if res["process_group_left"]:
+        fail(f"{label}: the cli left its process group behind")
     del out
     torch.cuda.empty_cache()
     return res
@@ -3371,6 +3388,294 @@ def print_decode_ratio(name: str, t: dict, facts) -> None:
           f"splits; {facts['smi']}")
 
 
+# -- phase 19: data-parallel VGG-11 at world size 1 ------------------------
+
+DP_EXACT = ("all_reduce", "gather_scatter", "gather_scatter_symmetric",
+            "ddp", "bucketed", "hierarchical")
+DP_APPROX = ("quantized", "quantized_ring", "quantized_ring_ef")
+DP_STEPS = 20      # the exact strategies' run, against two plain runs
+DP_FUSED_STEPS = 10
+DP_WINDOW = 40     # ddp against none, A B B A
+DP_LEAVES = 34     # VGG-11's gradient tensors (main_all_reduce.py: 34 ops)
+
+
+def dp_calls(prof, backend: str = "nccl") -> dict:
+    """What a profiled window issued to the backend: the collectives by
+    name (the ``nccl:*`` ranges ProcessGroupNCCL records on the host, one
+    a call), and the device kernels whose name says nccl, with their
+    time."""
+    from torch.autograd import DeviceType
+    calls, kernels, kernel_us = {}, 0, 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and \
+                e.name.startswith(backend + ":"):
+            calls[e.name] = calls.get(e.name, 0) + 1
+        elif e.device_type == DeviceType.CUDA and "nccl" in e.name.lower() \
+                and not e.name.startswith("nccl:"):
+            kernels += 1
+            kernel_us += e.device_time_total
+    return {"calls": calls, "nccl_kernels": kernels,
+            "nccl_kernel_ms": kernel_us / 1e3}
+
+
+def dp_phase(torch, port, facts, name: str = "VGG11",
+             batch: int = VGG_BATCH) -> dict:
+    """Phase 19: the port's data-parallel VGG training at world size 1, over
+    a real one-rank NCCL group (parallel.mesh.make_mesh), bf16, no
+    augmentation, every strategy on the same seeded params and batches:
+
+    (a) every strategy applied to one saved set of gradients: the exact
+        ones (and hierarchical over a 1 x 1 mesh) return them bit for bit,
+        a sum over one rank divided by one being the identity, so any
+        difference is a read before NCCL's stream was done or a packing
+        fault; the rings too (a ring of one rank has no hop and returns
+        its input, as the JAX ring does at n = 1); quantized within half
+        a quantum of each tensor (its max |g| / 127);
+    (b) DP_STEPS steps of each: the exact strategies' params within
+        PARAM_TOL of the spread of two plain runs (and a nudged one), as
+        phase 13 holds its fused run (cuDNN's backward is not repeatable);
+        the approximate ones with a finite, falling loss;
+    (d) one profiled step of each: the collectives it issued, gated for
+        all_reduce (one all-reduce a leaf), bucketed (one a bucket),
+        quantized (two a leaf: max, then sum) and ddp (one, coalesced),
+        and the NCCL kernels on the device;
+    (e) ddp against none through Trainer in A B B A windows of DP_WINDOW
+        steps (ms a step), and a profiled 5-step window each (device ms a
+        step, idle share, NCCL's device time): recorded, not gated;
+    (f) ddp with fused_bn=True for DP_FUSED_STEPS steps: K1a and K1b
+        launched once a BN layer a step, and its params within the spread
+        of two plain runs with fused_bn=True."""
+    from torch.profiler import ProfilerActivity, profile
+    tr, vgg, fb, cifar = (port["train"], port["vgg"], port["fused_bn"],
+                          port["cifar10"])
+    st, mesh_mod = port["strategies"], port["mesh"]
+    n_bn = len(vgg_bn_layers(vgg, name, batch))
+    mesh = mesh_mod.make_mesh(device=DEVICE)
+    hier_mesh = mesh_mod.make_mesh(axis_names=("dcn", "ici"),
+                                   axis_shape=(1, 1), device=DEVICE)
+    ds = cifar._synthetic(batch * DP_STEPS, seed=11)
+    images = torch.as_tensor(ds.images).to(DEVICE).view(
+        DP_STEPS, batch, 32, 32, 3)
+    labels = torch.as_tensor(ds.labels).to(DEVICE).long().view(
+        DP_STEPS, batch)
+    p0, s0 = vgg.init(0, name, device=DEVICE)
+    start = {k: t.detach() for k, t in vgg.flatten(p0).items()}
+
+    def cfg(strategy):
+        return tr.TrainConfig(model=name, strategy=strategy,
+                              batch_size=batch, compute_dtype="bfloat16",
+                              augment=False, dcn_size=1)
+
+    def mesh_of(strategy):
+        return None if strategy == "none" else \
+            hier_mesh if strategy == "hierarchical" else mesh
+
+    def fresh(nudge=0.0):
+        params = {k: {n: t.clone().requires_grad_(True) for n, t in
+                      v.items()} for k, v in p0.items()}
+        if nudge:
+            g = torch.Generator(device=DEVICE).manual_seed(9)
+            with torch.no_grad():
+                for p in vgg.flatten(params).values():
+                    p.mul_(1 + nudge * torch.randn(p.shape, generator=g,
+                                                   device=DEVICE))
+        return params, {k: {n: t.clone() for n, t in v.items()}
+                        for k, v in s0.items()}
+
+    def sync_state(strategy, params):
+        s = st.get(strategy)
+        if not getattr(s, "stateful", False):
+            return None
+        return s.init_state([params[k][n] for k, n in tr.jax_order(params)],
+                            1, device=DEVICE)
+
+    out = {"world_size": 1, "backend": "nccl", "batch": batch,
+           "dtype": "bfloat16"}
+
+    # (a) one saved set of gradients through every strategy
+    params, state = fresh()
+    loss, _ = tr._loss_fn(params, state, None, images[0], labels[0],
+                          cfg=cfg("none"))
+    loss.backward()
+    grads = [params[k][n].grad.detach().clone()
+             for k, n in tr.jax_order(params)]
+    fixed = {}
+    for s_name in DP_EXACT + DP_APPROX:
+        strategy = st.get(s_name)
+        tr._apply_dcn(cfg(s_name), strategy)
+        copies = [g.clone() for g in grads]
+        tr.sync_grads(strategy, mesh_of(s_name), copies,
+                      sync_state(s_name, params))
+        sync(torch)
+        if s_name == "quantized":
+            over = max(((c - g).abs().max() / (g.abs().max() / 127)).item()
+                       for c, g in zip(copies, grads))
+            # half a quantum, plus float32's rounding of g / s and of
+            # q * s: each at most 127 ulps (|q| <= 127) of the quantum
+            fixed[s_name] = {"worst_err_in_quanta": over}
+            if not over <= 0.5 + 2 * 127 * 2.0 ** -24:
+                fail(f"(a) quantized moved a gradient {over} quanta")
+        else:
+            equal = all(torch.equal(c, g) for c, g in zip(copies, grads))
+            fixed[s_name] = {"bitwise": equal}
+            if not equal:
+                fail(f"(a) {s_name} at world size 1 changed the gradients")
+    out["fixed_gradients"] = fixed
+    print("  (a) one set of VGG-11 gradients through each strategy: "
+          + json.dumps(fixed))
+    del grads, params
+
+    # (b) DP_STEPS steps of each strategy against the plain runs' spread
+    def run(strategy, steps=DP_STEPS, fused=None, nudge=0.0):
+        params, state = fresh(nudge)
+        step = tr.make_train_step(cfg(strategy), mesh=mesh_of(strategy),
+                                  fused_bn=fused)
+        opt = tr.make_optimizer(cfg(strategy), params)
+        carry, losses = sync_state(strategy, params), []
+        for i in range(steps):
+            loss, state, _, _, carry = step(params, state, opt, i,
+                                            images[i % DP_STEPS],
+                                            labels[i % DP_STEPS], carry)
+            losses.append(loss)
+        sync(torch)
+        return ({k: p.detach() for k, p in vgg.flatten(params).items()},
+                [x.item() for x in losses])
+
+    def gap(a, b):
+        num = sum(((a[k] - b[k]).double() ** 2).sum() for k in b)
+        den = sum(((b[k] - start[k]).double() ** 2).sum() for k in b)
+        return (num / den).sqrt().item()
+
+    (pa, la), (pb, _), (pn, _) = run("none"), run("none"), \
+        run("none", nudge=NUDGE)
+    spread = max(gap(pb, pa), gap(pn, pa))
+    steps_res = {"plain_vs_plain": gap(pb, pa),
+                 "nudged_plain": gap(pn, pa),
+                 "param_tol": f"{PARAM_TOL} x max(plain vs plain, nudged "
+                              f"plain)", "losses_plain": la}
+    for s_name in DP_EXACT + DP_APPROX:
+        ps, ls = run(s_name)
+        steps_res[s_name] = {"gap": gap(ps, pa), "loss_first": ls[0],
+                             "loss_last": ls[-1]}
+        if not all(np.isfinite(ls)):
+            fail(f"(b) {s_name}: losses not finite {ls}")
+        if s_name in DP_EXACT and not gap(ps, pa) <= PARAM_TOL * spread:
+            fail(f"(b) {s_name}: params after {DP_STEPS} steps "
+                 f"{gap(ps, pa)} from the plain run's, beyond "
+                 f"{PARAM_TOL} x {spread}")
+        if s_name in DP_APPROX and not np.mean(ls[-5:]) < np.mean(ls[:5]):
+            fail(f"(b) {s_name}: the loss did not fall: {ls}")
+    out["steps"] = steps_res
+    print(f"  (b) {DP_STEPS} bf16 steps each, params' gap to a plain run "
+          f"(over the distance it moved): " + json.dumps(steps_res))
+
+    # (d) the collectives one step issues
+    calls = {}
+    for s_name in DP_EXACT + DP_APPROX:
+        params, state = fresh()
+        step = tr.make_train_step(cfg(s_name), mesh=mesh_of(s_name))
+        opt = tr.make_optimizer(cfg(s_name), params)
+        carry = sync_state(s_name, params)
+        _, state, _, _, carry = step(params, state, opt, 0, images[0],
+                                     labels[0], carry)
+        sync(torch)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(params, state, opt, 1, images[1], labels[1], carry)
+            sync(torch)
+        calls[s_name] = dp_calls(prof, torch.distributed.get_backend())
+    buckets = len(st.make_bucket_plan(
+        [p0[k][n] for k, n in tr.jax_order(p0)], st.BUCKET_CAP_MB << 20))
+    want = {"all_reduce": DP_LEAVES, "bucketed": buckets,
+            "quantized": 2 * DP_LEAVES, "ddp": 1}
+    for s_name, n_want in want.items():
+        got = calls[s_name]["calls"].get(
+            torch.distributed.get_backend() + ":all_reduce", 0)
+        if got != n_want:
+            fail(f"(d) {s_name}: {got} all-reduces a step, want {n_want}: "
+                 f"{calls[s_name]}")
+    out["collectives_per_step"] = calls
+    print("  (d) NCCL collectives and kernels of one step, by strategy "
+          "(world size 1): " + json.dumps(calls))
+
+    # (e) ddp against none through the Trainer, alternated windows
+    trainers = {}
+    for s_name in ("ddp", "none"):
+        t = tr.Trainer(cfg(s_name), device=DEVICE)
+        trainers[s_name] = {"t": t, "i": 0, "ms": []}
+    order = ["ddp", "none", "none", "ddp"]
+
+    def advance(r, k):
+        for _ in range(k):
+            j = r["i"] % DP_STEPS
+            r["t"].train_steps(images[j][None], labels[j][None])
+            r["i"] += 1
+
+    for r in trainers.values():
+        advance(r, 3)
+    for s_name in order:
+        r = trainers[s_name]
+        sync(torch)
+        t0 = time.perf_counter()
+        advance(r, DP_WINDOW)
+        sync(torch)
+        r["ms"].append((time.perf_counter() - t0) / DP_WINDOW * 1e3)
+    windows = {}
+    for s_name, r in trainers.items():
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        sync(torch)
+        with prof:
+            advance(r, 5)
+            sync(torch)
+        device_us = sum(e.self_device_time_total for e in
+                        prof.key_averages()
+                        if e.device_type.name == "CUDA")
+        nccl_us = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type.name == "CUDA"
+                      and "nccl" in e.key.lower())
+        med = float(np.median(r["ms"]))
+        windows[s_name] = {
+            "ms_per_step_windows": r["ms"], "ms_per_step_median": med,
+            "device_ms_per_step": device_us / 1e3 / 5,
+            "nccl_device_ms_per_step": nccl_us / 1e3 / 5,
+            "nccl_share_of_device": nccl_us / max(device_us, 1e-9),
+            "device_idle_share": 1.0 - device_us / 1e3 / 5 / med}
+    windows["ddp_over_none_ms"] = (windows["ddp"]["ms_per_step_median"]
+                                   / windows["none"]["ms_per_step_median"])
+    windows["ddp_minus_none_device_ms"] = (
+        windows["ddp"]["device_ms_per_step"]
+        - windows["none"]["device_ms_per_step"])
+    out["ddp_vs_none"] = windows
+    print(f"  (e) ddp vs none, bf16 batch {batch}, A B B A windows of "
+          f"{DP_WINDOW} steps: " + json.dumps(windows) + f"; {facts['smi']}")
+    del trainers
+
+    # (f) K1 on the data-parallel path
+    fb.bn_relu_bwd_reduce.launches = fb.bn_relu_bwd_apply.launches = 0
+    pf, lf = run("ddp", steps=DP_FUSED_STEPS, fused=True)
+    k1 = {"K1a": fb.bn_relu_bwd_reduce.launches,
+          "K1b": fb.bn_relu_bwd_apply.launches}
+    (qa, _), (qb, _), (qn, _) = (
+        run("none", steps=DP_FUSED_STEPS, fused=True),
+        run("none", steps=DP_FUSED_STEPS, fused=True),
+        run("none", steps=DP_FUSED_STEPS, fused=True, nudge=NUDGE))
+    fspread = max(gap(qb, qa), gap(qn, qa))
+    fused = {"launches": k1, "gap": gap(pf, qa), "plain_vs_plain": gap(qb, qa),
+             "nudged_plain": gap(qn, qa), "losses": lf}
+    out["fused_ddp"] = fused
+    print(f"  (f) ddp with fused_bn=True, {DP_FUSED_STEPS} bf16 steps: "
+          + json.dumps(fused))
+    want_k1 = n_bn * DP_FUSED_STEPS
+    if k1 != {"K1a": want_k1, "K1b": want_k1}:
+        fail(f"(f) K1a/K1b launches {k1} under ddp, want {want_k1} each")
+    if not fused["gap"] <= PARAM_TOL * fspread:
+        fail(f"(f) fused ddp params {fused['gap']} beyond {PARAM_TOL} x "
+             f"{fspread}")
+    port["parallel_init"].shutdown()
+    torch.cuda.empty_cache()
+    return out
+
+
 T_START = time.perf_counter()
 
 
@@ -3396,6 +3701,9 @@ def main() -> int:
         from distributed_pytorch_tpu_torch.ops import fused_bn
         from distributed_pytorch_tpu_torch.ops import losses, nn
         from distributed_pytorch_tpu_torch.ops import quantized as qz
+        from distributed_pytorch_tpu_torch.parallel import init as pinit
+        from distributed_pytorch_tpu_torch.parallel import mesh as pmesh
+        from distributed_pytorch_tpu_torch.parallel import strategies
     except ImportError as e:
         print(f"chip_smoke: the port's package is not importable: {e}",
               file=sys.stderr)
@@ -3405,7 +3713,8 @@ def main() -> int:
             "lm_cli": lm_cli, "dev": "cuda", "cfg": tfm.PRESETS["LM-base"],
             "train": train, "cli": cli, "vgg": vgg, "fused_bn": fused_bn,
             "cifar10": cifar10, "nn": nn, "qz": qz, "losses": losses,
-            "corpus": lm_corpus}
+            "corpus": lm_corpus, "strategies": strategies, "mesh": pmesh,
+            "parallel_init": pinit}
 
     # 1. card facts
     facts = card_facts(torch)
@@ -3486,10 +3795,13 @@ def main() -> int:
     phase(13, "VGG-11 train step, fused BN backward vs plain")
     fused_res = vgg_fused_check(torch, port)
     phase(14, "VGG-11 one epoch through cli, synthetic CIFAR-10")
-    cli_res = {dt: vgg_cli_run(torch, port, extra, f"VGG-11 {dt} cli epoch")
-               for dt, extra in (("float32", []),
-                                 ("bfloat16", ["--compute-dtype",
-                                               "bfloat16"]))}
+    cli_res = {dt: vgg_cli_run(torch, port, extra, f"VGG-11 {dt} cli epoch "
+                                                   f"({strategy or 'ddp'})",
+                               strategy=strategy)
+               for dt, extra, strategy in (
+                   ("float32", [], "none"),
+                   ("bfloat16", ["--compute-dtype", "bfloat16"], None))}
+    pinit.shutdown()
     phase(15, "int8 matmul kernel (K5) against its plain version")
     k5_worst = check_int8_kernel(torch, qz)
     k5_timing = time_int8(torch, qz, facts)
@@ -3506,6 +3818,8 @@ def main() -> int:
     phase(18, "serving scheduling at LM-base width")
     scheduling_exactness(torch, port)
     scheduling_serving(torch, port, serve_res["K6"])
+    phase(19, "data-parallel VGG-11 at world size 1 (NCCL), every strategy")
+    dp_res = dp_phase(torch, port, facts)
     print(f"  phases done at {time.perf_counter() - T_START:.0f} s")
 
     kernels = []
@@ -3585,6 +3899,7 @@ def main() -> int:
             "name": f"{fn} ({name})", "route": "cuda", "source": src,
             "replaces": f"distributed_pytorch_tpu/ops/fused_bn.py:{line}",
             "launches": fused_res["bf16"]["launches"][name],
+            "launches_dp_path": dp_res["fused_ddp"]["launches"][name],
             "max_abs_err": bn_worst[name]["max_abs_err"],
             "err_over_tol": bn_worst[name]["err_over_tol"],
             "tolerance": ("s1, s2: 1e-5 x max|s|" if name == "K1a" else

@@ -14,7 +14,9 @@ Ported so far, each with its hand-written CUDA kernels under csrc/:
   csrc/flash_attention.cu);
 - paged serving: the paged KV pool with preemption and prefix caching (the
   paged instance of csrc/decode_attention.cu);
-- VGG training on one device: models/vgg.py, train.py, eval.py, cli.py,
-  the CIFAR-10 data path (the fused BN+ReLU backward, csrc/fused_bn.cu).
+- VGG training: models/vgg.py, train.py, eval.py, cli.py, the CIFAR-10
+  data path (the fused BN+ReLU backward, csrc/fused_bn.cu), and data
+  parallel over torch.distributed, one process a device: parallel/
+  (rendezvous, mesh, the gradient-sync strategies), sync-BN, launch.py.
 See ROADMAP.md for what follows.
 """

@@ -1,16 +1,29 @@
-"""VGG/CIFAR-10 training CLI on one device: the port of the JAX package's
-cli.py, with its parser and flag names plus ``--device``:
+"""VGG/CIFAR-10 training CLI: the port of the JAX package's cli.py, with its
+parser and flag names plus ``--device``.  One process trains one rank on
+one device:
 
-  python -m distributed_pytorch_tpu_torch.cli --strategy none
+  python -m distributed_pytorch_tpu_torch.cli
 
-trains VGG-11 for ``--epochs`` (CIFAR-10 from ``--data-dir`` or ``./data``,
-else the deterministic synthetic split) with the reference's metric
-windows, and evaluates on the test split after each epoch.  It runs on the
-GPU unless given ``--device cpu``.  ``--strategy none`` is the reference's
-single-process main.py; every other strategy, and the rendezvous, elastic,
-checkpoint, profile, telemetry, sharded-eval, debug-check and sync flags,
-belong to the data-parallel slice and raise ``NotImplementedError`` naming
-it.  ``--model`` also takes ``TINY``, the package's smoke configuration.
+trains VGG-11 for ``--epochs`` at the default ``--strategy ddp`` (CIFAR-10
+from ``--data-dir`` or ``./data``, else the deterministic synthetic split)
+with the reference's metric windows, and evaluates on the test split after
+each epoch.  It runs on the GPU (``cuda:{LOCAL_RANK}``) unless given
+``--device cpu``.  The reference's launch contracts are kept:
+
+- ``--master-ip M --num-nodes N --rank R``: explicit TCP rendezvous on
+  ``--port`` (main_all_reduce.py:86-96);
+- ``--rendezvous env``: MASTER_ADDR/MASTER_PORT/WORLD_SIZE/RANK, as
+  ``launch.py`` and torchrun export them (main_ddp.py:93-104);
+- neither: one rank, over a one-rank process group for the strategies that
+  sync (``--strategy none`` is the reference's main.py).
+
+``--num-devices N > 1`` in one process is refused: the port runs one
+process per device (``python -m distributed_pytorch_tpu_torch.launch
+--nproc-per-node N -- -m distributed_pytorch_tpu_torch.cli --rendezvous
+env``).  The sync knobs of slice 5b, the checkpoint, profile, telemetry
+and elastic flags of slice 5c and the planner's flags of slice 5f raise
+``NotImplementedError`` naming their sub-slice.  ``--model`` also takes
+``TINY``, the package's smoke configuration.
 """
 
 from __future__ import annotations
@@ -23,38 +36,49 @@ from . import eval as evaluation
 from .data.cifar10 import load
 from .data.pipeline import DataLoader
 from .data.sampler import DistributedSampler
-from .models.transformer import not_ported
-from .train import STRATEGIES, SYSTEMS_SLICE, TrainConfig, Trainer
-
-DEFAULT_PORT = 6585  # the JAX package's rendezvous port
-DEFAULT_TIMEOUT_S = 300
+from .models.transformer import (DURABILITY_SLICE, PLANNING_SLICE,
+                                 SYNC_SLICE, not_ported)
+from .parallel import init as dist_init
+from .parallel.mesh import one_process_per_device
+from .train import STRATEGIES, TrainConfig, Trainer
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="distributed_pytorch_tpu_torch.cli",
-        description="VGG/CIFAR-10 trainer on one GPU (PyTorch port)")
+        description="VGG/CIFAR-10 trainer, one rank a GPU (PyTorch port)")
     p.add_argument("--device", default="cuda",
-                   help="torch device to train on (default cuda; 'cpu' "
-                        "only when asked)")
-    # rendezvous (multi-process: a later slice)
-    p.add_argument("--master-ip", type=str, default=None)
-    p.add_argument("--num-nodes", type=int, default=1)
-    p.add_argument("--rank", type=int, default=0)
-    p.add_argument("--port", type=int, default=DEFAULT_PORT)
-    p.add_argument("--rendezvous", choices=["args", "env"], default="args")
+                   help="torch device to train on (default cuda, "
+                        "cuda:{LOCAL_RANK}; 'cpu' only when asked)")
+    # rendezvous (reference main_all_reduce.py:86-92, main_ddp.py:93-104)
+    p.add_argument("--master-ip", type=str, default=None,
+                   help="coordinator host (rank 0), reference --master-ip")
+    p.add_argument("--num-nodes", type=int, default=1,
+                   help="number of processes, reference --num-nodes")
+    p.add_argument("--rank", type=int, default=0,
+                   help="this process's rank, reference --rank")
+    p.add_argument("--port", type=int, default=dist_init.DEFAULT_PORT)
+    p.add_argument("--rendezvous", choices=["args", "env"], default="args",
+                   help="'args' = explicit --master-ip/--rank "
+                        "(main_all_reduce.py:96); 'env' = torchrun-style "
+                        "MASTER_ADDR/RANK env vars (main_ddp.py:93-104)")
     p.add_argument("--rendezvous-timeout", type=int,
-                   default=DEFAULT_TIMEOUT_S)
-    # gradient sync (a later slice, except --strategy none)
+                   default=dist_init.DEFAULT_TIMEOUT_S,
+                   help="seconds before rendezvous fails loudly")
+    # gradient sync
     p.add_argument("--strategy", default="ddp", choices=list(STRATEGIES),
-                   help="gradient-sync strategy; 'none' (the reference's "
-                        "single-process main.py) is the one ported")
+                   help="gradient-sync strategy (parallel/strategies.py); "
+                        "'auto' and 'routed' belong to slice 5f")
     p.add_argument("--sync-route", default=None)
     p.add_argument("--autotune-profile", default=None)
-    p.add_argument("--dcn-size", type=int, default=2)
+    p.add_argument("--dcn-size", type=int, default=2,
+                   help="number of slices for --strategy hierarchical: the "
+                        "ranks factor into a ('dcn', 'ici') mesh")
     p.add_argument("--dcn-compress", default=None, choices=["int8", "int4"])
     p.add_argument("--overlap", action="store_true")
-    p.add_argument("--overlap-bucket-mb", type=float, default=None)
+    p.add_argument("--overlap-bucket-mb", type=float, default=None,
+                   help="bucket size of bucketed and the rings (default: "
+                        "torch DDP's 25 MB)")
     p.add_argument("--sync-every", type=int, default=1)
     p.add_argument("--max-sync-every", type=int, default=None)
     p.add_argument("--outer-opt", default=None,
@@ -75,67 +99,105 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=[None, "bfloat16", "float32"],
                    help="bfloat16 compute over float32 params")
     p.add_argument("--no-augment", action="store_true")
-    p.add_argument("--sync-bn", action="store_true")
+    p.add_argument("--sync-bn", action="store_true",
+                   help="cross-rank BatchNorm (the reference never syncs "
+                        "BN; default off for parity)")
     p.add_argument("--data-dir", default=None)
-    p.add_argument("--num-devices", type=int, default=None)
-    # capabilities of the JAX package beyond the reference (a later slice,
-    # except --fold-bn-eval)
+    p.add_argument("--num-devices", type=int, default=None,
+                   help="devices of this process: one (launch.py "
+                        "--nproc-per-node N runs N processes)")
+    # capabilities of the JAX package beyond the reference
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--profile-dir", default=None)
     p.add_argument("--telemetry-dir", default=None)
-    p.add_argument("--shard-eval", action="store_true")
+    p.add_argument("--shard-eval", action="store_true",
+                   help="shard the test set over the ranks (all-reduced "
+                        "sums) instead of the reference's redundant "
+                        "per-rank evaluation")
     p.add_argument("--fold-bn-eval", action="store_true",
                    help="fold BatchNorm statistics into the conv weights "
                         "for evaluation")
     p.add_argument("--elastic", action="store_true")
     p.add_argument("--min-nodes", type=int, default=1)
     p.add_argument("--max-nodes", type=int, default=None)
-    p.add_argument("--debug-checks", action="store_true")
+    p.add_argument("--debug-checks", action="store_true",
+                   help="after each epoch, verify the data-parallel "
+                        "invariants: params and momentum bitwise equal on "
+                        "every rank, and finite (utils/debug.py)")
     p.add_argument("--log-level", default="INFO")
     return p
 
 
-# (flag, the value that leaves it off); all belong to the data-parallel slice
+# (flag, the value that leaves it off, its sub-slice)
 _LATER_FLAGS = [
-    *[(f"--{n}", None) for n in (
-        "master-ip", "sync-route", "autotune-profile", "dcn-compress",
-        "overlap-bucket-mb", "max-sync-every", "outer-opt",
-        "sync-every-per-slice", "checkpoint-dir", "profile-dir",
-        "telemetry-dir", "max-nodes")],
-    *[(f"--{n}", False) for n in ("overlap", "sync-bn", "shard-eval",
-                                  "elastic", "debug-checks")],
-    *[(f"--{n}", 1) for n in ("num-nodes", "sync-every", "min-nodes")],
-    ("--rank", 0), ("--dcn-size", 2), ("--rendezvous", "args"),
+    *[(f"--{n}", None, SYNC_SLICE) for n in (
+        "dcn-compress", "max-sync-every", "outer-opt",
+        "sync-every-per-slice")],
+    *[(f"--{n}", None, PLANNING_SLICE) for n in ("sync-route",
+                                                 "autotune-profile")],
+    *[(f"--{n}", None, DURABILITY_SLICE) for n in (
+        "checkpoint-dir", "profile-dir", "telemetry-dir", "max-nodes")],
+    ("--overlap", False, SYNC_SLICE), ("--sync-every", 1, SYNC_SLICE),
+    ("--elastic", False, DURABILITY_SLICE),
+    ("--min-nodes", 1, DURABILITY_SLICE),
 ]
 
 
 def refuse_later_flags(args) -> None:
-    """NotImplementedError, naming the slice, for any flag of a later
-    slice."""
-    for flag, off in _LATER_FLAGS:
+    """NotImplementedError, naming its sub-slice, for any flag of a later
+    slice; and for ``--num-devices`` other than one process's one device."""
+    for flag, off, where in _LATER_FLAGS:
         value = getattr(args, flag[2:].replace("-", "_"))
         if value != off:
-            raise not_ported(f"{flag} {value!r}", SYSTEMS_SLICE)
+            raise not_ported(f"{flag} {value!r}", where)
     if args.num_devices not in (None, 1):
-        raise not_ported(f"--num-devices {args.num_devices}", SYSTEMS_SLICE)
+        one_process_per_device(args.num_devices)
 
 
-def build_loaders(args) -> tuple[list[DataLoader], DataLoader]:
-    """One train loader (shuffled, the single-process baseline's: reference
-    main.py:85-90) and one test loader over the full test split."""
+def build_loaders(args, n_replicas: int, replica_offset: int
+                  ) -> tuple[list[DataLoader], DataLoader]:
+    """This rank's train loader and one test loader over the full test
+    split.  One replica: shuffled (the single-process baseline's, reference
+    main.py:85-90); several: a ``DistributedSampler(num_replicas, rank)``
+    shard (main_all_reduce.py:112).  The test set is not sharded (every
+    rank evaluates all of it, main_gather.py:131) unless ``--shard-eval``,
+    which reads ``test_loader.dataset``."""
     train_set = load("train", args.data_dir)
     test_set = load("test", args.data_dir)
-    return ([DataLoader(train_set, args.batch_size, shuffle=True, seed=0)],
-            DataLoader(test_set, args.batch_size))
+    if n_replicas == 1:
+        train = DataLoader(train_set, args.batch_size, shuffle=True, seed=0)
+    else:
+        train = DataLoader(train_set, args.batch_size,
+                           sampler=DistributedSampler(
+                               len(train_set), num_replicas=n_replicas,
+                               rank=replica_offset, shuffle=True, seed=0))
+    return [train], DataLoader(test_set, args.batch_size)
 
 
 def run(argv: list[str] | None = None, on_step=None) -> dict:
-    """Parse ``argv``, train ``--epochs`` epochs and evaluate after each;
-    returns ``{"trainer", "epochs": [{"loss_meter", "time_meter",
-    "eval": (avg_loss, accuracy)}], "synthetic"}``.  ``on_step(step)`` is
-    passed to ``Trainer.train_epoch``."""
+    """Parse ``argv``, rendezvous, train ``--epochs`` epochs and evaluate
+    after each, then destroy the process group; returns ``{"trainer",
+    "epochs": [{"loss_meter", "time_meter", "eval": (avg_loss,
+    accuracy)}], "synthetic"}``.  ``on_step(step)`` is passed to
+    ``Trainer.train_epoch``."""
     args = build_parser().parse_args(argv)
     refuse_later_flags(args)
+    # rendezvous first: the device is bound (cuda:{LOCAL_RANK}) before any
+    # CUDA tensor exists, as the reference's init precedes every torch call
+    if args.rendezvous == "env":
+        device = dist_init.init_from_env(timeout_s=args.rendezvous_timeout,
+                                         device=args.device)
+    else:
+        device = dist_init.init_distributed(
+            args.master_ip, args.num_nodes, args.rank, port=args.port,
+            timeout_s=args.rendezvous_timeout, device=args.device)
+    try:
+        return _train(args, device, on_step)
+    finally:
+        dist_init.shutdown()
+
+
+def _train(args, device, on_step) -> dict:
     logging.basicConfig(
         level=args.log_level,
         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
@@ -143,13 +205,26 @@ def run(argv: list[str] | None = None, on_step=None) -> dict:
     cfg = TrainConfig(
         model=args.model, lr=args.lr, momentum=args.momentum,
         weight_decay=args.weight_decay, batch_size=args.batch_size,
-        strategy=args.strategy, compute_dtype=args.compute_dtype,
-        augment=not args.no_augment, seed=args.seed,
+        strategy=args.strategy, sync_bn=args.sync_bn,
+        compute_dtype=args.compute_dtype, augment=not args.no_augment,
+        seed=args.seed, dcn_size=args.dcn_size,
+        overlap_bucket_mb=args.overlap_bucket_mb,
         outer_momentum=args.outer_momentum, outer_lr=args.outer_lr)
-    trainer = Trainer(cfg, device=args.device)
-    log.info("device=%s strategy=%s model=%s", trainer.device,
-             args.strategy, args.model)
-    train_loaders, test_loader = build_loaders(args)
+    try:
+        trainer = Trainer(cfg, num_devices=args.num_devices, device=device)
+    except ValueError as e:
+        raise SystemExit(str(e)) from e
+    rank, world = dist_init.process_info()
+    if args.shard_eval and trainer.mesh is not None and \
+            args.batch_size % trainer.n_replicas:
+        raise SystemExit(
+            f"--shard-eval: --batch-size {args.batch_size} must divide "
+            f"across {trainer.n_replicas} ranks (fail fast, before a whole "
+            f"epoch is spent)")
+    log.info("device=%s rank=%d/%d strategy=%s model=%s", trainer.device,
+             rank, world, args.strategy, args.model)
+    train_loaders, test_loader = build_loaders(args, trainer.n_replicas,
+                                               trainer.rank)
     synthetic = train_loaders[0].dataset.synthetic
     log.info("CIFAR-10: %d train / %d test images (%s)",
              len(train_loaders[0].dataset), len(test_loader.dataset),
@@ -158,10 +233,24 @@ def run(argv: list[str] | None = None, on_step=None) -> dict:
     for epoch in range(args.epochs):
         loss_meter, time_meter = trainer.train_epoch(
             train_loaders, epoch, on_step=on_step)
-        result = evaluation.evaluate(
-            trainer.params, trainer.eval_state(), test_loader,
-            model_name=args.model, compute_dtype=cfg.dtype,
-            fold_bn=args.fold_bn_eval, device=trainer.device)
+        if args.debug_checks:
+            trainer.check_consistency()
+            log.info("epoch %d: replica-consistency checks passed",
+                     epoch + 1)
+        if args.shard_eval and trainer.mesh is None:
+            log.warning("--shard-eval ignored: strategy %s runs without a "
+                        "mesh", args.strategy)
+        if args.shard_eval and trainer.mesh is not None:
+            result = evaluation.evaluate_sharded(
+                trainer.params, trainer.eval_state(), test_loader.dataset,
+                trainer.mesh, batch_size=args.batch_size,
+                model_name=args.model, compute_dtype=cfg.dtype,
+                fold_bn=args.fold_bn_eval, device=trainer.device)
+        else:
+            result = evaluation.evaluate(
+                trainer.params, trainer.eval_state(), test_loader,
+                model_name=args.model, compute_dtype=cfg.dtype,
+                fold_bn=args.fold_bn_eval, device=trainer.device)
         epochs.append({"loss_meter": loss_meter, "time_meter": time_meter,
                        "eval": result})
     return {"trainer": trainer, "epochs": epochs, "synthetic": synthetic}

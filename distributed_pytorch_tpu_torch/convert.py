@@ -28,7 +28,10 @@ scale/bias, running mean/var and the fc head ((in, out), as in the JAX
 package) cross as they are.  The VGG trainer's optimizer state crosses too:
 the momentum trace of an optax ``chain(add_decayed_weights, sgd(momentum))``
 state becomes the port's momentum buffers (``from_jax_sgd_state``), and
-back.
+back.  A JAX mesh run keeps per-replica state with a leading device axis:
+the BN running state (``from_jax_replica_state``) and a stateful
+strategy's residual (``from_jax_sync_state``) give one rank its row, so a
+port gang starts from the point of a JAX mesh run.
 """
 
 from __future__ import annotations
@@ -223,3 +226,22 @@ def to_jax_sgd_state(momentum: dict, like):
         return node
 
     return walk(like)
+
+
+def from_jax_replica_state(state, rank: int,
+                           device: str | torch.device = "cuda") -> dict:
+    """Rank ``rank``'s BN running state from a JAX mesh trainer's
+    replica-stacked state tree (every leaf with a leading device axis):
+    row ``rank`` of each leaf, as the port's nested float32 dict."""
+    dev = resolve_device(device)
+    return _vgg_tree(state, lambda name, a: _from_jax_leaf(
+        name, np.asarray(a)[rank], dev))
+
+
+def from_jax_sync_state(sync_state, rank: int,
+                        device: str | torch.device = "cuda") -> torch.Tensor:
+    """Rank ``rank``'s residual (a float32 vector) from a JAX mesh trainer's
+    (n_replicas, L) ``sync_state``, for ``Trainer.load_state``."""
+    row = np.array(np.asarray(sync_state)[rank], dtype=np.float32,
+                   copy=True)
+    return torch.from_numpy(row).to(resolve_device(device))

@@ -5,19 +5,22 @@ Reference (main.py:51-66): model.eval(), no grad, sum the per-batch mean
 losses, divide by the *number of batches*, and argmax accuracy over the full
 test set, with BN running statistics.  Batches are padded to the first
 batch's size with a validity mask (``_pad_batch``), as in the JAX package,
-so the ragged last batch counts only its real samples.  The sharded
-evaluation (``evaluate_sharded``) comes with the data-parallel slice
-(ROADMAP.md queue 1, slice 5).
+so the ragged last batch counts only its real samples.
+``evaluate_sharded`` splits the test set over the ranks of a mesh and
+all-reduces the sums, with the same loss definition.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from .data import augment as aug
 from .models import vgg
 from .ops import nn as ops
+from .parallel.mesh import mesh_group
 from .utils.device import resolve_device
 
 
@@ -85,5 +88,61 @@ def evaluate(params: dict, state: dict, loader, *,
     acc = correct / max(total, 1)
     if log:
         log(f"Test set: Average loss: {avg_loss:.4f}, "
+            f"Accuracy: {correct}/{total} ({100.0 * acc:.0f}%)\n")
+    return avg_loss, acc
+
+
+@torch.no_grad()
+def evaluate_sharded(params: dict, state: dict, dataset, mesh, *,
+                     batch_size: int = 256, model_name: str = "VGG11",
+                     compute_dtype: torch.dtype | None = None,
+                     fold_bn: bool = False, log=print,
+                     device: str | torch.device = "cuda"
+                     ) -> tuple[float, float]:
+    """Evaluation split over the ranks of ``mesh`` (a ``DeviceMesh`` or a
+    process group): rank r takes rows ``[r b/n, (r+1) b/n)`` of every
+    padded batch and the per-batch sums are all-reduced (one collective a
+    batch), where ``evaluate`` has every rank evaluate all of the test set
+    (main_gather.py:131).  The loss definition is ``evaluate``'s (the sum
+    of per-batch means over real samples, over the batch count), which is
+    why ``batch_size`` must divide by the ranks, as in the JAX package.
+    ``state`` is rank 0's BN state (``Trainer.eval_state``).  Every rank
+    must call it."""
+    group = mesh_group(mesh) if isinstance(mesh, DeviceMesh) else mesh
+    n_dev = dist.get_world_size(group)
+    rank = dist.get_rank(group)
+    if batch_size % max(n_dev, 1):
+        raise ValueError(f"batch_size {batch_size} must be divisible by the "
+                         f"{n_dev}-device mesh for loss parity with "
+                         f"evaluate()")
+    dev = resolve_device(device)
+    params, state = vgg.to_device(params, dev), vgg.to_device(state, dev)
+    if fold_bn:
+        params = vgg.fold_bn(params, state, name=model_name)
+    per = batch_size // n_dev
+    rows = slice(rank * per, (rank + 1) * per)
+    total_loss, correct, total, n_batches = 0.0, 0, 0, 0
+    images_all, labels_all = dataset.images, dataset.labels
+    for start in range(0, len(labels_all), batch_size):
+        images, labels, mask, n = _pad_batch(
+            images_all[start:start + batch_size],
+            labels_all[start:start + batch_size], batch_size)
+        ce_sum, corr, n_real = _batch_metrics(
+            params, state, torch.as_tensor(images[rows]).to(dev),
+            torch.as_tensor(labels[rows]).to(dev).long(),
+            torch.as_tensor(mask[rows]).to(dev), model_name=model_name,
+            dtype=compute_dtype, folded=fold_bn)
+        sums = torch.stack([ce_sum.double(), corr.double(),
+                            n_real.double()])
+        dist.all_reduce(sums, group=group)
+        ce_sum, corr, n_real = sums.tolist()
+        total_loss += ce_sum / max(n_real, 1.0)
+        correct += int(corr)
+        total += n
+        n_batches += 1
+    avg_loss = total_loss / max(n_batches, 1)
+    acc = correct / max(total, 1)
+    if log:
+        log(f"Test set (sharded x{n_dev}): Average loss: {avg_loss:.4f}, "
             f"Accuracy: {correct}/{total} ({100.0 * acc:.0f}%)\n")
     return avg_loss, acc

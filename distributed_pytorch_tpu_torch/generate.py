@@ -21,7 +21,7 @@ primitives (``lookup_proposals``, the rejection sampler) also serve the
 batcher's in-block speculation (serve.py).  Each ``jax.lax.while_loop``
 of the JAX package is a Python loop over device tensors here, and each
 ``jax.random`` split a draw from the caller's ``torch.Generator``.
-Tensor-parallel decode (``tp_axis``) is refused until slice 5
+Tensor-parallel decode (``tp_axis``) is refused until slice 5d
 (ROADMAP.md queue 1).
 """
 

@@ -45,7 +45,8 @@ from .utils.device import resolve_device
 
 IGNORE = IGNORE_INDEX  # target id excluded from the loss (padding)
 
-SYSTEMS_SLICE = tfm.SYSTEMS_SLICE
+SYNC_SLICE, DURABILITY_SLICE = tfm.SYNC_SLICE, tfm.DURABILITY_SLICE
+PARALLEL_SLICE, PLANNING_SLICE = tfm.PARALLEL_SLICE, tfm.PLANNING_SLICE
 ADAM_EPS = 1e-8  # optax.adamw's default
 
 
@@ -109,17 +110,19 @@ class LMTrainConfig:
 # Fields whose non-default values belong to a later slice: name -> (the
 # value that means "off", the slice).
 _LATER = {
-    **{n: (1, SYSTEMS_SLICE) for n in ("dp", "sp", "tp", "pp", "ep",
-                                       "dcn_size", "interleave",
-                                       "sync_every", "max_sync_every")},
-    **{n: (None, SYSTEMS_SLICE) for n in (
-        "dcn_compress", "bucket_mb", "sync_plan", "sync_route",
-        "fsdp_gather_dtype", "outer_opt", "sync_every_per_slice")},
-    "fsdp": (False, SYSTEMS_SLICE),
-    "overlap": (False, SYSTEMS_SLICE),
-    "staleness": (0, SYSTEMS_SLICE),
-    "pp_size": (0, SYSTEMS_SLICE),
-    "microbatches": (0, SYSTEMS_SLICE),
+    **{n: (1, SYNC_SLICE) for n in ("dp", "dcn_size", "sync_every",
+                                    "max_sync_every")},
+    **{n: (1, PARALLEL_SLICE) for n in ("sp", "tp", "pp", "ep",
+                                        "interleave")},
+    **{n: (None, SYNC_SLICE) for n in (
+        "dcn_compress", "bucket_mb", "fsdp_gather_dtype", "outer_opt",
+        "sync_every_per_slice")},
+    **{n: (None, PLANNING_SLICE) for n in ("sync_plan", "sync_route")},
+    "fsdp": (False, SYNC_SLICE),
+    "overlap": (False, SYNC_SLICE),
+    "staleness": (0, SYNC_SLICE),
+    "pp_size": (0, PARALLEL_SLICE),
+    "microbatches": (0, PARALLEL_SLICE),
 }
 
 
@@ -410,14 +413,14 @@ class LMTrainer:
 
     # -- later slices -----------------------------------------------------
     def save_checkpoint(self, *args, **kwargs):
-        raise tfm.not_ported("LMTrainer.save_checkpoint", SYSTEMS_SLICE)
+        raise tfm.not_ported("LMTrainer.save_checkpoint", DURABILITY_SLICE)
 
     def maybe_restore(self, *args, **kwargs):
-        raise tfm.not_ported("LMTrainer.maybe_restore", SYSTEMS_SLICE)
+        raise tfm.not_ported("LMTrainer.maybe_restore", DURABILITY_SLICE)
 
     def flush_checkpoints(self):
-        raise tfm.not_ported("LMTrainer.flush_checkpoints", SYSTEMS_SLICE)
+        raise tfm.not_ported("LMTrainer.flush_checkpoints", DURABILITY_SLICE)
 
     def rebuild(self, *args, **kwargs):
         raise tfm.not_ported("LMTrainer.rebuild (elastic resize)",
-                             SYSTEMS_SLICE)
+                             DURABILITY_SLICE)

@@ -26,7 +26,8 @@ import numpy as np
 import torch
 
 from .data import lm_corpus
-from .lm import SYSTEMS_SLICE, LMTrainConfig, LMTrainer
+from .lm import (DURABILITY_SLICE, PARALLEL_SLICE, PLANNING_SLICE,
+                 SYNC_SLICE, LMTrainConfig, LMTrainer)
 from .models import transformer as tfm
 
 DEFAULT_PORT = 6585  # the JAX package's rendezvous port
@@ -141,20 +142,26 @@ def build_parser() -> argparse.ArgumentParser:
 
 # (flag, argparse dest, the value that leaves it off, its slice)
 _LATER_FLAGS = [
-    *[(f"--{n}", n, 1, SYSTEMS_SLICE)
-      for n in ("dp", "sp", "tp", "pp", "ep", "interleave", "num-nodes",
-                "dcn-size", "sync-every", "min-nodes")],
-    *[(f"--{n}", n, None, SYSTEMS_SLICE)
+    *[(f"--{n}", n, 1, SYNC_SLICE)
+      for n in ("dp", "num-nodes", "dcn-size", "sync-every")],
+    *[(f"--{n}", n, 1, PARALLEL_SLICE)
+      for n in ("sp", "tp", "pp", "ep", "interleave")],
+    ("--min-nodes", "min-nodes", 1, DURABILITY_SLICE),
+    *[(f"--{n}", n, None, SYNC_SLICE)
       for n in ("master-ip", "dcn-compress", "fsdp-gather-dtype",
-                "bucket-mb", "sync-plan", "sync-route", "autotune-profile",
-                "max-sync-every", "outer-opt", "sync-every-per-slice",
-                "max-nodes", "checkpoint-dir", "profile-dir",
+                "bucket-mb", "max-sync-every", "outer-opt",
+                "sync-every-per-slice")],
+    *[(f"--{n}", n, None, PLANNING_SLICE)
+      for n in ("sync-plan", "sync-route", "autotune-profile")],
+    *[(f"--{n}", n, None, DURABILITY_SLICE)
+      for n in ("max-nodes", "checkpoint-dir", "profile-dir",
                 "telemetry-dir")],
-    *[(f"--{n}", n, False, SYSTEMS_SLICE)
-      for n in ("fsdp", "elastic", "overlap", "checkpoint-sharded")],
-    *[(f"--{n}", n, 0, SYSTEMS_SLICE)
-      for n in ("pp-size", "microbatches", "staleness", "rank")],
-    ("--rendezvous", "rendezvous", "args", SYSTEMS_SLICE),
+    *[(f"--{n}", n, False, SYNC_SLICE) for n in ("fsdp", "overlap")],
+    *[(f"--{n}", n, False, DURABILITY_SLICE)
+      for n in ("elastic", "checkpoint-sharded")],
+    *[(f"--{n}", n, 0, PARALLEL_SLICE) for n in ("pp-size", "microbatches")],
+    *[(f"--{n}", n, 0, SYNC_SLICE) for n in ("staleness", "rank")],
+    ("--rendezvous", "rendezvous", "args", SYNC_SLICE),
     ("--n-experts", "n-experts", None, tfm.MOE_SLICE),
 ]
 

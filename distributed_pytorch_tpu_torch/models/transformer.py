@@ -37,9 +37,16 @@ from ..utils.device import resolve_device
 Params = dict[str, torch.Tensor]
 
 MOE_SLICE = "ROADMAP.md queue 1, slice 6b (MoE layers)"
-PARALLEL_SLICE = "ROADMAP.md queue 1, slice 5 (parallelism)"
-SYSTEMS_SLICE = ("ROADMAP.md queue 1, slice 5 (data parallel and the "
-                 "systems layers)")
+# The sub-slices of slice 5 still to port, each named by the refusals of
+# its work (slice 5a, data-parallel VGG, is ported).
+SYNC_SLICE = ("ROADMAP.md queue 1, slice 5b (LM data parallel and the sync "
+              "knobs)")
+DURABILITY_SLICE = ("ROADMAP.md queue 1, slice 5c (durability and "
+                    "observability)")
+PARALLEL_SLICE = "ROADMAP.md queue 1, slice 5d (model parallelism)"
+FLEET_SLICE = "ROADMAP.md queue 1, slice 5e (the fleet)"
+PLANNING_SLICE = ("ROADMAP.md queue 1, slice 5f (planning, accounting and "
+                  "the bench leg)")
 
 
 def not_ported(what: str, where: str) -> NotImplementedError:

@@ -26,7 +26,7 @@ import torch
 
 from ..ops import nn as ops
 from ..utils.device import resolve_device
-from .transformer import SYSTEMS_SLICE, not_ported
+from .transformer import SYNC_SLICE, not_ported
 
 # Reference model.py:3-8, verbatim cfg lists; TINY is the JAX package's
 # smoke config (same 5-pool topology, ~64x fewer params).
@@ -99,7 +99,7 @@ def init(seed: int | torch.Generator = 0, name: str = "VGG11", *,
 
 def apply(params: dict, state: dict, x: torch.Tensor, *,
           name: str = "VGG11", train: bool = False,
-          dtype: torch.dtype | None = None, bn_axis_name: str | None = None,
+          dtype: torch.dtype | None = None, bn_axis_name=None,
           fused_bn: bool | None = None,
           boundary=None) -> tuple[torch.Tensor, dict]:
     """Forward pass; returns (float32 logits (B, 10), new_state).
@@ -109,14 +109,13 @@ def apply(params: dict, state: dict, x: torch.Tensor, *,
     ``fused_bn`` controls the fused BN+ReLU backward (ops/fused_bn.py):
     None resolves to the plain path, True runs the hand-written kernels on
     the GPU; the forward is bitwise the same either way.  ``bn_axis_name``
-    (sync-BN) and ``boundary`` (overlapped gradient sync) belong to the
-    data-parallel slice and raise."""
-    if bn_axis_name is not None:
-        raise not_ported(f"vgg.apply bn_axis_name={bn_axis_name!r}",
-                         SYSTEMS_SLICE)
+    (sync-BN) is the process group the train-mode BN moments span (None:
+    this rank's batch alone); the fused backward takes local statistics
+    only and refuses it, as in the JAX package.  ``boundary`` (overlapped
+    gradient sync) belongs to slice 5b and raises."""
     if boundary is not None:
         raise not_ported("vgg.apply boundary (overlapped gradient sync)",
-                         SYSTEMS_SLICE)
+                         SYNC_SLICE)
     if dtype is not None:
         x = x.to(dtype)
     new_state: dict = {}
@@ -128,7 +127,7 @@ def apply(params: dict, state: dict, x: torch.Tensor, *,
             x = ops.conv2d(params[f"conv{idx}"], x)
             x, new_state[f"bn{idx}"] = ops.batchnorm_relu(
                 params[f"bn{idx}"], state[f"bn{idx}"], x, train=train,
-                fused=fused_bn)
+                axis_name=bn_axis_name, fused=fused_bn)
             idx += 1
     x = x.reshape(x.shape[0], -1)  # (B, 512): spatial 1x1, NHWC order
     logits = ops.dense(params["fc"], x)

@@ -16,7 +16,7 @@ ops/losses.py.
 - ``default_chunk``: the largest divisor of the vocabulary <= 1024.
 
 The tensor-parallel head (``tp_axis`` / ``tp_size > 1``, the vocabulary
-sharded over the model axis) is refused until slice 5 (ROADMAP.md queue 1).
+sharded over the model axis) is refused until slice 5d (ROADMAP.md queue 1).
 Masking follows ``ops.nn.IGNORE_INDEX``: ignored positions add zero loss
 and zero gradient.
 """
@@ -27,7 +27,7 @@ import torch
 
 from .nn import IGNORE_INDEX, masked_ce
 
-TP_HEAD_SLICE = ("ROADMAP.md queue 1, slice 5 (parallelism: the "
+TP_HEAD_SLICE = ("ROADMAP.md queue 1, slice 5d (model parallelism: the "
                  "vocabulary-sharded head)")
 
 

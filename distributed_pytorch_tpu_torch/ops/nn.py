@@ -17,7 +17,10 @@ parameter dicts, and the losses of both trainers:
   its own rounding would drift from the reference and from the fused
   backward's recomputed ReLU mask (ops/fused_bn.py);
 - a ``dtype`` argument supports bfloat16 compute with float32 parameters
-  (params are cast at use, statistics and losses kept in float32).
+  (params are cast at use, statistics and losses kept in float32);
+- sync-BN (the JAX ``axis_name``) takes a process group here: the batch
+  moments are cross-rank means, through ``CrossRankMean``, whose backward
+  all-reduces the cotangent as the JAX ``pmean``'s transpose does.
 
 Initialisation follows torch's defaults (kaiming-uniform with a=sqrt(5) for
 conv/linear weights, uniform(+-1/sqrt(fan_in)) for biases, ones/zeros for
@@ -30,9 +33,8 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
-
-from ..models.transformer import SYSTEMS_SLICE, not_ported
 
 # Torch BatchNorm2d defaults (reference model.py:24 uses defaults).
 BN_MOMENTUM = 0.1
@@ -115,22 +117,48 @@ def normalize(x: torch.Tensor, mean: torch.Tensor, inv: torch.Tensor,
     return (x - channel(mean, x)) * channel(inv, x) + channel(bias, x)
 
 
-def _train_stats(state: dict, x: torch.Tensor, axis_name: str | None
+class CrossRankMean(torch.autograd.Function):
+    """The mean of a tensor over the ranks of ``group``: ``all_reduce``
+    (sum) then ``/ n``, and in the backward the same of the cotangent (the
+    JAX ``pmean`` and its transpose: every rank's loss depends on every
+    rank's input through the mean)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out * (1.0 / dist.get_world_size(group))
+
+    @staticmethod
+    def backward(ctx, ct: torch.Tensor):
+        ct = ct.contiguous().clone()
+        dist.all_reduce(ct, group=ctx.group)
+        return ct * (1.0 / dist.get_world_size(ctx.group)), None
+
+
+def _train_stats(state: dict, x: torch.Tensor, axis_name
                  ) -> tuple[torch.Tensor, torch.Tensor, dict]:
     """Train-mode batch statistics and the running-buffer update, shared by
     ``batchnorm`` and the fused ``batchnorm_relu`` path: float32 moments,
     ``var = E[x^2] - E[x]^2`` (biased, used to normalize); the buffers take
     torch's convention (momentum 0.1, the unbiased variance stored).  The
-    new buffers carry no gradient."""
-    if axis_name is not None:
-        raise not_ported(f"batchnorm axis_name={axis_name!r} (sync-BN)",
-                         SYSTEMS_SLICE)
+    new buffers carry no gradient.
+
+    With ``axis_name`` (sync-BN: a process group) ``E[x]`` and ``E[x^2]``
+    are cross-rank means first, in one collective, and then the variance
+    (a mean of local variances would miss the spread of the ranks'
+    means); ``n`` counts every rank's rows for the unbiased variance."""
     x32 = x.float()
     dims = (0, *range(2, x.ndim))
     mean = x32.mean(dims)
     mean_sq = x32.square().mean(dims)
-    var = mean_sq - mean.square()
     n = x32.numel() // x32.shape[1]
+    if axis_name is not None:
+        mean, mean_sq = CrossRankMean.apply(
+            torch.stack([mean, mean_sq]), axis_name).unbind(0)
+        n *= dist.get_world_size(axis_name)
+    var = mean_sq - mean.square()
     with torch.no_grad():
         unbiased = var * (n / max(n - 1, 1))
         new_state = {
@@ -141,13 +169,13 @@ def _train_stats(state: dict, x: torch.Tensor, axis_name: str | None
 
 
 def batchnorm(params: dict, state: dict, x: torch.Tensor, *, train: bool,
-              axis_name: str | None = None) -> tuple[torch.Tensor, dict]:
+              axis_name=None) -> tuple[torch.Tensor, dict]:
     """BatchNorm over (N, C, H, W) input; returns (y, new_state).
 
     Statistics in float32 whatever the compute dtype; train mode uses the
-    batch's, eval mode the running buffers.  ``axis_name`` (sync-BN's
-    cross-replica moments) belongs to a later slice and raises in train
-    mode; eval mode reads no batch moments, so it has nothing to sync."""
+    batch's, eval mode the running buffers.  ``axis_name`` (sync-BN) is the
+    process group whose ranks' batches the train-mode moments span; eval
+    mode reads no batch moments, so it has nothing to sync."""
     if train:
         mean, var, new_state = _train_stats(state, x, axis_name)
     else:
@@ -158,7 +186,7 @@ def batchnorm(params: dict, state: dict, x: torch.Tensor, *, train: bool,
 
 
 def batchnorm_relu(params: dict, state: dict, x: torch.Tensor, *,
-                   train: bool, axis_name: str | None = None,
+                   train: bool, axis_name=None,
                    fused: bool | None = None) -> tuple[torch.Tensor, dict]:
     """``relu(batchnorm(x))`` with an optionally FUSED backward.
 

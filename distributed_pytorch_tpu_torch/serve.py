@@ -69,7 +69,7 @@ uniforms for all ``steps_per_sync`` steps at once, so a block draws the
 same whether it runs serially or chained.  Tensor parallelism (``mesh``,
 ``tp_axis``) and the fleet handoff (``export_request`` /
 ``import_request``) raise ``NotImplementedError`` naming ROADMAP.md
-queue 1, slice 5.
+queue 1, slices 5d and 5e.
 """
 
 from __future__ import annotations
@@ -92,7 +92,7 @@ from .utils.tracing import PhaseTimer
 # which explicitly DISABLES eos for that request
 _INHERIT = object()
 
-FLEET_SLICE = "ROADMAP.md queue 1, slice 5 (fleet)"
+FLEET_SLICE = tfm.FLEET_SLICE
 
 
 def prefix_page_hashes(prompt, page: int) -> list[bytes]:

@@ -1,30 +1,39 @@
-"""The VGG trainer on one device: the port of the JAX package's train.py.
+"""The VGG trainer: the port of the JAX package's train.py.
 
 The JAX trainer runs one compiled step per dispatch with a pluggable
-gradient-sync strategy; this slice ports its single-process path (strategy
-``"none"``, the reference's main.py).  A step is the JAX step with no mesh:
+gradient-sync strategy (parallel/strategies.py), under ``shard_map`` over a
+mesh of devices.  Here each rank is a process driving one device, and a
+step is the JAX step on this rank's shard of the global batch:
 
 - the uint8 NHWC batch crosses to the device, is augmented there
   (data/augment.py: random crop from the 4-pixel zero-padded canvas,
   horizontal flip, normalize) or only normalized (``augment=False``);
 - VGG forward in ``compute_dtype`` over float32 params (models/vgg.py),
-  float32 cross-entropy, autograd backward, the per-step health flag (loss
-  and gradient sum of squares finite) and the [grad-norm, param-norm]
-  scalars of ``ops.nn.step_metrics``;
-- ``torch.optim.SGD(lr, momentum, weight_decay)``: the update of optax's
-  ``add_decayed_weights(wd)`` then ``sgd(lr, momentum)`` (grad += wd * p,
-  then the momentum buffer, then the step), in place.
+  BatchNorm over this rank's batch or, with ``sync_bn``, over every rank's;
+  float32 cross-entropy and autograd backward;
+- with ``broadcast_buffers`` (the default of ``ddp`` and ``bucketed``, torch
+  DDP's), rank 0's updated BN state replaces every rank's;
+- the strategy syncs the gradients (leaves in the JAX package's tree order,
+  the rings' in its layout: ``jax_order``), carrying a stateful strategy's
+  residual (``sync_state``) per rank;
+- the health flag (loss and synced gradient sum of squares finite), the
+  [grad-norm, param-norm] scalars of ``ops.nn.step_metrics``, and
+  ``torch.optim.SGD(lr, momentum, weight_decay)``: the update of optax's
+  ``add_decayed_weights(wd)`` then ``sgd(lr, momentum)``, in place.
 
-The augmentation draws come from a generator seeded by ``(seed, step)``
-alone, so ``steps_per_loop=K`` gives the trajectory of K single steps.  The
-draws are torch's, not the JAX package's bits: equal trajectories across
-the packages hold with ``augment=False`` (or given the same draws).
+A ``train_steps`` call averages its losses, health flags and scalars over
+the ranks in one collective, as the JAX step's ``pmean``s do.
 
-``TrainConfig`` keeps every field of the JAX config with its default;
-anything but strategy ``"none"`` and the sync knobs' off values belongs to
-the data-parallel slice and raises ``NotImplementedError`` naming it.  The
-default ``strategy="ddp"`` therefore raises until then; the command line
-passes ``--strategy none``, the reference's main.py.
+The augmentation draws come from a generator seeded by ``(seed, step,
+rank)`` alone, so ``steps_per_loop=K`` gives the trajectory of K single
+steps and replicas draw differently.  The draws are torch's, not the JAX
+package's bits: equal trajectories across the packages hold with
+``augment=False`` (or given the same draws).
+
+``TrainConfig`` keeps every field of the JAX config with its default.
+Overlapped sync, local-SGD windows, the outer optimizer and ``dcn_compress``
+raise ``NotImplementedError`` naming slice 5b; ``auto``, ``routed``, the
+sync route and the autotune profile name slice 5f.
 """
 
 from __future__ import annotations
@@ -35,21 +44,24 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .data import augment as aug
 from .data import pipeline
 from .models import vgg
-from .models.transformer import SYSTEMS_SLICE, not_ported
+from .models.transformer import (DURABILITY_SLICE, PLANNING_SLICE,
+                                 SYNC_SLICE, not_ported)
 from .ops import nn as ops
+from .parallel import strategies as strat
+from .parallel.mesh import (DATA_AXIS, axis_size, ensure_process_group,
+                            make_mesh, mesh_group, one_process_per_device)
+from .utils import debug as dbg
 from .utils.device import resolve_device
 from .utils.metrics import IterTimeMeter, LossMeter
 
 # The JAX package's strategy names (parallel/strategies.available()) and
 # its two resolvers.
-STRATEGIES = ("all_reduce", "bucketed", "ddp", "gather_scatter",
-              "gather_scatter_symmetric", "hierarchical", "none",
-              "quantized", "quantized_ring", "quantized_ring_ef", "auto",
-              "routed")
+STRATEGIES = tuple(strat.available()) + ("auto", "routed")
 
 
 @dataclass
@@ -94,38 +106,48 @@ class TrainConfig:
         return self.strategy in ("ddp", "bucketed")
 
 
-# Fields whose other values belong to the data-parallel slice: name -> the
-# value that leaves them off.
-_LATER = {"overlap": False, "overlap_bucket_mb": None, "dcn_size": 2,
-          "dcn_compress": None, "sync_route": None, "autotune_profile": None,
-          "sync_bn": False, "sync_every": 1, "max_sync_every": 1,
-          "outer_opt": None}
+# Fields whose other values belong to a later slice: name -> (the value
+# that leaves them off, the slice).
+_LATER = {"overlap": (False, SYNC_SLICE),
+          "dcn_compress": (None, SYNC_SLICE),
+          "sync_every": (1, SYNC_SLICE),
+          "max_sync_every": (1, SYNC_SLICE),
+          "outer_opt": (None, SYNC_SLICE),
+          "sync_route": (None, PLANNING_SLICE),
+          "autotune_profile": (None, PLANNING_SLICE)}
 
 
 def validate_train_cfg(cfg: TrainConfig) -> None:
     """ValueError for what the JAX package refuses too; NotImplementedError,
-    naming the slice, for any strategy but "none" and any sync knob."""
+    naming its sub-slice, for ``auto``, ``routed`` and the knobs of
+    ``_LATER``."""
     if cfg.model not in vgg.CFG:
         raise ValueError(f"unknown model {cfg.model!r}; expected one of "
                          f"{sorted(vgg.CFG)}")
     if cfg.strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {cfg.strategy!r}; expected one "
                          f"of {list(STRATEGIES)}")
-    if cfg.strategy != "none":
-        raise not_ported(f"TrainConfig.strategy={cfg.strategy!r} (data "
-                         f"parallel; pass strategy='none')", SYSTEMS_SLICE)
-    for name, off in _LATER.items():
+    if cfg.strategy in ("auto", "routed"):
+        raise not_ported(f"TrainConfig.strategy={cfg.strategy!r}",
+                         PLANNING_SLICE)
+    for name, (off, where) in _LATER.items():
         value = getattr(cfg, name)
         if value != off:
-            raise not_ported(f"TrainConfig.{name}={value!r}", SYSTEMS_SLICE)
-    if cfg.broadcast_buffers_resolved:
-        raise not_ported("TrainConfig.broadcast_buffers=True", SYSTEMS_SLICE)
+            raise not_ported(f"TrainConfig.{name}={value!r}", where)
 
 
-def _single_device(strategy, mesh) -> None:
-    if strategy not in (None, "none") or mesh is not None:
-        raise not_ported(f"a gradient-sync strategy ({strategy!r}) or a "
-                         f"mesh", SYSTEMS_SLICE)
+def _apply_bucket_mb(cfg: TrainConfig, strategy) -> None:
+    """Propagate cfg.overlap_bucket_mb into the strategy's packing knob."""
+    if cfg.overlap_bucket_mb is not None and hasattr(strategy,
+                                                     "bucket_bytes"):
+        strategy.bucket_bytes = int(cfg.overlap_bucket_mb * 1024 * 1024)
+
+
+def _apply_dcn(cfg: TrainConfig, strategy) -> None:
+    """Propagate cfg.dcn_compress / cfg.dcn_size into the strategy (the
+    hierarchical slow-hop knobs)."""
+    if hasattr(strategy, "set_dcn"):
+        strategy.set_dcn(cfg.dcn_compress, cfg.dcn_size)
 
 
 def make_optimizer(cfg: TrainConfig, params) -> torch.optim.SGD:
@@ -140,77 +162,179 @@ def make_optimizer(cfg: TrainConfig, params) -> torch.optim.SGD:
                            weight_decay=cfg.weight_decay)
 
 
-def augment_seed(seed: int, step: int) -> int:
-    """The augmentation generator's seed for optimizer step ``step``: a
-    function of (seed, step) only."""
-    return ((seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF)
+def augment_seed(seed: int, step: int, rank: int = 0) -> int:
+    """The augmentation generator's seed for optimizer step ``step`` on
+    ``rank``: a function of (seed, step, rank) only, rank 0's independent
+    of the gang (the counterpart of the JAX ``fold_in(key, step)`` then
+    ``fold_in(k, axis_index)``)."""
+    base = ((seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF)
+    return base ^ ((rank * 0x9E3779B97F4A7C15) & 0xFFFFFFFFFFFFFFFF)
+
+
+def jax_order(params: dict) -> list[tuple[str, str]]:
+    """(layer, name) of every leaf in the JAX package's tree order:
+    ``jax.tree`` flattens a dict by sorted keys (``bn0.bias, bn0.scale,
+    bn1.bias, ..., conv0.bias, conv0.kernel, ..., fc.kernel``)."""
+    return [(k, n) for k in sorted(params) for n in sorted(params[k])]
+
+
+def _to_jax_layout(t: torch.Tensor) -> torch.Tensor:
+    """A conv kernel OIHW as the JAX package's HWIO (a view)."""
+    return t.permute(2, 3, 1, 0) if t.ndim == 4 else t
+
+
+def _from_jax_layout(t: torch.Tensor) -> torch.Tensor:
+    return t.permute(3, 2, 0, 1) if t.ndim == 4 else t
+
+
+# strategies whose numerics depend on the layout of the flat vector: block
+# scales span leaf boundaries and group consecutive values
+_LAYOUT_SENSITIVE = ("quantized_ring", "quantized_ring_ef")
+
+
+def sync_grads(strategy, mesh, grads: list, sync_state=None):
+    """Run ``strategy`` over ``grads`` (the leaves' gradients in
+    ``jax_order``) and write the result back into them; returns the new
+    sync state.  The rings see each conv gradient in the JAX layout."""
+    jax_layout = strategy.name in _LAYOUT_SENSITIVE
+    given = [_to_jax_layout(g) for g in grads] if jax_layout else grads
+    if getattr(strategy, "stateful", False):
+        synced, sync_state = strategy(given, mesh, sync_state)
+    else:
+        synced = strategy(given, mesh)
+    pairs = [(g, _from_jax_layout(s) if jax_layout else s)
+             for g, v, s in zip(grads, given, synced) if s is not v]
+    if pairs:
+        # one multi-tensor copy back, not one operation a leaf
+        torch._foreach_copy_([g for g, _ in pairs], [s for _, s in pairs])
+    return sync_state
+
+
+def _broadcast_tree(tree: dict, group) -> dict:
+    """Rank 0's values of a nested dict of float32 tensors on every rank of
+    ``group`` (one broadcast of the flattened tree); a new dict."""
+    leaves = [t for v in tree.values() for t in v.values()]
+    flat = torch.cat([t.detach().reshape(-1).float() for t in leaves])
+    dist.broadcast(flat, src=0 if group is None
+                   else dist.get_global_rank(group, 0), group=group)
+    out, offset = {}, 0
+    for k, v in tree.items():
+        out[k] = {}
+        for n, t in v.items():
+            out[k][n] = flat[offset:offset + t.numel()].view(t.shape)
+            offset += t.numel()
+    return out
 
 
 def _loss_fn(params, state, gen, images, labels, *, cfg: TrainConfig,
-             fused_bn: bool | None = None):
-    """Forward + loss on one batch; images are raw uint8 NHWC."""
+             fused_bn: bool | None = None, bn_axis=None):
+    """Forward + loss on one batch; images are raw uint8 NHWC.
+    ``bn_axis`` is sync-BN's process group (None: local BN)."""
     if cfg.augment:
         x = aug.augment(gen, images)
     else:
         x = aug.normalize(images)
     logits, new_state = vgg.apply(params, state, x, name=cfg.model,
                                   train=True, dtype=cfg.dtype,
-                                  fused_bn=fused_bn)
+                                  bn_axis_name=bn_axis, fused_bn=fused_bn)
     return ops.cross_entropy_loss(logits, labels), new_state
+
+
+def _resolve_strategy(cfg: TrainConfig, strategy, mesh):
+    validate_train_cfg(cfg)
+    if strategy is None:
+        strategy = strat.get(cfg.strategy)
+    _apply_dcn(cfg, strategy)
+    _apply_bucket_mb(cfg, strategy)
+    if mesh is None and strategy.needs_mesh:
+        raise ValueError(f"strategy {strategy.name!r} requires a mesh")
+    return strategy
 
 
 def make_train_step(cfg: TrainConfig, strategy=None, mesh=None, *,
                     fused_bn: bool | None = None):
-    """``step(params, state, opt, step, images, labels) -> (loss,
-    new_state, ok, met)``: one optimizer step, updating the float32 leaves
-    of ``params`` (which require grad) through ``opt`` in place.
+    """``step(params, state, opt, step, images, labels, sync_state=None)
+    -> (loss, new_state, ok, met, sync_state)``: one optimizer step on this
+    rank, updating the float32 leaves of ``params`` (which require grad)
+    through ``opt`` in place.
 
-    ``images`` (B, 32, 32, 3) uint8 and ``labels`` (B,) on the params'
-    device; ``step`` seeds the augmentation.  ``ok`` is 1.0 when the loss
-    and the gradient sum of squares are finite; ``met`` is [grad-norm,
-    param-norm after the update].  ``fused_bn`` is the model's own switch
+    ``strategy`` defaults to ``cfg.strategy``'s; any but ``none`` syncs over
+    ``mesh`` (``parallel.mesh.make_mesh``).  ``images`` (B, 32, 32, 3)
+    uint8 and ``labels`` (B,) are this rank's shard, on the params' device;
+    ``step`` seeds the augmentation.  ``ok`` is 1.0 when the loss and the
+    synced gradient sum of squares are finite; ``met`` is [grad-norm,
+    param-norm after the update]; ``loss``, ``ok`` and ``met`` are this
+    rank's.  ``sync_state`` is a stateful strategy's residual on this rank
+    (``Trainer.sync_state``).  ``fused_bn`` is the model's own switch
     (``vgg.apply``), None (the plain path) as in the JAX trainer."""
-    validate_train_cfg(cfg)
-    _single_device(strategy, mesh)
+    strategy = _resolve_strategy(cfg, strategy, mesh)
+    group = mesh_group(mesh) if mesh is not None else None
+    rank = dist.get_rank() if mesh is not None else 0
+    bn_axis = None
+    if cfg.sync_bn and mesh is not None:
+        bn_axis = group if group is not None else dist.group.WORLD
+    bcast_buffers = cfg.broadcast_buffers_resolved and mesh is not None
+    syncs = strategy.name != "none"
     gens: dict[torch.device, torch.Generator] = {}
 
-    def step(params, state, opt, step_idx, images, labels):
+    def step(params, state, opt, step_idx, images, labels, sync_state=None):
         gen = gens.get(images.device)
         if gen is None:
             gen = gens[images.device] = torch.Generator(device=images.device)
-        gen.manual_seed(augment_seed(cfg.seed, step_idx))
-        leaves = list(vgg.flatten(params).values())
+        gen.manual_seed(augment_seed(cfg.seed, step_idx, rank))
         opt.zero_grad(set_to_none=True)
         loss, new_state = _loss_fn(params, state, gen, images, labels,
-                                   cfg=cfg, fused_bn=fused_bn)
+                                   cfg=cfg, fused_bn=fused_bn,
+                                   bn_axis=bn_axis)
         loss.backward()
-        gsq = torch.stack(torch._foreach_norm(
-            [p.grad for p in leaves])).square().sum()
+        if bcast_buffers:
+            # torch DDP's broadcast_buffers: rank 0's *updated* BN state on
+            # every rank, as the JAX step's masked psum gives it
+            new_state = _broadcast_tree(new_state, group)
+        leaves = [params[k][n] for k, n in jax_order(params)]
+        grads = [p.grad for p in leaves]
+        if syncs:
+            sync_state = sync_grads(strategy, mesh, grads, sync_state)
+        gsq = torch.stack(torch._foreach_norm(grads)).square().sum()
         ok = (torch.isfinite(loss) & torch.isfinite(gsq)).float()
         opt.step()
         opt.zero_grad(set_to_none=True)
-        return loss.detach(), new_state, ok, ops.step_metrics(gsq, leaves)
+        return (loss.detach(), new_state, ok,
+                ops.step_metrics(gsq, leaves), sync_state)
 
     return step
 
 
-def make_multi_step(cfg: TrainConfig, strategy=None, mesh=None):
-    """``fn(params, state, opt, step0, images, labels) -> (state, losses,
-    oks, mets)`` over K stacked batches (K, B, ...): K optimizer steps, the
-    i-th seeded by ``step0 + i``, so the trajectory equals K single
-    steps."""
-    step = make_train_step(cfg, strategy, mesh)
+def make_multi_step(cfg: TrainConfig, strategy=None, mesh=None, *,
+                    fused_bn: bool | None = None):
+    """``fn(params, state, opt, step0, images, labels, sync_state=None) ->
+    (state, losses, oks, mets, sync_state)`` over K stacked batches (K, B,
+    ...): K optimizer steps, the i-th seeded by ``step0 + i``, so the
+    trajectory equals K single steps.  Under a mesh the K losses, health
+    flags and scalars are averaged over the ranks in one all-reduce."""
+    step = make_train_step(cfg, strategy, mesh, fused_bn=fused_bn)
+    group = mesh_group(mesh) if mesh is not None else None
 
-    def multi_step(params, state, opt, step0, images, labels):
+    def multi_step(params, state, opt, step0, images, labels,
+                   sync_state=None):
         losses, oks, mets = [], [], []
         for i in range(images.shape[0]):
-            loss, state, ok, met = step(params, state, opt, step0 + i,
-                                        images[i], labels[i])
+            loss, state, ok, met, sync_state = step(
+                params, state, opt, step0 + i, images[i], labels[i],
+                sync_state)
             losses.append(loss)
             oks.append(ok)
             mets.append(met)
-        return (state, torch.stack(losses), torch.stack(oks),
-                torch.stack(mets))
+        losses, oks, mets = (torch.stack(losses), torch.stack(oks),
+                             torch.stack(mets))
+        if mesh is not None:
+            k = losses.shape[0]
+            flat = torch.cat([losses.float(), oks, mets.reshape(-1)])
+            dist.all_reduce(flat, group=group)
+            flat /= mesh.size()
+            losses, oks, mets = flat[:k], flat[k:2 * k], \
+                flat[2 * k:].view(k, 2)
+        return state, losses, oks, mets, sync_state
 
     return multi_step
 
@@ -227,48 +351,118 @@ def _buffers(state: dict, dev: torch.device) -> dict:
 
 
 class Trainer:
-    """Owns float32 ``params``, the BN running ``state`` and the SGD
-    optimizer on one device, and drives epochs with the reference's metric
+    """Owns this rank's float32 ``params``, BN running ``state``, SGD
+    optimizer and sync state, and drives epochs with the reference's metric
     windows (reference main.py:84-135).
 
-    ``device`` defaults to ``"cuda"`` and raises without a GPU unless
-    ``"cpu"`` is asked for.  Params are drawn by the port's own ``vgg.init``
-    from ``cfg.seed`` (not the JAX package's draws); ``load_state`` takes
-    params, BN state and momentum carried from a JAX run (convert.py).
-    ``mesh`` and ``num_devices`` > 1 belong to the data-parallel slice."""
+    A strategy other than ``none`` syncs over ``mesh``: given, or built as
+    the JAX trainer builds it (``("data",)`` over every rank, or ``("dcn",
+    "ici")`` of shape ``(dcn_size, world // dcn_size)`` for
+    ``hierarchical``) on the default process group, made first of one rank
+    when none exists.  ``n_replicas`` is the mesh's size.  ``num_devices``
+    other than the world size is refused: one process drives one device
+    (``launch.py --nproc-per-node N``).
+
+    ``device`` defaults to ``"cuda"`` (``cuda:{LOCAL_RANK}``) and raises
+    without a GPU unless ``"cpu"`` is asked for.  Params are drawn by the
+    port's own ``vgg.init`` from ``cfg.seed`` (not the JAX package's draws)
+    and broadcast from rank 0; ``load_state`` takes params, BN state,
+    momentum and a residual carried from a JAX run (convert.py)."""
 
     def __init__(self, cfg: TrainConfig, mesh=None,
                  num_devices: int | None = None, *,
                  device: str | torch.device = "cuda"):
         validate_train_cfg(cfg)
-        if mesh is not None or num_devices not in (None, 1):
-            raise not_ported("Trainer over a mesh or several devices",
-                             SYSTEMS_SLICE)
         self.cfg = cfg
-        self.device = resolve_device(device)
-        self.strategy = cfg.strategy
         self.sync_plan = None
-        self.mesh = None
-        self.n_replicas = 1
+        self.strategy = strat.get(cfg.strategy)
+        self.data_axes = getattr(self.strategy, "axes", None) or (DATA_AXIS,)
+        if self.strategy.needs_mesh:
+            if mesh is None:
+                mesh = self._build_mesh(cfg, num_devices, device)
+            self._check_mesh(cfg, mesh)
+            self.device = ensure_process_group(device)
+        else:
+            one_process_per_device(num_devices)
+            mesh = None
+            self.device = resolve_device(device)
+        self.mesh = mesh
+        self.n_replicas = mesh.size() if mesh is not None else 1
+        self.rank = dist.get_rank() if mesh is not None else 0
+        self.group = mesh_group(mesh) if mesh is not None else None
         params, state = vgg.init(cfg.seed, cfg.model, device=self.device)
         self.params = _trainable(params, self.device)
         self.state = state
+        self._broadcast_params()
         self.opt = make_optimizer(cfg, self.params)
-        self._multi_fn = make_multi_step(cfg)
+        self._multi_fn = make_multi_step(cfg, self.strategy, self.mesh)
+        self.sync_state = self._init_sync_state()
         self._step = 0
         self.last_ok = None       # (K,) health flags of the last call
         self.last_metrics = None  # (K, 2) [grad-norm, param-norm]
 
+    def _build_mesh(self, cfg: TrainConfig, num_devices, device):
+        if len(self.data_axes) == 1:
+            return make_mesh(num_devices, device=device)
+        ensure_process_group(device)
+        one_process_per_device(num_devices)
+        n = dist.get_world_size()
+        if n % cfg.dcn_size:
+            raise ValueError(
+                f"dcn_size {cfg.dcn_size} must divide the {n}-device fleet "
+                f"for strategy {self.strategy.name!r}")
+        return make_mesh(n, axis_names=self.data_axes,
+                         axis_shape=(cfg.dcn_size, n // cfg.dcn_size),
+                         device=device)
+
+    def _check_mesh(self, cfg: TrainConfig, mesh) -> None:
+        if len(self.data_axes) == 1:
+            return
+        if tuple(mesh.mesh_dim_names or ()) != self.data_axes:
+            raise ValueError(
+                f"strategy {self.strategy.name!r} needs a mesh with axes "
+                f"{self.data_axes}, got {mesh.mesh_dim_names}")
+        if axis_size(mesh, self.data_axes[0]) != cfg.dcn_size:
+            raise ValueError(
+                f"mesh {self.data_axes[0]!r} axis has size "
+                f"{axis_size(mesh, self.data_axes[0])} but cfg.dcn_size is "
+                f"{cfg.dcn_size}; pass a mesh matching the config (or "
+                f"mesh=None to build one)")
+
+    def _leaves(self) -> list[torch.Tensor]:
+        return [self.params[k][n] for k, n in jax_order(self.params)]
+
+    def _init_sync_state(self) -> torch.Tensor:
+        if getattr(self.strategy, "stateful", False):
+            return self.strategy.init_state(self._leaves(), self.n_replicas,
+                                            device=self.device)
+        return torch.zeros(0, dtype=torch.float32, device=self.device)
+
+    def _broadcast_params(self) -> None:
+        """Rank 0's params on every rank (torch DDP's construction-time
+        broadcast); nothing to do without a mesh."""
+        if self.mesh is None:
+            return
+        src = _broadcast_tree(self.params, self.group)
+        with torch.no_grad():
+            for k, v in self.params.items():
+                for n, p in v.items():
+                    p.copy_(src[k][n])
+
     def load_state(self, params: dict, state: dict | None = None,
-                   momentum: dict | None = None) -> None:
+                   momentum: dict | None = None,
+                   sync_state: torch.Tensor | None = None) -> None:
         """Take params (the port's nested dict, e.g. from
-        ``convert.from_jax_vgg``), optionally the BN running state and the
-        momentum buffers (``convert.from_jax_sgd_state``)."""
+        ``convert.from_jax_vgg``; rank 0's are broadcast), optionally this
+        rank's BN running state, the momentum buffers
+        (``convert.from_jax_sgd_state``) and this rank's residual
+        (``convert.from_jax_sync_state``)."""
         if {k: sorted(v) for k, v in params.items()} != \
                 {k: sorted(v) for k, v in self.params.items()}:
             raise ValueError("params do not match the model's parameter "
                              "names")
         self.params = _trainable(params, self.device)
+        self._broadcast_params()
         if state is not None:
             self.state = _buffers(state, self.device)
         self.opt = make_optimizer(self.cfg, self.params)
@@ -276,6 +470,12 @@ class Trainer:
             bufs = vgg.flatten(_buffers(momentum, self.device))
             for name, p in vgg.flatten(self.params).items():
                 self.opt.state[p]["momentum_buffer"] = bufs[name]
+        if sync_state is not None:
+            if sync_state.shape != self.sync_state.shape:
+                raise ValueError(f"sync_state of shape "
+                                 f"{tuple(sync_state.shape)}, want "
+                                 f"{tuple(self.sync_state.shape)}")
+            self.sync_state = sync_state.to(self.device, torch.float32)
 
     def momentum(self) -> dict:
         """The SGD momentum buffers as a nested dict shaped like the params
@@ -294,21 +494,24 @@ class Trainer:
                 torch.as_tensor(np.asarray(labels)).to(self.device))
 
     def train_step(self, images, labels) -> torch.Tensor:
-        """One optimizer step on a (B, 32, 32, 3) uint8 batch; returns the
-        loss as a 0-dim tensor (not fetched to the host)."""
+        """One optimizer step on this rank's (B, 32, 32, 3) uint8 batch;
+        returns the loss averaged over the ranks as a 0-dim tensor (not
+        fetched to the host)."""
         return self.train_steps(np.asarray(images)[None],
                                 np.asarray(labels)[None])[0]
 
     def train_steps(self, images, labels) -> torch.Tensor:
-        """``K = images.shape[0]`` steps over stacked batches (K, B, ...),
-        numpy or tensors; returns the K losses (a device tensor).  The same
-        trajectory as K ``train_step`` calls."""
+        """``K = images.shape[0]`` steps over this rank's stacked batches
+        (K, B, ...), numpy or tensors; returns the K losses averaged over
+        the ranks (a device tensor).  The same trajectory as K
+        ``train_step`` calls."""
         if not isinstance(images, torch.Tensor):
             images, labels = self._to_device(images, labels)
         k = images.shape[0]
-        self.state, losses, self.last_ok, self.last_metrics = \
-            self._multi_fn(self.params, self.state, self.opt, self._step,
-                           images, labels.long())
+        (self.state, losses, self.last_ok, self.last_metrics,
+         self.sync_state) = self._multi_fn(
+            self.params, self.state, self.opt, self._step, images,
+            labels.long(), self.sync_state)
         self._step += k
         return losses
 
@@ -317,17 +520,18 @@ class Trainer:
         time/40 iters excluding iteration 0); returns (LossMeter,
         IterTimeMeter).
 
-        ``loaders``: one DataLoader (or a one-element list).  Batches are
-        stacked into ``steps_per_loop`` chunks (a ragged final batch flushes
-        early) and copied to the device on a prefetch thread, so the copy
-        of the next chunk overlaps the current one's compute.  Each chunk's
-        losses are fetched at its end, as the reference's ``loss.item()``
-        does every iteration.  ``on_step(step)`` fires before each chunk."""
+        ``loaders``: this rank's DataLoader (or a one-element list): one
+        process drives one replica.  Batches are stacked into
+        ``steps_per_loop`` chunks (a ragged final batch flushes early) and
+        copied to the device on a prefetch thread, so the copy of the next
+        chunk overlaps the current one's compute.  Each chunk's losses are
+        fetched at its end, as the reference's ``loss.item()`` does every
+        iteration.  ``on_step(step)`` fires before each chunk."""
         if not isinstance(loaders, (list, tuple)):
             loaders = [loaders]
         if len(loaders) != 1:
-            raise not_ported(f"{len(loaders)} per-replica loaders",
-                             SYSTEMS_SLICE)
+            raise ValueError(f"got {len(loaders)} loaders for the one "
+                             f"replica this process drives")
         for dl in loaders:
             dl.set_epoch(epoch)
         loss_meter, time_meter = LossMeter(), IterTimeMeter()
@@ -376,13 +580,25 @@ class Trainer:
         return loss_meter, time_meter
 
     def eval_state(self) -> dict:
-        """A copy of the BN running state, for evaluation."""
-        return _buffers(self.state, self.device)
+        """Rank 0's BN running state (a copy), for evaluation: the JAX
+        ``rank0_state``.  Under a mesh every rank must call it (a
+        broadcast)."""
+        if self.mesh is None:
+            return _buffers(self.state, self.device)
+        return _buffers(_broadcast_tree(self.state, self.group),
+                        self.device)
+
+    def check_consistency(self) -> None:
+        """The data-parallel invariants (utils/debug.py): params and
+        momentum bitwise equal on every rank, and params finite.  Every
+        rank must call it under a mesh."""
+        if self.mesh is not None:
+            dbg.assert_replicas_in_sync(
+                {"params": self.params, "momentum": self.momentum()},
+                self.group, what="params/momentum")
+        dbg.assert_finite(self.params, what="params")
 
     # -- later slices -----------------------------------------------------
     def rebuild(self, *args, **kwargs):
-        raise not_ported("Trainer.rebuild (elastic resize)", SYSTEMS_SLICE)
-
-    def check_consistency(self):
-        raise not_ported("Trainer.check_consistency (replica invariants)",
-                         SYSTEMS_SLICE)
+        raise not_ported("Trainer.rebuild (elastic resize)",
+                         DURABILITY_SLICE)

@@ -11,7 +11,7 @@ main.py:28-48, identical in every variant):
   later windows by 40 (main.py:43-48).
 
 The telemetry gauge the JAX meters emit per window comes with the telemetry
-layer (ROADMAP.md queue 1, slice 5).
+layer (ROADMAP.md queue 1, slice 5c).
 """
 
 from __future__ import annotations

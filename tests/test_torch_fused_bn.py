@@ -176,8 +176,22 @@ def test_fused_refusals_and_eval_fall_through():
     y, _ = tnn.batchnorm_relu(p, st, x + 1, train=False, fused=True)
     y_plain, _ = tnn.batchnorm(p, st, x + 1, train=False)
     assert torch.equal(y, tnn.relu(y_plain))
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tnn.batchnorm(p, st, x, train=True, axis_name="data")
+    # sync-BN (slice 5a): over a one-rank process group the train-mode
+    # moments are the local ones, bit for bit
+    import torch.distributed as dist
+    from distributed_pytorch_tpu_torch.parallel import init as pinit
+    from distributed_pytorch_tpu_torch.parallel.mesh import make_mesh
+    created = not dist.is_initialized()
+    group = make_mesh(device="cpu").get_group()
+    try:
+        xs = x + torch.linspace(-1, 1, x.numel()).view(x.shape)
+        got, got_st = tnn.batchnorm(p, st, xs, train=True, axis_name=group)
+        want, want_st = tnn.batchnorm(p, st, xs, train=True)
+        assert torch.equal(got, want)
+        assert all(torch.equal(got_st[k], want_st[k]) for k in want_st)
+    finally:
+        if created:
+            pinit.shutdown()
 
 
 def test_bf16_forward_bitwise_and_backward_near_jax():

@@ -204,28 +204,60 @@ def test_steps_per_loop_equals_single_steps():
     assert not torch.equal(c.params["fc"]["kernel"], b.params["fc"]["kernel"])
 
 
-@pytest.mark.parametrize("field,value", [
-    ("strategy", "ddp"), ("strategy", "auto"), ("overlap", True),
-    ("sync_every", 2), ("max_sync_every", 4), ("dcn_compress", "int8"),
-    ("dcn_size", 4), ("sync_route", "ici:rs -> dcn:ring -> ici:ag"),
-    ("autotune_profile", "uniform"), ("sync_bn", True),
-    ("outer_opt", "nesterov"), ("broadcast_buffers", True),
-    ("overlap_bucket_mb", 4.0)])
-def test_later_slice_knobs_raise(field, value):
-    kw = dict(model="TINY", strategy="none")
+# knob -> the sub-slice its refusal names, or None: ported by slice 5a
+# (the data-parallel strategies, sync-BN, rank 0's buffers, the bucket size;
+# dcn_size is read by hierarchical alone, as in the JAX trainer)
+_KNOB_SLICE = {("strategy", "ddp"): None, ("strategy", "auto"): "5f",
+               ("overlap", True): "5b", ("sync_every", 2): "5b",
+               ("max_sync_every", 4): "5b", ("dcn_compress", "int8"): "5b",
+               ("dcn_size", 4): None,
+               ("sync_route", "ici:rs -> dcn:ring -> ici:ag"): "5f",
+               ("autotune_profile", "uniform"): "5f", ("sync_bn", True): None,
+               ("outer_opt", "nesterov"): "5b",
+               ("broadcast_buffers", True): None,
+               ("overlap_bucket_mb", 4.0): None}
+
+
+@pytest.fixture
+def no_process_group_after():
+    """Destroy the one-rank process group a data-parallel trainer made."""
+    yield
+    from distributed_pytorch_tpu_torch.parallel import init as pinit
+    pinit.shutdown()
+
+
+@pytest.mark.parametrize("field,value", list(_KNOB_SLICE))
+def test_later_slice_knobs_raise(field, value, no_process_group_after):
+    """A knob of a later slice raises, naming its sub-slice; a knob slice
+    5a ported builds a trainer that takes a finite step."""
+    kw = dict(model="TINY", strategy="none", batch_size=4, augment=False)
     kw[field] = value
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        ttrain.Trainer(ttrain.TrainConfig(**kw), device="cpu")
+    where = _KNOB_SLICE[(field, value)]
+    if where is not None:
+        with pytest.raises(NotImplementedError, match=f"slice {where}"):
+            ttrain.Trainer(ttrain.TrainConfig(**kw), device="cpu")
+        return
+    tr = ttrain.Trainer(ttrain.TrainConfig(**kw), device="cpu")
+    ds = tcifar._synthetic(4, seed=1)
+    assert np.isfinite(float(tr.train_step(ds.images, ds.labels)))
+    assert float(tr.last_ok[0]) == 1.0 and tr.n_replicas == 1
 
 
-def test_refusals_and_default_device():
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        ttrain.Trainer(ttrain.TrainConfig(model="TINY"), device="cpu")
+def test_refusals_and_default_device(no_process_group_after):
+    """The default config trains with ddp over a one-rank group; a
+    process over several devices is refused (one process a device,
+    launch.py); an unknown strategy is a ValueError; without a GPU the
+    default device raises."""
+    tr = ttrain.Trainer(ttrain.TrainConfig(model="TINY"), device="cpu")
+    assert tr.strategy.name == "ddp" and tr.mesh.size() == 1
+    assert tr.cfg.broadcast_buffers_resolved
     with pytest.raises(ValueError, match="unknown strategy"):
         ttrain.Trainer(ttrain.TrainConfig(strategy="nope"), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    with pytest.raises(NotImplementedError, match="nproc-per-node 4"):
         ttrain.Trainer(ttrain.TrainConfig(model="TINY", strategy="none"),
                        num_devices=4, device="cpu")
+    with pytest.raises(NotImplementedError, match="slice 5c"):
+        tr.rebuild()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ttrain.Trainer(ttrain.TrainConfig(model="TINY",
@@ -420,17 +452,46 @@ def test_cli_needs_the_card_unless_told(small_cifar):
         tcli.main(["--strategy", "none", "--model", "TINY"])
 
 
-@pytest.mark.parametrize("argv", [
-    [], ["--strategy", "ddp"], ["--strategy", "auto"],
-    ["--master-ip", "10.0.0.1"], ["--num-nodes", "2"], ["--rank", "1"],
-    ["--rendezvous", "env"], ["--elastic"], ["--checkpoint-dir", "ck"],
-    ["--profile-dir", "p"], ["--telemetry-dir", "t"], ["--shard-eval"],
-    ["--debug-checks"], ["--sync-every", "2"], ["--overlap"],
-    ["--sync-bn"], ["--dcn-compress", "int8"], ["--outer-opt", "nesterov"],
-    ["--num-devices", "4"], ["--sync-route", "ici:rs"]])
+# argv -> what the command line does: "runs" (slice 5a ported it), the
+# sub-slice its refusal names, or the error of a bad rendezvous
+_FLAG_OUTCOME = [
+    ([], "runs"), (["--strategy", "ddp"], "runs"),
+    (["--strategy", "auto"], "5f"), (["--master-ip", "10.0.0.1"], "runs"),
+    (["--num-nodes", "2"], "--master-ip is required"),
+    (["--rank", "1"], "runs"), (["--rendezvous", "env"], "runs"),
+    (["--elastic"], "5c"), (["--checkpoint-dir", "ck"], "5c"),
+    (["--profile-dir", "p"], "5c"), (["--telemetry-dir", "t"], "5c"),
+    (["--shard-eval"], "runs"), (["--debug-checks"], "runs"),
+    (["--sync-every", "2"], "5b"), (["--overlap"], "5b"),
+    (["--sync-bn"], "runs"), (["--dcn-compress", "int8"], "5b"),
+    (["--outer-opt", "nesterov"], "5b"),
+    (["--num-devices", "4"], "nproc-per-node 4"),
+    (["--sync-route", "ici:rs"], "5f")]
+
+
+@pytest.mark.parametrize("argv", [a for a, _ in _FLAG_OUTCOME])
 def test_cli_later_slice_flags_raise(small_cifar, argv):
+    """A flag of a later slice raises, naming its sub-slice; the rank
+    flags, --shard-eval, --sync-bn and --debug-checks run one epoch (one
+    rank: the rendezvous does nothing, as in the JAX package, and the
+    default ddp syncs over a one-rank group); --num-nodes 2 without a
+    master is a ValueError, and --num-devices 4 in one process points at
+    launch.py."""
+    outcome = dict((tuple(a), o) for a, o in _FLAG_OUTCOME)[tuple(argv)]
     base = ["--device", "cpu", "--model", "TINY"]
     if "--strategy" not in argv and argv:
         base += ["--strategy", "none"]
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tcli.main(base + argv)
+    if outcome == "runs":
+        out = tcli.run(base + argv)
+        (epoch,) = out["epochs"]
+        assert np.isfinite(epoch["eval"][0])
+        assert not torch.distributed.is_initialized()
+    elif outcome.startswith("5"):
+        with pytest.raises(NotImplementedError, match=f"slice {outcome}"):
+            tcli.main(base + argv)
+    elif outcome.startswith("--master-ip"):
+        with pytest.raises(ValueError, match=outcome):
+            tcli.main(base + argv)
+    else:
+        with pytest.raises(NotImplementedError, match=outcome):
+            tcli.main(base + argv)

@@ -206,9 +206,26 @@ def test_apply_refuses_later_slice_knobs(tiny):
     params, state, images, _ = tiny
     tp, ts = _port(params, state)
     x = taug.normalize(torch.from_numpy(images))
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tvgg.apply(tp, ts, x, name="TINY", train=True, bn_axis_name="data")
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    # sync-BN is slice 5a's: a one-rank group gives local BN bit for bit,
+    # and the fused backward refuses it, as the JAX kernel's envelope does
+    import torch.distributed as dist
+    from distributed_pytorch_tpu_torch.parallel import init as pinit
+    from distributed_pytorch_tpu_torch.parallel.mesh import make_mesh
+    created = not dist.is_initialized()
+    group = make_mesh(device="cpu").get_group()
+    try:
+        got, got_st = tvgg.apply(tp, ts, x, name="TINY", train=True,
+                                 bn_axis_name=group)
+        want, want_st = tvgg.apply(tp, ts, x, name="TINY", train=True)
+        assert torch.equal(got, want)
+        with pytest.raises(ValueError, match="does not cover"):
+            tvgg.apply(tp, ts, x, name="TINY", train=True,
+                       bn_axis_name=group, fused_bn=True)
+    finally:
+        if created:
+            pinit.shutdown()
+    # the overlapped gradient sync is slice 5b's
+    with pytest.raises(NotImplementedError, match="slice 5b"):
         tvgg.apply(tp, ts, x, name="TINY", boundary=lambda i, p: p)
 
 
