@@ -117,7 +117,19 @@ Phases, each of which raises on failure:
      (gated: 34 all-reduces for all_reduce, one a bucket for bucketed, 68
      for quantized, one for ddp), ddp against none in A B B A windows,
      and ddp with fused_bn=True (K1a/K1b 8 a step, params within the
-     spread of two plain fused runs).
+     spread of two plain fused runs);
+ 20. MoE and LM data parallel at LM-base width with --n-experts 8 (12 MoE
+     layers of 8 experts, top-1, capacity factor 2): (a) f32 moe_apply at
+     T=8192 against its one-hot form on the card (top-1, top-2, expert
+     choice, capacity factor 0.5; drop share), a 2-layer train step
+     (layer 1 MoE) through flash against reference attention, the MoE
+     batcher against static generate(); (b) 20 bf16 steps of lm_cli
+     --n-experts 8 (as phase 8, mfu over the active parameters; the MoE
+     layers' share of device time, aux and drop share; K2-K4 once per
+     layer per step); (c) phase 5's load dense and paged (K6 / K8 once
+     per layer per decode step); (d) lm_cli --rendezvous env --dp 1
+     under launch.py over a one-rank NCCL group, losses bitwise equal to
+     the run with no group, two all-reduces a step.
 Phases 4, 5, 10, 11 and 18 run the batcher's defaults, in-block refill and
 overlapped dispatch on, as the JAX batcher's are.
 The second-to-last lines are the kernels' JSON record and the card's name
@@ -470,9 +482,14 @@ def check_greedy(torch, port, params, prompts, got, max_new,
     (``wants``, from ``greedy_refs``, when given); a difference is allowed
     only at a near-tie (top-2 logit gap < 1e-3) of the reference stream's
     first diverging position.  Returns the number of such flips."""
+    import dataclasses
     tfm, cfg, dev = port["tfm"], port["cfg"], port["dev"]
     if wants is None:
         wants = greedy_refs(port, params, prompts, max_new)
+    if cfg.n_experts:
+        # decode's MoE mixes every expert with no capacity: the training
+        # forward drops nothing at a capacity factor of E either
+        cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts))
     flips = 0
     for rid, (p, want) in enumerate(zip(prompts, wants)):
         if len(got[rid]) != len(want):
@@ -1036,13 +1053,16 @@ def lm_cfg_flops(cfg, n_params: int, b: int, s: int) -> float:
         * cfg.head_dim * s * t
 
 
-def train_step_check(torch, port) -> dict:
-    """One LM-base-width train step in float32 (2 layers, B=2, S=512)
-    through the flash kernels against the same step through reference
-    attention, from the same params and batch."""
+def train_step_check(torch, port, label: str = "f32 step",
+                     **model_kw) -> dict:
+    """One LM-base-width train step in float32 (2 layers, B=2, S=512,
+    ``model_kw`` on top: an MoE layer 1 with ``n_experts``) through the
+    flash kernels against the same step through reference attention, from
+    the same params and batch."""
     import dataclasses
     tfm, lm = port["tfm"], port["lm"]
-    model = dataclasses.replace(tfm.PRESETS["LM-base"], n_layers=2)
+    model = dataclasses.replace(tfm.PRESETS["LM-base"], n_layers=2,
+                                **model_kw)
     cfg = lm.LMTrainConfig(model=model, compute_dtype=None)
     rng = np.random.default_rng(3)
     tokens = rng.integers(0, model.vocab_size, (2, 512)).astype(np.int32)
@@ -1050,7 +1070,7 @@ def train_step_check(torch, port) -> dict:
     targets[:, -1] = lm.IGNORE
     runs = {}
     for impl in ("flash", "reference"):
-        tr = lm.LMTrainer(cfg, device="cuda", attn_impl=impl)
+        tr = lm.LMTrainer(cfg, device=DEVICE, attn_impl=impl)
         if impl == "reference":
             tr.load_state({n: p.detach() for n, p in
                            runs["flash"]["init"].items()})
@@ -1076,7 +1096,7 @@ def train_step_check(torch, port) -> dict:
            "loss_rel_diff": rel, "grad_norm_rel_diff": grel,
            "param_max_abs_diff": max_d, "param_frac_over_1e-6":
            n_far / n_all, "lr": cfg.lr}
-    print("  f32 step, flash vs reference: " + json.dumps(res))
+    print(f"  {label}, flash vs reference: " + json.dumps(res))
     if not rel <= 1e-5 or not grel <= 1e-5:
         fail(f"flash and reference train steps disagree: loss rel {rel}, "
              f"grad-norm rel {grel}")
@@ -1088,8 +1108,17 @@ def train_step_check(torch, port) -> dict:
     return res
 
 
+def active_params(cfg, n_params: int) -> int:
+    """Parameters a token meets: all of them, less the experts it is not
+    routed to (E - top_k of the E in each MoE layer)."""
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    idle = cfg.n_experts - cfg.moe_top_k if cfg.n_experts else 0
+    return n_params - n_moe * idle * 3 * cfg.d_model * cfg.ff
+
+
 def training_run(torch, port, steps: int = 30, extra=(),
-                 label: str = "LM-base bf16 training") -> dict:
+                 label: str = "LM-base bf16 training",
+                 inspect=None) -> dict:
     """LM-base (24 layers, d_model 1024, byte vocab) through lm_cli, B=8,
     S=1024, bf16 compute, synthetic corpus, with the flags ``extra``.  The
     host waits for the device only at the ends of the windows (and where
@@ -1098,7 +1127,9 @@ def training_run(torch, port, steps: int = 30, extra=(),
     matmul (K5) launch counts are set to 0 before the run and read after
     it: flash once per layer per step; K5 7 times per layer per step with
     ``--matmul-dtype int8``, every one through its sm90 route, and never
-    without it."""
+    without it.  mfu counts the active parameters (``active_params``).
+    ``inspect(trainer)``, when given, adds its dict to the result before
+    the trainer is freed."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     attn, cli, qz = port["attn"], port["lm_cli"], port["qz"]
@@ -1137,6 +1168,7 @@ def training_run(torch, port, steps: int = 30, extra=(),
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     cfg = trainer.cfg.model
     n_params = sum(p.numel() for p in trainer.params.values())
+    n_active = active_params(cfg, n_params)
     losses = [float(x) for x in losses]
     for i in [0] + list(range(9, steps, 10)):
         print(f"  step {i + 1}: loss {losses[i]:.4f}")
@@ -1153,9 +1185,9 @@ def training_run(torch, port, steps: int = 30, extra=(),
             counts[e.key] = counts.get(e.key, 0) + e.count
     n_prof = marks[2] - marks[1]
     device_ms = device_us / 1e3 / n_prof
-    flops = lm_cfg_flops(cfg, n_params, b, s)
+    flops = lm_cfg_flops(cfg, n_active, b, s)
     res = {"flags": list(extra), "steps": steps, "batch": b, "seq": s,
-           "n_params": n_params,
+           "n_params": n_params, "n_active_params": n_active,
            "losses_every_10": [losses[0]] + losses[9::10],
            "ms_per_step": step_ms,
            "ms_per_step_windows": [w * 1e3 for w in windows],
@@ -1176,6 +1208,8 @@ def training_run(torch, port, steps: int = 30, extra=(),
            "mfu": flops / (step_ms / 1e3) / PEAK_OPS["bfloat16"],
            "top_kernels": [[k[:60], us / max(device_us, 1e-9)] for k, us in
                            sorted(top.items(), key=lambda kv: -kv[1])[:10]]}
+    if inspect is not None:
+        res.update(inspect(trainer))
     print(f"  {label}: " + json.dumps(res))
     if not all(np.isfinite(losses)) or len(losses) != steps:
         fail(f"training losses malformed: {losses}")
@@ -1892,7 +1926,9 @@ def scheduling_serving(torch, port, base) -> dict:
     against."""
     cfg = port["cfg"]
     load16 = phase5_load(cfg, 16, (64, 256))
-    res = {"b": overlap_windows(torch, port, load16)}
+    # one A B B A pass (two before slice 6b's phase 20 took its time:
+    # neither resolved a gain, PERF.md section 6)
+    res = {"b": overlap_windows(torch, port, load16, pairs=1)}
     keys = ("tokens_per_s", "utilization", "emitted_per_slot_step",
             "inblock_refills", "inblock_prefill_steps",
             "chained_dispatches", "ttft_p50_s", "ttft_p95_s",
@@ -3676,6 +3712,314 @@ def dp_phase(torch, port, facts, name: str = "VGG11",
     return out
 
 
+# -- phase 20: MoE (slice 6b) and LM data parallel (slice 5b) --------------
+
+MOE_EXPERTS = 8
+MOE_LAYER = dict(d=1024, f=4096, t=8192)  # LM-base width, 8 x 1024 tokens
+MOE_FLAGS = ("--n-experts", str(MOE_EXPERTS))  # lm_cli's flag, JAX's too
+MOE_CASES = {"top1": {}, "top2": {"top_k": 2},
+             "experts": {"router_mode": "experts"},
+             "drops": {"capacity_factor": 0.5}}
+# f32 index dispatch against the one-hot form: both round each output once
+# from a float64 sum, so they agree bit for bit unless a float64 sum in
+# another order lands on a float32 rounding edge; held to 2^-22 of max|out|
+MOE_REL_TOL = 2.0 ** -22
+MOE_STEPS = 20
+LMDP_STEPS = 5
+LMDP_MODEL = ("--preset", "LM-base", *MOE_FLAGS)  # (d)'s lm_cli model
+
+# The world-size-1 gang's one rank (launched by launch.py): lm_cli.run with
+# the given argv, its losses as float hex, and the collectives step 3
+# issued (the host-side <backend>:* ranges of a CPU-activity profile).
+LMDP_CHILD = r"""
+import json, sys
+import torch
+from torch.profiler import ProfilerActivity, profile
+torch.backends.cuda.matmul.allow_tf32 = False
+from distributed_pytorch_tpu_torch import lm_cli
+from distributed_pytorch_tpu_torch.parallel import init as pinit
+losses, info = [], {}
+prof = profile(activities=[ProfilerActivity.CPU])
+def sync():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+def on_step(step, trainer, loss):
+    losses.append(loss.detach().clone())
+    if step == 2:
+        sync()
+        prof.start()
+    elif step == 3:
+        sync()
+        prof.stop()
+        info["rank_world"] = pinit.process_info()
+        info["backend"] = torch.distributed.get_backend()
+lm_cli.run(json.loads(sys.argv[1]), on_step=on_step)
+calls = {}
+for e in prof.events():
+    if e.name.startswith(info["backend"] + ":"):
+        calls[e.name] = calls.get(e.name, 0) + 1
+print("LMDP " + json.dumps({"losses": [float(x).hex() for x in losses],
+                            "calls": calls,
+                            "group_left": torch.distributed.is_initialized(),
+                            **info}), flush=True)
+"""
+
+
+def moe_port(port) -> dict:
+    """``port`` with LM-base at ``--n-experts 8``: 12 of the 24 layers MoE
+    (moe_every 2), top-1, capacity factor 2 (the TransformerConfig
+    defaults)."""
+    import dataclasses
+    return dict(port, cfg=dataclasses.replace(port["cfg"],
+                                              n_experts=MOE_EXPERTS))
+
+
+def moe_layer_checks(torch, port) -> dict:
+    """Phase 20 (a), the layer: ``ops.moe.moe_apply`` at LM-base width
+    (T = 8192 tokens, D 1024, F 4096, E 8) in float32 on the card against
+    ``moe_apply_plain``, the one-hot einsum form, on the same inputs, for
+    top-1, top-2, expert choice and capacity factor 0.5 (drops): out
+    within MOE_REL_TOL of max|out| (bitwise reported), aux equal, and the
+    drop share.  Then bf16 (f32 params, as the step holds them): the
+    forward by index against the one-hot form, and one layer's forward +
+    backward as the step runs it (device ms, CUDA events)."""
+    moe = port["moe"]
+    d, f, t, e = MOE_LAYER["d"], MOE_LAYER["f"], MOE_LAYER["t"], MOE_EXPERTS
+    g = torch.Generator(device=DEVICE).manual_seed(20)
+    params = moe.moe_init(g, d, f, e, torch.device(DEVICE))
+    x = torch.randn((t, d), generator=g, device=DEVICE)
+    out = {"cases": {}}
+    for name, kw in MOE_CASES.items():
+        stats = {}
+        with torch.no_grad():
+            got, aux = moe.moe_apply(params, x, n_experts=e, stats=stats,
+                                     **kw)
+            want, want_aux = moe.moe_apply_plain(params, x, n_experts=e,
+                                                 **kw)
+        err = (got - want).abs().max().item()
+        tol = MOE_REL_TOL * want.abs().max().item()
+        res = {"max_abs_err": err, "tol": tol,
+               "bitwise": bool(torch.equal(got, want)), "aux": float(aux),
+               "aux_equal": float(aux) == float(want_aux),
+               "capacity": moe.capacity(t, e, kw.get("top_k", 1),
+                                        kw.get("capacity_factor", 2.0)),
+               "drop_share": 1.0 - float(stats["kept"])
+               / float(stats["routed"])}
+        out["cases"][name] = res
+        if not (err <= tol and res["aux_equal"]
+                and bool(torch.isfinite(got).all())):
+            fail(f"(a) moe_apply {name} differs from its one-hot form: "
+                 f"{res}")
+        del got, want
+        torch.cuda.empty_cache()
+    print(f"  (a) moe_apply (f32, T={t} D={d} F={f} E={e}) against the "
+          "one-hot form on the card: " + json.dumps(out["cases"]))
+    xb = x.bfloat16()
+
+    def fwd(fn):
+        def run():
+            with torch.no_grad():
+                fn(params, xb, n_experts=e)
+        return run
+
+    leaves = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    xg = xb.clone().requires_grad_(True)
+
+    def fwd_bwd():
+        o, a = moe.moe_apply(leaves, xg, n_experts=e)
+        torch.autograd.grad(o.float().sum() + a, [xg, *leaves.values()])
+
+    out["bf16_fwd_ms"] = time_ms(torch, fwd(moe.moe_apply), iters=10)
+    out["bf16_fwd_one_hot_ms"] = time_ms(torch, fwd(moe.moe_apply_plain),
+                                         iters=10)
+    out["bf16_fwd_bwd_ms"] = time_ms(torch, fwd_bwd, iters=10)
+    print("  (a) one MoE layer in bf16, top-1, device ms: forward "
+          f"{out['bf16_fwd_ms']:.4f} (one-hot form "
+          f"{out['bf16_fwd_one_hot_ms']:.4f}), forward + backward "
+          f"{out['bf16_fwd_bwd_ms']:.4f}")
+    del params, leaves, x, xb, xg
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_batch_stats(torch, port, trainer) -> dict:
+    """The trained MoE model on lm_cli's first batch (seed 1, epoch 0):
+    the summed aux of one bf16 forward and the share of (token, choice)
+    pairs its MoE layers dropped, read through ``moe_apply``'s stats."""
+    moe, tfm, corpus = port["moe"], port["tfm"], port["corpus"]
+    loader = corpus.LMDataLoader(corpus.load_corpus(None), 8, 1024, seed=1,
+                                 shuffle_mode="permutation")
+    loader.set_epoch(0)
+    tokens, _ = next(iter(loader))
+    kept, routed = [], []
+    real = moe.moe_apply
+
+    def counting(*a, **kw):
+        st = {}
+        r = real(*a, stats=st, **kw)
+        kept.append(st["kept"])
+        routed.append(st["routed"])
+        return r
+
+    moe.moe_apply = counting
+    try:
+        with torch.no_grad():
+            params = {n: p.detach() for n, p in trainer.params.items()}
+            _, aux = tfm.apply(params, torch.as_tensor(tokens).to(DEVICE)
+                               .long(), cfg=trainer.cfg.model,
+                               dtype=torch.bfloat16, return_aux=True)
+    finally:
+        moe.moe_apply = real
+    return {"aux_after_training": float(aux), "moe_layers": len(kept),
+            "drop_share_after_training":
+                1.0 - float(sum(kept)) / float(sum(routed))}
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def run_gang_of_one(argv: list[str], timeout_s: float = 400.0):
+    """``launch.py --nproc-per-node 1`` running LMDP_CHILD over ``argv`` in
+    a session of its own (killed whole on a timeout); its exit code and
+    output."""
+    import os
+    import signal
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "distributed_pytorch_tpu_torch.launch",
+         "--nproc-per-node", "1", "--master-port", str(free_port()), "--",
+         "-c", LMDP_CHILD, json.dumps(argv)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        text, _ = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        fail(f"(d) the gang of one did not finish in {timeout_s} s")
+    return proc.returncode, text
+
+
+def moe_phase(torch, port, facts) -> dict:
+    """Phase 20: LM-base with ``--n-experts 8`` (12 MoE layers of 8 SwiGLU
+    experts, ~1.46 B parameters, ~403 M active a token), random weights
+    from a seed.
+
+    (a) f32: ``moe_layer_checks``; one 2-layer LM-base-width train step
+        (layer 1 MoE) through flash against reference attention at phase
+        7's bounds; the MoE batcher's greedy tokens against static
+        generate() on phase 4's prompts, near-ties allowed as there;
+    (b) bf16: MOE_STEPS steps of ``lm_cli --preset LM-base --n-experts 8``
+        at 8 x 1024 through ``training_run`` (ms/step, tokens/s, peak
+        memory, idle share, device operations a step, mfu over the active
+        parameters, a falling loss; gated: K2, K3, K4 once per layer per
+        step), the MoE layers' share of the step's device time (12 x one
+        layer's forward + backward from (a), over the profiled step), and
+        the trained model's aux and drop share;
+    (c) bf16 serving: phase 5's load through the batcher at its defaults,
+        dense and paged (tokens/s, TTFT; gated: K6, resp. K8, once per
+        layer per decode step);
+    (d) LM data parallel at world size 1: LMDP_STEPS bf16 steps of the same
+        lm_cli run through ``launch.py --nproc-per-node 1`` with
+        ``--rendezvous env --dp 1`` (a one-rank NCCL group), gated bitwise
+        against the same run with no process group, and the collectives
+        a step issues (gated: two all-reduces, the count and the flat
+        sum)."""
+    import dataclasses
+    mport = moe_port(port)
+    out = {"a": moe_layer_checks(torch, port)}
+    out["a"]["train_step"] = train_step_check(
+        torch, port, label="f32 MoE step (layer 1, 8 experts)",
+        n_experts=MOE_EXPERTS)
+    exact_cfg = mport["cfg"]
+    params = mport["tfm"].init(0, exact_cfg, device=DEVICE,
+                               dtype=torch.float32)
+    rng = np.random.default_rng(1)
+    lens, max_new = (7, 45, 130, 300), 24   # phase 4's load
+    prompts = [rng.integers(0, exact_cfg.vocab_size, (n,)).astype(np.int32)
+               for n in lens]
+    cb = mport["serve"].ContinuousBatcher(
+        params, exact_cfg, slots=2, max_len=512, temperature=0.0,
+        prompt_buckets=(64, 512), device=DEVICE)
+    got = cb.run(prompts, max_new=max_new)
+    flips = check_greedy(torch, mport, params, prompts, got, max_new,
+                         "MoE f32 batcher")
+    out["a"]["batcher_near_tie_flips"] = flips
+    print(f"  (a) MoE f32 batcher vs static generate: {len(prompts)} "
+          f"requests, {flips} near-tie flips")
+    del params, cb
+    torch.cuda.empty_cache()
+
+    train = training_run(
+        torch, mport, steps=MOE_STEPS, extra=MOE_FLAGS,
+        label="(b) LM-base MoE bf16 training",
+        inspect=lambda tr: moe_batch_stats(torch, port, tr))
+    n_moe = sum(exact_cfg.is_moe_layer(i) for i in range(exact_cfg.n_layers))
+    train["moe_share_of_device_time"] = (
+        n_moe * out["a"]["bf16_fwd_bwd_ms"]
+        / max(train["device_ms_per_step"], 1e-9))
+    out["b"] = train
+    print(f"  (b) MoE layers' share of the step's device time: "
+          f"{train['moe_share_of_device_time']:.3f} ({n_moe} x "
+          f"{out['a']['bf16_fwd_bwd_ms']:.3f} ms of "
+          f"{train['device_ms_per_step']:.2f}); {facts['smi']}")
+
+    load = phase5_load(exact_cfg, 16, (64, 256))
+    out["c"] = {}
+    for name, kw in (("dense", {}), ("paged", {"paged": True})):
+        r = serving_run(torch, mport, label=f"(c) MoE bf16 {name}",
+                        prompts=load[0], max_new=load[1], window_blocks=0,
+                        **kw)
+        out["c"][name] = r
+    out["c"]["paged_tokens_equal_dense"] = all(
+        np.array_equal(a, b) for a, b in zip(out["c"]["dense"]["tokens"],
+                                             out["c"]["paged"]["tokens"]))
+    for r in ("dense", "paged"):
+        del out["c"][r]["tokens"]
+
+    argv = [*LMDP_MODEL, "--steps", str(LMDP_STEPS),
+            "--batch-size", "8", "--seq-len", "1024", "--compute-dtype",
+            "bfloat16", "--log-every", str(LMDP_STEPS), "--device", DEVICE]
+    solo = []
+    t0 = time.perf_counter()
+    port["lm_cli"].run(argv, on_step=lambda step, tr, loss: solo.append(
+        loss.detach().clone()))
+    solo = [float(x) for x in solo]
+    solo_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rc, text = run_gang_of_one(argv + ["--rendezvous", "env", "--dp", "1"])
+    lines = [ln for ln in text.splitlines() if ln.startswith("LMDP ")]
+    if rc or not lines:
+        fail(f"(d) the gang of one failed ({rc}):\n{text[-3000:]}")
+    gang = json.loads(lines[-1][len("LMDP "):])
+    gang_losses = [float.fromhex(h) for h in gang["losses"]]
+    d = {"losses_no_group": solo, "losses_gang_of_one": gang_losses,
+         "bitwise": gang_losses == solo, "rank_world": gang["rank_world"],
+         "backend": gang["backend"], "collectives_step_3": gang["calls"],
+         "group_left_after_run": gang["group_left"],
+         "wall_s_no_group": solo_s,
+         "wall_s_gang": time.perf_counter() - t0}
+    out["d"] = d
+    print("  (d) lm_cli --rendezvous env --dp 1 under launch.py against "
+          "the run with no process group: " + json.dumps(d))
+    if not d["bitwise"] or len(solo) != LMDP_STEPS:
+        fail(f"(d) the gang of one's losses differ from the run without a "
+             f"group: {gang_losses} vs {solo}")
+    backend = "nccl" if DEVICE == "cuda" else "gloo"
+    if d["rank_world"] != [0, 1] or d["backend"] != backend \
+            or d["group_left_after_run"]:
+        fail(f"(d) not a one-rank {backend} group destroyed after the run: "
+             f"{d}")
+    if gang["calls"].get(f"{backend}:all_reduce") != 2:
+        fail(f"(d) a step issued {gang['calls']}, want two all-reduces")
+    return out
+
+
 T_START = time.perf_counter()
 
 
@@ -3699,7 +4043,7 @@ def main() -> int:
         from distributed_pytorch_tpu_torch.ops import _build
         from distributed_pytorch_tpu_torch.ops import attention as attn
         from distributed_pytorch_tpu_torch.ops import fused_bn
-        from distributed_pytorch_tpu_torch.ops import losses, nn
+        from distributed_pytorch_tpu_torch.ops import losses, moe, nn
         from distributed_pytorch_tpu_torch.ops import quantized as qz
         from distributed_pytorch_tpu_torch.parallel import init as pinit
         from distributed_pytorch_tpu_torch.parallel import mesh as pmesh
@@ -3714,7 +4058,7 @@ def main() -> int:
             "train": train, "cli": cli, "vgg": vgg, "fused_bn": fused_bn,
             "cifar10": cifar10, "nn": nn, "qz": qz, "losses": losses,
             "corpus": lm_corpus, "strategies": strategies, "mesh": pmesh,
-            "parallel_init": pinit}
+            "parallel_init": pinit, "moe": moe}
 
     # 1. card facts
     facts = card_facts(torch)
@@ -3820,6 +4164,9 @@ def main() -> int:
     scheduling_serving(torch, port, serve_res["K6"])
     phase(19, "data-parallel VGG-11 at world size 1 (NCCL), every strategy")
     dp_res = dp_phase(torch, port, facts)
+    phase(20, "MoE (LM-base, 8 experts) and LM data parallel at world "
+              "size 1")
+    moe_res = moe_phase(torch, port, facts)
     print(f"  phases done at {time.perf_counter() - T_START:.0f} s")
 
     kernels = []
@@ -3831,6 +4178,8 @@ def main() -> int:
             "source": src,
             "replaces": f"distributed_pytorch_tpu/ops/attention.py:{line}",
             "launches": serve_res[name]["launches"],
+            **({"launches_moe_path": moe_res["c"]["dense"]["launches"]}
+               if name == "K6" else {}),
             "max_abs_err": max(worst["max_abs_err"][name], t["max_abs_err"]),
             "err_over_tol": max(worst["err_over_tol"][name],
                                 t["err_over_tol"]),
@@ -3848,6 +4197,8 @@ def main() -> int:
             "source": src,
             "replaces": f"distributed_pytorch_tpu/ops/attention.py:{line}",
             "launches": paged_res[load]["launches"],
+            **({"launches_moe_path": moe_res["c"]["paged"]["launches"]}
+               if name == "K8" else {}),
             "max_abs_err": max(paged_worst["max_abs_err"][name],
                                t["max_abs_err"]),
             "err_over_tol": max(paged_worst["err_over_tol"][name],
@@ -3868,6 +4219,7 @@ def main() -> int:
             "name": f"{fn} ({name})", "route": "cuda", "source": src,
             "replaces": f"distributed_pytorch_tpu/ops/attention.py:{line}",
             "launches": train_res["launches"][name],
+            "launches_moe_path": moe_res["b"]["launches"][name],
             "max_abs_err": flash_worst[name]["max_abs_err"],
             "err_over_tol": flash_worst[name]["err_over_tol"],
             "tolerance": FLASH_TOL,

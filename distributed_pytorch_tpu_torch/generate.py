@@ -21,17 +21,26 @@ primitives (``lookup_proposals``, the rejection sampler) also serve the
 batcher's in-block speculation (serve.py).  Each ``jax.lax.while_loop``
 of the JAX package is a Python loop over device tensors here, and each
 ``jax.random`` split a draw from the caller's ``torch.Generator``.
+An MoE layer decodes through ``_moe_dense``: every expert on every token,
+combined by the token-choice top-k gates with no capacity and no drops
+(the JAX package's decode MoE, not its training layer: where training
+drops tokens the two differ by design, and a model trained with expert
+choice is decoded approximately, with a warning).
 Tensor-parallel decode (``tp_axis``) is refused until slice 5d
 (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .models import transformer as tfm
 from .models.transformer import not_ported
+from .ops.moe import top_k_stable
 from .ops.attention import (NEG_INF, attention_reference, decode_attention,
                             decode_attention_paged)
 from .utils.device import resolve_device
@@ -143,6 +152,43 @@ def default_decode_kernel(flag: bool | None,
     """Resolve a decode_kernel tri-state: None = the kernel on a CUDA
     device, the plain attention path elsewhere."""
     return torch.device(device).type == "cuda" if flag is None else flag
+
+
+def _warn_if_expert_choice(cfg: tfm.TransformerConfig) -> None:
+    """Expert-choice routing has no autoregressive decode equivalent: its
+    selection ranks tokens per expert over the whole batch, so decode
+    falls back to capacity-free token-choice top-k mixing, whose mixtures
+    differ from the training-time routing.  Warns, as the JAX package
+    does, rather than raising."""
+    if cfg.n_experts and cfg.moe_router == "experts":
+        warnings.warn(
+            "decoding a model trained with expert-choice routing "
+            "(moe_router='experts'): decode uses capacity-free token-choice "
+            "top-k mixing, which differs from the training-time routing — "
+            "decode losses are not comparable to train/eval losses",
+            stacklevel=3)
+
+
+def _moe_dense(mp: dict, h: torch.Tensor, cfg: tfm.TransformerConfig
+               ) -> torch.Tensor:
+    """Capacity-free MoE for decode (the JAX ``_moe_dense``): every expert
+    on every token, combined by the top-k gates (the raw probability for
+    top-1, normalized over the pair for top-2) in a (T, E) weight matrix.
+    ``mp`` is the layer's ``moe`` dict; (B, S, D) -> (B, S, D)."""
+    b, s, d = h.shape
+    hf = h.reshape(b * s, d)
+    probs = torch.softmax(hf.float() @ mp["router"].float(), -1)
+    top_probs, top_idx = top_k_stable(probs, cfg.moe_top_k)
+    if cfg.moe_top_k > 1:
+        top_probs = top_probs / top_probs.sum(-1, keepdim=True)
+    weights = torch.einsum("tk,tke->te", top_probs,
+                           F.one_hot(top_idx, cfg.n_experts).float())
+    dt = hf.dtype
+    g = F.silu(torch.einsum("td,edf->tef", hf, mp["w_gate"].to(dt)))
+    u = torch.einsum("td,edf->tef", hf, mp["w_up"].to(dt))
+    y = torch.einsum("tef,efd->ted", g * u, mp["w_down"].to(dt))
+    out = torch.einsum("te,ted->td", weights.to(dt), y)
+    return out.reshape(b, s, d)
 
 
 def _forward_cached(params, cache: Cache, tokens: torch.Tensor,
@@ -286,7 +332,10 @@ def _forward_cached(params, cache: Cache, tokens: torch.Tensor,
             o = attention_reference(q, ka, va, bias=bias)
         x = x + tfm.attn_out(lp, o)
         h = tfm.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-        x = x + tfm.mlp(lp, h)
+        if cfg.is_moe_layer(i):
+            x = x + _moe_dense(lp["moe"], h, cfg)
+        else:
+            x = x + tfm.mlp(lp, h)
 
     x = tfm.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if unembed_last_only:
@@ -490,7 +539,7 @@ def generate(params, prompt, generator: torch.Generator | int | None = None,
     dev = resolve_device(device)
     if isinstance(generator, int):
         generator = torch.Generator(device=dev).manual_seed(generator)
-    tfm._refuse_moe(cfg)
+    _warn_if_expert_choice(cfg)
     prompt = torch.as_tensor(prompt, device=dev).to(torch.int32)
     b, s0 = prompt.shape
     use_kernel = default_decode_kernel(decode_kernel, dev)
@@ -663,8 +712,6 @@ def generate_speculative(params, draft_params, prompt,
     dev = resolve_device(device)
     if isinstance(generator, int):
         generator = torch.Generator(device=dev).manual_seed(generator)
-    tfm._refuse_moe(cfg)
-    tfm._refuse_moe(draft_cfg)
     prompt = torch.as_tensor(prompt, device=dev).to(torch.int32)
     b, s0 = prompt.shape
     k_tok = n_spec + 1
@@ -754,7 +801,6 @@ def generate_lookup(params, prompt,
     dev = resolve_device(device)
     if isinstance(generator, int):
         generator = torch.Generator(device=dev).manual_seed(generator)
-    tfm._refuse_moe(cfg)
     prompt = torch.as_tensor(prompt, device=dev).to(torch.int32)
     b, s0 = prompt.shape
     k_tok = n_spec + 1

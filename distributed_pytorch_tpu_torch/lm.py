@@ -1,27 +1,49 @@
-"""LM trainer on one device: the port of the JAX package's lm.py.
+"""LM trainer: the port of the JAX package's lm.py, on one device or data
+parallel over ``torch.distributed``, one process a rank and a device.
 
 The JAX trainer composes data, expert, sequence, tensor and pipeline axes
-over one mesh; this slice ports its single-device path.  A step is the JAX
-``make_lm_train_step`` with every axis of size 1:
+over one mesh; the port has the data axis (``dp``).  A step is the JAX
+``make_lm_train_step`` with every other axis of size 1:
 
-- the dense transformer forward (``models/transformer.apply``) in
+- the transformer forward (``models/transformer.apply``) in
   ``compute_dtype`` with float32 params (embedding rows cast at lookup,
   weights cast at use), flash attention by default (hand-written kernels
   K2, K3 and K4 on the GPU, ops/attention.py), the dense projections
   through the int8 matmul with ``matmul_dtype="int8"`` (kernel K5,
   ops/quantized.py), each layer recomputed in the backward with
-  ``remat="full"`` or ``"selective"``;
+  ``remat="full"`` or ``"selective"``, and MoE layers (ops/moe.py) where
+  ``cfg.model.n_experts > 0``;
 - the masked cross-entropy head (``ops/losses.head_loss``, dense or, with
   ``loss_impl="chunked"``, streamed over ``loss_chunk`` vocabulary rows),
-  the loss being ``ce_sum / max(n_total, 1) + aux_coef * aux`` with
-  ``n_total`` counted over the whole batch before the loss;
-- ``grad_accum`` microbatches split interleaved (microbatch j holds rows
-  j, j + A, ...), their gradients summed;
+  the loss being ``ce_sum / max(n_total, 1) + aux_w * aux`` with
+  ``n_total`` the valid-token count of the whole global batch, counted
+  before the backward, and ``aux`` the MoE aux summed over the layers;
+- ``grad_accum = A`` microbatches split interleaved (microbatch j holds
+  rows j, j + A, ...), each its own MoE routing group with
+  ``aux_w = aux_coef / A``, their gradients summed;
 - the update of ``optax.chain(clip_by_global_norm(grad_clip),
   adamw(schedule, b1, b2, weight_decay))``: global-norm clip, Adam with
   bias correction (eps 1e-8), weight decay on every leaf, the LR schedule
   read at the step count before the update.  The port updates params and
   moments in place where the JAX step returns new trees.
+
+**Data parallel** (``dp = N``, the world size of the default process
+group: ``launch.py --nproc-per-node N``): each rank takes its contiguous
+``B / N`` rows of the global batch (``train_step`` is given them), which
+is how the JAX mesh shards the batch over ``data``; its own interleaved
+microbatches are then exactly its shard of JAX's global interleaved split.
+The valid-token count is all-reduced before the backward, so every rank
+divides by the GLOBAL ``n_total``.  Each rank's loss is ``ce_sum_r /
+n_total + aux_w * aux_r / N``: summed over the ranks it is the JAX loss
+(``ce_sum`` summed, the aux averaged, as the JAX step's ``psum`` and
+``pmean`` do), and so is its gradient.  The gradients and the loss are
+summed over the ranks in ONE collective after the backward: ``ddp``'s
+flat all-reduce (``parallel.strategies.flat_all_reduce``) without its
+mean.  A step issues two all-reduces: the count and the flat sum.  The
+update then runs on every rank on the same summed gradients, so replicas
+stay bitwise equal (rank 0's params are broadcast at construction).  At
+world size 1 both collectives are the identity, and the step is bitwise
+the step without a process group.
 
 ``LMTrainConfig`` keeps every field of the JAX config so configs cross
 between the packages unchanged; a non-default value of a field that
@@ -37,10 +59,14 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .models import transformer as tfm
 from .ops import losses
 from .ops.nn import IGNORE_INDEX, step_metrics
+from .parallel.mesh import (ensure_process_group, make_mesh, mesh_group,
+                            one_process_per_device)
+from .parallel.strategies import flat_all_reduce
 from .utils.device import resolve_device
 
 IGNORE = IGNORE_INDEX  # target id excluded from the loss (padding)
@@ -110,7 +136,7 @@ class LMTrainConfig:
 # Fields whose non-default values belong to a later slice: name -> (the
 # value that means "off", the slice).
 _LATER = {
-    **{n: (1, SYNC_SLICE) for n in ("dp", "dcn_size", "sync_every",
+    **{n: (1, SYNC_SLICE) for n in ("dcn_size", "sync_every",
                                     "max_sync_every")},
     **{n: (1, PARALLEL_SLICE) for n in ("sp", "tp", "pp", "ep",
                                         "interleave")},
@@ -127,10 +153,12 @@ _LATER = {
 
 
 def validate_lm_cfg(cfg: LMTrainConfig) -> None:
-    """The JAX package's value checks that apply on one device, then a
-    ``NotImplementedError`` for any knob of a later slice."""
+    """The JAX package's value checks for the data axis and one device,
+    then a ``NotImplementedError`` for any knob of a later slice."""
     if cfg.grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {cfg.grad_accum}")
+    if cfg.dp < 1:
+        raise ValueError(f"dp must be >= 1, got {cfg.dp}")
     pipelined = cfg.pp > 1 or cfg.pp_size > 0
     if cfg.matmul_dtype is not None:
         if cfg.matmul_dtype != "int8":
@@ -164,12 +192,26 @@ def validate_lm_cfg(cfg: LMTrainConfig) -> None:
             "remat does not compose with pipeline parallelism (pp/pp_size): "
             "the pipeline schedulers own their own rematerialization; drop "
             "one")
+    m = cfg.model
+    if m.moe_dispatch_bits != "f32" or m.moe_a2a_chunks > 1:
+        # the a2a knobs act only where the MoE layer crosses a mesh axis
+        if not m.n_experts:
+            raise ValueError(
+                f"moe_dispatch_bits={m.moe_dispatch_bits!r}/"
+                f"moe_a2a_chunks={m.moe_a2a_chunks} configure the "
+                f"expert all_to_all of an MoE model; this model is dense "
+                f"(n_experts=0)")
+        if cfg.ep == 1 and cfg.tp == 1:
+            raise ValueError(
+                f"moe_dispatch_bits={m.moe_dispatch_bits!r}/"
+                f"moe_a2a_chunks={m.moe_a2a_chunks} shape the "
+                f"expert all_to_all wire, but ep=1 and tp=1 route "
+                f"experts locally (no exchange to compress or overlap) "
+                f"— raise ep or tp, or drop the knobs")
     for name, (off, where) in _LATER.items():
         value = getattr(cfg, name)
         if value != off:
             raise tfm.not_ported(f"LMTrainConfig.{name}={value!r}", where)
-    if cfg.model.n_experts:
-        raise tfm.not_ported("n_experts > 0 (MoE layers)", tfm.MOE_SLICE)
 
 
 def make_schedule(cfg: LMTrainConfig):
@@ -260,16 +302,21 @@ def make_optimizer(cfg: LMTrainConfig):
 
 
 def _micro_split(x: torch.Tensor, a: int) -> torch.Tensor:
-    """(B, S) -> (A, B/A, S), INTERLEAVED: microbatch j = rows j, j+A, ..."""
+    """(B, S) -> (A, B/A, S), INTERLEAVED: microbatch j = rows j, j+A, ...
+    (B is this rank's rows under data parallelism)."""
     b = x.shape[0]
     if b % a:
-        raise ValueError(f"global batch {b} not divisible into "
+        raise ValueError(f"batch {b} not divisible into "
                          f"grad_accum={a} microbatches")
     return x.reshape(b // a, a, -1).transpose(0, 1)
 
 
 def _loss_fn(cfg: LMTrainConfig, attn_impl: str, params, tokens, targets,
-             n_total, aux_w):
+             n_total, aux_w, n_ranks: int = 1):
+    """This rank's share of the step's loss: ``ce_sum / n_total`` (the
+    GLOBAL count) plus ``aux_w`` times this rank's aux over ``n_ranks``
+    (the JAX ``pmean`` of the aux over the data axis, taken by the sum
+    over ranks)."""
     head = partial(losses.head_loss, targets=targets,
                    loss_impl=cfg.loss_impl, loss_chunk=cfg.loss_chunk)
     (ce_sum, _), aux = tfm.apply(params, tokens, cfg=cfg.model,
@@ -277,25 +324,32 @@ def _loss_fn(cfg: LMTrainConfig, attn_impl: str, params, tokens, targets,
                                  return_aux=True, head_fn=head,
                                  matmul_dtype=cfg.matmul_dtype,
                                  remat=cfg.remat)
-    return ce_sum / n_total.clamp_min(1) + aux_w * aux
+    return ce_sum / n_total.clamp_min(1) + aux_w * (aux * (1.0 / n_ranks))
 
 
-def make_lm_train_step(cfg: LMTrainConfig, attn_impl: str = "flash"):
+def make_lm_train_step(cfg: LMTrainConfig, attn_impl: str = "flash",
+                       mesh=None):
     """``step(params, opt_state, tokens, targets) -> (loss, ok, met)``,
     updating ``params`` (float32 leaves that require grad) and
     ``opt_state`` in place.  tokens/targets are (B, S) integer tensors on
-    the params' device.  ``ok`` is 1.0 when the loss and the gradient sum
-    of squares are finite; ``met`` is [grad-norm, param-norm] (the
-    gradient's before the clip, the params' after the update)."""
+    the params' device: this rank's rows when ``mesh`` (the data-parallel
+    ``DeviceMesh``) is given.  The loss is the
+    global batch's (every rank returns the same).  ``ok`` is 1.0 when the
+    loss and the gradient sum of squares are finite; ``met`` is
+    [grad-norm, param-norm] (the gradient's before the clip, the params'
+    after the update)."""
     validate_lm_cfg(cfg)
     update = make_optimizer(cfg)
     a = cfg.grad_accum
-    loss_fn = partial(_loss_fn, cfg, attn_impl)
+    n_ranks = 1 if mesh is None else mesh.size()
+    loss_fn = partial(_loss_fn, cfg, attn_impl, n_ranks=n_ranks)
 
     def step(params, opt_state, tokens, targets):
         for p in params.values():
             p.grad = None
         n_total = (targets != IGNORE).sum().float()
+        if mesh is not None:  # the global count, before the backward
+            dist.all_reduce(n_total, group=mesh_group(mesh))
         if a == 1:
             loss = loss_fn(params, tokens, targets, n_total, cfg.aux_coef)
             loss.backward()
@@ -308,6 +362,10 @@ def make_lm_train_step(cfg: LMTrainConfig, attn_impl: str = "flash"):
                 loss_i.backward()
                 loss = loss + loss_i.detach()
         grads = {n: p.grad for n, p in params.items()}
+        if mesh is not None:  # gradients and loss summed over the ranks
+            *summed, loss = flat_all_reduce(list(grads.values()) + [loss],
+                                            mesh)
+            grads = dict(zip(grads, summed))
         gsq = torch.stack(torch._foreach_norm(list(grads.values()))
                           ).square().sum()
         ok = (torch.isfinite(loss) & torch.isfinite(gsq)).float()
@@ -319,52 +377,87 @@ def make_lm_train_step(cfg: LMTrainConfig, attn_impl: str = "flash"):
     return step
 
 
-def make_lm_eval_step(cfg: LMTrainConfig, attn_impl: str = "flash"):
+def make_lm_eval_step(cfg: LMTrainConfig, attn_impl: str = "flash",
+                      mesh=None):
     """Forward-only masked CE: ``(params, tokens, targets) -> (ce_sum,
-    count)``, with the training step's ``matmul_dtype`` and head; no remat
-    (there is no backward to keep activations for)."""
+    count)``, with the training step's ``matmul_dtype`` and head (the MoE
+    aux is no part of it, as in the JAX eval step); no remat (there is no
+    backward to keep activations for).  Under ``mesh`` both are summed
+    over the ranks, each given its own rows."""
     validate_lm_cfg(cfg)
 
     @torch.no_grad()
     def eval_step(params, tokens, targets):
         head = partial(losses.head_loss, targets=targets,
                        loss_impl=cfg.loss_impl, loss_chunk=cfg.loss_chunk)
-        return tfm.apply(params, tokens, cfg=cfg.model, dtype=cfg.dtype,
-                         attn_impl=attn_impl, head_fn=head,
-                         matmul_dtype=cfg.matmul_dtype)
+        ce, n = tfm.apply(params, tokens, cfg=cfg.model, dtype=cfg.dtype,
+                          attn_impl=attn_impl, head_fn=head,
+                          matmul_dtype=cfg.matmul_dtype)
+        if mesh is not None:
+            ce, n = flat_all_reduce([ce.float(), n.float()], mesh)
+        return ce, n
 
     return eval_step
 
 
 class LMTrainer:
-    """Owns float32 ``params`` and the Adam ``opt_state`` on one device.
+    """Owns this rank's float32 ``params`` and Adam ``opt_state``.
 
-    ``device`` defaults to ``"cuda"`` and raises without a GPU unless
-    ``"cpu"`` is asked for.  Params are drawn by the port's own ``init``
-    from ``cfg.seed`` (not the JAX package's draws); ``load_state`` takes
-    params and optimizer state carried from a JAX run (convert.py).
-    ``attn_impl`` chooses the attention of the forward (``"flash"``, the
-    JAX package's default, or ``"reference"``)."""
+    ``cfg.dp = N > 1`` trains data parallel over ``mesh`` (given, or made
+    by ``parallel.mesh.make_mesh`` over the default process group, whose
+    world size must be N: one process a device, ``launch.py
+    --nproc-per-node N``; otherwise ``NotImplementedError`` naming the
+    launcher).  A mesh may be given at ``dp = 1`` too: a gang of one,
+    whose step issues its collectives over a one-rank group.  Every rank
+    calls ``train_step`` with its own ``B / N`` rows and ``evaluate`` with
+    its own batches.
+
+    ``device`` defaults to ``"cuda"`` (``cuda:{LOCAL_RANK}`` under a mesh)
+    and raises without a GPU unless ``"cpu"`` is asked for.  Params are
+    drawn by the port's own ``init`` from ``cfg.seed`` (not the JAX
+    package's draws), rank 0's broadcast; ``load_state`` takes params and
+    optimizer state carried from a JAX run (convert.py).  ``attn_impl``
+    chooses the attention of the forward (``"flash"``, the JAX package's
+    default, or ``"reference"``)."""
 
     def __init__(self, cfg: LMTrainConfig,
                  device: str | torch.device = "cuda",
-                 attn_impl: str = "flash"):
+                 attn_impl: str = "flash", mesh=None):
         validate_lm_cfg(cfg)
         self.cfg = cfg
-        self.device = resolve_device(device)
+        if mesh is None and cfg.dp > 1:
+            one_process_per_device(cfg.dp)  # a gang of dp processes
+            mesh = make_mesh(cfg.dp, device=device)
+        if mesh is not None:
+            if mesh.size() != cfg.dp:
+                raise ValueError(f"mesh has {mesh.size()} ranks, config "
+                                 f"wants dp={cfg.dp}")
+            self.device = ensure_process_group(device)
+        else:
+            self.device = resolve_device(device)
+        self.mesh = mesh
+        self.rank = dist.get_rank() if mesh is not None else 0
         self.attn_impl = attn_impl
         self.params = self._leaves(tfm.init(cfg.seed, cfg.model,
                                             device=self.device))
         self.opt_state = init_opt_state(self.params)
-        self.step_fn = make_lm_train_step(cfg, attn_impl)
-        self._eval_fn = make_lm_eval_step(cfg, attn_impl)
+        self.step_fn = make_lm_train_step(cfg, attn_impl, mesh)
+        self._eval_fn = make_lm_eval_step(cfg, attn_impl, mesh)
         self._step = 0
         self.last_ok = None       # health flag of the last step (tensor)
         self.last_metrics = None  # [grad-norm, param-norm] of the last step
 
     def _leaves(self, params: dict) -> dict[str, torch.Tensor]:
-        return {n: p.detach().to(self.device, torch.float32).clone()
-                .requires_grad_(True) for n, p in params.items()}
+        """Float32 leaves on this device that require grad; rank 0's
+        values on every rank of the mesh."""
+        out = {n: p.detach().to(self.device, torch.float32).clone()
+               for n, p in params.items()}
+        if self.mesh is not None:
+            group = mesh_group(self.mesh)
+            src = dist.get_global_rank(group, 0) if group is not None else 0
+            for t in out.values():
+                dist.broadcast(t, src=src, group=group)
+        return {n: t.requires_grad_(True) for n, t in out.items()}
 
     def load_state(self, params: dict, opt_state: dict | None = None
                    ) -> None:
@@ -392,8 +485,9 @@ class LMTrainer:
                 .long())
 
     def train_step(self, tokens: np.ndarray, targets: np.ndarray):
-        """One optimizer step on a (B, S) batch; returns the loss as a
-        0-dim tensor (not fetched to the host)."""
+        """One optimizer step on a (B, S) batch (this rank's rows under a
+        mesh); returns the global batch's loss as a 0-dim tensor (not
+        fetched to the host)."""
         tokens, targets = self._batch(tokens, targets)
         loss, self.last_ok, self.last_metrics = self.step_fn(
             self.params, self.opt_state, tokens, targets)
@@ -401,7 +495,9 @@ class LMTrainer:
         return loss
 
     def evaluate(self, batches) -> dict[str, float]:
-        """Held-out loss/perplexity over an iterable of (tokens, targets)."""
+        """Held-out loss/perplexity over an iterable of (tokens, targets)
+        (this rank's rows of each batch under a mesh: every rank calls
+        it, and every rank gets the global figures)."""
         total, count = 0.0, 0
         for tokens, targets in batches:
             ce, n = self._eval_fn(self.params, *self._batch(tokens, targets))

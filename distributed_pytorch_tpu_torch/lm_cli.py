@@ -1,17 +1,30 @@
-"""CLI for transformer-LM training on one device: the port of the JAX
-package's lm_cli.py, with its parser and flag names plus ``--device``:
+"""CLI for transformer-LM training: the port of the JAX package's
+lm_cli.py, with its parser and flag names plus ``--device``:
 
   python -m distributed_pytorch_tpu_torch.lm_cli --preset LM-base \\
-      --steps 30 --batch-size 8 --seq-len 1024
+      --steps 30 --batch-size 8 --seq-len 1024 [--n-experts 8]
 
-It runs the single-device loop: the byte-level corpus (synthetic unless
+It runs the training loop: the byte-level corpus (synthetic unless
 ``--corpus``), ``--eval-every`` on a 10% hold-out, ``--log-every`` loss and
 tok/s lines, and ``--generate`` through the port's ``generate``.  It runs
 on the GPU unless given ``--device cpu``.  ``--matmul-dtype int8`` (the int8
-matmul, kernel K5), ``--remat full|selective`` and ``--loss-impl chunked
-[--loss-chunk N]`` work as in the JAX package.  Flags of later slices
-(parallel degrees, elastic membership, checkpoints, telemetry, profiling,
-the sync knobs, MoE) end the run with a usage error naming the slice.
+matmul, kernel K5), ``--remat full|selective``, ``--loss-impl chunked
+[--loss-chunk N]`` and the MoE flags (``--n-experts``, ``--moe-top-k``,
+``--moe-router``, ``--router-z-coef``) work as in the JAX package.
+
+Data parallel, one process a device (``cuda:{LOCAL_RANK}``):
+
+  python -m distributed_pytorch_tpu_torch.launch --nproc-per-node N -- \\
+      -m distributed_pytorch_tpu_torch.lm_cli --rendezvous env --dp N
+
+or ``--master-ip/--num-nodes/--rank`` on each process.  Under ``--rendezvous
+env`` or ``--num-nodes > 1`` the trainer syncs over the gang (a gang of one
+included, over a one-rank group); ``--dp`` must be its world size.  Each
+rank reads its stride of the corpus (``--batch-size`` is the global batch),
+rank 0 alone logs and generates, and the process group is destroyed when
+the run ends.  Flags of later slices (the other parallel degrees, elastic
+membership, checkpoints, telemetry, profiling, the sync knobs) end the run
+with a usage error naming the slice.
 """
 
 from __future__ import annotations
@@ -29,18 +42,21 @@ from .data import lm_corpus
 from .lm import (DURABILITY_SLICE, PARALLEL_SLICE, PLANNING_SLICE,
                  SYNC_SLICE, LMTrainConfig, LMTrainer)
 from .models import transformer as tfm
+from .parallel import init as dist_init
+from .parallel.mesh import make_mesh, one_process_per_device
 
-DEFAULT_PORT = 6585  # the JAX package's rendezvous port
+DEFAULT_PORT = dist_init.DEFAULT_PORT  # the JAX package's rendezvous port
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="distributed_pytorch_tpu_torch.lm_cli",
-        description="transformer LM trainer on one GPU (PyTorch port)")
+        description="transformer LM trainer, one rank a GPU (PyTorch "
+                    "port)")
     p.add_argument("--device", default="cuda",
-                   help="torch device to train on (default cuda; 'cpu' "
-                        "only when asked)")
-    # rendezvous (multi-process: a later slice)
+                   help="torch device to train on (default cuda, "
+                        "cuda:{LOCAL_RANK}; 'cpu' only when asked)")
+    # rendezvous (the same contract as cli.py)
     p.add_argument("--master-ip", default=None)
     p.add_argument("--num-nodes", type=int, default=1)
     p.add_argument("--rank", type=int, default=0)
@@ -60,7 +76,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--moe-router", default=None,
                    choices=["tokens", "experts"])
     p.add_argument("--router-z-coef", type=float, default=None)
-    # parallelism and sync (later slices, refused unless left at default)
+    # parallelism (--dp: the gang's world size) and sync (later slices,
+    # refused unless left at default)
     p.add_argument("--dp", type=int, default=1)
     p.add_argument("--sp", type=int, default=1)
     p.add_argument("--tp", type=int, default=1)
@@ -142,13 +159,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 # (flag, argparse dest, the value that leaves it off, its slice)
 _LATER_FLAGS = [
-    *[(f"--{n}", n, 1, SYNC_SLICE)
-      for n in ("dp", "num-nodes", "dcn-size", "sync-every")],
+    *[(f"--{n}", n, 1, SYNC_SLICE) for n in ("dcn-size", "sync-every")],
     *[(f"--{n}", n, 1, PARALLEL_SLICE)
       for n in ("sp", "tp", "pp", "ep", "interleave")],
     ("--min-nodes", "min-nodes", 1, DURABILITY_SLICE),
     *[(f"--{n}", n, None, SYNC_SLICE)
-      for n in ("master-ip", "dcn-compress", "fsdp-gather-dtype",
+      for n in ("dcn-compress", "fsdp-gather-dtype",
                 "bucket-mb", "max-sync-every", "outer-opt",
                 "sync-every-per-slice")],
     *[(f"--{n}", n, None, PLANNING_SLICE)
@@ -160,9 +176,7 @@ _LATER_FLAGS = [
     *[(f"--{n}", n, False, DURABILITY_SLICE)
       for n in ("elastic", "checkpoint-sharded")],
     *[(f"--{n}", n, 0, PARALLEL_SLICE) for n in ("pp-size", "microbatches")],
-    *[(f"--{n}", n, 0, SYNC_SLICE) for n in ("staleness", "rank")],
-    ("--rendezvous", "rendezvous", "args", SYNC_SLICE),
-    ("--n-experts", "n-experts", None, tfm.MOE_SLICE),
+    ("--staleness", "staleness", 0, SYNC_SLICE),
 ]
 
 
@@ -206,8 +220,28 @@ def run(argv: list[str] | None = None, on_step=None) -> LMTrainer:
                      "pipeline schedulers own their own rematerialization; "
                      "drop one")
     refuse_later_flags(parser, args)
+    # rendezvous first: the device is bound (cuda:{LOCAL_RANK}) before any
+    # CUDA tensor exists
+    if args.rendezvous == "env":
+        device = dist_init.init_from_env(device=args.device)
+    else:
+        device = dist_init.init_distributed(
+            args.master_ip, args.num_nodes, args.rank, port=args.port,
+            device=args.device)
+    try:
+        return _train(args, device, on_step)
+    finally:
+        dist_init.shutdown()
+
+
+def _train(args, device, on_step) -> LMTrainer:
+    mesh = None
+    if args.rendezvous == "env" or args.num_nodes > 1 or args.dp > 1:
+        one_process_per_device(args.dp)  # --dp is the gang's world size
+        mesh = make_mesh(args.dp, device=device)
+    rank, world = dist_init.process_info()
     logging.basicConfig(
-        level=args.log_level,
+        level=args.log_level if rank == 0 else "WARNING",
         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
     log = logging.getLogger("lm_cli")
 
@@ -216,11 +250,18 @@ def run(argv: list[str] | None = None, on_step=None) -> LMTrainer:
         compute_dtype=(None if args.compute_dtype == "float32"
                        else args.compute_dtype),
         warmup_steps=args.warmup_steps, decay_steps=args.decay_steps,
-        grad_accum=args.grad_accum, matmul_dtype=args.matmul_dtype,
+        dp=args.dp, grad_accum=args.grad_accum,
+        matmul_dtype=args.matmul_dtype,
         loss_impl=args.loss_impl or "dense", loss_chunk=args.loss_chunk,
         remat=args.remat or "none")
-    trainer = LMTrainer(cfg, device=args.device)
-    log.info("model: %s | device: %s", cfg.model, trainer.device)
+    trainer = LMTrainer(cfg, device=device, mesh=mesh)
+    log.info("model: %s | device: %s | rank %d/%d", cfg.model,
+             trainer.device, rank, world)
+    # each rank feeds its share of the global batch
+    if args.batch_size % world:
+        raise SystemExit(f"--batch-size {args.batch_size} must divide "
+                         f"across {world} processes")
+    per_rank = args.batch_size // world
 
     corpus = lm_corpus.load_corpus(args.corpus, mmap=args.mmap_corpus)
     log.info("corpus: %d tokens (%s)", len(corpus),
@@ -232,7 +273,8 @@ def run(argv: list[str] | None = None, on_step=None) -> LMTrainer:
         val = lm_corpus.LMCorpus(corpus.tokens[split:], corpus.synthetic)
         try:
             candidate = lm_corpus.LMDataLoader(
-                val, args.batch_size, args.seq_len, shuffle=False)
+                val, per_rank, args.seq_len, num_replicas=world, rank=rank,
+                shuffle=False)
         except ValueError:
             candidate = None
         if candidate is None or len(candidate) == 0:
@@ -247,13 +289,13 @@ def run(argv: list[str] | None = None, on_step=None) -> LMTrainer:
     shuffle_mode = args.shuffle_mode or (
         "affine" if args.mmap_corpus else "permutation")
     loader = lm_corpus.LMDataLoader(
-        corpus, args.batch_size, args.seq_len, seed=args.seed,
-        shuffle_mode=shuffle_mode)
+        corpus, per_rank, args.seq_len, num_replicas=world, rank=rank,
+        seed=args.seed, shuffle_mode=shuffle_mode)
     if len(loader) == 0:
         raise SystemExit(
-            f"corpus yields 0 batches: {loader.per_rank} windows cannot "
-            f"fill a batch of {loader.batch_size} at --seq-len "
-            f"{args.seq_len}; use a larger --corpus or smaller "
+            f"corpus yields 0 batches: {loader.per_rank} windows/process "
+            f"at --seq-len {args.seq_len} cannot fill a batch of "
+            f"{loader.batch_size}; use a larger --corpus or smaller "
             f"--batch-size/--seq-len")
 
     step, epoch = 0, 0
@@ -281,7 +323,7 @@ def run(argv: list[str] | None = None, on_step=None) -> LMTrainer:
                 break
         epoch += 1
 
-    if args.generate is not None:
+    if args.generate is not None and rank == 0:
         from . import generate as gen
         prompt = lm_corpus.encode(args.generate)[None]
         params = {n: p.detach() for n, p in trainer.params.items()}

@@ -9,16 +9,19 @@ cross between the two packages by renaming alone (convert.py):
 - ``embed`` (V, D), ``final_norm`` (D,);
 - ``layers.{i}.wq`` (D, H, Dh), ``wk``/``wv`` (D, Hkv, Dh), ``wo`` (H, Dh, D);
 - ``layers.{i}.w_gate``/``w_up`` (D, F), ``w_down`` (F, D);
-- ``layers.{i}.attn_norm``/``mlp_norm`` (D,).
+- ``layers.{i}.attn_norm``/``mlp_norm`` (D,);
+- in a Mixture-of-Experts layer (``cfg.is_moe_layer(i)``) the MLP is
+  ``layers.{i}.moe.router`` (D, E), ``moe.w_gate``/``moe.w_up`` (E, D, F)
+  and ``moe.w_down`` (E, F, D) (ops/moe.py).
 
-The dense single-device forward runs with ``attn_impl="flash"`` (the
-default, as in the JAX package: hand-written kernels K2-K4 on the GPU,
+The single-device forward runs with ``attn_impl="flash"`` (the default, as
+in the JAX package: hand-written kernels K2-K4 on the GPU,
 ops/attention.py) or ``"reference"``.  ``matmul_dtype="int8"`` routes the
 dense projections through the int8 matmul (ops/quantized.py: kernel K5 on
-the GPU), and ``remat`` recomputes each layer in the backward.  MoE layers
-and the parallelism / boundary options are refused with
-``NotImplementedError`` until the slice that ports them (ROADMAP.md
-queue 1).
+the GPU; MoE layers take no int8 path, as in the JAX block), and ``remat``
+recomputes each layer in the backward.  The parallelism and boundary
+options are refused with ``NotImplementedError`` until the slice that
+ports them (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -31,12 +34,12 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import attention as attn_ops
+from ..ops import moe as moe_ops
 from ..ops import quantized as qz
 from ..utils.device import resolve_device
 
 Params = dict[str, torch.Tensor]
 
-MOE_SLICE = "ROADMAP.md queue 1, slice 6b (MoE layers)"
 # The sub-slices of slice 5 still to port, each named by the refusals of
 # its work (slice 5a, data-parallel VGG, is ported).
 SYNC_SLICE = ("ROADMAP.md queue 1, slice 5b (LM data parallel and the sync "
@@ -64,9 +67,10 @@ class TransformerConfig:
     d_ff: int | None = None  # default 4*d_model
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-5
-    # Mixture-of-Experts fields: kept so configs cross between the
-    # packages unchanged; n_experts > 0 is refused until the slice that
-    # ports ops/moe.py.
+    # Mixture-of-Experts: 0 = dense; otherwise every ``moe_every``-th
+    # layer (counting from layer moe_every-1) has a routed MoE MLP
+    # (ops/moe.py).  The two a2a knobs shape the expert-parallel exchange
+    # (slice 5d).
     n_experts: int = 0
     moe_every: int = 2
     moe_top_k: int = 1
@@ -109,11 +113,6 @@ PRESETS = {
 }
 
 
-def _refuse_moe(cfg: TransformerConfig) -> None:
-    if cfg.n_experts:
-        raise not_ported("n_experts > 0 (MoE layers)", MOE_SLICE)
-
-
 def init(seed_or_generator: int | torch.Generator, cfg: TransformerConfig,
          device: str | torch.device = "cuda",
          dtype: torch.dtype = torch.float32) -> Params:
@@ -122,7 +121,6 @@ def init(seed_or_generator: int | torch.Generator, cfg: TransformerConfig,
     draws come from a ``torch.Generator`` on ``device`` (seeded from an
     int, or passed in) and are not the JAX package's draws; to compare the
     two, carry JAX weights across with convert.py."""
-    _refuse_moe(cfg)
     dev = resolve_device(device)
     if isinstance(seed_or_generator, torch.Generator):
         g = seed_or_generator
@@ -146,21 +144,32 @@ def init(seed_or_generator: int | torch.Generator, cfg: TransformerConfig,
               "wk": normal((d, kv, dh), 1 / math.sqrt(d)),
               "wv": normal((d, kv, dh), 1 / math.sqrt(d)),
               "wo": normal((h, dh, d), 1 / math.sqrt(h * dh)),
-              "mlp_norm": ones(),
-              "w_gate": normal((d, f), 1 / math.sqrt(d)),
-              "w_up": normal((d, f), 1 / math.sqrt(d)),
-              "w_down": normal((f, d), 1 / math.sqrt(f))}
+              "mlp_norm": ones()}
+        if cfg.is_moe_layer(i):
+            moe = moe_ops.moe_init(g, d, f, cfg.n_experts, dev, dtype)
+            lp.update({f"moe.{k}": v for k, v in moe.items()})
+        else:
+            lp.update(w_gate=normal((d, f), 1 / math.sqrt(d)),
+                      w_up=normal((d, f), 1 / math.sqrt(d)),
+                      w_down=normal((f, d), 1 / math.sqrt(f)))
         params.update({f"layers.{i}.{k}": v for k, v in lp.items()})
     return params
 
 
-LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm",
-              "w_gate", "w_up", "w_down")
+ATTN_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm")
+LAYER_KEYS = ATTN_KEYS + ("w_gate", "w_up", "w_down")
+MOE_KEYS = ("router", "w_gate", "w_up", "w_down")
 
 
 def layer(params: Params, i: int) -> Params:
-    """Layer ``i``'s parameters under their short names (``wq``, ...)."""
-    return {k: params[f"layers.{i}.{k}"] for k in LAYER_KEYS}
+    """Layer ``i``'s parameters under their short names (``wq``, ...); an
+    MoE layer's MLP under ``"moe"``, a dict of ``MOE_KEYS``."""
+    pre = f"layers.{i}."
+    if pre + "moe.router" not in params:
+        return {k: params[pre + k] for k in LAYER_KEYS}
+    lp = {k: params[pre + k] for k in ATTN_KEYS}
+    lp["moe"] = {k: params[f"{pre}moe.{k}"] for k in MOE_KEYS}
+    return lp
 
 
 def param_count(params: Params) -> int:
@@ -226,12 +235,14 @@ def block(lp: Params, x: torch.Tensor, *, cfg: TransformerConfig,
           seq_axis=None, tp_axis=None, ep_axis=None, matmul_dtype=None,
           attn_saved: list | None = None,
           ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One dense transformer block: (layer params, (B, S, D)) -> (x, aux),
-    aux being the MoE load-balance loss (always 0 here).  GQA repeats the
+    """One transformer block: (layer params, (B, S, D)) -> (x, aux), aux
+    being the layer's MoE aux loss (``ops.moe.moe_apply`` over the B S
+    tokens as one routing group; 0 for a dense layer).  GQA repeats the
     k/v heads to H before attention, so autograd sums their gradient back
     over each group.
 
-    ``matmul_dtype="int8"`` runs q/k/v/o and the MLP's three products
+    ``matmul_dtype="int8"`` runs q/k/v/o and a dense MLP's three products
+    (not an MoE layer's experts, as in the JAX block)
     through ``ops.quantized.quantized_matmul`` on 2-D views, as the JAX
     block does: each weight cast to the compute dtype before it is
     quantized, ``wq`` (D, H, Dh) as (D, H Dh), ``wo`` (H, Dh, D) as
@@ -240,8 +251,6 @@ def block(lp: Params, x: torch.Tensor, *, cfg: TransformerConfig,
     ``remat="selective"`` (``flash_attention(saved=...)``)."""
     _check_options(attn_impl, matmul_dtype, seq_axis=seq_axis,
                    tp_axis=tp_axis, ep_axis=ep_axis)
-    if is_moe:
-        raise not_ported("MoE layers", MOE_SLICE)
     b, s, d = x.shape
     q8 = matmul_dtype == "int8"
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
@@ -276,6 +285,12 @@ def block(lp: Params, x: torch.Tensor, *, cfg: TransformerConfig,
         o = attn_out(lp, o)
     x = x + o
     h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+    if is_moe:
+        down, aux = moe_ops.moe_apply(
+            lp["moe"], h.reshape(b * s, d), n_experts=cfg.n_experts,
+            capacity_factor=cfg.capacity_factor, top_k=cfg.moe_top_k,
+            router_mode=cfg.moe_router, z_coef=cfg.router_z_coef)
+        return x + down.reshape(b, s, d), aux
     if q8:
         hf = h.reshape(b * s, d)
         gate = F.silu(qz.quantized_matmul(hf, lp["w_gate"].to(h.dtype)))
@@ -300,8 +315,9 @@ def apply(params: Params, tokens: torch.Tensor, *, cfg: TransformerConfig,
     ``head_fn(h, params["embed"])`` on the final-norm hidden states in
     place of the logits matmul, and its result is returned where the
     logits would be (the trainer's head-loss seam, ops/losses.py).  With
-    ``return_aux`` the result is ``(out, aux)``, aux being the summed MoE
-    load-balance loss (0 for a dense model).
+    ``return_aux`` the result is ``(out, aux)``, aux being the MoE aux
+    losses summed over the layers (float32; 0 for a dense model), under
+    remat too (it leaves each checkpointed block as its second output).
 
     ``matmul_dtype="int8"``: the dense projections through the int8 matmul
     (``block``).  ``remat``: ``"full"`` wraps each block in
@@ -313,7 +329,6 @@ def apply(params: Params, tokens: torch.Tensor, *, cfg: TransformerConfig,
     does (with ``attn_impl="reference"`` it keeps nothing more than
     ``"full"``, as there).  ``None``/``"none"`` runs the blocks as they
     are; so does any ``remat`` while autograd is off."""
-    _refuse_moe(cfg)
     _check_options(attn_impl, matmul_dtype, seq_axis=seq_axis,
                    tp_axis=tp_axis, ep_axis=ep_axis, boundary=boundary)
     if remat not in (None, "none", "full", "selective"):
@@ -325,20 +340,25 @@ def apply(params: Params, tokens: torch.Tensor, *, cfg: TransformerConfig,
         x = x.to(dtype)
     if pos is None:
         pos = pos0 + torch.arange(x.shape[1], device=x.device)
+    aux_total = torch.zeros((), device=x.device)
     for i in range(cfg.n_layers):
-        kw = dict(cfg=cfg, is_moe=False, pos=pos, attn_impl=attn_impl,
+        is_moe = cfg.is_moe_layer(i)
+        kw = dict(cfg=cfg, is_moe=is_moe, pos=pos, attn_impl=attn_impl,
                   matmul_dtype=matmul_dtype)
         if use_remat:
             kw["attn_saved"] = [] if remat == "selective" else None
-            x, _ = checkpoint(block, layer(params, i), x, use_reentrant=False,
-                              preserve_rng_state=False, **kw)
+            x, aux = checkpoint(block, layer(params, i), x,
+                                use_reentrant=False,
+                                preserve_rng_state=False, **kw)
         else:
-            x, _ = block(layer(params, i), x, **kw)
+            x, aux = block(layer(params, i), x, **kw)
+        if is_moe:  # a dense layer's aux is 0
+            aux_total = aux_total + aux
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if head_fn is not None:
         out = head_fn(x, params["embed"])
     else:
         out = x.float() @ params["embed"].float().T
     if return_aux:
-        return out, torch.zeros((), device=x.device)
+        return out, aux_total
     return out

@@ -152,6 +152,19 @@ def _flat(leaves: list, dtype=None) -> torch.Tensor:
                       else g.reshape(-1).to(dtype) for g in leaves])
 
 
+def flat_all_reduce(leaves: list, axis, scale: float | None = None) -> list:
+    """The leaves summed over ``axis``'s ranks in ONE all-reduce of their
+    flat concatenation (``ddp``'s collective), times ``scale`` if given,
+    cut back into their shapes.  The sum is elementwise across ranks, so
+    the result does not depend on how the leaves are packed."""
+    group = flat_group(axis)
+    flat = _flat(leaves)
+    dist.all_reduce(flat, group=group)
+    if scale is not None:
+        flat.mul_(scale)
+    return _split(flat, leaves)
+
+
 # -- the strategies ------------------------------------------------------------
 
 class NoSync:
@@ -245,14 +258,9 @@ class Bucketed:
         self.bucket_bytes = int(bucket_mb * 1024 * 1024)
 
     def sync_bucket(self, leaves: list, axis) -> list:
-        """One packed all-reduce mean over these leaves.  The sum is
-        elementwise across ranks, so the result does not depend on how the
-        leaves are packed."""
-        group = flat_group(axis)
-        flat = _flat(leaves)
-        dist.all_reduce(flat, group=group)
-        flat.mul_(1.0 / _size(group))
-        return _split(flat, leaves)
+        """One packed all-reduce mean over these leaves."""
+        return flat_all_reduce(leaves, axis,
+                               1.0 / _size(flat_group(axis)))
 
     def __call__(self, grads: list, axis) -> list:
         out: list = [None] * len(grads)

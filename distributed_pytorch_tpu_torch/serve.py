@@ -237,7 +237,6 @@ class ContinuousBatcher:
         if mesh is not None or tp_axis != "model":
             raise not_ported("mesh / tp_axis (tensor-parallel serving)",
                              gen.PARALLEL_SLICE)
-        tfm._refuse_moe(cfg)
         self.device = resolve_device(device)
         # pinned host buffers and events carry device->host reads on CUDA
         self._pinned = self.device.type == "cuda"

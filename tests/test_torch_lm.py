@@ -59,10 +59,10 @@ def _snapshot(jtr):
             jax.tree.map(np.array, jtr.opt_state))
 
 
-def _jax_run(steps, batches, **kw):
+def _jax_run(steps, batches, model=None, **kw):
     """The JAX trainer's losses, its initial params, and its state after
     every step (numpy copies: the step donates its buffers)."""
-    cfg = jlm.LMTrainConfig(model=jtfm.TransformerConfig(**SHAPE),
+    cfg = jlm.LMTrainConfig(model=model or jtfm.TransformerConfig(**SHAPE),
                             compute_dtype=None, **kw)
     jtr = jlm.LMTrainer(cfg)
     states = [_snapshot(jtr)]
@@ -102,8 +102,8 @@ def _jax_oracle(steps, batches, **kw):
     return losses, states
 
 
-def _port(states, i=0, with_opt=False, **kw):
-    cfg = tlm.LMTrainConfig(model=ttfm.TransformerConfig(**SHAPE),
+def _port(states, i=0, with_opt=False, model=None, **kw):
+    cfg = tlm.LMTrainConfig(model=model or ttfm.TransformerConfig(**SHAPE),
                             compute_dtype=None, **kw)
     ttr = tlm.LMTrainer(cfg, device="cpu")
     params, opt = states[i]
@@ -328,13 +328,16 @@ REFUSED_FLAGS = [["--dp", "2"], ["--tp", "2"], ["--pp-size", "2"],
                  ["--telemetry-dir", "tel"], ["--profile-dir", "p"],
                  ["--sync-every", "2"], ["--dcn-size", "2"],
                  ["--matmul-dtype", "int8"], ["--loss-impl", "chunked"],
-                 ["--remat", "full"], ["--n-experts", "2"],
+                 ["--remat", "full"], ["--n-experts", "2", "--n-layers", "2"],
                  ["--rendezvous", "env"]]
 # ported now: (the trainer config they set, how the run compares with the
 # same run without them)
 LIFTED_FLAGS = {"--matmul-dtype": dict(matmul_dtype="int8"),
                 "--loss-impl": dict(loss_impl="chunked"),
-                "--remat": dict(remat="full")}
+                "--remat": dict(remat="full"),
+                "--n-experts": dict(),
+                "--dp": dict(),
+                "--rendezvous": dict(dp=1)}
 
 
 def _cli_losses(extra):
@@ -348,19 +351,40 @@ def _cli_losses(extra):
 @pytest.mark.parametrize("flag", REFUSED_FLAGS, ids=lambda f: f[0])
 def test_lm_cli_refuses_later_flags(flag, capsys):
     """Flags of later slices end the run with a usage error naming the
-    slice.  Three are ported now and run instead: the trainer gets the
+    slice.  Six are ported now and run instead: the trainer gets the
     knob, and against the same run without it (bf16, two steps) ``--remat
     full`` gives the same losses (the same forward), ``--loss-impl
     chunked`` the same to rtol 1e-4 (the head's float32 sums in another
     order, carried through a bf16 step), and ``--matmul-dtype int8``
-    within 1% of them but not equal (the int8 forward ran)."""
+    within 1% of them but not equal (the int8 forward ran).
+    ``--n-experts 2`` (two layers: layer 1 MoE) trains the MoE model,
+    whose losses differ from the dense model's.  ``--rendezvous env``
+    without a launcher is a gang of one: its losses are bitwise those of
+    the run without a process group, and no group is left after the
+    run.  ``--dp 2`` without a gang of two names the launcher (the
+    4-rank ``--dp 4`` run is in tests/test_torch_lm_dp.py)."""
+    if flag[0] == "--dp":
+        with pytest.raises(NotImplementedError,
+                           match="launch --nproc-per-node 2"):
+            tcli.main(CLI_BASE + ["--steps", "1"] + flag)
+        assert not torch.distributed.is_initialized()
+        return
+    if flag[0] == "--n-experts":
+        trainer, got = _cli_losses(flag)
+        assert trainer.cfg.model.n_experts == 2
+        assert trainer.cfg.model.is_moe_layer(1)
+        assert "layers.1.moe.router" in trainer.params
+        _, want = _cli_losses(flag[2:])
+        assert all(np.isfinite(got)) and got != want
+        return
     if flag[0] in LIFTED_FLAGS:
         trainer, got = _cli_losses(flag)
         for name, value in LIFTED_FLAGS[flag[0]].items():
             assert getattr(trainer.cfg, name) == value
         _, want = _cli_losses([])
-        if flag[0] == "--remat":
+        if flag[0] in ("--remat", "--rendezvous"):
             assert got == want
+            assert not torch.distributed.is_initialized()
         elif flag[0] == "--loss-impl":
             np.testing.assert_allclose(got, want, rtol=1e-4)
         else:
@@ -401,9 +425,14 @@ def test_lm_cli_scale_flags_compose_and_check(capsys):
     ids=["dp", "fsdp", "sync_every", "pp_size", "remat", "loss_impl",
          "matmul_dtype", "n_experts"])
 def test_trainer_refuses_later_slices(kw):
-    """Knobs of later slices raise, naming their ROADMAP slice (MoE: slice
-    6b).  Three are ported now, and three f32 steps from the JAX initial
-    params are held against the JAX package instead:
+    """Knobs of later slices raise, naming their ROADMAP slice.  ``dp=2``
+    is ported: without a gang of two processes it raises, naming the
+    launcher (the gang runs in tests/test_torch_lm_dp.py).  Four are
+    ported now, and three f32 steps from the JAX initial params are held
+    against the JAX package instead:
+
+    - ``n_experts=2`` (layer 1 MoE): the JAX MoE trainer, at the module's
+      tolerances;
 
     - ``remat="full"``: the JAX remat trainer, at the module's tolerances;
     - ``loss_impl="chunked"``: the JAX chunked head through ``_jax_oracle``,
@@ -416,7 +445,15 @@ def test_trainer_refuses_later_slices(kw):
       1e-5 relative; Adam then moves a parameter whose gradient flips sign
       by up to 2 lr a step."""
     batches = [_data(), _data(seed=1)]
-    if "remat" in kw:
+    if "dp" in kw:
+        with pytest.raises(NotImplementedError,
+                           match="launch --nproc-per-node 2"):
+            tlm.LMTrainer(tlm.LMTrainConfig(**kw), device="cpu")
+        return
+    if "model" in kw:
+        _, want, states = _jax_run(3, batches, model=jtfm.TransformerConfig(
+            **SHAPE, n_experts=2))
+    elif "remat" in kw:
         _, want, states = _jax_run(3, batches, **kw)
     elif "loss_impl" in kw or "matmul_dtype" in kw:
         want, states = _jax_oracle(3, batches, **kw)

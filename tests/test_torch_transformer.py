@@ -254,9 +254,30 @@ def test_apply_rejects_bad_knob_values(model):
 
 
 def test_moe_config_is_refused():
-    cfg = ttfm.TransformerConfig(**SHAPE, n_experts=4)
-    with pytest.raises(NotImplementedError, match="slice 6b"):
-        ttfm.init(0, cfg, device="cpu")
+    """Refused until slice 6b; ported now.  An MoE config (4 experts, top-2,
+    layer 1 MoE): the port's init has the JAX tree's names, shapes and
+    scales; on the JAX weights (convert.py) the port's apply equals the JAX
+    apply, logits at the module's tolerance and the summed aux at 1e-6."""
+    kw = dict(n_experts=4, moe_top_k=2)
+    jcfg = jtfm.TransformerConfig(**SHAPE, **kw)
+    tcfg = ttfm.TransformerConfig(**SHAPE, **kw)
+    tp = ttfm.init(0, tcfg, device="cpu")
+    jp = jax.tree.map(np.asarray, jtfm.init(jax.random.key(0), jcfg))
+    want = convert.from_jax_params(jp, device="cpu")
+    assert sorted(tp) == sorted(want) and "layers.1.moe.router" in tp
+    assert "layers.1.w_gate" not in tp and "layers.0.w_gate" in tp
+    for name, t in tp.items():
+        assert t.shape == want[name].shape, name
+    assert abs(tp["layers.1.moe.w_down"].std().item() - 256 ** -0.5) < 0.01
+    toks = np.random.default_rng(5).integers(0, 256, (2, 24))
+    jlog, jaux = jtfm.apply(jax.tree.map(jnp.asarray, jp),
+                            jnp.asarray(toks, jnp.int32), cfg=jcfg,
+                            attn_impl="reference", return_aux=True)
+    got, aux = ttfm.apply(want, torch.from_numpy(toks), cfg=tcfg,
+                          attn_impl="reference", return_aux=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jlog), **TOL)
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-6)
+    assert float(aux) > 0
 
 
 def test_entry_points_refuse_cpu_by_default(monkeypatch, model):

@@ -19,7 +19,12 @@ the port only, pins torch to one intra-op thread, runs every case of
 - ``checks``: ``check_consistency`` after steps and after rank 1 perturbs
   a param, and the augmentation each rank draws for the same batch;
 - ``eval``: ``evaluate_sharded`` of seeded TINY params over the gang, and
-  its refusal of a batch the ranks do not divide.
+  its refusal of a batch the ranks do not divide;
+- ``lm``: the port's ``LMTrainer(dp=world)`` from the JAX trainer's
+  initial params, one case a config of ``cases.json``, on this rank's
+  contiguous rows of the global batch: the losses, the params after the
+  steps and ``evaluate`` on this rank's rows of the eval batches; and an
+  ``LMTrainer`` whose ``dp`` is not the world size, refused.
 """
 
 import json
@@ -198,6 +203,37 @@ def sharded_eval(data, rank: int, world: int) -> dict:
     return out
 
 
+def lm(data, rank: int, world: int, cases: dict) -> dict:
+    from distributed_pytorch_tpu_torch import lm as tlm
+    from distributed_pytorch_tpu_torch.models import transformer as ttfm
+    init = {k[len("p/"):]: data[k] for k in data.files
+            if k.startswith("p/")}
+    tokens, targets = data["tokens"], data["targets"]
+    per = tokens.shape[0] // world
+    mine = slice(rank * per, (rank + 1) * per)
+    out = {}
+    for name, case in cases.items():
+        cfg = tlm.LMTrainConfig(
+            model=ttfm.TransformerConfig(**case["model"]),
+            compute_dtype=None, dp=world, **case.get("cfg", {}))
+        tr = tlm.LMTrainer(cfg, device="cpu")
+        tr.load_state({k: torch.from_numpy(np.array(v))
+                       for k, v in init.items()})
+        out[f"{name}/losses"] = np.asarray(
+            [float(tr.train_step(tokens[mine], targets[mine]))
+             for _ in range(case["steps"])])
+        for k, v in tr.params.items():
+            out[f"{name}/p/{k}"] = v.detach().numpy()
+        ev = tr.evaluate([(tokens[mine], targets[mine])])
+        out[f"{name}/eval"] = np.asarray([ev["loss"], ev["tokens"]])
+    try:
+        tlm.LMTrainer(tlm.LMTrainConfig(dp=world + 1), device="cpu")
+        out["refused"] = np.asarray("")
+    except NotImplementedError as e:
+        out["refused"] = np.asarray(str(e))
+    return out
+
+
 def main() -> int:
     mode, in_path, out_dir = sys.argv[1:4]
     rank = int(os.environ["TORCH_DP_RANK"])
@@ -214,6 +250,9 @@ def main() -> int:
         out = syncbn(data, rank, world)
     elif mode == "eval":
         out = sharded_eval(data, rank, world)
+    elif mode == "lm":
+        with open(os.path.join(os.path.dirname(in_path), "cases.json")) as f:
+            out = lm(data, rank, world, json.load(f))
     else:
         out = checks(data, rank, world)
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
