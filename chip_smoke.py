@@ -130,6 +130,17 @@ Phases, each of which raises on failure:
      per layer per decode step); (d) lm_cli --rendezvous env --dp 1
      under launch.py over a one-rank NCCL group, losses bitwise equal to
      the run with no group, two all-reduces a step.
+ 21. the per-step sync knobs at world size 1 over a one-rank NCCL group,
+     bf16: (a) VGG-11 overlap=True for every overlap-capable strategy and
+     hierarchical's int8 and int4 hops, 10 steps each, bitwise the
+     post-backward run (losses, params, BN state, residual); (b) one
+     profiled overlapped ddp step in >= 3 buckets, each bucket's NCCL call
+     but the last-due one issued before the backward's last compute node,
+     and overlap against post-backward in A B B A windows (ms a step,
+     idle share); (c) the ZeRO-3 gather's int8/int4 codec over every
+     LM-base leaf and the dcn ring's codec with its EF update on
+     LM-base's flat gradient, bitwise the plain codec and the CPU's, with
+     their ms a step.
 Phases 4, 5, 10, 11 and 18 run the batcher's defaults, in-block refill and
 overlapped dispatch on, as the JAX batcher's are.
 The second-to-last lines are the kernels' JSON record and the card's name
@@ -147,6 +158,7 @@ import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -4020,6 +4032,352 @@ def moe_phase(torch, port, facts) -> dict:
     return out
 
 
+# -- phase 21: the per-step sync knobs at world size 1 (slice 5b-ii) --------
+
+OV_STRATEGIES = {"ddp": {}, "bucketed": {}, "quantized": {},
+                 "quantized_ring": {}, "quantized_ring_ef": {},
+                 "hierarchical": {},
+                 "hierarchical_int8": {"dcn_compress": "int8"},
+                 "hierarchical_int4": {"dcn_compress": "int4"}}
+OV_STEPS = 10      # (a): each strategy, overlapped and post-backward
+OV_BUCKET_MB = 10  # (b): VGG-11's 36.9 MB of gradients in >= 3 buckets
+OV_WINDOW = 20     # (b): overlap against post-backward, A B B A, twice
+
+
+def _ov_step(port, name: str, overlap: bool, mesh, hier_mesh,
+             bucket_mb=None):
+    """The bf16 VGG-11 train step of ``name`` (a strategy, or hierarchical
+    with its compressed hop) over the one-rank group: (step, strategy)."""
+    tr, st = port["train"], port["strategies"]
+    strategy = name.split("_int")[0]
+    cfg = tr.TrainConfig(model="VGG11", strategy=strategy,
+                         batch_size=VGG_BATCH, compute_dtype="bfloat16",
+                         augment=False, dcn_size=1, overlap=overlap,
+                         overlap_bucket_mb=bucket_mb, **OV_STRATEGIES[name])
+    s = st.get(strategy)
+    return tr.make_train_step(cfg, s, hier_mesh if strategy ==
+                              "hierarchical" else mesh), s, cfg
+
+
+def _fresh(p0, s0):
+    return ({k: {n: t.clone().requires_grad_(True) for n, t in v.items()}
+             for k, v in p0.items()},
+            {k: {n: t.clone() for n, t in v.items()} for k, v in s0.items()})
+
+
+def _ov_run(torch, port, name: str, overlap: bool, images, labels, p0, s0,
+            mesh, hier_mesh):
+    """OV_STEPS steps of ``_ov_step``'s step from phase 19's params and
+    batches: (losses, params, BN state, residual)."""
+    tr, vgg = port["train"], port["vgg"]
+    step, s, cfg = _ov_step(port, name, overlap, mesh, hier_mesh)
+    params, state = _fresh(p0, s0)
+    opt = tr.make_optimizer(cfg, params)
+    carry = None
+    if getattr(s, "stateful", False):
+        carry = s.init_state([params[k][n] for k, n in tr.jax_order(params)],
+                             1, device=DEVICE)
+    losses = []
+    for i in range(OV_STEPS):
+        loss, state, _, _, carry = step(params, state, opt, i,
+                                        images[i % DP_STEPS],
+                                        labels[i % DP_STEPS], carry)
+        losses.append(loss)
+    sync(torch)
+    return (torch.stack(losses), vgg.flatten(params), vgg.flatten(state),
+            carry)
+
+
+def _placement(prof, backend: str) -> dict:
+    """Where one profiled step's gradient all-reduces started: the host-side
+    ``<backend>:all_reduce`` calls' start times, against the start of the last
+    compute node the autograd engine evaluated (the step's last backward
+    kernel launches from it; the sync points' own nodes excluded)."""
+    calls, nodes = [], []
+    for e in prof.events():
+        if e.name == backend + ":all_reduce":
+            calls.append(e.time_range.start)
+        elif e.name.startswith("autograd::engine::evaluate_function:") \
+                and "SyncPoint" not in e.name \
+                and "AccumulateGrad" not in e.name:
+            nodes.append(e.time_range.start)
+    last = max(nodes) if nodes else None
+    return {"calls": len(calls), "backward_nodes": len(nodes),
+            "calls_before_last_backward_node":
+                sum(1 for c in calls if last is not None and c < last)}
+
+
+def _lm_codec_leaves(torch, port):
+    """LM-base's parameters (lm_cli's byte vocabulary, as phase 8 trains
+    it; every leaf, seeded) on the card, each with its ZeRO-3 dim over a
+    slice-local data axis of 8."""
+    lm = port["lm"]
+    cfg = lm.LMTrainConfig(model=lm_base_bytes(port), dp=8, fsdp=True)
+    shapes = lm.param_shapes(cfg.model)
+    specs = lm.param_specs(cfg, shapes)
+    g = torch.Generator(device=DEVICE).manual_seed(21)
+    return [(n, torch.randn(shapes[n], generator=g, device=DEVICE) * 0.02,
+             lm.fsdp_dim(specs[n])) for n in lm.jax_order(shapes)]
+
+
+def _ring_codec(ring, flat, residual):
+    """One dcn ring hop's codec on a rank, re-composed here from
+    ``QuantizedRing``'s helpers (a ring of one rank is the identity, so at
+    world size 1 ``_ring_sum`` itself never runs them): the residual added
+    (error feedback), block quantize, the dropped error (the new residual),
+    the int4 nibble packing and its unpacking, and the dequantize of what
+    arrives.  Its ms stand for ``_ring_sum``'s per-hop work without the
+    wire, not for a call of the port's."""
+    acc = flat + residual
+    q, s = ring._quant(acc)
+    err = ring._dequant_add(q, s, acc, -1.0)
+    if ring.bits == 4:
+        q = ring._unpack(ring._pack(q), q.shape)
+    return ring._dequant(q, s), err
+
+
+def sync_knobs_phase(torch, port, facts) -> dict:
+    """Phase 21: the per-step sync knobs (slice 5b-ii) at world size 1,
+    over a real one-rank NCCL group (the multi-rank paths need two or more
+    cards: NCCL puts no two ranks on one GPU), bf16, phase 19's seeded
+    VGG-11 params and batches, cuDNN in its deterministic algorithms (as
+    the two runs of a gate must be repeatable):
+
+    (a) VGG-11 ``overlap=True`` for every overlap-capable strategy (and
+        hierarchical's compressed hops) for OV_STEPS steps: losses,
+        params, BN state and residual bitwise the post-backward run's.
+        At world size 1 a ring of one rank is the identity: the
+        quantized_ring(_ef) and hierarchical int8 / int4 runs quantize
+        nothing and their residual stays zero (``residual_max_abs``), so
+        their gates hold the overlap path's buckets, residual segments
+        and layout, not the codec, which (c) and the CPU gangs hold;
+    (b) one profiled overlapped ddp step at OV_BUCKET_MB-MB buckets: one
+        NCCL call a bucket, each but the last-due one issued before the
+        backward's last compute node (the post-backward step's after it);
+        and overlap against post-backward through ``Trainer`` in A B B A
+        windows of OV_WINDOW steps, twice: ms a step, their ratio, the
+        device's idle share (no gain claimed: the step is host-bound) and
+        the peak device memory of a window;
+    (c) the LM sync codecs at LM-base width: the ZeRO-3 gather at int8
+        and int4 over every leaf through the one-rank group (the port's
+        ``_gather_codec``), bitwise its plain codec without the collective
+        and the CPU's codec on the same leaf; the dcn ring's per-hop codec
+        (quantize, pack, dequantize and EF update, ``_ring_codec``: a
+        re-composition of ``_ring_sum``'s per-hop work from its helpers,
+        since a one-rank ring runs none) on LM-base's flat gradient,
+        bitwise the CPU's; ms of each for one step's worth (every leaf
+        once)."""
+    from torch.profiler import ProfilerActivity, profile
+    tr, st, vgg, cifar = (port["train"], port["strategies"], port["vgg"],
+                          port["cifar10"])
+    mesh_mod, lm = port["mesh"], port["lm"]
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    mesh = mesh_mod.make_mesh(device=DEVICE)
+    hier_mesh = mesh_mod.make_mesh(axis_names=("dcn", "ici"),
+                                   axis_shape=(1, 1), device=DEVICE)
+    backend = torch.distributed.get_backend()
+    ds = cifar._synthetic(VGG_BATCH * DP_STEPS, seed=11)
+    images = torch.as_tensor(ds.images).to(DEVICE).view(
+        DP_STEPS, VGG_BATCH, 32, 32, 3)
+    labels = torch.as_tensor(ds.labels).to(DEVICE).long().view(
+        DP_STEPS, VGG_BATCH)
+    p0, s0 = vgg.init(0, "VGG11", device=DEVICE)
+    run = dict(torch=torch, port=port, images=images, labels=labels, p0=p0,
+               s0=s0, mesh=mesh, hier_mesh=hier_mesh)
+    out = {"world_size": 1, "backend": backend, "dtype": "bfloat16",
+           "card": facts["smi"]}
+    dtypes = (("int8", 8), ("int4", 4))
+
+    # (c)'s ring inputs, LM-base's flat gradient length, seeded on the
+    # card; their CPU oracles (~8 s each, memory-bound) run in a thread
+    # beside (a), whose steps keep one host core busy
+    shapes = lm.param_shapes(lm_base_bytes(port))
+    n_params = sum(math.prod(v) for v in shapes.values())
+    ring_len = -(-n_params // 256) * 256
+    g = torch.Generator(device=DEVICE).manual_seed(22)
+    flat_cpu = (torch.randn(ring_len, generator=g, device=DEVICE)
+                * 1e-3).cpu()
+    residual_cpu = (torch.randn(ring_len, generator=g, device=DEVICE)
+                    * 1e-5).cpu()
+    pool = ThreadPoolExecutor(1)
+    oracles = {dtype: pool.submit(_ring_codec, st.QuantizedRing(bits=bits),
+                                  flat_cpu, residual_cpu)
+               for dtype, bits in dtypes}
+
+    # (a) every overlap-capable strategy, overlapped against post-backward
+    t0 = time.perf_counter()
+    gates = {}
+    for name in OV_STRATEGIES:
+        a = _ov_run(name=name, overlap=False, **run)
+        b = _ov_run(name=name, overlap=True, **run)
+        same = {"losses": torch.equal(a[0], b[0]),
+                "params": all(torch.equal(a[1][k], b[1][k]) for k in a[1]),
+                "bn_state": all(torch.equal(a[2][k], b[2][k]) for k in a[2]),
+                "residual": (a[3] is None and b[3] is None)
+                or torch.equal(a[3], b[3])}
+        gates[name] = {**same, "loss_first": a[0][0].item(),
+                       "loss_last": a[0][-1].item(),
+                       "residual_len": 0 if a[3] is None else a[3].numel(),
+                       "residual_max_abs": None if a[3] is None
+                       else a[3].abs().max().item()}
+        if not all(same.values()):
+            fail(f"(a) {name}: overlap=True is not bitwise the "
+                 f"post-backward run: {same}")
+    want_ring = {dtype: f.result() for dtype, f in oracles.items()}
+    pool.shutdown()
+    out["a"] = {"steps": OV_STEPS, "runs": gates,
+                "seconds": time.perf_counter() - t0}
+    print(f"  (a) VGG-11 overlap=True against post-backward, {OV_STEPS} "
+          f"bf16 steps each: " + json.dumps(out["a"]))
+
+    # (b) the collectives move into the backward
+    t0 = time.perf_counter()
+    leaves = [p0[k][n] for k, n in tr.jax_order(p0)]
+    n_buckets = len(st.make_bucket_plan(leaves, OV_BUCKET_MB << 20))
+    if n_buckets < 3:
+        fail(f"(b) {OV_BUCKET_MB} MB buckets pack VGG-11 into {n_buckets}")
+    place = {}
+    for overlap in (True, False):
+        step, _, cfg = _ov_step(port, "ddp", overlap, mesh, hier_mesh,
+                                bucket_mb=OV_BUCKET_MB)
+        params, state = _fresh(p0, s0)
+        opt = tr.make_optimizer(cfg, params)
+        _, state, *_ = step(params, state, opt, 0, images[0], labels[0])
+        sync(torch)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(params, state, opt, 1, images[1], labels[1])
+            sync(torch)
+        place["overlap" if overlap else "post_backward"] = _placement(
+            prof, backend)
+    ov, post = place["overlap"], place["post_backward"]
+    if ov["calls"] != n_buckets or post["calls"] != 1:
+        fail(f"(b) {ov['calls']} calls overlapped and {post['calls']} "
+             f"post-backward for {n_buckets} buckets: {place}")
+    if ov["calls_before_last_backward_node"] < n_buckets - 1 \
+            or post["calls_before_last_backward_node"] != 0:
+        fail(f"(b) the bucket calls were not issued inside the backward: "
+             f"{place}")
+    trainers = {}
+    for overlap in (True, False):
+        t = tr.Trainer(tr.TrainConfig(
+            model="VGG11", strategy="ddp", batch_size=VGG_BATCH,
+            compute_dtype="bfloat16", augment=False, overlap=overlap),
+            device=DEVICE)
+        trainers["overlap" if overlap else "post_backward"] = {
+            "t": t, "i": 0, "ms": []}
+
+    def advance(r, k):
+        for _ in range(k):
+            j = r["i"] % DP_STEPS
+            r["t"].train_steps(images[j][None], labels[j][None])
+            r["i"] += 1
+
+    for r in trainers.values():
+        advance(r, 3)
+    for _ in range(2):
+        for key in ("overlap", "post_backward", "post_backward", "overlap"):
+            r = trainers[key]
+            sync(torch)
+            t1 = time.perf_counter()
+            advance(r, OV_WINDOW)
+            sync(torch)
+            r["ms"].append((time.perf_counter() - t1) / OV_WINDOW * 1e3)
+    windows = {}
+    for key, r in trainers.items():
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        sync(torch)
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        with prof:
+            advance(r, 5)
+            sync(torch)
+        wall = (time.perf_counter() - t1) / 5 * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        device_us = sum(e.self_device_time_total for e in
+                        prof.key_averages() if e.device_type.name == "CUDA")
+        windows[key] = {"ms_per_step_windows": r["ms"],
+                        "ms_per_step_median": float(np.median(r["ms"])),
+                        "device_ms_per_step": device_us / 1e3 / 5,
+                        "profiled_wall_ms_per_step": wall,
+                        "device_idle_share": 1.0 - device_us / 1e3 / 5
+                        / wall,
+                        "peak_allocated_gb": peak / 1e9}
+    windows["overlap_over_post_backward_ms"] = (
+        windows["overlap"]["ms_per_step_median"]
+        / windows["post_backward"]["ms_per_step_median"])
+    del trainers
+    out["b"] = {"buckets": n_buckets, "bucket_mb": OV_BUCKET_MB,
+                "placement": place, "windows": windows,
+                "seconds": time.perf_counter() - t0}
+    print(f"  (b) ddp in {n_buckets} buckets of {OV_BUCKET_MB} MB: "
+          + json.dumps(out["b"]) + f"; {facts['smi']}")
+    port["parallel_init"].shutdown()
+    torch.backends.cudnn.deterministic = det
+
+    # (c) the LM sync codecs at LM-base width
+    t0 = time.perf_counter()
+    mesh = mesh_mod.make_mesh(device=DEVICE)
+    group = mesh.get_group()
+    leaves = _lm_codec_leaves(torch, port)
+
+    def gather_all(dtype):
+        return [lm._gather_codec(x, d, group, dtype) for _, x, d in leaves]
+
+    got = {dtype: gather_all(dtype) for dtype, _ in dtypes}
+    bad = []
+    for i, (name, x, d) in enumerate(leaves):
+        xc = x.cpu()
+        for dtype, bits in dtypes:
+            q, s = lm.quantize_rows(x, d, bits)
+            plain = (q.float() * s).to(x.dtype)
+            qc, sc = lm.quantize_rows(xc, d, bits)
+            if bits == 4:  # through the nibble packing, as the wire has it
+                qc = lm.unpack_rows(lm.pack_rows(qc, d), d, x.shape[d])
+            g = got[dtype][i]
+            if not (torch.equal(g, plain)
+                    and torch.equal(g.cpu(), (qc.float() * sc).to(x.dtype))):
+                bad.append((dtype, name))
+    del got
+    if bad:
+        fail(f"(c) the gathers differ from their plain codec or the CPU's "
+             f"on {bad[:5]}")
+    codecs = {}
+    for dtype, _ in dtypes:
+        codecs[f"fsdp_gather_{dtype}"] = {
+            "leaves": len(leaves), "params": n_params,
+            "ms_per_step": time_ms(torch, lambda dtype=dtype: gather_all(
+                dtype), iters=5, warmup=1),
+            "bitwise_plain_and_cpu": True}
+    codecs["fsdp_seconds"] = time.perf_counter() - t0
+    del leaves
+    flat, residual = flat_cpu.to(DEVICE), residual_cpu.to(DEVICE)
+    for dtype, bits in dtypes:
+        ring = st.QuantizedRing(bits=bits)
+        got, err = _ring_codec(ring, flat, residual)
+        want, werr = want_ring.pop(dtype)
+        same = torch.equal(got.cpu(), want) and torch.equal(err.cpu(), werr)
+        del got, err, want, werr
+        if not same:
+            fail(f"(c) the {dtype} dcn ring codec differs from the CPU's")
+        codecs[f"dcn_ring_{dtype}"] = {
+            "elements": ring_len, "bitwise_cpu": True,
+            "timed": "_ring_codec: _ring_sum's per-hop work re-composed",
+            "ms_per_step": time_ms(
+                torch, lambda ring=ring: _ring_codec(ring, flat, residual),
+                iters=5, warmup=1)}
+    codecs["ring_seconds"] = time.perf_counter() - t0 - codecs[
+        "fsdp_seconds"]
+    del flat, residual, flat_cpu, residual_cpu
+    port["parallel_init"].shutdown()
+    torch.cuda.empty_cache()
+    out["c"] = {**codecs, "seconds": time.perf_counter() - t0}
+    print("  (c) the LM sync codecs at LM-base width (one step's worth): "
+          + json.dumps(out["c"]) + f"; {facts['smi']}")
+    return out
+
+
 T_START = time.perf_counter()
 
 
@@ -4167,6 +4525,9 @@ def main() -> int:
     phase(20, "MoE (LM-base, 8 experts) and LM data parallel at world "
               "size 1")
     moe_res = moe_phase(torch, port, facts)
+    phase(21, "per-step sync knobs at world size 1 (NCCL): overlap, "
+              "dcn_compress, the LM codecs")
+    sync_knobs_phase(torch, port, facts)
     print(f"  phases done at {time.perf_counter() - T_START:.0f} s")
 
     kernels = []

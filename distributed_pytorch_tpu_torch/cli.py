@@ -20,8 +20,10 @@ each epoch.  It runs on the GPU (``cuda:{LOCAL_RANK}``) unless given
 ``--num-devices N > 1`` in one process is refused: the port runs one
 process per device (``python -m distributed_pytorch_tpu_torch.launch
 --nproc-per-node N -- -m distributed_pytorch_tpu_torch.cli --rendezvous
-env``).  The sync knobs of slice 5b, the checkpoint, profile, telemetry
-and elastic flags of slice 5c and the planner's flags of slice 5f raise
+env``).  ``--overlap`` syncs each gradient bucket inside the backward
+and ``--dcn-compress`` quantizes hierarchical's cross-slice hop.  The sync
+windows of slice 5b-iii, the checkpoint, profile, telemetry and elastic
+flags of slice 5c and the planner's flags of slice 5f raise
 ``NotImplementedError`` naming their sub-slice.  ``--model`` also takes
 ``TINY``, the package's smoke configuration.
 """
@@ -37,7 +39,7 @@ from .data.cifar10 import load
 from .data.pipeline import DataLoader
 from .data.sampler import DistributedSampler
 from .models.transformer import (DURABILITY_SLICE, PLANNING_SLICE,
-                                 SYNC_SLICE, not_ported)
+                                 WINDOW_SLICE, not_ported)
 from .parallel import init as dist_init
 from .parallel.mesh import one_process_per_device
 from .train import STRATEGIES, TrainConfig, Trainer
@@ -74,11 +76,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dcn-size", type=int, default=2,
                    help="number of slices for --strategy hierarchical: the "
                         "ranks factor into a ('dcn', 'ici') mesh")
-    p.add_argument("--dcn-compress", default=None, choices=["int8", "int4"])
-    p.add_argument("--overlap", action="store_true")
+    p.add_argument("--dcn-compress", default=None, choices=["int8", "int4"],
+                   help="quantize hierarchical's cross-slice hop (an int8 "
+                        "or int4 ring with an error-feedback residual)")
+    p.add_argument("--overlap", action="store_true",
+                   help="sync each gradient bucket inside the backward, "
+                        "at its earliest layer group")
     p.add_argument("--overlap-bucket-mb", type=float, default=None,
-                   help="bucket size of bucketed and the rings (default: "
-                        "torch DDP's 25 MB)")
+                   help="bucket size of --overlap, bucketed and the rings "
+                        "(default: torch DDP's 25 MB)")
     p.add_argument("--sync-every", type=int, default=1)
     p.add_argument("--max-sync-every", type=int, default=None)
     p.add_argument("--outer-opt", default=None,
@@ -130,14 +136,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 # (flag, the value that leaves it off, its sub-slice)
 _LATER_FLAGS = [
-    *[(f"--{n}", None, SYNC_SLICE) for n in (
-        "dcn-compress", "max-sync-every", "outer-opt",
-        "sync-every-per-slice")],
+    *[(f"--{n}", None, WINDOW_SLICE) for n in (
+        "max-sync-every", "outer-opt", "sync-every-per-slice")],
     *[(f"--{n}", None, PLANNING_SLICE) for n in ("sync-route",
                                                  "autotune-profile")],
     *[(f"--{n}", None, DURABILITY_SLICE) for n in (
         "checkpoint-dir", "profile-dir", "telemetry-dir", "max-nodes")],
-    ("--overlap", False, SYNC_SLICE), ("--sync-every", 1, SYNC_SLICE),
+    ("--sync-every", 1, WINDOW_SLICE),
     ("--elastic", False, DURABILITY_SLICE),
     ("--min-nodes", 1, DURABILITY_SLICE),
 ]
@@ -208,6 +213,7 @@ def _train(args, device, on_step) -> dict:
         strategy=args.strategy, sync_bn=args.sync_bn,
         compute_dtype=args.compute_dtype, augment=not args.no_augment,
         seed=args.seed, dcn_size=args.dcn_size,
+        dcn_compress=args.dcn_compress, overlap=args.overlap,
         overlap_bucket_mb=args.overlap_bucket_mb,
         outer_momentum=args.outer_momentum, outer_lr=args.outer_lr)
     try:

@@ -10,6 +10,12 @@ KV caches and page pools cross as they are: the JAX package's
 ``{"layer{i}": {"k", "v"[, "ks", "vs"]}}`` cache tree has the port's names
 and layouts already (``from_jax_cache``).
 
+A ZeRO-3 run (``fsdp``) holds each rank's shards: ``from_jax_lm_sharded``
+cuts JAX's whole params (or Adam moments) to one rank's, and
+``to_jax_lm_gathered`` puts a gang's shards back together in JAX's tree;
+a ``dcn_compress`` run's residual crosses a row a rank
+(``from_jax_sync_state``), as the VGG trainer's does.
+
 The optimizer state crosses too: the Adam moments and step count of an
 optax ``chain(clip_by_global_norm, adamw)`` state (its ``ScaleByAdamState``
 ``count``/``mu``/``nu``) become the port's ``{"count", "mu", "nu"}`` dict
@@ -100,6 +106,43 @@ def to_jax_params(params: dict[str, torch.Tensor]) -> dict:
             t = t.float()
         node[parts[-1]] = t.numpy()
     return tree
+
+
+def from_jax_lm_sharded(tree, dims: dict, rank: int, n_data: int,
+                        device: str | torch.device = "cuda"
+                        ) -> dict[str, torch.Tensor]:
+    """One rank's ZeRO-3 shards of the JAX package's whole LM params (or
+    Adam moments): ``dims`` maps each port name to its sharded dim or None
+    (``lm.param_specs`` through ``lm.fsdp_dim``); rank ``rank`` holds slice
+    ``rank % n_data`` of each sharded leaf (the mesh lays the slices out
+    dcn-major), and every replicated leaf whole."""
+    out = {}
+    for name, t in from_jax_params(tree, device=device).items():
+        dim = dims[name]
+        if dim is not None:
+            m = t.shape[dim] // n_data
+            t = t.narrow(dim, (rank % n_data) * m, m).clone()
+        out[name] = t
+    return out
+
+
+def to_jax_lm_gathered(shards: list[dict], dims: dict) -> dict:
+    """``from_jax_lm_sharded``'s inverse over a gang: the shards of one
+    slice's ranks (``shards[i]`` the flat dict of arrays or tensors of data
+    index i) concatenated along each leaf's sharded dim, back into the JAX
+    package's nested tree of numpy arrays; a replicated leaf is the first
+    rank's."""
+    def host(t):
+        return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) \
+            else np.asarray(t)
+
+    whole = {}
+    for name, dim in dims.items():
+        parts = [host(s[name]) for s in shards]
+        whole[name] = parts[0] if dim is None else np.concatenate(parts,
+                                                                  axis=dim)
+    return to_jax_params({k: torch.from_numpy(np.ascontiguousarray(v))
+                          for k, v in whole.items()})
 
 
 def _is_adam_state(node) -> bool:

@@ -45,6 +45,27 @@ stay bitwise equal (rank 0's params are broadcast at construction).  At
 world size 1 both collectives are the identity, and the step is bitwise
 the step without a process group.
 
+**The sync knobs.**  ``fsdp`` (ZeRO-3) shards each parameter and its Adam
+moments over the slice-local ``data`` axis along the dimension the JAX
+``param_specs`` chooses: the forward all-gathers each sharded weight
+(``_FsdpGather``; int8 or int4 on the wire with ``fsdp_gather_dtype``, a
+straight-through gather) and its backward reduce-scatters the gradient,
+so each rank holds its shard's sum.  ``dcn_size = S > 1`` factors the
+ranks into a ``("dcn", "data")`` mesh of S slices and syncs the gradients
+by the JAX two-level reduction (``_two_level_sync``): a reduce-scatter
+over ``data``, a shard-sized exchange over ``dcn`` (the int8 or int4 ring
+with an error-feedback residual, ``sync_state``, under ``dcn_compress``),
+an all-gather over ``data``, in ``bucket_mb`` buckets where JAX buckets.
+``overlap`` streams both through the layer-group boundaries of
+``transformer.apply``: each group's gathers move to its boundary, and its
+reduce-scatters and dcn exchange run inside the backward right after the
+group's backward, on a side stream on the card
+(``parallel.strategies._InFlight``), the step bitwise the non-overlapped
+one where the sums are (every sum of two addends).  The global-norm clip
+sums each sharded leaf's squares over ``data`` and counts each replicated
+leaf once.  Without these knobs a ``dp`` step is the flat all-reduce above,
+unchanged.
+
 ``LMTrainConfig`` keeps every field of the JAX config so configs cross
 between the packages unchanged; a non-default value of a field that
 belongs to a later slice raises ``NotImplementedError`` naming it.
@@ -64,14 +85,15 @@ import torch.distributed as dist
 from .models import transformer as tfm
 from .ops import losses
 from .ops.nn import IGNORE_INDEX, step_metrics
-from .parallel.mesh import (ensure_process_group, make_mesh, mesh_group,
-                            one_process_per_device)
+from .parallel import strategies as strat
+from .parallel.mesh import (DATA_AXIS, ensure_process_group, make_mesh,
+                            mesh_group, one_process_per_device)
 from .parallel.strategies import flat_all_reduce
 from .utils.device import resolve_device
 
 IGNORE = IGNORE_INDEX  # target id excluded from the loss (padding)
 
-SYNC_SLICE, DURABILITY_SLICE = tfm.SYNC_SLICE, tfm.DURABILITY_SLICE
+WINDOW_SLICE, DURABILITY_SLICE = tfm.WINDOW_SLICE, tfm.DURABILITY_SLICE
 PARALLEL_SLICE, PLANNING_SLICE = tfm.PARALLEL_SLICE, tfm.PLANNING_SLICE
 ADAM_EPS = 1e-8  # optax.adamw's default
 
@@ -136,17 +158,13 @@ class LMTrainConfig:
 # Fields whose non-default values belong to a later slice: name -> (the
 # value that means "off", the slice).
 _LATER = {
-    **{n: (1, SYNC_SLICE) for n in ("dcn_size", "sync_every",
-                                    "max_sync_every")},
+    **{n: (1, WINDOW_SLICE) for n in ("sync_every", "max_sync_every")},
     **{n: (1, PARALLEL_SLICE) for n in ("sp", "tp", "pp", "ep",
                                         "interleave")},
-    **{n: (None, SYNC_SLICE) for n in (
-        "dcn_compress", "bucket_mb", "fsdp_gather_dtype", "outer_opt",
-        "sync_every_per_slice")},
+    **{n: (None, WINDOW_SLICE) for n in ("outer_opt",
+                                         "sync_every_per_slice")},
     **{n: (None, PLANNING_SLICE) for n in ("sync_plan", "sync_route")},
-    "fsdp": (False, SYNC_SLICE),
-    "overlap": (False, SYNC_SLICE),
-    "staleness": (0, SYNC_SLICE),
+    "staleness": (0, WINDOW_SLICE),
     "pp_size": (0, PARALLEL_SLICE),
     "microbatches": (0, PARALLEL_SLICE),
 }
@@ -160,6 +178,48 @@ def validate_lm_cfg(cfg: LMTrainConfig) -> None:
     if cfg.dp < 1:
         raise ValueError(f"dp must be >= 1, got {cfg.dp}")
     pipelined = cfg.pp > 1 or cfg.pp_size > 0
+    if cfg.dcn_size < 1:
+        raise ValueError(f"dcn_size must be >= 1, got {cfg.dcn_size}")
+    if cfg.dcn_size > 1:
+        if cfg.dp % cfg.dcn_size:
+            raise ValueError(f"dp={cfg.dp} does not factor into "
+                             f"dcn_size={cfg.dcn_size} slices")
+        if cfg.pp > 1:
+            raise ValueError("dcn_size does not compose with pp (the "
+                             "pipeline mesh has no factored data axis)")
+    if cfg.bucket_mb is not None and cfg.bucket_mb <= 0:
+        raise ValueError(f"bucket_mb must be > 0, got {cfg.bucket_mb}")
+    if cfg.dcn_compress is not None:
+        if cfg.dcn_compress not in ("int8", "int4"):
+            raise ValueError(
+                f"dcn_compress must be None, 'int8', or 'int4', got "
+                f"{cfg.dcn_compress!r}")
+        if cfg.dcn_size < 2:
+            raise ValueError(
+                f"dcn_compress={cfg.dcn_compress!r} quantizes the "
+                "cross-slice (dcn) hop of the factored-mesh sync; with "
+                f"dcn_size={cfg.dcn_size} there is no DCN hop to compress")
+        if pipelined:
+            raise ValueError(
+                "dcn_compress does not compose with pipeline parallelism "
+                "(pp/pp_size): the pipeline gradient paths are "
+                "hand-emitted without the stateful sync-state channel "
+                "(open item); drop the pipeline or the compression")
+    if cfg.fsdp_gather_dtype is not None:
+        if cfg.fsdp_gather_dtype not in ("int8", "int4"):
+            raise ValueError(
+                f"fsdp_gather_dtype must be None, 'int8' or 'int4', got "
+                f"{cfg.fsdp_gather_dtype!r}")
+        if not cfg.fsdp:
+            raise ValueError(
+                "fsdp_gather_dtype quantizes the ZeRO-3 weight "
+                "all-gather; with fsdp=False there is no gather to "
+                "quantize")
+        if cfg.pp_size > 0:
+            raise ValueError(
+                "fsdp_gather_dtype does not compose with pp_size: the "
+                "1F1B stacked per-chunk gather is a separate path kept "
+                "full-precision (open item); drop one")
     if cfg.matmul_dtype is not None:
         if cfg.matmul_dtype != "int8":
             raise ValueError(f"matmul_dtype must be None or 'int8', got "
@@ -192,6 +252,22 @@ def validate_lm_cfg(cfg: LMTrainConfig) -> None:
             "remat does not compose with pipeline parallelism (pp/pp_size): "
             "the pipeline schedulers own their own rematerialization; drop "
             "one")
+    if cfg.fsdp and cfg.dp // max(cfg.dcn_size, 1) == 1:
+        # the ZeRO-3 leaves shard over the slice-local data axis: at size 1
+        # fsdp would silently keep every parameter whole
+        raise ValueError(
+            f"fsdp=True with dp={cfg.dp}, dcn_size={cfg.dcn_size} is a "
+            f"no-op: the slice-local data axis has size "
+            f"dp // dcn_size = 1, so no leaf can shard over it — raise "
+            f"dp (or drop fsdp)")
+    if cfg.overlap:
+        # under grad_accum > 1 the dcn exchange runs once after the
+        # microbatches, outside the backward: only fsdp streams there
+        strat.require_lm_overlap_streamable(
+            fsdp=cfg.fsdp,
+            dcn=cfg.dcn_size > 1 and (cfg.grad_accum == 1
+                                      or cfg.pp_size > 0),
+            pp=cfg.pp_size > 0)
     m = cfg.model
     if m.moe_dispatch_bits != "f32" or m.moe_a2a_chunks > 1:
         # the a2a knobs act only where the MoE layer crosses a mesh axis
@@ -312,19 +388,530 @@ def _micro_split(x: torch.Tensor, a: int) -> torch.Tensor:
 
 
 def _loss_fn(cfg: LMTrainConfig, attn_impl: str, params, tokens, targets,
-             n_total, aux_w, n_ranks: int = 1):
+             n_total, aux_w, n_ranks: int = 1, boundary=None):
     """This rank's share of the step's loss: ``ce_sum / n_total`` (the
     GLOBAL count) plus ``aux_w`` times this rank's aux over ``n_ranks``
     (the JAX ``pmean`` of the aux over the data axis, taken by the sum
-    over ranks)."""
+    over ranks).  ``boundary`` is the streaming hook (``overlap``)."""
     head = partial(losses.head_loss, targets=targets,
                    loss_impl=cfg.loss_impl, loss_chunk=cfg.loss_chunk)
     (ce_sum, _), aux = tfm.apply(params, tokens, cfg=cfg.model,
                                  dtype=cfg.dtype, attn_impl=attn_impl,
                                  return_aux=True, head_fn=head,
                                  matmul_dtype=cfg.matmul_dtype,
-                                 remat=cfg.remat)
+                                 remat=cfg.remat, boundary=boundary)
     return ce_sum / n_total.clamp_min(1) + aux_w * (aux * (1.0 / n_ranks))
+
+
+# -- the sync knobs: ZeRO-3, the two-level dcn sync, overlap ------------------
+
+DCN, DATA = "dcn", DATA_AXIS
+MODEL = "model"  # the JAX tensor axis: size 1 here, but it shapes the specs
+
+_TP_SPECS = {"wq": (None, MODEL, None), "wk": (None, MODEL, None),
+             "wv": (None, MODEL, None), "wo": (MODEL, None, None),
+             "w_gate": (None, MODEL), "w_up": (None, MODEL),
+             "w_down": (MODEL, None)}
+
+
+def jax_path(name: str) -> tuple[str, ...]:
+    """A port name's path in the JAX param tree: ``layers.3.moe.router`` ->
+    ``("layer3", "moe", "router")``."""
+    parts = name.split(".")
+    if parts[0] == "layers":
+        return (f"layer{parts[1]}",) + tuple(parts[2:])
+    return tuple(parts)
+
+
+def jax_order(names) -> list[str]:
+    """``names`` in the JAX package's tree order (dict keys sorted at every
+    level: ``embed, final_norm, layer0, layer1, layer10, ...``)."""
+    return sorted(names, key=jax_path)
+
+
+def param_shapes(cfg: tfm.TransformerConfig) -> dict[str, tuple]:
+    """Every parameter's shape, without building it (``tfm.init``'s)."""
+    d, h, dh, f, kv, e = (cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.ff,
+                          cfg.kv_heads, cfg.n_experts)
+    out = {"embed": (cfg.vocab_size, d), "final_norm": (d,)}
+    for i in range(cfg.n_layers):
+        lp = {"attn_norm": (d,), "wq": (d, h, dh), "wk": (d, kv, dh),
+              "wv": (d, kv, dh), "wo": (h, dh, d), "mlp_norm": (d,)}
+        if cfg.is_moe_layer(i):
+            lp.update({"moe.router": (d, e), "moe.w_gate": (e, d, f),
+                       "moe.w_up": (e, d, f), "moe.w_down": (e, f, d)})
+        else:
+            lp.update(w_gate=(d, f), w_up=(d, f), w_down=(f, d))
+        out.update({f"layers.{i}.{k}": v for k, v in lp.items()})
+    return out
+
+
+def _base_spec(name: str) -> tuple:
+    """The JAX ``shard_specs`` entry (tp_axis ``"model"``, no expert axis)."""
+    path = jax_path(name)
+    if "moe" in path:
+        return () if path[-1] == "router" else (MODEL, None, None)
+    return _TP_SPECS.get(path[-1], ())
+
+
+def param_specs(cfg: LMTrainConfig, shapes: dict | None = None
+                ) -> dict[str, tuple]:
+    """Each leaf's partition spec as the JAX ``param_specs`` gives it, a
+    tuple of axis names (or None) a dim: the Megatron layout over the
+    size-1 ``model`` axis, and with ``fsdp`` the ZeRO-3 dim, the first
+    dim that is not on another axis and that the slice-local data size
+    divides (``data``); a leaf with none stays replicated."""
+    shapes = shapes or param_shapes(cfg.model)
+    inner = cfg.dp // cfg.dcn_size
+    out = {}
+    for name, shape in shapes.items():
+        base = _base_spec(name)
+        spec = list(base) + [None] * (len(shape) - len(base))
+        if cfg.fsdp and inner > 1:
+            for i, dim in enumerate(shape):
+                if spec[i] is None and dim % inner == 0:
+                    spec[i] = DATA
+                    break
+        out[name] = tuple(spec)
+    return out
+
+
+def fsdp_dim(spec: tuple) -> int | None:
+    """The dim a leaf is sharded along over ``data`` (None: replicated)."""
+    return spec.index(DATA) if DATA in spec else None
+
+
+def make_lm_mesh(cfg: LMTrainConfig, device: str | torch.device = "cuda"):
+    """The data-parallel mesh over the default process group: ``("data",)``
+    of ``dp`` ranks, or ``("dcn", "data")`` of ``(dcn_size, dp //
+    dcn_size)`` with ``dcn_size > 1`` (the slices outermost, as the JAX
+    mesh lays them)."""
+    validate_lm_cfg(cfg)
+    one_process_per_device(cfg.dp)
+    if cfg.dcn_size > 1:
+        return make_mesh(cfg.dp, axis_names=(DCN, DATA),
+                         axis_shape=(cfg.dcn_size, cfg.dp // cfg.dcn_size),
+                         device=device)
+    return make_mesh(cfg.dp, device=device)
+
+
+def _gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The tiled all-gather of ``x`` along ``dim`` over ``group``."""
+    n = dist.get_world_size(group)
+    xm = x.movedim(dim, 0).contiguous()
+    out = torch.empty((n * xm.shape[0],) + tuple(xm.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    strat.all_gather_flat(out, xm, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+def _scatter_dim(ct: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The reduce-scatter (sum) of ``ct`` along ``dim`` over ``group``: the
+    tiled gather's transpose."""
+    n = dist.get_world_size(group)
+    cm = ct.movedim(dim, 0).contiguous()
+    out = torch.empty((cm.shape[0] // n,) + tuple(cm.shape[1:]),
+                      dtype=ct.dtype, device=ct.device)
+    strat.reduce_scatter_flat(out, cm, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+def quantize_rows(x: torch.Tensor, dim: int, bits: int):
+    """The fsdp gather's codec: ``x`` quantized to int8 levels (+/-127, or
+    +/-7 at ``bits=4``) against one float32 scale a row, a row being an
+    index along ``dim`` (the scales gather along the payload's dim): the
+    JAX ``_q8_shard_gather`` / ``_q4_shard_gather`` arithmetic."""
+    levels = 127.0 if bits == 8 else 7.0
+    x32 = x.float()
+    axes = tuple(i for i in range(x.ndim) if i != dim)
+    absmax = x32.abs().amax(dim=axes, keepdim=True) if axes else x32.abs()
+    scale = torch.clamp_min(absmax * (1.0 / levels), 1e-30)
+    q = torch.clamp(torch.round(x32 / scale), -levels, levels) \
+        .to(torch.int8)
+    return q, scale
+
+
+def pack_rows(q: torch.Tensor, dim: int) -> torch.Tensor:
+    """int4 values (int8 in [-7, 7]) two a byte along ``dim`` (odd lengths
+    padded by one), biased by 8, the even index in the low nibble."""
+    if q.shape[dim] % 2:
+        q = torch.cat([q, torch.zeros_like(q.narrow(dim, 0, 1))], dim)
+    pairs = q.unflatten(dim, (-1, 2))
+    lo, hi = pairs.select(dim + 1, 0), pairs.select(dim + 1, 1)
+    return (lo + 8).to(torch.uint8) | ((hi + 8).to(torch.uint8) << 4)
+
+
+def unpack_rows(p: torch.Tensor, dim: int, m: int) -> torch.Tensor:
+    """``pack_rows``'s inverse: int8 values, ``m`` long along ``dim``."""
+    lo = (p & 0xF).to(torch.int8) - 8
+    hi = ((p >> 4) & 0xF).to(torch.int8) - 8
+    u = torch.stack([lo, hi], dim=dim + 1).flatten(dim, dim + 1)
+    return u.narrow(dim, 0, m)
+
+
+def _gather_codec(x: torch.Tensor, dim: int, group,
+                  dtype: str | None) -> torch.Tensor:
+    """One fsdp leaf's all-gather along ``dim``: plain, or with
+    ``dtype="int8"``/``"int4"`` the local shard quantized against per-row
+    scales, payload and scales gathered, and dequantized."""
+    if dtype is None:
+        return _gather_dim(x, dim, group)
+    q, scale = quantize_rows(x, dim, 8 if dtype == "int8" else 4)
+    sg = _gather_dim(scale, dim, group)
+    if dtype == "int8":
+        qg = _gather_dim(q, dim, group)
+    else:
+        n = dist.get_world_size(group)
+        packed = pack_rows(q, dim)
+        flat = torch.empty(n * packed.numel(), dtype=packed.dtype,
+                           device=packed.device)
+        strat.all_gather_flat(flat, packed.reshape(-1), group=group)
+        parts = flat.view((n,) + tuple(packed.shape)).unbind(0)
+        qg = torch.cat([unpack_rows(pt, dim, x.shape[dim]) for pt in parts],
+                       dim)
+    return (qg.float() * sg).to(x.dtype)
+
+
+class _FsdpGather(torch.autograd.Function):
+    """A ZeRO-3 leaf's gather; its backward is the plain reduce-scatter
+    (a straight-through estimator for the quantized gathers: the gradient
+    stream is never quantized), the transpose JAX's autodiff gives."""
+
+    @staticmethod
+    def forward(ctx, shard, dim, group, dtype):
+        ctx.dim, ctx.group = dim, group
+        return _gather_codec(shard, dim, group, dtype)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _scatter_dim(ct, ctx.dim, ctx.group), None, None, None
+
+
+def _sync_bucket_bytes(cfg: LMTrainConfig) -> int:
+    """The two-level sync's bucket size: ``bucket_mb``, or 25 MB."""
+    mb = cfg.bucket_mb if cfg.bucket_mb is not None else strat.BUCKET_CAP_MB
+    return int(mb * 1024 * 1024)
+
+
+def _sync_partition(sizes: list[int], specs: list[tuple],
+                    bucket_bytes: int | None) -> list[tuple[str, list[int]]]:
+    """The ordered partition the two-level sync walks: the fsdp (``data``-
+    sharded) leaves first, then the others grouped by their set of sharded
+    axes (first-appearance order), each run cut into ``make_bucket_plan``
+    buckets when ``bucket_bytes`` is given: ``[(kind, [leaf index, ...])]``,
+    kind ``"fsdp"`` or ``"two_level"``.  The JAX ``_sync_partition``, the
+    layout contract with the residual's length."""
+    groups: dict = {}
+    fsdp_items: list[int] = []
+    for i, sp in enumerate(specs):
+        axes = frozenset(a for a in sp if a is not None)
+        if DATA in axes:
+            fsdp_items.append(i)
+        else:
+            groups.setdefault(axes, []).append(i)
+
+    def buckets(idxs: list[int]) -> list[list[int]]:
+        if not idxs:
+            return []
+        if bucket_bytes is None or len(idxs) <= 1:
+            return [idxs]
+        plan = strat.make_bucket_plan(
+            [strat.SizedLeaf(sizes[i], np.float32) for i in idxs],
+            bucket_bytes)
+        return [[idxs[j] for j in b] for b in plan]
+
+    return ([("fsdp", b) for b in buckets(fsdp_items)]
+            + [("two_level", b) for items in groups.values()
+               for b in buckets(items)])
+
+
+def _bucket_residual_len(kind: str, total: int, n_dcn: int,
+                         n_ici: int) -> int:
+    """One bucket's residual: n_dcn x the ring chunk of what crosses dcn
+    (the whole fsdp bucket, already shard-sized; else the ``data`` shard)."""
+    base = total if kind == "fsdp" else -(-total // n_ici)
+    return n_dcn * strat.QuantizedRing()._chunk(base, n_dcn)
+
+
+def _residual_total_len(sizes: list[int], specs: list[tuple], n_dcn: int,
+                        n_ici: int, bucket_bytes: int | None) -> int:
+    return sum(_bucket_residual_len(kind, sum(sizes[i] for i in idxs),
+                                    n_dcn, n_ici)
+               for kind, idxs in _sync_partition(sizes, specs,
+                                                 bucket_bytes))
+
+
+def _local_sizes(cfg: LMTrainConfig, names: list[str], specs: dict,
+                 shapes: dict) -> list[int]:
+    """Each leaf's size on one rank: a ZeRO-3 leaf's shard."""
+    inner = cfg.dp // cfg.dcn_size
+    return [int(np.prod(shapes[n], dtype=np.int64))
+            // (inner if fsdp_dim(specs[n]) is not None else 1)
+            for n in names]
+
+
+def sharded(cfg: LMTrainConfig) -> bool:
+    """Whether the step is the sharded one (ZeRO-3 or the two-level sync)
+    rather than the flat all-reduce."""
+    return cfg.fsdp or cfg.dcn_size > 1
+
+
+def _streamed(cfg: LMTrainConfig) -> bool:
+    """Whether the dcn sync points stream per layer group."""
+    return cfg.overlap and cfg.dcn_size > 1 and cfg.grad_accum == 1
+
+
+def lm_sync_state_len(cfg: LMTrainConfig) -> int:
+    """One rank's residual length under ``dcn_compress``: the whole tree's
+    partition (the post-backward and accumulation paths), or each layer
+    group's in group order when the sync points stream (``overlap``)."""
+    if cfg.dcn_compress is None or cfg.dcn_size < 2:
+        return 0
+    n_dcn, n_ici = cfg.dcn_size, cfg.dp // cfg.dcn_size
+    bucket_bytes = _sync_bucket_bytes(cfg)
+    shapes = param_shapes(cfg.model)
+    specs = param_specs(cfg, shapes)
+    names = jax_order(shapes)
+    runs = [names]
+    if _streamed(cfg):
+        runs = [tfm.group_params(names, k) for k, _ in sorted(
+            tfm.sync_group_index(cfg.model).items(), key=lambda kv: kv[1])]
+    return sum(_residual_total_len(_local_sizes(cfg, run, specs, shapes),
+                                   [specs[n] for n in run], n_dcn, n_ici,
+                                   bucket_bytes) for run in runs)
+
+
+class LMSync:
+    """One rank's view of the sharded data-parallel step: the mesh's groups,
+    each leaf's spec and ZeRO-3 dim, this rank's ``data`` index, and the
+    gathers and the two-level sync over them."""
+
+    def __init__(self, cfg: LMTrainConfig, mesh, shapes: dict):
+        self.cfg = cfg
+        self.specs = param_specs(cfg, shapes)
+        self.dims = {n: fsdp_dim(sp) for n, sp in self.specs.items()}
+        self.names = jax_order(shapes)
+        if cfg.dcn_size > 1:
+            if tuple(mesh.mesh_dim_names or ()) != (DCN, DATA):
+                raise ValueError(
+                    f"dcn_size={cfg.dcn_size} needs a ('dcn', 'data') mesh "
+                    f"(make_lm_mesh), got axes {mesh.mesh_dim_names}")
+            self.dcn, self.data = mesh.get_group(DCN), mesh.get_group(DATA)
+        else:
+            self.dcn, self.data = None, mesh.get_group()
+        self.world = mesh_group(mesh)
+        self.n_dcn = cfg.dcn_size
+        self.n_data = dist.get_world_size(self.data)
+        self.data_rank = dist.get_rank(self.data)
+        self.bucket_bytes = _sync_bucket_bytes(cfg)
+
+    def shard(self, name: str, full: torch.Tensor) -> torch.Tensor:
+        """This rank's ZeRO-3 shard of a whole leaf (the leaf if
+        replicated)."""
+        dim = self.dims[name]
+        if dim is None:
+            return full
+        m = full.shape[dim] // self.n_data
+        return full.narrow(dim, self.data_rank * m, m)
+
+    def gather_all(self, params: dict, dtype: str | None = None) -> dict:
+        """Every leaf whole: the ZeRO-3 leaves through ``_FsdpGather``."""
+        return {n: p if self.dims[n] is None else
+                _FsdpGather.apply(p, self.dims[n], self.data, dtype)
+                for n, p in params.items()}
+
+    def two_level(self, grads: list, names: list[str],
+                  bucket_bytes: int | None = None,
+                  compress: str | None = None,
+                  residual: torch.Tensor | None = None):
+        """The JAX ``_two_level_sync`` of ``grads`` (this rank's, of the
+        leaves ``names`` in JAX order): per ``_sync_partition`` bucket, a
+        ZeRO-3 bucket (already the ``data`` shard's sum) summed over
+        ``dcn``, any other through ``two_level_psum``; with ``compress`` the
+        dcn exchange is the quantized ring, the residual's segments taken
+        and refilled in partition order.  Returns ``(sums, new
+        residual)``; the sums are over every rank (no mean)."""
+        specs = [self.specs[n] for n in names]
+        sizes = [g.numel() for g in grads]
+        parts = _sync_partition(sizes, specs, bucket_bytes)
+        ring = strat.QuantizedRing(bits=4 if compress == "int4" else 8)
+
+        def sync_fn(j, vals, res):
+            kind = parts[j][0]
+            if compress is None:
+                return (flat_all_reduce(vals, self.dcn) if kind == "fsdp"
+                        else strat.two_level_psum(vals, self.dcn,
+                                                  self.data)), res
+            out: dict = {}
+            reduce = strat.ring_reduce(ring, self.dcn, self.n_dcn, res, out)
+            if kind == "fsdp":  # the bucket is already shard-sized
+                synced = strat._split(reduce(strat._flat(vals,
+                                                         torch.float32)),
+                                      vals)
+            else:
+                synced = strat.two_level_psum(vals, self.dcn, self.data,
+                                              dcn_reduce=reduce)
+            return synced, out["res"]
+
+        segs = [_bucket_residual_len(kind, sum(sizes[i] for i in idxs),
+                                     self.n_dcn, self.n_data)
+                if compress is not None else 0 for kind, idxs in parts]
+        if compress is None:
+            residual = torch.zeros(0, dtype=torch.float32,
+                                   device=grads[0].device)
+        return strat.sync_segments(grads, [idxs for _, idxs in parts], segs,
+                                   sync_fn, residual)
+
+    def stream_boundary(self, params: dict, *, dcn_sync: bool,
+                        inflight, residual: torch.Tensor | None = None,
+                        new_res: dict | None = None):
+        """The ``overlap`` hook for ``transformer.apply``: at each layer
+        group's boundary the group's ZeRO-3 leaves are gathered, and in the
+        backward, right after the group's own backward, their gradients are
+        reduce-scattered and (``dcn_sync``) the group's two-level sync runs,
+        in the JAX order (gather's transpose, then the sync point's dcn
+        exchange), issued through ``inflight`` (a side stream on the card;
+        ``.grad`` is written when the backward ends).  With compression
+        each group takes its residual segment in group order; the new ones
+        land in ``new_res`` by group."""
+        cfg = self.cfg
+        keys = {v: k for k, v in tfm.sync_group_index(cfg.model).items()}
+        compress = cfg.dcn_compress if dcn_sync else None
+        state = {"off": 0}
+
+        def boundary(group: int, p: dict) -> dict:
+            key = keys.get(group)
+            if key is None:
+                return p
+            names = tfm.group_params(self.names, key)
+            leaves = [params[n] for n in names]
+            dims = [self.dims[n] for n in names]
+            # the leaves whose gradients the point delivers itself; a
+            # replicated leaf without the dcn sync goes back to autograd
+            mine = [i for i, d in enumerate(dims)
+                    if dcn_sync or d is not None]
+            res = None
+            if compress is not None:
+                seg = _residual_total_len(
+                    [t.numel() for t in leaves],
+                    [self.specs[n] for n in names], self.n_dcn,
+                    self.n_data, self.bucket_bytes)
+                a = state["off"]
+                state["off"] = a + seg
+                res = residual[a:a + seg]
+
+            def forward_fn(ts):
+                return [t.view_as(t) if d is None else
+                        _gather_codec(t, d, self.data, cfg.fsdp_gather_dtype)
+                        for t, d in zip(ts, dims)]
+
+            def sync_fn(cts):
+                shards = [ct if dims[i] is None else
+                          _scatter_dim(ct, dims[i], self.data)
+                          for i, ct in zip(mine, cts)]
+                if not dcn_sync:
+                    return shards
+                synced, new = self.two_level(
+                    shards, names, self.bucket_bytes if compress else None,
+                    compress, res)
+                if compress is not None:
+                    new_res[group] = new
+                return synced
+
+            def backward_fn(cts):
+                if mine:
+                    inflight.launch(sync_fn, [cts[i] for i in mine],
+                                    [leaves[i] for i in mine])
+                grads = list(cts)
+                for i in mine:
+                    grads[i] = None
+                return grads
+
+            out = dict(p)
+            marked = strat._SyncPoint.apply(f"stream_boundary:{group}",
+                                            forward_fn, backward_fn, *leaves)
+            out.update(zip(names, marked))
+            return out
+
+        return boundary
+
+    def global_sq(self, tensors: list) -> torch.Tensor:
+        """The sum of squares of the whole leaves from this rank's (in
+        ``self.names`` order): each ZeRO-3 leaf's shard sums added over
+        ``data``, each replicated leaf counted once."""
+        sq = torch.stack(torch._foreach_norm(tensors)).float().square()
+        idx = [i for i, n in enumerate(self.names)
+               if self.dims[n] is not None]
+        if idx:
+            part = sq[idx]
+            dist.all_reduce(part, group=self.data)
+            sq[idx] = part
+        return sq.sum()
+
+
+def _make_sharded_step(cfg: LMTrainConfig, attn_impl: str, mesh, update,
+                       loss_fn):
+    """The step of ``fsdp`` and ``dcn_size > 1`` (the JAX
+    ``_make_grad_step`` / ``_make_accum_grad_step`` paths):
+    ``step(params, opt_state, tokens, targets, sync_state) -> (loss, ok,
+    met, sync_state)`` over this rank's shards."""
+    sync = LMSync(cfg, mesh, param_shapes(cfg.model))
+    a = cfg.grad_accum
+    dcn = cfg.dcn_size > 1
+    compress = cfg.dcn_compress if dcn else None
+    stream_dcn = _streamed(cfg)
+
+    def step(params, opt_state, tokens, targets, sync_state=None):
+        names = sync.names
+        for p in params.values():
+            p.grad = None
+        n_total = (targets != IGNORE).sum().float()
+        dist.all_reduce(n_total, group=sync.world)
+        inflight = strat._InFlight()
+        new_res: dict = {}
+        loss = torch.zeros((), device=tokens.device)
+        micro = zip(_micro_split(tokens, a), _micro_split(targets, a)) \
+            if a > 1 else [(tokens, targets)]
+        for tk, tg in micro:
+            if cfg.overlap:
+                boundary = sync.stream_boundary(
+                    params, dcn_sync=stream_dcn, inflight=inflight,
+                    residual=sync_state, new_res=new_res)
+                loss_i = loss_fn(params, tk, tg, n_total, cfg.aux_coef / a,
+                                 boundary=boundary)
+            else:
+                loss_i = loss_fn(sync.gather_all(params,
+                                                 cfg.fsdp_gather_dtype),
+                                 tk, tg, n_total, cfg.aux_coef / a)
+            loss_i.backward()
+            loss = loss + loss_i.detach() if a > 1 else loss_i.detach()
+        grads = [params[n].grad for n in names]
+        if dcn and not stream_dcn:
+            # the whole tree after the backward (or the microbatches): JAX
+            # buckets here only for the accumulation path and compression
+            bb = sync.bucket_bytes if (a > 1 or compress) else None
+            grads, sync_state = sync.two_level(grads, names, bb, compress,
+                                               sync_state)
+        elif stream_dcn and compress is not None:
+            sync_state = torch.cat([new_res[g] for g in sorted(new_res)])
+        elif not dcn:  # the replicated leaves: one flat sum over data
+            rep = [i for i, n in enumerate(names) if sync.dims[n] is None]
+            if rep:
+                summed = flat_all_reduce([grads[i] for i in rep], sync.data)
+                for i, s in zip(rep, summed):
+                    grads[i] = s
+        dist.all_reduce(loss, group=sync.world)
+        gsq = sync.global_sq(grads)
+        ok = (torch.isfinite(loss) & torch.isfinite(gsq)).float()
+        update(params, dict(zip(names, grads)), opt_state, gsq)
+        for p in params.values():
+            p.grad = None
+        with torch.no_grad():
+            psq = sync.global_sq([params[n] for n in names])
+        met = torch.stack([gsq.sqrt(), psq.sqrt()])
+        return loss, ok, met, sync_state
+
+    return step
 
 
 def make_lm_train_step(cfg: LMTrainConfig, attn_impl: str = "flash",
@@ -337,12 +924,16 @@ def make_lm_train_step(cfg: LMTrainConfig, attn_impl: str = "flash",
     global batch's (every rank returns the same).  ``ok`` is 1.0 when the
     loss and the gradient sum of squares are finite; ``met`` is
     [grad-norm, param-norm] (the gradient's before the clip, the params'
-    after the update)."""
+    after the update).  With ``fsdp`` or ``dcn_size > 1`` the step is
+    ``_make_sharded_step``'s, over this rank's shards, and takes and
+    returns the residual too."""
     validate_lm_cfg(cfg)
     update = make_optimizer(cfg)
     a = cfg.grad_accum
     n_ranks = 1 if mesh is None else mesh.size()
     loss_fn = partial(_loss_fn, cfg, attn_impl, n_ranks=n_ranks)
+    if sharded(cfg):
+        return _make_sharded_step(cfg, attn_impl, mesh, update, loss_fn)
 
     def step(params, opt_state, tokens, targets):
         for p in params.values():
@@ -383,42 +974,51 @@ def make_lm_eval_step(cfg: LMTrainConfig, attn_impl: str = "flash",
     count)``, with the training step's ``matmul_dtype`` and head (the MoE
     aux is no part of it, as in the JAX eval step); no remat (there is no
     backward to keep activations for).  Under ``mesh`` both are summed
-    over the ranks, each given its own rows."""
+    over the ranks, each given its own rows.  ZeRO-3 shards are gathered
+    first, with the training step's gather dtype (the JAX eval step sees
+    the weights the train forward saw)."""
     validate_lm_cfg(cfg)
+    sync = LMSync(cfg, mesh, param_shapes(cfg.model)) if cfg.fsdp else None
 
     @torch.no_grad()
     def eval_step(params, tokens, targets):
+        if sync is not None:
+            params = sync.gather_all(params, cfg.fsdp_gather_dtype)
         head = partial(losses.head_loss, targets=targets,
                        loss_impl=cfg.loss_impl, loss_chunk=cfg.loss_chunk)
         ce, n = tfm.apply(params, tokens, cfg=cfg.model, dtype=cfg.dtype,
                           attn_impl=attn_impl, head_fn=head,
                           matmul_dtype=cfg.matmul_dtype)
         if mesh is not None:
-            ce, n = flat_all_reduce([ce.float(), n.float()], mesh)
+            ce, n = flat_all_reduce([ce.float(), n.float()],
+                                    mesh_group(mesh))
         return ce, n
 
     return eval_step
 
 
 class LMTrainer:
-    """Owns this rank's float32 ``params`` and Adam ``opt_state``.
+    """Owns this rank's float32 ``params`` and Adam ``opt_state`` (with
+    ``fsdp``, its ZeRO-3 shards of both) and, under ``dcn_compress``, its
+    error-feedback residual ``sync_state``.
 
     ``cfg.dp = N > 1`` trains data parallel over ``mesh`` (given, or made
-    by ``parallel.mesh.make_mesh`` over the default process group, whose
-    world size must be N: one process a device, ``launch.py
-    --nproc-per-node N``; otherwise ``NotImplementedError`` naming the
-    launcher).  A mesh may be given at ``dp = 1`` too: a gang of one,
-    whose step issues its collectives over a one-rank group.  Every rank
-    calls ``train_step`` with its own ``B / N`` rows and ``evaluate`` with
-    its own batches.
+    by ``make_lm_mesh`` over the default process group, whose world size
+    must be N: one process a device, ``launch.py --nproc-per-node N``;
+    otherwise ``NotImplementedError`` naming the launcher); ``dcn_size > 1``
+    needs the ``("dcn", "data")`` mesh ``make_lm_mesh`` builds.  A mesh may
+    be given at ``dp = 1`` too: a gang of one, whose step issues its
+    collectives over a one-rank group.  Every rank calls ``train_step``
+    with its own ``B / N`` rows and ``evaluate`` with its own batches.
 
     ``device`` defaults to ``"cuda"`` (``cuda:{LOCAL_RANK}`` under a mesh)
     and raises without a GPU unless ``"cpu"`` is asked for.  Params are
     drawn by the port's own ``init`` from ``cfg.seed`` (not the JAX
-    package's draws), rank 0's broadcast; ``load_state`` takes params and
-    optimizer state carried from a JAX run (convert.py).  ``attn_impl``
-    chooses the attention of the forward (``"flash"``, the JAX package's
-    default, or ``"reference"``)."""
+    package's draws), rank 0's broadcast; ``load_state`` takes whole params,
+    optimizer state and a residual carried from a JAX run (convert.py).
+    ``full_params`` gathers the whole params (every rank must call it).
+    ``attn_impl`` chooses the attention of the forward (``"flash"``, the
+    JAX package's default, or ``"reference"``)."""
 
     def __init__(self, cfg: LMTrainConfig,
                  device: str | torch.device = "cuda",
@@ -426,8 +1026,7 @@ class LMTrainer:
         validate_lm_cfg(cfg)
         self.cfg = cfg
         if mesh is None and cfg.dp > 1:
-            one_process_per_device(cfg.dp)  # a gang of dp processes
-            mesh = make_mesh(cfg.dp, device=device)
+            mesh = make_lm_mesh(cfg, device=device)  # a gang of dp ranks
         if mesh is not None:
             if mesh.size() != cfg.dp:
                 raise ValueError(f"mesh has {mesh.size()} ranks, config "
@@ -438,18 +1037,30 @@ class LMTrainer:
         self.mesh = mesh
         self.rank = dist.get_rank() if mesh is not None else 0
         self.attn_impl = attn_impl
+        self.sync = (LMSync(cfg, mesh, param_shapes(cfg.model))
+                     if sharded(cfg) else None)
         self.params = self._leaves(tfm.init(cfg.seed, cfg.model,
                                             device=self.device))
         self.opt_state = init_opt_state(self.params)
+        self.sync_state = torch.zeros(lm_sync_state_len(cfg),
+                                      dtype=torch.float32,
+                                      device=self.device)
         self.step_fn = make_lm_train_step(cfg, attn_impl, mesh)
         self._eval_fn = make_lm_eval_step(cfg, attn_impl, mesh)
         self._step = 0
         self.last_ok = None       # health flag of the last step (tensor)
         self.last_metrics = None  # [grad-norm, param-norm] of the last step
 
+    def _shard(self, tree: dict) -> dict:
+        """This rank's ZeRO-3 shards of whole leaves (copies)."""
+        if self.sync is None:
+            return tree
+        return {n: self.sync.shard(n, t).clone() for n, t in tree.items()}
+
     def _leaves(self, params: dict) -> dict[str, torch.Tensor]:
-        """Float32 leaves on this device that require grad; rank 0's
-        values on every rank of the mesh."""
+        """Float32 leaves on this device that require grad (this rank's
+        shards of them with ``fsdp``); rank 0's values on every rank of
+        the mesh."""
         out = {n: p.detach().to(self.device, torch.float32).clone()
                for n, p in params.items()}
         if self.mesh is not None:
@@ -457,14 +1068,17 @@ class LMTrainer:
             src = dist.get_global_rank(group, 0) if group is not None else 0
             for t in out.values():
                 dist.broadcast(t, src=src, group=group)
-        return {n: t.requires_grad_(True) for n, t in out.items()}
+        return {n: t.requires_grad_(True)
+                for n, t in self._shard(out).items()}
 
-    def load_state(self, params: dict, opt_state: dict | None = None
-                   ) -> None:
-        """Take params (the port's flat dict, e.g. from
-        ``convert.from_jax_params``) and optionally the Adam state
-        (``convert.from_jax_opt_state``); the step count follows the
-        optimizer state's, or restarts at 0 without one."""
+    def load_state(self, params: dict, opt_state: dict | None = None,
+                   sync_state: torch.Tensor | None = None) -> None:
+        """Take whole params (the port's flat dict, e.g. from
+        ``convert.from_jax_params``), optionally the Adam state
+        (``convert.from_jax_opt_state``, whole moments) and this rank's
+        residual (``convert.from_jax_sync_state``); with ``fsdp`` each is
+        cut to this rank's shard.  The step count follows the optimizer
+        state's, or restarts at 0 without one."""
         if sorted(params) != sorted(self.params):
             raise ValueError("params do not match the model's parameter "
                              "names")
@@ -474,10 +1088,27 @@ class LMTrainer:
         else:
             self.opt_state = {
                 "count": int(opt_state["count"]),
-                **{m: {n: opt_state[m][n].detach().to(
-                    self.device, torch.float32).clone() for n in self.params}
+                **{m: self._shard({n: opt_state[m][n].detach().to(
+                    self.device, torch.float32).clone() for n in self.params})
                    for m in ("mu", "nu")}}
+        if sync_state is not None:
+            if sync_state.shape != self.sync_state.shape:
+                raise ValueError(f"sync_state of shape "
+                                 f"{tuple(sync_state.shape)}, want "
+                                 f"{tuple(self.sync_state.shape)}")
+            self.sync_state = sync_state.to(self.device, torch.float32)
         self._step = self.opt_state["count"]
+
+    @torch.no_grad()
+    def full_params(self) -> dict[str, torch.Tensor]:
+        """The whole params (ZeRO-3 leaves gathered in full precision, as
+        the JAX CLI fetches them for generation); every rank must call
+        it."""
+        if self.sync is None:
+            return {n: p.detach() for n, p in self.params.items()}
+        return {n: p.detach() if self.sync.dims[n] is None else
+                _gather_dim(p.detach(), self.sync.dims[n], self.sync.data)
+                for n, p in self.params.items()}
 
     def _batch(self, tokens, targets):
         return (torch.as_tensor(np.asarray(tokens), device=self.device).long(),
@@ -489,8 +1120,13 @@ class LMTrainer:
         mesh); returns the global batch's loss as a 0-dim tensor (not
         fetched to the host)."""
         tokens, targets = self._batch(tokens, targets)
-        loss, self.last_ok, self.last_metrics = self.step_fn(
-            self.params, self.opt_state, tokens, targets)
+        if self.sync is not None:
+            loss, self.last_ok, self.last_metrics, self.sync_state = \
+                self.step_fn(self.params, self.opt_state, tokens, targets,
+                             self.sync_state)
+        else:
+            loss, self.last_ok, self.last_metrics = self.step_fn(
+                self.params, self.opt_state, tokens, targets)
         self._step += 1
         return loss
 

@@ -22,9 +22,15 @@ env`` or ``--num-nodes > 1`` the trainer syncs over the gang (a gang of one
 included, over a one-rank group); ``--dp`` must be its world size.  Each
 rank reads its stride of the corpus (``--batch-size`` is the global batch),
 rank 0 alone logs and generates, and the process group is destroyed when
-the run ends.  Flags of later slices (the other parallel degrees, elastic
-membership, checkpoints, telemetry, profiling, the sync knobs) end the run
-with a usage error naming the slice.
+the run ends.  The per-step sync knobs work as in the JAX package:
+``--fsdp`` (ZeRO-3 over the slice-local data axis; ``--fsdp-gather-dtype
+int8|int4`` quantizes its gathers), ``--dcn-size S`` (the two-level sync
+over S slices; ``--dcn-compress int8|int4`` quantizes the cross-slice
+hop with an error-feedback residual), ``--bucket-mb`` and ``--overlap``.
+Each needs a gang of two or more processes (``--dp``; on GPUs, one card a
+process).  Flags of later slices (the other parallel degrees, the sync
+windows, elastic membership, checkpoints, telemetry, profiling) end the
+run with a usage error naming the slice.
 """
 
 from __future__ import annotations
@@ -40,10 +46,9 @@ import torch
 
 from .data import lm_corpus
 from .lm import (DURABILITY_SLICE, PARALLEL_SLICE, PLANNING_SLICE,
-                 SYNC_SLICE, LMTrainConfig, LMTrainer)
+                 WINDOW_SLICE, LMTrainConfig, LMTrainer, make_lm_mesh)
 from .models import transformer as tfm
 from .parallel import init as dist_init
-from .parallel.mesh import make_mesh, one_process_per_device
 
 DEFAULT_PORT = dist_init.DEFAULT_PORT  # the JAX package's rendezvous port
 
@@ -159,24 +164,21 @@ def build_parser() -> argparse.ArgumentParser:
 
 # (flag, argparse dest, the value that leaves it off, its slice)
 _LATER_FLAGS = [
-    *[(f"--{n}", n, 1, SYNC_SLICE) for n in ("dcn-size", "sync-every")],
+    ("--sync-every", "sync-every", 1, WINDOW_SLICE),
     *[(f"--{n}", n, 1, PARALLEL_SLICE)
       for n in ("sp", "tp", "pp", "ep", "interleave")],
     ("--min-nodes", "min-nodes", 1, DURABILITY_SLICE),
-    *[(f"--{n}", n, None, SYNC_SLICE)
-      for n in ("dcn-compress", "fsdp-gather-dtype",
-                "bucket-mb", "max-sync-every", "outer-opt",
-                "sync-every-per-slice")],
+    *[(f"--{n}", n, None, WINDOW_SLICE)
+      for n in ("max-sync-every", "outer-opt", "sync-every-per-slice")],
     *[(f"--{n}", n, None, PLANNING_SLICE)
       for n in ("sync-plan", "sync-route", "autotune-profile")],
     *[(f"--{n}", n, None, DURABILITY_SLICE)
       for n in ("max-nodes", "checkpoint-dir", "profile-dir",
                 "telemetry-dir")],
-    *[(f"--{n}", n, False, SYNC_SLICE) for n in ("fsdp", "overlap")],
     *[(f"--{n}", n, False, DURABILITY_SLICE)
       for n in ("elastic", "checkpoint-sharded")],
     *[(f"--{n}", n, 0, PARALLEL_SLICE) for n in ("pp-size", "microbatches")],
-    ("--staleness", "staleness", 0, SYNC_SLICE),
+    ("--staleness", "staleness", 0, WINDOW_SLICE),
 ]
 
 
@@ -235,16 +237,6 @@ def run(argv: list[str] | None = None, on_step=None) -> LMTrainer:
 
 
 def _train(args, device, on_step) -> LMTrainer:
-    mesh = None
-    if args.rendezvous == "env" or args.num_nodes > 1 or args.dp > 1:
-        one_process_per_device(args.dp)  # --dp is the gang's world size
-        mesh = make_mesh(args.dp, device=device)
-    rank, world = dist_init.process_info()
-    logging.basicConfig(
-        level=args.log_level if rank == 0 else "WARNING",
-        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
-    log = logging.getLogger("lm_cli")
-
     cfg = LMTrainConfig(
         model=model_config(args), lr=args.lr, seed=args.seed,
         compute_dtype=(None if args.compute_dtype == "float32"
@@ -253,7 +245,18 @@ def _train(args, device, on_step) -> LMTrainer:
         dp=args.dp, grad_accum=args.grad_accum,
         matmul_dtype=args.matmul_dtype,
         loss_impl=args.loss_impl or "dense", loss_chunk=args.loss_chunk,
-        remat=args.remat or "none")
+        remat=args.remat or "none", fsdp=args.fsdp,
+        fsdp_gather_dtype=args.fsdp_gather_dtype, dcn_size=args.dcn_size,
+        dcn_compress=args.dcn_compress, bucket_mb=args.bucket_mb,
+        overlap=args.overlap)
+    mesh = None
+    if args.rendezvous == "env" or args.num_nodes > 1 or args.dp > 1:
+        mesh = make_lm_mesh(cfg, device=device)  # --dp: the gang's size
+    rank, world = dist_init.process_info()
+    logging.basicConfig(
+        level=args.log_level if rank == 0 else "WARNING",
+        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    log = logging.getLogger("lm_cli")
     trainer = LMTrainer(cfg, device=device, mesh=mesh)
     log.info("model: %s | device: %s | rank %d/%d", cfg.model,
              trainer.device, rank, world)
@@ -323,10 +326,11 @@ def _train(args, device, on_step) -> LMTrainer:
                 break
         epoch += 1
 
+    if args.generate is not None:
+        params = trainer.full_params()  # a gather: every rank takes part
     if args.generate is not None and rank == 0:
         from . import generate as gen
         prompt = lm_corpus.encode(args.generate)[None]
-        params = {n: p.detach() for n, p in trainer.params.items()}
         with torch.no_grad():
             out = gen.generate(
                 params, prompt.astype(np.int32), args.seed, cfg=cfg.model,

@@ -19,9 +19,11 @@ in the JAX package: hand-written kernels K2-K4 on the GPU,
 ops/attention.py) or ``"reference"``.  ``matmul_dtype="int8"`` routes the
 dense projections through the int8 matmul (ops/quantized.py: kernel K5 on
 the GPU; MoE layers take no int8 path, as in the JAX block), and ``remat``
-recomputes each layer in the backward.  The parallelism and boundary
-options are refused with ``NotImplementedError`` until the slice that
-ports them (ROADMAP.md queue 1).
+recomputes each layer in the backward.  ``boundary`` is the layer-group
+hook of the sync knobs (lm.py: ZeRO-3 gathers and two-level sync
+points).  The parallelism options are refused with
+``NotImplementedError`` until the slice that ports them (ROADMAP.md
+queue 1).
 """
 
 from __future__ import annotations
@@ -41,9 +43,9 @@ from ..utils.device import resolve_device
 Params = dict[str, torch.Tensor]
 
 # The sub-slices of slice 5 still to port, each named by the refusals of
-# its work (slice 5a, data-parallel VGG, is ported).
-SYNC_SLICE = ("ROADMAP.md queue 1, slice 5b (LM data parallel and the sync "
-              "knobs)")
+# its work (slices 5a and 5b's first two thirds are ported).
+WINDOW_SLICE = ("ROADMAP.md queue 1, slice 5b-iii (the sync windows: "
+                "sync_every, staleness, the outer optimizer)")
 DURABILITY_SLICE = ("ROADMAP.md queue 1, slice 5c (durability and "
                     "observability)")
 PARALLEL_SLICE = "ROADMAP.md queue 1, slice 5d (model parallelism)"
@@ -154,6 +156,27 @@ def init(seed_or_generator: int | torch.Generator, cfg: TransformerConfig,
                       w_down=normal((f, d), 1 / math.sqrt(f)))
         params.update({f"layers.{i}.{k}": v for k, v in lp.items()})
     return params
+
+
+def sync_group_index(cfg: TransformerConfig) -> dict[str, int]:
+    """Top-level key of the JAX package's param tree -> forward layer group,
+    the schedule ``apply(boundary=...)`` walks: the tied embedding first
+    (group 0: it is used at both ends of the stack, so its gradient is
+    complete only at the very end of the backward), the layers in forward
+    order, then final_norm.  ``group_params`` gives a key's port names."""
+    idx = {"embed": 0, "final_norm": cfg.n_layers + 1}
+    for i in range(cfg.n_layers):
+        idx[f"layer{i}"] = i + 1
+    return idx
+
+
+def group_params(names, key: str) -> list[str]:
+    """The port names (of ``names``) under the JAX top-level key ``key``:
+    ``"embed"``, ``"final_norm"`` or ``"layer{i}"`` (``layers.{i}.*``)."""
+    if key.startswith("layer"):
+        pre = f"layers.{key[len('layer'):]}."
+        return [n for n in names if n.startswith(pre)]
+    return [n for n in names if n == key]
 
 
 ATTN_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm")
@@ -328,13 +351,22 @@ def apply(params: Params, tokens: torch.Tensor, *, cfg: TransformerConfig,
     package's ``save_only_these_names("attn_out", "attn_lse")`` policy
     does (with ``attn_impl="reference"`` it keeps nothing more than
     ``"full"``, as there).  ``None``/``"none"`` runs the blocks as they
-    are; so does any ``remat`` while autograd is off."""
+    are; so does any ``remat`` while autograd is off.
+
+    ``boundary``: a hook ``params = boundary(group, params)`` called at
+    every layer-group boundary of ``sync_group_index`` in forward order (the
+    embedding's before the lookup, layer i's before its block, final_norm's
+    before the head): an identity on values, where lm.py places each
+    group's ZeRO-3 gathers and sync points.  It stays outside the
+    checkpointed block under ``remat``, so no collective runs twice."""
     _check_options(attn_impl, matmul_dtype, seq_axis=seq_axis,
-                   tp_axis=tp_axis, ep_axis=ep_axis, boundary=boundary)
+                   tp_axis=tp_axis, ep_axis=ep_axis)
     if remat not in (None, "none", "full", "selective"):
         raise ValueError(f"unknown remat {remat!r}: expected 'none', 'full' "
                          "or 'selective'")
     use_remat = remat in ("full", "selective") and torch.is_grad_enabled()
+    if boundary is not None:
+        params = boundary(0, params)  # the tied embedding's group
     x = params["embed"][tokens]
     if dtype is not None:
         x = x.to(dtype)
@@ -342,6 +374,8 @@ def apply(params: Params, tokens: torch.Tensor, *, cfg: TransformerConfig,
         pos = pos0 + torch.arange(x.shape[1], device=x.device)
     aux_total = torch.zeros((), device=x.device)
     for i in range(cfg.n_layers):
+        if boundary is not None:
+            params = boundary(i + 1, params)
         is_moe = cfg.is_moe_layer(i)
         kw = dict(cfg=cfg, is_moe=is_moe, pos=pos, attn_impl=attn_impl,
                   matmul_dtype=matmul_dtype)
@@ -354,6 +388,8 @@ def apply(params: Params, tokens: torch.Tensor, *, cfg: TransformerConfig,
             x, aux = block(layer(params, i), x, **kw)
         if is_moe:  # a dense layer's aux is 0
             aux_total = aux_total + aux
+    if boundary is not None:
+        params = boundary(cfg.n_layers + 1, params)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if head_fn is not None:
         out = head_fn(x, params["embed"])

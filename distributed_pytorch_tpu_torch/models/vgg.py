@@ -26,7 +26,6 @@ import torch
 
 from ..ops import nn as ops
 from ..utils.device import resolve_device
-from .transformer import SYNC_SLICE, not_ported
 
 # Reference model.py:3-8, verbatim cfg lists; TINY is the JAX package's
 # smoke config (same 5-pool topology, ~64x fewer params).
@@ -111,11 +110,14 @@ def apply(params: dict, state: dict, x: torch.Tensor, *,
     the GPU; the forward is bitwise the same either way.  ``bn_axis_name``
     (sync-BN) is the process group the train-mode BN moments span (None:
     this rank's batch alone); the fused backward takes local statistics
-    only and refuses it, as in the JAX package.  ``boundary`` (overlapped
-    gradient sync) belongs to slice 5b and raises."""
-    if boundary is not None:
-        raise not_ported("vgg.apply boundary (overlapped gradient sync)",
-                         SYNC_SLICE)
+    only and refuses it, as in the JAX package.
+
+    ``boundary`` (overlapped gradient sync, ``TrainConfig(overlap=True)``):
+    a hook ``params = boundary(group, params)`` called at every layer-group
+    boundary of ``sync_group_index`` in forward order, before the group's
+    conv and after the last for the fc head, where
+    ``parallel.strategies.OverlapSync`` puts each gradient bucket's sync
+    point.  The hook is an identity on values."""
     if dtype is not None:
         x = x.to(dtype)
     new_state: dict = {}
@@ -124,11 +126,15 @@ def apply(params: dict, state: dict, x: torch.Tensor, *,
         if layer_cfg == "M":
             x = ops.max_pool(x)
         else:
+            if boundary is not None:
+                params = boundary(idx, params)
             x = ops.conv2d(params[f"conv{idx}"], x)
             x, new_state[f"bn{idx}"] = ops.batchnorm_relu(
                 params[f"bn{idx}"], state[f"bn{idx}"], x, train=train,
                 axis_name=bn_axis_name, fused=fused_bn)
             idx += 1
+    if boundary is not None:
+        params = boundary(idx, params)  # the fc head's group
     x = x.reshape(x.shape[0], -1)  # (B, 512): spatial 1x1, NHWC order
     logits = ops.dense(params["fc"], x)
     return logits.float(), new_state

@@ -34,7 +34,9 @@ Pallas kernel.  The registry holds the JAX package's ten names:
                     quantization error is a residual carried to the next step.
 - ``hierarchical`` -- over a ``("dcn", "ici")`` mesh: reduce-scatter over
                     ``ici``, a shard-sized all-reduce over ``dcn``, all-gather
-                    over ``ici``, the f32 sum scaled by ``1/n``.
+                    over ``ici``, the f32 sum scaled by ``1/n``; with
+                    ``dcn_compress`` the ``dcn`` hop is the int8 (int4)
+                    ring with an error-feedback residual.
 
 The strategies that pack leaves into one flat vector (``make_bucket_plan``,
 ``bucketed``, the rings, ``hierarchical``) concatenate them in the order
@@ -46,13 +48,21 @@ levels 127 and 7) is a multiplication by its float32 reciprocal, as XLA
 compiles the JAX strategies' ``/ n`` and ``/ levels``.  A strategy may
 overwrite the tensors it is given; it returns the synced list.
 
-The overlapped sync (``OverlapSync``, the sync boundaries), local-SGD
-windows, the DiLoCo outer optimizer and ``dcn_compress`` belong to slice
-5b; ``RoutedSync``, ``auto`` and ``routed`` to slice 5f.
+**Overlap** (``OverlapSync``): each bucket's collective runs inside the
+backward, from a sync point (``sync_boundary``) that the model places at
+the bucket's earliest layer-group boundary: an identity in the forward
+whose backward syncs the cotangents autograd has summed into it.  On the
+card the collective is issued on a side stream (``_InFlight``), so the
+backward kernels of the earlier layers run while it is in flight; the
+synced gradients reach ``.grad`` in a callback at the end of the backward,
+after the default stream has waited on the side stream, and nothing reads
+them before.  Local-SGD windows and the DiLoCo outer optimizer belong to
+slice 5b-iii; ``RoutedSync``, ``auto`` and ``routed`` to slice 5f.
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable
 
 import numpy as np
@@ -61,7 +71,6 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch.distributed.device_mesh import DeviceMesh
 
-from ..models.transformer import SYNC_SLICE, not_ported
 
 BUCKET_CAP_MB = 25  # torch DDP default bucket size
 
@@ -253,6 +262,7 @@ class Bucketed:
 
     name = "bucketed"
     needs_mesh = True
+    supports_overlap = True
 
     def __init__(self, bucket_mb: float = BUCKET_CAP_MB):
         self.bucket_bytes = int(bucket_mb * 1024 * 1024)
@@ -278,6 +288,7 @@ class DDP(Bucketed):
 
     name = "ddp"
     needs_mesh = True
+    supports_overlap = True  # overlap packs make_bucket_plan's buckets
 
     def __call__(self, grads: list, axis) -> list:
         return self.sync_bucket(grads, axis)
@@ -291,6 +302,8 @@ class QuantizedAllReduce:
 
     name = "quantized"
     needs_mesh = True
+    supports_overlap = True
+    bucket_bytes = BUCKET_CAP_MB * 1024 * 1024  # overlap grouping only
 
     def __init__(self, bits: int = 8):
         self.levels = 2 ** (bits - 1) - 1  # 127 for int8
@@ -311,6 +324,11 @@ class QuantizedAllReduce:
         n = _size(group)
         return [self._sync_leaf(g, group, n) for g in grads]
 
+    def sync_bucket(self, leaves: list, axis) -> list:
+        """Per leaf, as ``__call__``: the scale is a tensor's, so the
+        bucket grouping changes nothing."""
+        return self(leaves, axis)
+
 
 class QuantizedRing:
     """Int8 (or int4) ring all-reduce with compressed payloads: a ring
@@ -324,6 +342,7 @@ class QuantizedRing:
 
     name = "quantized_ring"
     needs_mesh = True
+    supports_overlap = True
 
     def __init__(self, bits: int = 8, block: int = 256,
                  bucket_mb: float = BUCKET_CAP_MB):
@@ -503,18 +522,45 @@ class QuantizedRingEF(QuantizedRing):
 
     def __call__(self, grads: list, axis, residual: torch.Tensor):
         n = _size(flat_group(axis))
-        out: list = [None] * len(grads)
-        new_parts, offset = [], 0
-        for bucket, seg in zip(self._plan(grads),
-                               self.state_segments(grads, n)):
-            synced, new_r = self.sync_bucket(
-                [grads[i] for i in bucket], axis,
-                residual[offset:offset + seg])
-            offset += seg
-            new_parts.append(new_r)
-            for i, s in zip(bucket, synced):
-                out[i] = s
-        return out, torch.cat(new_parts)
+        return sync_segments(
+            grads, self._plan(grads), self.state_segments(grads, n),
+            lambda j, vals, seg: self.sync_bucket(vals, axis, seg), residual)
+
+
+def sync_segments(grads: list, buckets: list[list[int]], segs: list[int],
+                  sync_fn: Callable, residual: torch.Tensor):
+    """Each bucket's sync with its segment of an error-feedback residual,
+    the segments taken and refilled in bucket order: ``sync_fn(j, leaves,
+    segment) -> (synced, new segment)`` for bucket ``j``.  Returns ``(the
+    synced leaves, the new residual)``."""
+    out: list = [None] * len(grads)
+    new_parts, offset = [], 0
+    for j, (bucket, seg) in enumerate(zip(buckets, segs)):
+        synced, new_r = sync_fn(j, [grads[i] for i in bucket],
+                                residual[offset:offset + seg])
+        offset += seg
+        new_parts.append(new_r)
+        for i, s in zip(bucket, synced):
+            out[i] = s
+    return out, torch.cat(new_parts) if new_parts else residual[:0]
+
+
+def ring_reduce(ring: QuantizedRing, dcn, n_dcn: int,
+                residual: torch.Tensor, out: dict) -> Callable:
+    """The compressed slow hop: a ``shard -> summed shard`` callable (for
+    ``two_level_psum``'s ``dcn_reduce``, or on a shard-sized bucket) that
+    runs the exchange as ``ring`` over ``dcn``, ``residual`` added first,
+    and records the error it dropped (the new residual) in
+    ``out["res"]``."""
+    def reduce(shard):
+        if n_dcn == 1:  # nothing crosses, nothing is lost
+            out["res"] = torch.zeros_like(residual)
+            return shard
+        summed, err_rows = ring._ring_sum(shard, dcn, n_dcn,
+                                          residual=residual)
+        out["res"] = err_rows.reshape(-1)
+        return summed
+    return reduce
 
 
 def factor_groups(axis):
@@ -531,14 +577,16 @@ def factor_groups(axis):
     return None, axis
 
 
-def two_level_psum(grads: list, dcn, ici, scale: float | None = None
-                   ) -> list:
+def two_level_psum(grads: list, dcn, ici, scale: float | None = None,
+                   dcn_reduce: Callable | None = None) -> list:
     """The two-level reduction under ``Hierarchical``: the leaves as one
     f32 vector padded to a multiple of the ``ici`` size, a reduce-scatter
     over ``ici``, a shard-sized all-reduce over ``dcn`` (the only
     cross-slice traffic), an all-gather over ``ici``, the slice back to the
     true length, ``scale`` applied to the f32 sum, and the cut back to each
-    leaf's shape and dtype: the JAX package's op sequence."""
+    leaf's shape and dtype: the JAX package's op sequence.  ``dcn_reduce``
+    (a ``shard -> summed shard`` callable) replaces the ``dcn`` all-reduce:
+    the quantized ring of ``Hierarchical(dcn_compress=...)``."""
     flat = _flat(grads, torch.float32)
     total = flat.numel()
     n_ici = _size(ici)
@@ -547,7 +595,10 @@ def two_level_psum(grads: list, dcn, ici, scale: float | None = None
                         device=padded.device)
     reduce_scatter_flat(shard, padded, group=ici)
     if dcn is not None:
-        dist.all_reduce(shard, group=dcn)
+        if dcn_reduce is not None:
+            shard = dcn_reduce(shard)
+        else:
+            dist.all_reduce(shard, group=dcn)
     full = torch.empty_like(padded)
     all_gather_flat(full, shard, group=ici)
     summed = full[:total]
@@ -561,31 +612,95 @@ class Hierarchical:
     over ``ici``, a shard-sized all-reduce over ``dcn``, all-gather over
     ``ici`` (``two_level_psum``), the f32 sum scaled by ``1/n``: the exact
     global mean, with |grads|/ici bytes across the slow link.  The trainer
-    builds the mesh from ``TrainConfig.dcn_size``.  ``dcn_compress`` (the
-    quantized slow hop and its residual) belongs to slice 5b."""
+    builds the mesh from ``TrainConfig.dcn_size``.
+
+    ``dcn_compress="int8"`` (or ``"int4"``) quantizes the slow hop alone:
+    the shard exchange over ``dcn`` is ``QuantizedRing._ring_sum`` at that
+    width, one ring a ``make_bucket_plan`` bucket, and every bit the wire
+    drops lands in this rank's error-feedback residual, which the trainer
+    carries to the next step (``quantized_ring_ef``'s carry).  Compression
+    makes the strategy stateful; its numerics then depend on the bucket
+    layout, which the overlapped and post-backward paths share."""
 
     name = "hierarchical"
     needs_mesh = True
     axes = ("dcn", "ici")  # outer = cross-slice (slow), inner = within
+    supports_overlap = True
 
-    def __init__(self, dcn_compress: str | None = None, dcn_size: int = 2):
+    def __init__(self, dcn_compress: str | None = None, dcn_size: int = 2,
+                 bucket_mb: float = BUCKET_CAP_MB):
+        self.bucket_bytes = int(bucket_mb * 1024 * 1024)
         self.set_dcn(dcn_compress, dcn_size)
 
     def set_dcn(self, compress: str | None, dcn_size: int) -> None:
+        """The slow-hop knobs (the trainers set them from ``dcn_compress``
+        and ``dcn_size`` before the step and the sync state are built: the
+        residual's layout reads ``dcn_size``)."""
         if compress not in (None, "int8", "int4"):
             raise ValueError(f"dcn_compress must be None, 'int8', or "
                              f"'int4', got {compress!r}")
-        if compress is not None:
-            raise not_ported(f"Hierarchical dcn_compress={compress!r} "
-                             f"(the quantized dcn hop)", SYNC_SLICE)
         self.dcn_compress = compress
         self.dcn_size = dcn_size
-        self.stateful = False
+        # the ring's chunk layout does not depend on its width, so the
+        # residual's length is the same at int8 and int4
+        self._ring = QuantizedRing(bits=4 if compress == "int4" else 8)
+        self.stateful = compress is not None
 
-    def __call__(self, grads: list, axis) -> list:
+    # -- the residual's layout (dcn_compress only) -------------------------
+    @staticmethod
+    def _shard_len(total: int, n_ici: int) -> int:
+        """One rank's ``ici`` shard of a ``total``-element bucket (the
+        reduce-scatter pads to a multiple of ``n_ici``)."""
+        return -(-total // n_ici)
+
+    def _segments(self, leaves: list, n_dcn: int, n_ici: int) -> list[int]:
+        return [n_dcn * self._ring._chunk(
+                    self._shard_len(sum(_numel(leaves[i]) for i in b),
+                                    n_ici), n_dcn)
+                for b in make_bucket_plan(leaves, self.bucket_bytes)]
+
+    def state_segments(self, leaves: list, n_axis: int) -> list[int]:
+        """Per-bucket residual lengths (n_dcn x the dcn ring's chunk of the
+        ``ici`` shard), in bucket-plan order."""
+        return self._segments(leaves, self.dcn_size, n_axis // self.dcn_size)
+
+    def init_state(self, leaves: list, n_axis: int,
+                   device: str | torch.device = "cpu") -> torch.Tensor:
+        """This rank's zero residual (empty without compression)."""
+        n = sum(self.state_segments(leaves, n_axis)) \
+            if self.dcn_compress is not None else 0
+        return torch.zeros(n, dtype=torch.float32, device=device)
+
+    def sync_bucket(self, leaves: list, axis,
+                    residual: torch.Tensor | None = None):
+        """One two-level reduction over this bucket; compressed, also the
+        bucket's residual segment in and its new one out."""
         dcn, ici = factor_groups(axis)
-        n = _size(ici) * (_size(dcn) if dcn is not None else 1)
-        return two_level_psum(grads, dcn, ici, scale=1.0 / n)
+        n_dcn = _size(dcn) if dcn is not None else 1
+        n = _size(ici) * n_dcn
+        if self.dcn_compress is None:
+            return two_level_psum(leaves, dcn, ici, scale=1.0 / n)
+        out: dict = {}
+        synced = two_level_psum(
+            leaves, dcn, ici, scale=1.0 / n,
+            dcn_reduce=ring_reduce(self._ring, dcn, n_dcn, residual, out))
+        if dcn is None:  # one level: no hop ran, nothing was dropped
+            out["res"] = torch.zeros_like(residual)
+        return synced, out["res"]
+
+    def __call__(self, grads: list, axis,
+                 sync_state: torch.Tensor | None = None):
+        dcn, ici = factor_groups(axis)
+        if self.dcn_compress is None:
+            n = _size(ici) * (_size(dcn) if dcn is not None else 1)
+            return two_level_psum(grads, dcn, ici, scale=1.0 / n)
+        # one ring-exchanged reduction a bucket
+        n_dcn = _size(dcn) if dcn is not None else 1
+        return sync_segments(
+            grads, make_bucket_plan(grads, self.bucket_bytes),
+            self._segments(grads, n_dcn, _size(ici)),
+            lambda j, vals, seg: self.sync_bucket(vals, axis, seg),
+            sync_state)
 
 
 _REGISTRY: dict[str, Callable] = {
@@ -619,3 +734,277 @@ def get(name: str):
 
 def available() -> list[str]:
     return sorted(_REGISTRY)
+
+
+def overlap_capable() -> list[str]:
+    """Strategies usable with ``TrainConfig(overlap=True)``: those with a
+    per-bucket ``sync_bucket`` for the sync points to call.  The
+    sequential baselines (all_reduce, the gather_scatter pair) keep their
+    serialized wire pattern on purpose."""
+    return sorted(n for n, c in _REGISTRY.items()
+                  if getattr(c, "supports_overlap", False))
+
+
+def require_overlap_capable(strategy) -> None:
+    """Raise unless ``strategy`` can run as in-backward bucket collectives;
+    shared by the VGG trainer's config check and ``OverlapSync``."""
+    if not getattr(strategy, "supports_overlap", False):
+        raise ValueError(
+            f"strategy {strategy.name!r} does not support overlap=True; "
+            f"overlap-capable strategies: {overlap_capable()} (the "
+            f"sequential baselines keep their serialized wire pattern on "
+            f"purpose)")
+
+
+def require_lm_overlap_streamable(*, fsdp: bool, dcn: bool,
+                                  pp: bool = False) -> None:
+    """The LM trainer's overlap check: raise unless the config has
+    something to stream through the layer-group boundaries: the ZeRO-3
+    gathers (``fsdp``), the two-level dcn sync points (``dcn``: dcn_size >
+    1 with the sync inside the backward, which under grad_accum > 1 it is
+    not) or the 1F1B pipeline (``pp``)."""
+    if fsdp or dcn or pp:
+        return
+    raise ValueError(
+        "lm overlap=True streams the ZeRO-3 (fsdp) weight gathers and/or "
+        "the factored-mesh (dcn_size > 1) two-level sync points through "
+        "the layer boundaries; without either there is no post-backward "
+        "cluster to dissolve (BASELINE.md rounds 8-9).  Enable fsdp, set "
+        "dcn_size > 1, set pp_size > 0, or drop overlap (the VGG "
+        "trainer's overlap=True covers the explicit-strategy case)")
+
+
+# -- backward-overlapped gradient sync ----------------------------------------
+
+class _SyncPoint(torch.autograd.Function):
+    """A sync point: ``forward_fn`` maps its tensors to what the model uses
+    (None: the tensors as they are, an identity); its backward hands their
+    cotangents (each the sum of every use's gradient, as autograd sums them
+    before it calls a node's backward) to ``backward_fn``, whose list is
+    the inputs' gradients, under the profiler range ``name``."""
+
+    @staticmethod
+    def forward(ctx, name, forward_fn, backward_fn, *tensors):
+        ctx.name, ctx.backward_fn = name, backward_fn
+        if forward_fn is None:
+            return tuple(t.view_as(t) for t in tensors)
+        return tuple(forward_fn(list(tensors)))
+
+    @staticmethod
+    def backward(ctx, *cts):
+        with torch.profiler.record_function(ctx.name):
+            grads = ctx.backward_fn(list(cts))
+        return (None, None, None) + tuple(grads)
+
+
+def sync_boundary(tree: list, sync_fn: Callable[[list], list],
+                  group_id: int | str | None = None) -> list:
+    """Identity on the tensors of ``tree`` whose backward applies
+    ``sync_fn`` to their cotangents at this point of the backward graph:
+    the in-backward bucket collective of overlap mode.  ``group_id`` names
+    the layer group whose boundary this is: the backward runs under the
+    profiler range ``sync_boundary:<group_id>``."""
+    return list(_SyncPoint.apply(f"sync_boundary:{group_id}", None, sync_fn,
+                                 *tree))
+
+
+def sync_boundary_stateful(tree: list, residual: torch.Tensor,
+                           sync_fn: Callable, group_id=None, *,
+                           out: dict) -> list:
+    """``sync_boundary`` for an error-feedback strategy: ``sync_fn(cts,
+    residual) -> (synced, new_residual)``.  The JAX package carries the new
+    residual out of the backward as the residual's cotangent; here it
+    lands in ``out["res"]``.  (Kept for the JAX API's parity: the trainers
+    carry their residuals through ``OverlapSync``.)"""
+    def backward_fn(cts):
+        synced, out["res"] = sync_fn(cts, residual)
+        return synced
+    return sync_boundary(tree, backward_fn, group_id)
+
+
+_SIDE_STREAMS: dict = {}
+
+
+def _side_stream(device: torch.device):
+    """The side stream the in-backward collectives of ``device`` run on."""
+    stream = _SIDE_STREAMS.get(device)
+    if stream is None:
+        stream = _SIDE_STREAMS[device] = torch.cuda.Stream(device=device)
+    return stream
+
+
+def _accumulate(p: torch.Tensor, g: torch.Tensor) -> None:
+    """``p.grad += g`` as autograd accumulates, ``p.grad`` in ``p``'s
+    layout."""
+    with torch.no_grad():
+        if p.grad is None:
+            p.grad = torch.empty_like(p)
+            p.grad.copy_(g)
+        else:
+            p.grad.add_(g)
+
+
+class _InFlight:
+    """The bucket syncs one backward has issued, until the backward ends.
+
+    ``launch(fn, cts, targets)`` runs ``fn(cts)`` (a bucket's sync) and
+    accumulates its results into ``targets``' ``.grad`` in a callback
+    queued on the autograd engine, which runs once the whole backward is
+    done.  On a CUDA device ``fn`` runs on a side stream that first waits
+    for the default stream's work so far (the cotangents), so that the
+    collective and its elementwise passes run beside the backward kernels
+    still to come; the callback makes the default stream wait for the side
+    stream before anything reads ``.grad``.  No cotangent is kept past its
+    launch (under ZeRO-3 they are the gathered-size gradients, which the
+    backward frees one group at a time): each is marked as used by the side
+    stream, so that the allocator hands its memory to no later kernel
+    before the side stream's work on it is done, and so is each result as
+    the default stream reads it.  On the CPU ``fn`` runs inline."""
+
+    def __init__(self):
+        self.pending: list = []
+        self.queued = False
+        self.stream = None
+
+    def launch(self, fn: Callable, cts: list, targets: list) -> None:
+        if not self.queued:
+            torch.autograd.Variable._execution_engine.queue_callback(
+                self._finish)
+            self.queued = True
+        dev = cts[0].device
+        if dev.type == "cuda":
+            self.stream = _side_stream(dev)
+            self.stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(self.stream):
+                result = fn(cts)
+            for c in cts:
+                c.record_stream(self.stream)
+        else:
+            result = fn(cts)
+        self.pending.append((targets, result))
+
+    def _finish(self) -> None:
+        current = None
+        if self.stream is not None:
+            current = torch.cuda.current_stream(self.stream.device)
+            current.wait_stream(self.stream)
+        for targets, result in self.pending:
+            for p, g in zip(targets, result):
+                _accumulate(p, g)
+                if current is not None:
+                    g.record_stream(current)
+        self.pending, self.queued = [], False
+
+
+def _axis_size(axis) -> int:
+    """Ranks over ``axis``: a mesh, a process group or a (dcn, ici) pair."""
+    if isinstance(axis, DeviceMesh):
+        return axis.size()
+    if isinstance(axis, tuple):
+        return int(np.prod([_size(a) for a in axis if a is not None]))
+    return _size(axis)
+
+
+def _leaf_group(key: str, group_index: dict) -> int:
+    """A leaf's layer group, from its top-level parameter key (models expose
+    ``sync_group_index``)."""
+    try:
+        return group_index[key]
+    except KeyError:
+        raise ValueError(
+            f"param key {key!r} missing from the model's sync_group_index "
+            f"map; overlap needs every top-level param entry assigned to a "
+            f"forward layer group") from None
+
+
+class OverlapSync:
+    """One step's backward-overlapped gradient sync.
+
+    Packs the leaves, in the JAX tree order (sorted keys, as the
+    trainer's ``jax_order``), into ``make_bucket_plan``'s buckets, the
+    plan the bucketed and ring strategies use after the backward, so that
+    the two paths run the same collectives on the same flat vectors; each
+    bucket gets one sync point at its earliest layer-group boundary, where
+    every cotangent it needs is complete in the backward.  Usage, fresh
+    each step:
+
+        ov = OverlapSync(strategy, mesh, params, vgg.sync_group_index(name),
+                         sync_state=residual_or_None)
+        logits, state = vgg.apply(params, ..., boundary=ov.boundary)
+        loss.backward()             # .grad holds the synced gradients
+        residual = ov.new_state()   # stateful strategies
+
+    The model calls ``params = boundary(group, params)`` at each layer-group
+    boundary in forward order.  ``layout`` is a pair of callables that take
+    a cotangent to the layout the strategy syncs (the rings': the JAX
+    package's) and back."""
+
+    def __init__(self, strategy, axis, params: dict, group_index: dict, *,
+                 sync_state: torch.Tensor | None = None, layout=None):
+        require_overlap_capable(strategy)
+        self.strategy, self.axis = strategy, axis
+        self.order = [(k, n) for k in sorted(params)
+                      for n in sorted(params[k])]
+        self.leaves = [params[k][n] for k, n in self.order]
+        groups = [_leaf_group(k, group_index) for k, _ in self.order]
+        self.plan = make_bucket_plan(self.leaves, strategy.bucket_bytes)
+        self.to_wire, self.from_wire = layout or (None, None)
+        self.stateful = getattr(strategy, "stateful", False)
+        if self.stateful:
+            if sync_state is None:
+                raise ValueError(
+                    f"stateful strategy {strategy.name!r} needs sync_state "
+                    f"for overlap (the per-rank EF residual)")
+            segs = strategy.state_segments(self.leaves, _axis_size(axis))
+            offs = np.cumsum([0] + segs).tolist()
+            self._res = [sync_state[a:b] for a, b in zip(offs, offs[1:])]
+            self._new_res: list = [None] * len(self.plan)
+        # bucket b fires at its earliest forward group's boundary: by then
+        # every later group's backward, hence every cotangent it needs, is
+        # complete
+        self._due: dict[int, list[int]] = {}
+        for b, bucket in enumerate(self.plan):
+            self._due.setdefault(min(groups[i] for i in bucket), []).append(b)
+        self._marked: set[int] = set()
+        self._inflight = _InFlight()
+
+    def boundary(self, group: int, params: dict) -> dict:
+        """``params`` with the leaves of the buckets due at this boundary
+        replaced by their sync points' outputs (a new dict)."""
+        due = self._due.get(group)
+        if not due:
+            return params
+        out = {k: dict(v) for k, v in params.items()}
+        for b in due:
+            assert b not in self._marked, (b, group)
+            self._marked.add(b)
+            bucket = self.plan[b]
+            sub = [out[k][n] for k, n in (self.order[i] for i in bucket)]
+            targets = [self.leaves[i] for i in bucket]
+
+            def backward_fn(cts, b=b, targets=targets):
+                self._inflight.launch(partial(self._sync, b), cts, targets)
+                return [None] * len(cts)
+
+            for i, m in zip(bucket, sync_boundary(sub, backward_fn, group)):
+                k, n = self.order[i]
+                out[k][n] = m
+        return out
+
+    def _sync(self, b: int, cts: list) -> list:
+        given = [self.to_wire(c) for c in cts] if self.to_wire else cts
+        if self.stateful:
+            synced, self._new_res[b] = self.strategy.sync_bucket(
+                given, self.axis, self._res[b])
+        else:
+            synced = self.strategy.sync_bucket(given, self.axis)
+        return [self.from_wire(s) for s in synced] if self.from_wire \
+            else synced
+
+    def new_state(self) -> torch.Tensor:
+        """The stateful strategy's new residual, after the backward."""
+        if len(self._marked) != len(self.plan):
+            raise RuntimeError(
+                f"only {len(self._marked)} of {len(self.plan)} buckets met "
+                f"their layer-group boundary in the forward")
+        return torch.cat(self._new_res)

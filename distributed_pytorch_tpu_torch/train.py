@@ -15,7 +15,10 @@ step is the JAX step on this rank's shard of the global batch:
   DDP's), rank 0's updated BN state replaces every rank's;
 - the strategy syncs the gradients (leaves in the JAX package's tree order,
   the rings' in its layout: ``jax_order``), carrying a stateful strategy's
-  residual (``sync_state``) per rank;
+  residual (``sync_state``) per rank; with ``overlap`` each bucket syncs
+  inside the backward instead, from a sync point at its earliest layer
+  group (``parallel.strategies.OverlapSync``), over the same bucket plan
+  and leaf order, so the step is bitwise the post-backward one;
 - the health flag (loss and synced gradient sum of squares finite), the
   [grad-norm, param-norm] scalars of ``ops.nn.step_metrics``, and
   ``torch.optim.SGD(lr, momentum, weight_decay)``: the update of optax's
@@ -31,9 +34,9 @@ package's bits: equal trajectories across the packages hold with
 ``augment=False`` (or given the same draws).
 
 ``TrainConfig`` keeps every field of the JAX config with its default.
-Overlapped sync, local-SGD windows, the outer optimizer and ``dcn_compress``
-raise ``NotImplementedError`` naming slice 5b; ``auto``, ``routed``, the
-sync route and the autotune profile name slice 5f.
+Local-SGD windows and the outer optimizer raise ``NotImplementedError``
+naming slice 5b-iii; ``auto``, ``routed``, the sync route and the autotune
+profile name slice 5f.
 """
 
 from __future__ import annotations
@@ -50,7 +53,7 @@ from .data import augment as aug
 from .data import pipeline
 from .models import vgg
 from .models.transformer import (DURABILITY_SLICE, PLANNING_SLICE,
-                                 SYNC_SLICE, not_ported)
+                                 WINDOW_SLICE, not_ported)
 from .ops import nn as ops
 from .parallel import strategies as strat
 from .parallel.mesh import (DATA_AXIS, axis_size, ensure_process_group,
@@ -108,11 +111,9 @@ class TrainConfig:
 
 # Fields whose other values belong to a later slice: name -> (the value
 # that leaves them off, the slice).
-_LATER = {"overlap": (False, SYNC_SLICE),
-          "dcn_compress": (None, SYNC_SLICE),
-          "sync_every": (1, SYNC_SLICE),
-          "max_sync_every": (1, SYNC_SLICE),
-          "outer_opt": (None, SYNC_SLICE),
+_LATER = {"sync_every": (1, WINDOW_SLICE),
+          "max_sync_every": (1, WINDOW_SLICE),
+          "outer_opt": (None, WINDOW_SLICE),
           "sync_route": (None, PLANNING_SLICE),
           "autotune_profile": (None, PLANNING_SLICE)}
 
@@ -145,9 +146,26 @@ def _apply_bucket_mb(cfg: TrainConfig, strategy) -> None:
 
 def _apply_dcn(cfg: TrainConfig, strategy) -> None:
     """Propagate cfg.dcn_compress / cfg.dcn_size into the strategy (the
-    hierarchical slow-hop knobs)."""
+    hierarchical slow-hop knobs), before the step and the sync state are
+    built: compression makes it stateful.  A strategy without a dcn hop
+    refuses the compress knob."""
     if hasattr(strategy, "set_dcn"):
         strategy.set_dcn(cfg.dcn_compress, cfg.dcn_size)
+    elif cfg.dcn_compress is not None:
+        raise ValueError(
+            f"dcn_compress={cfg.dcn_compress!r} quantizes the cross-slice "
+            f"hop of the factored-mesh 'hierarchical' strategy; strategy "
+            f"{strategy.name!r} has no DCN hop to compress")
+
+
+def _validate_overlap(cfg: TrainConfig, strategy, mesh) -> None:
+    if not cfg.overlap:
+        return
+    if mesh is None:
+        raise ValueError(
+            "overlap=True requires a mesh: the data-axis collectives are "
+            "the thing being overlapped with backward compute")
+    strat.require_overlap_capable(strategy)
 
 
 def make_optimizer(cfg: TrainConfig, params) -> torch.optim.SGD:
@@ -187,16 +205,19 @@ def _from_jax_layout(t: torch.Tensor) -> torch.Tensor:
     return t.permute(3, 2, 0, 1) if t.ndim == 4 else t
 
 
-# strategies whose numerics depend on the layout of the flat vector: block
-# scales span leaf boundaries and group consecutive values
-_LAYOUT_SENSITIVE = ("quantized_ring", "quantized_ring_ef")
+def _layout_sensitive(strategy) -> bool:
+    """Whether the strategy's numerics depend on the layout of the flat
+    vector (block scales span leaf boundaries and group consecutive
+    values): the rings, and hierarchical's compressed hop."""
+    return strategy.name in ("quantized_ring", "quantized_ring_ef") or \
+        getattr(strategy, "dcn_compress", None) is not None
 
 
 def sync_grads(strategy, mesh, grads: list, sync_state=None):
     """Run ``strategy`` over ``grads`` (the leaves' gradients in
     ``jax_order``) and write the result back into them; returns the new
     sync state.  The rings see each conv gradient in the JAX layout."""
-    jax_layout = strategy.name in _LAYOUT_SENSITIVE
+    jax_layout = _layout_sensitive(strategy)
     given = [_to_jax_layout(g) for g in grads] if jax_layout else grads
     if getattr(strategy, "stateful", False):
         synced, sync_state = strategy(given, mesh, sync_state)
@@ -227,16 +248,18 @@ def _broadcast_tree(tree: dict, group) -> dict:
 
 
 def _loss_fn(params, state, gen, images, labels, *, cfg: TrainConfig,
-             fused_bn: bool | None = None, bn_axis=None):
+             fused_bn: bool | None = None, bn_axis=None, boundary=None):
     """Forward + loss on one batch; images are raw uint8 NHWC.
-    ``bn_axis`` is sync-BN's process group (None: local BN)."""
+    ``bn_axis`` is sync-BN's process group (None: local BN); ``boundary``
+    the overlap sync hook (``vgg.apply``)."""
     if cfg.augment:
         x = aug.augment(gen, images)
     else:
         x = aug.normalize(images)
     logits, new_state = vgg.apply(params, state, x, name=cfg.model,
                                   train=True, dtype=cfg.dtype,
-                                  bn_axis_name=bn_axis, fused_bn=fused_bn)
+                                  bn_axis_name=bn_axis, fused_bn=fused_bn,
+                                  boundary=boundary)
     return ops.cross_entropy_loss(logits, labels), new_state
 
 
@@ -246,6 +269,7 @@ def _resolve_strategy(cfg: TrainConfig, strategy, mesh):
         strategy = strat.get(cfg.strategy)
     _apply_dcn(cfg, strategy)
     _apply_bucket_mb(cfg, strategy)
+    _validate_overlap(cfg, strategy, mesh)
     if mesh is None and strategy.needs_mesh:
         raise ValueError(f"strategy {strategy.name!r} requires a mesh")
     return strategy
@@ -275,6 +299,10 @@ def make_train_step(cfg: TrainConfig, strategy=None, mesh=None, *,
         bn_axis = group if group is not None else dist.group.WORLD
     bcast_buffers = cfg.broadcast_buffers_resolved and mesh is not None
     syncs = strategy.name != "none"
+    stateful = getattr(strategy, "stateful", False)
+    group_idx = vgg.sync_group_index(cfg.model) if cfg.overlap else None
+    layout = (_to_jax_layout, _from_jax_layout) \
+        if _layout_sensitive(strategy) else None
     gens: dict[torch.device, torch.Generator] = {}
 
     def step(params, state, opt, step_idx, images, labels, sync_state=None):
@@ -283,9 +311,14 @@ def make_train_step(cfg: TrainConfig, strategy=None, mesh=None, *,
             gen = gens[images.device] = torch.Generator(device=images.device)
         gen.manual_seed(augment_seed(cfg.seed, step_idx, rank))
         opt.zero_grad(set_to_none=True)
+        ov = None
+        if cfg.overlap:  # the buckets sync inside the backward
+            ov = strat.OverlapSync(strategy, mesh, params, group_idx,
+                                   sync_state=sync_state, layout=layout)
         loss, new_state = _loss_fn(params, state, gen, images, labels,
                                    cfg=cfg, fused_bn=fused_bn,
-                                   bn_axis=bn_axis)
+                                   bn_axis=bn_axis,
+                                   boundary=ov.boundary if ov else None)
         loss.backward()
         if bcast_buffers:
             # torch DDP's broadcast_buffers: rank 0's *updated* BN state on
@@ -293,7 +326,10 @@ def make_train_step(cfg: TrainConfig, strategy=None, mesh=None, *,
             new_state = _broadcast_tree(new_state, group)
         leaves = [params[k][n] for k, n in jax_order(params)]
         grads = [p.grad for p in leaves]
-        if syncs:
+        if ov is not None:
+            if stateful:
+                sync_state = ov.new_state()
+        elif syncs:
             sync_state = sync_grads(strategy, mesh, grads, sync_state)
         gsq = torch.stack(torch._foreach_norm(grads)).square().sum()
         ok = (torch.isfinite(loss) & torch.isfinite(gsq)).float()

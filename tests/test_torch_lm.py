@@ -362,7 +362,16 @@ def test_lm_cli_refuses_later_flags(flag, capsys):
     without a launcher is a gang of one: its losses are bitwise those of
     the run without a process group, and no group is left after the
     run.  ``--dp 2`` without a gang of two names the launcher (the
-    4-rank ``--dp 4`` run is in tests/test_torch_lm_dp.py)."""
+    4-rank ``--dp 4`` run is in tests/test_torch_lm_dp.py).  ``--fsdp``
+    and ``--dcn-size 2`` are ported: in one process the JAX config checks
+    refuse them (ZeRO-3 over a data axis of one rank is a no-op, and one
+    rank does not factor into two slices; the 4-rank run of every sync
+    flag is tests/test_torch_dcn_sync.py's).  ``--sync-every`` names slice
+    5b-iii."""
+    if flag[0] in ("--fsdp", "--dcn-size"):
+        with pytest.raises(ValueError, match="no-op|does not factor"):
+            tcli.main(CLI_BASE + ["--steps", "1"] + flag)
+        return
     if flag[0] == "--dp":
         with pytest.raises(NotImplementedError,
                            match="launch --nproc-per-node 2"):
@@ -394,7 +403,10 @@ def test_lm_cli_refuses_later_flags(flag, capsys):
     with pytest.raises(SystemExit) as e:
         tcli.main(CLI_BASE + ["--steps", "1"] + flag)
     assert e.value.code == 2
-    assert "ROADMAP.md" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "ROADMAP.md" in err
+    if flag[0] == "--sync-every":
+        assert "slice 5b-iii" in err
 
 
 def test_lm_cli_scale_flags_compose_and_check(capsys):
@@ -425,9 +437,12 @@ def test_lm_cli_scale_flags_compose_and_check(capsys):
     ids=["dp", "fsdp", "sync_every", "pp_size", "remat", "loss_impl",
          "matmul_dtype", "n_experts"])
 def test_trainer_refuses_later_slices(kw):
-    """Knobs of later slices raise, naming their ROADMAP slice.  ``dp=2``
-    is ported: without a gang of two processes it raises, naming the
-    launcher (the gang runs in tests/test_torch_lm_dp.py).  Four are
+    """Knobs of later slices raise, naming their ROADMAP slice
+    (``sync_every``: slice 5b-iii).  ``dp=2`` is ported: without a gang
+    of two processes it raises, naming the launcher (the gang runs in
+    tests/test_torch_lm_dp.py).  So is ``fsdp=True``: at dp 1 both
+    packages refuse it as a no-op, and at dp 2 it takes a gang
+    (tests/test_torch_fsdp.py runs it in one of four).  Four are
     ported now, and three f32 steps from the JAX initial params are held
     against the JAX package instead:
 
@@ -445,6 +460,16 @@ def test_trainer_refuses_later_slices(kw):
       1e-5 relative; Adam then moves a parameter whose gradient flips sign
       by up to 2 lr a step."""
     batches = [_data(), _data(seed=1)]
+    if kw.get("fsdp"):
+        # ported: ZeRO-3 over one rank is refused as in the JAX package,
+        # and over two it takes a gang (tests/test_torch_fsdp.py)
+        for pkg in (jlm, tlm):
+            with pytest.raises(ValueError, match="no-op"):
+                pkg.validate_lm_cfg(pkg.LMTrainConfig(**kw))
+        with pytest.raises(NotImplementedError,
+                           match="launch --nproc-per-node 2"):
+            tlm.LMTrainer(tlm.LMTrainConfig(dp=2, **kw), device="cpu")
+        return
     if "dp" in kw:
         with pytest.raises(NotImplementedError,
                            match="launch --nproc-per-node 2"):
@@ -458,7 +483,8 @@ def test_trainer_refuses_later_slices(kw):
     elif "loss_impl" in kw or "matmul_dtype" in kw:
         want, states = _jax_oracle(3, batches, **kw)
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        where = "slice 5b-iii" if "sync_every" in kw else "ROADMAP.md"
+        with pytest.raises(NotImplementedError, match=where):
             tlm.LMTrainer(tlm.LMTrainConfig(**kw), device="cpu")
         return
     ttr = _port(states, **kw)

@@ -8,8 +8,11 @@ rendezvous through a FileStore).  The leaves are given in the JAX tree
 order and layout, as the port's trainer hands them over.  Held bitwise:
 ``gather_scatter`` (the rank-ordered sum), ``quantized`` (an integer sum
 against a shared scale), ``quantized_ring`` at 8 and 4 bits and in
-several buckets, and ``quantized_ring_ef`` with its residual over two
-rounds (the same hop order, round half to even on both sides).  The float
+several buckets, ``quantized_ring_ef`` with its residual over two
+rounds (the same hop order, round half to even on both sides), and
+``hierarchical`` with ``dcn_compress`` int8 and int4 at dcn 2 x ici 2, its
+residual over two rounds included (a sum of two addends over ``ici``,
+then the ring over ``dcn``).  The float
 sums (``all_reduce``, ``ddp``, ``bucketed``, ``gather_scatter_symmetric``,
 ``hierarchical`` at dcn 2 x ici 2) add in another order: rtol 1e-6.
 """
@@ -33,7 +36,8 @@ from workers.torch_dp_worker import run_gang, shared_result
 N_DEV = 4
 BITWISE = ("gather_scatter", "quantized", "quantized_ring",
            "quantized_ring4", "quantized_ring_small", "quantized_ring_ef0",
-           "quantized_ring_ef1", "none")
+           "quantized_ring_ef1", "none", "hierarchical_int80",
+           "hierarchical_int81", "hierarchical_int40", "hierarchical_int41")
 FLOAT_SUMS = ("all_reduce", "ddp", "bucketed", "bucketed_small",
               "gather_scatter_symmetric", "hierarchical")
 FLOAT_TOL = dict(rtol=1e-6, atol=1e-7)
@@ -92,15 +96,21 @@ def _jax_oracle() -> dict:
         got = run(partial(s, axis=axis), mesh, axis, g)
         for i, leaf in enumerate(jax.tree.leaves(got)):
             out[f"{name}/{i}"] = np.asarray(leaf)
-    ef = jstrat.get("quantized_ring_ef")
-    res = np.zeros((N_DEV,) + ef.init_state(
-        jax.tree.map(lambda x: x[0], g), N_DEV).shape, np.float32)
-    for r, tree in enumerate((g, h)):
-        synced, res = run(lambda t, s: ef(t, "data", s), flat, "data",
-                          tree, jnp.asarray(res))
-        for i, leaf in enumerate(jax.tree.leaves(synced)):
-            out[f"quantized_ring_ef{r}/{i}"] = np.asarray(leaf)
-        out[f"quantized_ring_ef{r}/res"] = res = np.asarray(res)
+    stateful = {"quantized_ring_ef": (jstrat.get("quantized_ring_ef"), flat,
+                                      "data")}
+    for bits in ("int8", "int4"):
+        stateful[f"hierarchical_{bits}"] = (
+            jstrat.Hierarchical(dcn_compress=bits, dcn_size=2), fac,
+            ("dcn", "ici"))
+    for name, (s, mesh, axis) in stateful.items():
+        res = np.zeros((N_DEV,) + s.init_state(
+            jax.tree.map(lambda x: x[0], g), N_DEV).shape, np.float32)
+        for r, tree in enumerate((g, h)):
+            synced, res = run(lambda t, st, s=s, axis=axis: s(t, axis, st),
+                              mesh, axis, tree, jnp.asarray(res))
+            for i, leaf in enumerate(jax.tree.leaves(synced)):
+                out[f"{name}{r}/{i}"] = np.asarray(leaf)
+            out[f"{name}{r}/res"] = res = np.asarray(res)
     return out
 
 
@@ -201,14 +211,99 @@ def test_many_bucket_tree_plan_and_ef_segments_equal_jax():
 
 
 def test_registry_equals_jax():
+    """The registry, the overlap-capable strategies and the refusals (their
+    messages JAX's); ``Hierarchical(dcn_compress=...)`` builds, stateful
+    with JAX's residual segments (its numerics against JAX's are in
+    test_strategy_bitwise_equals_jax)."""
     assert tstrat.available() == jstrat.available()
     assert len(tstrat.available()) == 10
+    assert tstrat.overlap_capable() == jstrat.overlap_capable()
     with pytest.raises(ValueError, match="unknown strategy"):
         tstrat.get("nope")
     with pytest.raises(ValueError, match="must be resolved"):
         tstrat.get("auto")
-    with pytest.raises(NotImplementedError, match="slice 5b"):
-        tstrat.Hierarchical(dcn_compress="int8")
+    for bits in ("int8", "int4"):
+        h = tstrat.Hierarchical(dcn_compress=bits, dcn_size=2)
+        jh = jstrat.Hierarchical(dcn_compress=bits, dcn_size=2)
+        assert h.stateful and jh.stateful
+        leaves = [torch.zeros(n) for n in VGG11_SIZES]
+        assert h.state_segments(leaves, 8) == jh.state_segments(
+            [jnp.zeros(n) for n in VGG11_SIZES], 8)
+    with pytest.raises(ValueError, match="dcn_compress must be") as te:
+        tstrat.Hierarchical(dcn_compress="int2")
+    with pytest.raises(ValueError) as je:
+        jstrat.Hierarchical(dcn_compress="int2")
+    assert str(te.value) == str(je.value)
+    for name in ("all_reduce", "gather_scatter"):
+        with pytest.raises(ValueError) as te:
+            tstrat.require_overlap_capable(tstrat.get(name))
+        with pytest.raises(ValueError) as je:
+            jstrat.require_overlap_capable(jstrat.get(name))
+        assert str(te.value) == str(je.value)
+    for kw in (dict(fsdp=False, dcn=False), dict(fsdp=False, dcn=False,
+                                                 pp=False)):
+        with pytest.raises(ValueError) as te:
+            tstrat.require_lm_overlap_streamable(**kw)
+        with pytest.raises(ValueError) as je:
+            jstrat.require_lm_overlap_streamable(**kw)
+        assert str(te.value) == str(je.value)
+
+
+def test_sync_boundaries_sync_the_summed_cotangent():
+    """``sync_boundary`` is an identity in the forward whose backward hands
+    ``sync_fn`` the cotangent autograd summed over every use (here two),
+    and its result becomes the leaf's gradient; ``sync_boundary_stateful``
+    also hands it the residual and delivers the new one."""
+    w = torch.arange(6.0).reshape(2, 3).requires_grad_(True)
+    b = torch.ones(3, requires_grad=True)
+    seen = {}
+
+    def sync_fn(cts):
+        seen["cts"] = [c.clone() for c in cts]
+        return [c * 10 for c in cts]
+
+    mw, mb = tstrat.sync_boundary([w, b], sync_fn, group_id=0)
+    assert torch.equal(mw, w) and torch.equal(mb, b)
+    ((mw * 2).sum() + (mw * mb).sum() + mb.sum()).backward()
+    want_w = 2 + b.detach().expand(2, 3)
+    want_b = w.detach().sum(0) + 1
+    assert torch.equal(seen["cts"][0], want_w)
+    assert torch.equal(seen["cts"][1], want_b)
+    assert torch.equal(w.grad, want_w * 10) and torch.equal(b.grad,
+                                                            want_b * 10)
+    out = {}
+    w.grad = None
+    res = torch.full((4,), 0.5)
+    (mw,) = tstrat.sync_boundary_stateful(
+        [w], res, lambda cts, r: ([c + r.sum() for c in cts], r * 2),
+        out=out)
+    mw.sum().backward()
+    assert torch.equal(w.grad, torch.full((2, 3), 3.0))
+    assert torch.equal(out["res"], res * 2)
+
+
+def test_inflight_keeps_results_not_cotangents():
+    """``_InFlight`` holds a launched bucket's targets and results until
+    the backward ends, and none of its cotangents (under ZeRO-3 they are
+    the gathered-size gradients, which must be freed a group at a time);
+    the results reach ``.grad`` when the backward is done."""
+    w = torch.ones(3, requires_grad=True)
+    inflight = tstrat._InFlight()
+    seen = {}
+
+    def backward_fn(cts):
+        inflight.launch(lambda cs: [c * 2 for c in cs], cts, [w])
+        seen["held"] = {id(t) for entry in inflight.pending
+                        for part in entry for t in part}
+        seen["cts"] = {id(c) for c in cts}
+        assert w.grad is None
+        return [None]
+
+    (m,) = tstrat.sync_boundary([w], backward_fn, group_id=0)
+    (m * 3).sum().backward()
+    assert seen["cts"] and not seen["held"] & seen["cts"]
+    assert torch.equal(w.grad, torch.full((3,), 6.0))
+    assert inflight.pending == [] and not inflight.queued
 
 
 def test_int4_nibble_packing_round_trips():

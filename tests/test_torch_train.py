@@ -204,18 +204,24 @@ def test_steps_per_loop_equals_single_steps():
     assert not torch.equal(c.params["fc"]["kernel"], b.params["fc"]["kernel"])
 
 
-# knob -> the sub-slice its refusal names, or None: ported by slice 5a
-# (the data-parallel strategies, sync-BN, rank 0's buffers, the bucket size;
-# dcn_size is read by hierarchical alone, as in the JAX trainer)
+# knob -> the sub-slice its refusal names, or None: ported (slice 5a: the
+# data-parallel strategies, sync-BN, rank 0's buffers, the bucket size;
+# dcn_size is read by hierarchical alone, as in the JAX trainer; slice
+# 5b-ii: overlap and dcn_compress, each with a strategy that takes it)
 _KNOB_SLICE = {("strategy", "ddp"): None, ("strategy", "auto"): "5f",
-               ("overlap", True): "5b", ("sync_every", 2): "5b",
-               ("max_sync_every", 4): "5b", ("dcn_compress", "int8"): "5b",
+               ("overlap", True): None, ("sync_every", 2): "5b-iii",
+               ("max_sync_every", 4): "5b-iii",
+               ("dcn_compress", "int8"): None,
                ("dcn_size", 4): None,
                ("sync_route", "ici:rs -> dcn:ring -> ici:ag"): "5f",
                ("autotune_profile", "uniform"): "5f", ("sync_bn", True): None,
-               ("outer_opt", "nesterov"): "5b",
+               ("outer_opt", "nesterov"): "5b-iii",
                ("broadcast_buffers", True): None,
                ("overlap_bucket_mb", 4.0): None}
+# the strategy a ported knob is tried with (``none`` otherwise)
+_KNOB_STRATEGY = {("overlap", True): dict(strategy="ddp"),
+                  ("dcn_compress", "int8"): dict(strategy="hierarchical",
+                                                 dcn_size=1)}
 
 
 @pytest.fixture
@@ -232,6 +238,7 @@ def test_later_slice_knobs_raise(field, value, no_process_group_after):
     5a ported builds a trainer that takes a finite step."""
     kw = dict(model="TINY", strategy="none", batch_size=4, augment=False)
     kw[field] = value
+    kw.update(_KNOB_STRATEGY.get((field, value), {}))
     where = _KNOB_SLICE[(field, value)]
     if where is not None:
         with pytest.raises(NotImplementedError, match=f"slice {where}"):
@@ -462,9 +469,12 @@ _FLAG_OUTCOME = [
     (["--elastic"], "5c"), (["--checkpoint-dir", "ck"], "5c"),
     (["--profile-dir", "p"], "5c"), (["--telemetry-dir", "t"], "5c"),
     (["--shard-eval"], "runs"), (["--debug-checks"], "runs"),
-    (["--sync-every", "2"], "5b"), (["--overlap"], "5b"),
-    (["--sync-bn"], "runs"), (["--dcn-compress", "int8"], "5b"),
-    (["--outer-opt", "nesterov"], "5b"),
+    (["--sync-every", "2"], "5b-iii"),
+    (["--overlap", "--strategy", "ddp"], "runs"),
+    (["--sync-bn"], "runs"),
+    (["--dcn-compress", "int8", "--strategy", "hierarchical", "--dcn-size",
+      "1"], "runs"),
+    (["--outer-opt", "nesterov"], "5b-iii"),
     (["--num-devices", "4"], "nproc-per-node 4"),
     (["--sync-route", "ici:rs"], "5f")]
 
@@ -472,7 +482,8 @@ _FLAG_OUTCOME = [
 @pytest.mark.parametrize("argv", [a for a, _ in _FLAG_OUTCOME])
 def test_cli_later_slice_flags_raise(small_cifar, argv):
     """A flag of a later slice raises, naming its sub-slice; the rank
-    flags, --shard-eval, --sync-bn and --debug-checks run one epoch (one
+    flags, --shard-eval, --sync-bn, --debug-checks, --overlap (with ddp)
+    and --dcn-compress (with hierarchical over 1 x 1) run one epoch (one
     rank: the rendezvous does nothing, as in the JAX package, and the
     default ddp syncs over a one-rank group); --num-nodes 2 without a
     master is a ValueError, and --num-devices 4 in one process points at

@@ -206,12 +206,14 @@ def _check_int8_apply(jcfg, tcfg, jp, tp):
 @pytest.mark.parametrize("kw", REFUSED_APPLY,
                          ids=[next(iter(k)) for k in REFUSED_APPLY])
 def test_apply_refuses_unported_options(model, kw):
-    """Options of later slices raise, naming their ROADMAP slice.  Three are
+    """Options of later slices raise, naming their ROADMAP slice.  Four are
     ported now and are held against the JAX package's apply on the CPU
     instead: ``attn_impl="flash"`` (Pallas in interpret mode), ``remat``
     (the forward of each rematerialized layer is the layer's, and the
-    gradients equal the plain apply's) and ``matmul_dtype="int8"``
-    (``_check_int8_apply``)."""
+    gradients equal the plain apply's), ``matmul_dtype="int8"``
+    (``_check_int8_apply``) and ``boundary`` (the sync knobs' layer-group
+    hook: called at JAX's groups in JAX's order, an identity, the logits
+    JAX's)."""
     jcfg, tcfg, jp, tp = model
     toks = np.random.default_rng(4).integers(0, 256, (2, 24))
     if kw == dict(attn_impl="flash"):
@@ -238,6 +240,22 @@ def test_apply_refuses_unported_options(model, kw):
         return
     if "matmul_dtype" in kw:
         _check_int8_apply(jcfg, tcfg, jp, tp)
+        return
+    if "boundary" in kw:
+        seen = {"jax": [], "port": []}
+
+        def hook(side):
+            return lambda group, p: seen[side].append(group) or p
+
+        want = np.asarray(jtfm.apply(jp, jnp.asarray(toks, jnp.int32),
+                                     cfg=jcfg, boundary=hook("jax")))
+        got = ttfm.apply(tp, torch.from_numpy(toks), cfg=tcfg,
+                         attn_impl="reference", boundary=hook("port"))
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+        assert seen["port"] == seen["jax"] == list(range(
+            tcfg.n_layers + 2))
+        assert sorted(ttfm.sync_group_index(tcfg).items()) == sorted(
+            jtfm.sync_group_index(jcfg).items())
         return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ttfm.apply(tp, torch.zeros((1, 4), dtype=torch.long), cfg=tcfg, **kw)

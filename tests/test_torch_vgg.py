@@ -224,9 +224,14 @@ def test_apply_refuses_later_slice_knobs(tiny):
     finally:
         if created:
             pinit.shutdown()
-    # the overlapped gradient sync is slice 5b's
-    with pytest.raises(NotImplementedError, match="slice 5b"):
-        tvgg.apply(tp, ts, x, name="TINY", boundary=lambda i, p: p)
+    # the overlapped gradient sync's hook: called at every layer group in
+    # forward order (JAX sync_group_index), an identity on values
+    seen = []
+    got, _ = tvgg.apply(tp, ts, x, name="TINY", train=True,
+                        boundary=lambda i, p: seen.append(i) or p)
+    want, _ = tvgg.apply(tp, ts, x, name="TINY", train=True)
+    assert torch.equal(got, want)
+    assert seen == sorted(set(tvgg.sync_group_index("TINY").values()))
 
 
 def test_activations_stay_channels_last(tiny):

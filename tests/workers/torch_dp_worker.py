@@ -10,7 +10,8 @@ the port only, pins torch to one intra-op thread, runs every case of
 - ``strategies``: every registry strategy (and the ring at 4 bits, and
   small-bucket variants) on this rank's row of the input gradients, given
   in the JAX package's tree order and layout; ``quantized_ring_ef`` two
-  rounds carrying its residual; ``hierarchical`` over a 2 x 2 mesh;
+  rounds carrying its residual; ``hierarchical`` over a 2 x 2 mesh, and
+  with ``dcn_compress`` int8 and int4 two rounds carrying its residual;
 - ``train``: the port's Trainer over the gang from the JAX trainer's
   initial params, one case a config of ``cases.json``: this rank's losses,
   params (JAX layout), BN state, momentum and sync state after the steps;
@@ -21,10 +22,15 @@ the port only, pins torch to one intra-op thread, runs every case of
 - ``eval``: ``evaluate_sharded`` of seeded TINY params over the gang, and
   its refusal of a batch the ranks do not divide;
 - ``lm``: the port's ``LMTrainer(dp=world)`` from the JAX trainer's
-  initial params, one case a config of ``cases.json``, on this rank's
-  contiguous rows of the global batch: the losses, the params after the
-  steps and ``evaluate`` on this rank's rows of the eval batches; and an
-  ``LMTrainer`` whose ``dp`` is not the world size, refused.
+  initial params, one case a config of ``cases.json`` (the sync knobs
+  included), on this rank's contiguous rows of the global batch: the
+  losses, the whole params after the steps (gathered), this rank's shards
+  at construction and after the steps, its residual, and ``evaluate`` on
+  this rank's rows of the eval batches; and an ``LMTrainer`` whose ``dp``
+  is not the world size, refused;
+- ``lm_sync``: the LM two-level sync on this rank's row of the input
+  gradients over a 2 x 2 mesh, per case of ``cases.json`` (bucket size
+  and compression), two rounds carrying the residual.
 """
 
 import json
@@ -69,12 +75,17 @@ def strategies(data, rank: int, world: int) -> dict:
         "cpu", (2, world // 2), mesh_dim_names=("dcn", "ici")))
     for name, (strategy, mesh) in cases.items():
         save(name, strategy(_rows(data, "g", rank), mesh))
-    ef = st.get("quantized_ring_ef")
-    res = ef.init_state(_rows(data, "g", rank), world)
-    for r, prefix in enumerate(("g", "h")):
-        synced, res = ef(_rows(data, prefix, rank), flat, res)
-        save(f"quantized_ring_ef{r}", synced)
-        out[f"quantized_ring_ef{r}/res"] = res.numpy()
+    stateful = {"quantized_ring_ef": (st.get("quantized_ring_ef"), flat)}
+    for bits in ("int8", "int4"):
+        stateful[f"hierarchical_{bits}"] = (
+            st.Hierarchical(dcn_compress=bits, dcn_size=2),
+            cases["hierarchical"][1])
+    for name, (strategy, mesh) in stateful.items():
+        res = strategy.init_state(_rows(data, "g", rank), world)
+        for r, prefix in enumerate(("g", "h")):
+            synced, res = strategy(_rows(data, prefix, rank), mesh, res)
+            save(f"{name}{r}", synced)
+            out[f"{name}{r}/res"] = res.numpy()
     return out
 
 
@@ -219,11 +230,19 @@ def lm(data, rank: int, world: int, cases: dict) -> dict:
         tr = tlm.LMTrainer(cfg, device="cpu")
         tr.load_state({k: torch.from_numpy(np.array(v))
                        for k, v in init.items()})
+        for k, v in tr.params.items():
+            out[f"{name}/shard0/{k}"] = v.detach().numpy().copy()
         out[f"{name}/losses"] = np.asarray(
             [float(tr.train_step(tokens[mine], targets[mine]))
              for _ in range(case["steps"])])
+        for k, v in tr.full_params().items():
+            out[f"{name}/p/{k}"] = v.numpy()
         for k, v in tr.params.items():
-            out[f"{name}/p/{k}"] = v.detach().numpy()
+            out[f"{name}/shard/{k}"] = v.detach().numpy()
+        for m in ("mu", "nu"):
+            for k, v in tr.opt_state[m].items():
+                out[f"{name}/{m}/{k}"] = v.numpy()
+        out[f"{name}/sync_state"] = tr.sync_state.numpy()
         ev = tr.evaluate([(tokens[mine], targets[mine])])
         out[f"{name}/eval"] = np.asarray([ev["loss"], ev["tokens"]])
     try:
@@ -231,6 +250,35 @@ def lm(data, rank: int, world: int, cases: dict) -> dict:
         out["refused"] = np.asarray("")
     except NotImplementedError as e:
         out["refused"] = np.asarray(str(e))
+    return out
+
+
+def lm_sync(data, rank: int, world: int, cases: dict) -> dict:
+    """The LM two-level sync (``lm.LMSync.two_level``) on this rank's row
+    of the input gradients over the (2, world // 2) ``("dcn", "data")``
+    mesh, one case a (bucket bytes, compress) pair of ``cases.json``, two
+    rounds carrying the residual."""
+    from distributed_pytorch_tpu_torch import lm as tlm
+    shapes = {k[len("shape/"):]: tuple(int(d) for d in data[k])
+              for k in data.files if k.startswith("shape/")}
+    cfg = tlm.LMTrainConfig(dp=world, dcn_size=2, fsdp=True)
+    sync = tlm.LMSync(cfg, tlm.make_lm_mesh(cfg, device="cpu"), shapes)
+    names = sync.names
+    out = {}
+    for name, case in cases.items():
+        bb, compress = case["bucket_bytes"], case["compress"]
+        res = None
+        if compress is not None:
+            sizes = [int(np.prod(data[f"g/{n}"].shape[1:])) for n in names]
+            res = torch.zeros(tlm._residual_total_len(
+                sizes, [sync.specs[n] for n in names], 2, world // 2, bb))
+        for r, prefix in enumerate(("g", "h")):
+            grads = [torch.from_numpy(np.array(data[f"{prefix}/{n}"][rank]))
+                     for n in names]
+            synced, res = sync.two_level(grads, names, bb, compress, res)
+            for n, t in zip(names, synced):
+                out[f"{name}{r}/{n}"] = t.numpy()
+            out[f"{name}{r}/res"] = res.numpy()
     return out
 
 
@@ -250,9 +298,10 @@ def main() -> int:
         out = syncbn(data, rank, world)
     elif mode == "eval":
         out = sharded_eval(data, rank, world)
-    elif mode == "lm":
+    elif mode in ("lm", "lm_sync"):
         with open(os.path.join(os.path.dirname(in_path), "cases.json")) as f:
-            out = lm(data, rank, world, json.load(f))
+            out = (lm if mode == "lm" else lm_sync)(data, rank, world,
+                                                    json.load(f))
     else:
         out = checks(data, rank, world)
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
