@@ -141,6 +141,21 @@ Phases, each of which raises on failure:
      LM-base leaf and the dcn ring's codec with its EF update on
      LM-base's flat gradient, bitwise the plain codec and the CPU's, with
      their ms a step.
+ 22. the sync windows at world size 1 over a one-rank NCCL group: (a)
+     VGG-11 local-SGD windows of 4 steps: plain SGD in f32 against the
+     accumulated-update oracle in plain torch (atol 2e-4), a trivial outer
+     optimizer bitwise the plain window, nesterov and momentum anchors and
+     outer momentum bitwise a plain-torch outer step after each boundary,
+     and momentum SGD under ddp, quantized_ring_ef and hierarchical int8
+     in bf16 against their per-step runs (step 0's loss rtol 1e-5, the
+     curve rtol 1e-1, the residual finite); (b) the NCCL calls of a
+     profiled 8-step window run (two exchanges, no gradient sync in the
+     local steps) against the per-step run's, and H=4 against H=1 in
+     A B B A windows (ms a step, idle share); (c) the LM window arithmetic
+     over LM-base's params: anchor + delta and the nesterov outer step,
+     ms against their bytes bound, the outer step bitwise the CPU's on
+     three leaves and the per-slice mask with the prescale bitwise the
+     CPU's.
 Phases 4, 5, 10, 11 and 18 run the batcher's defaults, in-block refill and
 overlapped dispatch on, as the JAX batcher's are.
 The second-to-last lines are the kernels' JSON record and the card's name
@@ -4378,6 +4393,353 @@ def sync_knobs_phase(torch, port, facts) -> dict:
     return out
 
 
+# -- phase 22: the sync windows (slice 5b-iii) -----------------------------
+
+WIN_H = 4          # the window, in steps
+WIN_STEPS = 8      # two windows
+WIN_WINDOW = 20    # (b): H=4 against H=1, A B B A, twice
+WIN_MOMENTUM = {"ddp": {}, "quantized_ring_ef": {},
+                "hierarchical_int8": {"dcn_compress": "int8"}}
+WIN_OUTER = {"nesterov": dict(outer_momentum=0.9, outer_lr=1.0),
+             "momentum": dict(outer_momentum=0.9, outer_lr=0.7)}
+WIN_LM_LEAVES = ("embed", "layers.0.wq", "layers.0.attn_norm")
+
+
+def _win_trainer(port, p0, s0, **kw):
+    """A VGG-11 Trainer over the one-rank group from phase 19's params,
+    ``steps_per_loop = WIN_H``."""
+    tr = port["train"]
+    cfg = tr.TrainConfig(model="VGG11", batch_size=VGG_BATCH, augment=False,
+                         steps_per_loop=WIN_H, dcn_size=1, **kw)
+    t = tr.Trainer(cfg, device=DEVICE)
+    t.load_state(*_fresh(p0, s0))
+    return t
+
+
+def _win_run(torch, t, images, labels, on_boundary=None):
+    """WIN_STEPS steps, a window a ``train_steps`` call: the losses."""
+    losses = []
+    for w in range(0, WIN_STEPS, WIN_H):
+        losses.append(t.train_steps(images[w:w + WIN_H],
+                                    labels[w:w + WIN_H]))
+        if on_boundary is not None:
+            on_boundary()
+    return torch.cat(losses)
+
+
+def _plain_outer(kind, mu, lr, a, d, m):
+    """The outer step in plain torch: ``m' = mu m + d``, the step ``mu m'
+    + d`` (nesterov) or ``m'`` (momentum), ``a + lr step``; each
+    multiply-add in float64 rounded once to float32."""
+    mu, lr = float(np.float32(mu)), float(np.float32(lr))
+    m2 = (m.double() * mu + d.double()).float()
+    step = (m2.double() * mu + d.double()).float() if kind == "nesterov" \
+        else m2
+    return (step.double() * lr + a.double()).float(), m2
+
+
+def windows_phase(torch, port, facts) -> dict:
+    """Phase 22: the sync windows (slice 5b-iii) at world size 1, over a
+    real one-rank NCCL group (an LM window needs dcn_size >= 2, so two
+    processes and two cards: its multi-rank runs are the CPU gangs'),
+    phase 19's seeded VGG-11 params and batches, cuDNN in its
+    deterministic algorithms (two runs of a gate must repeat):
+
+    (a) local-SGD windows of WIN_H steps, WIN_STEPS steps: ``ddp`` with
+        plain SGD (momentum 0, weight decay 0) in f32 against the
+        accumulated-update oracle in plain torch (each window's steps at
+        anchor + delta, the anchor moved by the delta: a mean over one
+        rank), atol 2e-4 (JAX tests/test_localsgd.py); the trivial outer
+        optimizer (momentum 0, lr 1) bitwise that run; nesterov and
+        momentum: after each boundary the anchor and the outer momentum
+        (the tail of ``sync_state``) bitwise ``_plain_outer`` of the
+        anchor before, the exchanged delta (read as the boundary
+        returns it) and the momentum before; momentum SGD in bf16 under
+        ddp, quantized_ring_ef and hierarchical int8 (1 x 1) against the
+        same strategy's per-step run: step 0's loss within rtol 1e-5 (the
+        window's first step is the per-step one), the curve within rtol
+        1e-1 (JAX's band), the residual finite;
+    (b) one profiled WIN_STEPS-step ddp run at H = WIN_H and one per-step:
+        the NCCL calls by name (``dp_calls``): the window's gradient
+        all-reduces are its exchanges, one a window, none in the local
+        steps (a ``train_steps`` call adds one all-reduce of its losses,
+        and ddp's broadcast buffers one broadcast a step, in both runs);
+        then H = WIN_H against H = 1 in A B B A windows of WIN_WINDOW
+        steps, twice: ms a step, ratio, and a profiled window's idle
+        share.  No gain is claimed: at world size 1 an exchange is a
+        one-rank all-reduce, and the VGG step is host-bound;
+    (c) the LM window arithmetic over LM-base's params (lm_cli's byte
+        vocabulary), float32, seeded on the card: ``anchor + delta`` (each
+        local step's params) and the nesterov ``OuterOptimizer.apply``
+        (each boundary), ms beside the bytes each must move at the card's
+        memory rate; the outer step bitwise the CPU's on WIN_LM_LEAVES;
+        the per-slice mask (kept and skipped) with the prescale
+        (``lm.window_prescale``) bitwise the CPU's on the same leaves."""
+    from torch.profiler import ProfilerActivity, profile
+    tr, vgg, cifar, st, lm = (port["train"], port["vgg"], port["cifar10"],
+                              port["strategies"], port["lm"])
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    ds = cifar._synthetic(VGG_BATCH * WIN_WINDOW, seed=11)
+    images = torch.as_tensor(ds.images).to(DEVICE).view(
+        WIN_WINDOW, VGG_BATCH, 32, 32, 3)
+    labels = torch.as_tensor(ds.labels).to(DEVICE).long().view(
+        WIN_WINDOW, VGG_BATCH)
+    p0, s0 = vgg.init(0, "VGG11", device=DEVICE)
+    out = {"world_size": 1, "backend": "nccl", "H": WIN_H,
+           "card": facts["smi"]}
+    plain = dict(strategy="ddp", momentum=0.0, weight_decay=0.0,
+                 sync_every=WIN_H, max_sync_every=WIN_H)
+
+    # (a) the plain window against its oracle, the trivial outer optimizer
+    t0 = time.perf_counter()
+    t = _win_trainer(port, p0, s0, **plain)
+    plain_losses = _win_run(torch, t, images, labels)
+    got = vgg.flatten(t.params)
+    cfg = t.cfg
+    anchor, state = _fresh(p0, s0)
+    names = tr.jax_order(anchor)
+    for w in range(0, WIN_STEPS, WIN_H):
+        delta = [torch.zeros_like(anchor[k][n]) for k, n in names]
+        for i in range(w, w + WIN_H):
+            local = {}
+            leaves = []
+            for (k, n), dl in zip(names, delta):
+                x = (anchor[k][n].detach() + dl).requires_grad_(True)
+                local.setdefault(k, {})[n] = x
+                leaves.append(x)
+            loss, _ = tr._loss_fn(local, state, None, images[i], labels[i],
+                                  cfg=cfg)
+            grads = torch.autograd.grad(loss, leaves)
+            with torch.no_grad():
+                for dl, g in zip(delta, grads):  # the update -lr g
+                    dl.add_(g * -cfg.lr)
+        with torch.no_grad():
+            for (k, n), dl in zip(names, delta):
+                anchor[k][n].add_(dl)
+    want = vgg.flatten(anchor)
+    oracle_err = max((got[k] - want[k]).abs().max().item() for k in want)
+    moved = max((want[k] - vgg.flatten(p0)[k]).abs().max().item()
+                for k in want)
+    if not oracle_err <= 2e-4:
+        fail(f"(a) the plain window is {oracle_err} from the accumulated-"
+             f"update oracle")
+    t2 = _win_trainer(port, p0, s0, outer_opt="nesterov",
+                      outer_momentum=0.0, **plain)
+    trivial_losses = _win_run(torch, t2, images, labels)
+    trivial_same = torch.equal(plain_losses, trivial_losses) and all(
+        torch.equal(v, vgg.flatten(t2.params)[k]) for k, v in got.items()) \
+        and t2.sync_state.numel() == 0
+    if not trivial_same:
+        fail("(a) the trivial outer optimizer is not bitwise the plain "
+             "window")
+    del t, t2
+    res = {"plain": {"steps": WIN_STEPS, "dtype": "float32",
+                     "oracle_max_abs_err": oracle_err,
+                     "max_param_move": moved, "trivial_outer_bitwise": True,
+                     "losses": plain_losses.tolist()}}
+
+    # nesterov and momentum: each boundary against the plain outer step
+    for kind, kw in WIN_OUTER.items():
+        t = _win_trainer(port, p0, s0, outer_opt=kind, **plain, **kw)
+        seen = {}
+        real_sync = tr.sync_grads
+
+        def capture(strategy, mesh, grads, sync_state=None, call=None):
+            new = real_sync(strategy, mesh, grads, sync_state, call)
+            seen["d"] = [g.detach().clone() for g in grads]
+            return new
+
+        leaves = [t.params[k][n] for k, n in names]
+        checks = []
+
+        def before():
+            seen["a"] = [tr._to_jax_layout(x.detach()).clone()
+                         for x in leaves]
+            seen["m"] = t.sync_state.clone()
+
+        def after():
+            m_flat, off, ok = t.sync_state, 0, True
+            for x, a, d in zip(leaves, seen["a"], seen["d"]):
+                size = a.numel()
+                m = seen["m"][off:off + size].view(a.shape)
+                wa, wm = _plain_outer(kind, kw["outer_momentum"],
+                                      kw["outer_lr"], a,
+                                      tr._to_jax_layout(d), m)
+                ok &= torch.equal(tr._to_jax_layout(x.detach()), wa) and \
+                    torch.equal(m_flat[off:off + size].view(a.shape), wm)
+                off += size
+            checks.append(ok and off == m_flat.numel())
+            before()
+
+        tr.sync_grads = capture
+        try:
+            before()
+            _win_run(torch, t, images, labels, on_boundary=after)
+        finally:
+            tr.sync_grads = real_sync
+        if not (len(checks) == WIN_STEPS // WIN_H and all(checks)):
+            fail(f"(a) {kind}: the anchor or outer momentum after a "
+                 f"boundary is not the plain outer step: {checks}")
+        res[kind] = {"boundaries_bitwise": checks, **kw,
+                     "outer_momentum_max_abs":
+                         t.sync_state.abs().max().item()}
+        del t
+
+    # momentum SGD in bf16 against each strategy's per-step run
+    for name, kw in WIN_MOMENTUM.items():
+        strategy = name.split("_int")[0]
+        runs = {}
+        for h in (WIN_H, 1):
+            t = _win_trainer(port, p0, s0, strategy=strategy,
+                             compute_dtype="bfloat16", sync_every=h,
+                             max_sync_every=h, **kw)
+            runs[h] = (_win_run(torch, t, images, labels), t.sync_state)
+            del t
+        win, per = runs[WIN_H][0], runs[1][0]
+        first_rel = abs(win[0].item() - per[0].item()) / abs(per[0].item())
+        curve_rel = ((win - per).abs() / per.abs()).max().item()
+        residual = runs[WIN_H][1]
+        finite = bool(torch.isfinite(residual).all())
+        if not (first_rel <= 1e-5 and curve_rel <= 1e-1 and finite
+                and bool(torch.isfinite(win).all())):
+            fail(f"(a) {name}: the window's losses {win.tolist()} against "
+                 f"the per-step run's {per.tolist()} (step 0 {first_rel}, "
+                 f"curve {curve_rel}), residual finite {finite}")
+        res[name] = {"dtype": "bfloat16", "step0_rel": first_rel,
+                     "curve_max_rel": curve_rel,
+                     "window_losses": win.tolist(),
+                     "per_step_losses": per.tolist(),
+                     "residual_len": residual.numel(),
+                     "residual_finite": finite}
+    out["a"] = {**res, "seconds": time.perf_counter() - t0}
+    print("  (a) VGG-11 windows of 4 steps: " + json.dumps(out["a"]))
+
+    # (b) the exchange runs once a window
+    t0 = time.perf_counter()
+    bf16 = dict(strategy="ddp", compute_dtype="bfloat16")
+    trainers = {h: _win_trainer(port, p0, s0, sync_every=h,
+                                max_sync_every=h, **bf16)
+                for h in (WIN_H, 1)}
+    backend = torch.distributed.get_backend()
+    calls = {}
+    for h, t in trainers.items():
+        _win_run(torch, t, images, labels)  # warm
+        sync(torch)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _win_run(torch, t, images, labels)
+            sync(torch)
+        calls[h] = dp_calls(prof, backend)
+    n_calls = WIN_STEPS // WIN_H  # train_steps calls, each one loss sum
+    grad_syncs = {h: calls[h]["calls"].get(f"{backend}:all_reduce", 0)
+                  - n_calls for h in calls}
+    if grad_syncs[WIN_H] != WIN_STEPS // WIN_H or grad_syncs[1] != WIN_STEPS:
+        fail(f"(b) gradient all-reduces: {grad_syncs} (want "
+             f"{WIN_STEPS // WIN_H} windowed, {WIN_STEPS} per step): "
+             f"{calls}")
+    ms = {h: [] for h in trainers}
+    step_of = {h: 0 for h in trainers}
+
+    def advance(h, k):
+        t = trainers[h]
+        for _ in range(k // WIN_H):
+            i = step_of[h] % (WIN_WINDOW // WIN_H) * WIN_H
+            t.train_steps(images[i:i + WIN_H], labels[i:i + WIN_H])
+            step_of[h] += 1
+
+    for _ in range(2):
+        for h in (WIN_H, 1, 1, WIN_H):
+            sync(torch)
+            t1 = time.perf_counter()
+            advance(h, WIN_WINDOW)
+            sync(torch)
+            ms[h].append((time.perf_counter() - t1) / WIN_WINDOW * 1e3)
+    idle = {}
+    for h in trainers:
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        sync(torch)
+        t1 = time.perf_counter()
+        with prof:
+            advance(h, WIN_STEPS)
+            sync(torch)
+        wall = (time.perf_counter() - t1) / WIN_STEPS * 1e3
+        device_us = sum(e.self_device_time_total for e in
+                        prof.key_averages() if e.device_type.name == "CUDA")
+        idle[h] = {"device_ms_per_step": device_us / 1e3 / WIN_STEPS,
+                   "profiled_wall_ms_per_step": wall,
+                   "device_idle_share": 1.0 - device_us / 1e3 / WIN_STEPS
+                   / wall}
+    del trainers
+    out["b"] = {"calls": {f"H={h}": c["calls"] for h, c in
+                               calls.items()},
+                "gradient_all_reduces": {f"H={h}": v for h, v in
+                                         grad_syncs.items()},
+                "ms_per_step_windows": {f"H={h}": v for h, v in ms.items()},
+                "H4_over_H1_ms": float(np.median(ms[WIN_H])
+                                       / np.median(ms[1])),
+                "profiled": {f"H={h}": v for h, v in idle.items()},
+                "seconds": time.perf_counter() - t0}
+    print(f"  (b) ddp, {WIN_STEPS} steps at H={WIN_H} and H=1: "
+          + json.dumps(out["b"]) + f"; {facts['smi']}")
+    port["parallel_init"].shutdown()
+    torch.backends.cudnn.deterministic = det
+
+    # (c) the LM window arithmetic at LM-base width
+    t0 = time.perf_counter()
+    shapes = lm.param_shapes(lm_base_bytes(port))
+    lnames = lm.jax_order(shapes)
+    g = torch.Generator(device=DEVICE).manual_seed(23)
+    anchor = [torch.randn(shapes[n], generator=g, device=DEVICE) * 0.02
+              for n in lnames]
+    delta = [torch.randn(shapes[n], generator=g, device=DEVICE) * 1e-4
+             for n in lnames]
+    m = [torch.randn(shapes[n], generator=g, device=DEVICE) * 1e-4
+         for n in lnames]
+    n_el = sum(x.numel() for x in anchor)
+    outer = st.OuterOptimizer("nesterov", 0.9, 1.0)
+    add_ms = time_ms(torch, lambda: [a + d for a, d in zip(anchor, delta)],
+                     iters=10, warmup=2)
+    apply_ms = time_ms(torch, lambda: outer.apply(anchor, delta, m),
+                       iters=5, warmup=1)
+    bad = []
+    for n in WIN_LM_LEAVES:
+        i = lnames.index(n)
+        ga, gm = outer.apply([anchor[i]], [delta[i]], [m[i]])
+        ca, cm = outer.apply([anchor[i].cpu()], [delta[i].cpu()],
+                             [m[i].cpu()])
+        if not (torch.equal(ga[0].cpu(), ca[0])
+                and torch.equal(gm[0].cpu(), cm[0])):
+            bad.append(("apply", n))
+        # a replicated leaf and a ZeRO-3 leaf's prescale, over 2 slices of 4
+        scales = lm.window_prescales(2, 4, [None, 0])
+        for keep in (1.0, 0.0, None):
+            gp = lm.window_prescale([delta[i]] * 2, scales, keep)
+            cp = lm.window_prescale([delta[i].cpu()] * 2, scales, keep)
+            if not all(torch.equal(x.cpu(), y) for x, y in zip(gp, cp)):
+                bad.append(("prescale", n, keep))
+            if keep == 0.0 and any(x.any() for x in gp):
+                bad.append(("mask", n))
+    if bad:
+        fail(f"(c) the window arithmetic differs from the CPU's: {bad}")
+    bw = facts["bw"]
+    out["c"] = {"params": n_el, "dtype": "float32",
+                "anchor_plus_delta": {
+                    "ms": add_ms, "bytes": 12 * n_el,
+                    "bound_ms": 12 * n_el / bw * 1e3,
+                    "per": "local step"},
+                "outer_apply_nesterov": {
+                    "ms": apply_ms, "bytes": 20 * n_el,
+                    "bound_ms": 20 * n_el / bw * 1e3, "per": "boundary"},
+                "bitwise_cpu": list(WIN_LM_LEAVES),
+                "seconds": time.perf_counter() - t0}
+    del anchor, delta, m
+    torch.cuda.empty_cache()
+    print("  (c) the LM window arithmetic at LM-base width: "
+          + json.dumps(out["c"]) + f"; {facts['smi']}")
+    return out
+
+
 T_START = time.perf_counter()
 
 
@@ -4528,6 +4890,9 @@ def main() -> int:
     phase(21, "per-step sync knobs at world size 1 (NCCL): overlap, "
               "dcn_compress, the LM codecs")
     sync_knobs_phase(torch, port, facts)
+    phase(22, "sync windows at world size 1 (NCCL): VGG-11 local SGD, the "
+              "outer optimizer, the LM window arithmetic")
+    windows_phase(torch, port, facts)
     print(f"  phases done at {time.perf_counter() - T_START:.0f} s")
 
     kernels = []

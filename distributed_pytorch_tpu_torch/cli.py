@@ -21,10 +21,15 @@ each epoch.  It runs on the GPU (``cuda:{LOCAL_RANK}``) unless given
 process per device (``python -m distributed_pytorch_tpu_torch.launch
 --nproc-per-node N -- -m distributed_pytorch_tpu_torch.cli --rendezvous
 env``).  ``--overlap`` syncs each gradient bucket inside the backward
-and ``--dcn-compress`` quantizes hierarchical's cross-slice hop.  The sync
-windows of slice 5b-iii, the checkpoint, profile, telemetry and elastic
-flags of slice 5c and the planner's flags of slice 5f raise
-``NotImplementedError`` naming their sub-slice.  ``--model`` also takes
+and ``--dcn-compress`` quantizes hierarchical's cross-slice hop.
+``--sync-every H`` trains in local-SGD windows (``--outer-opt`` for the
+outer optimizer; ``--max-sync-every`` defaults to ``max(H, 1)``), with
+the JAX CLI's checks: a window must end each ``train_steps`` call, which
+at the trainer's ``steps_per_loop`` of 1 the trainer refuses, as the JAX
+one does, and ``--sync-every-per-slice`` is the LM trainer's.  The
+checkpoint, profile, telemetry and elastic flags of slice 5c and the
+planner's flags of slice 5f raise ``NotImplementedError`` naming their
+sub-slice.  ``--model`` also takes
 ``TINY``, the package's smoke configuration.
 """
 
@@ -39,8 +44,9 @@ from .data.cifar10 import load
 from .data.pipeline import DataLoader
 from .data.sampler import DistributedSampler
 from .models.transformer import (DURABILITY_SLICE, PLANNING_SLICE,
-                                 WINDOW_SLICE, not_ported)
+                                 not_ported)
 from .parallel import init as dist_init
+from .parallel import strategies as strat
 from .parallel.mesh import one_process_per_device
 from .train import STRATEGIES, TrainConfig, Trainer
 
@@ -136,13 +142,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 # (flag, the value that leaves it off, its sub-slice)
 _LATER_FLAGS = [
-    *[(f"--{n}", None, WINDOW_SLICE) for n in (
-        "max-sync-every", "outer-opt", "sync-every-per-slice")],
     *[(f"--{n}", None, PLANNING_SLICE) for n in ("sync-route",
                                                  "autotune-profile")],
     *[(f"--{n}", None, DURABILITY_SLICE) for n in (
         "checkpoint-dir", "profile-dir", "telemetry-dir", "max-nodes")],
-    ("--sync-every", 1, WINDOW_SLICE),
     ("--elastic", False, DURABILITY_SLICE),
     ("--min-nodes", 1, DURABILITY_SLICE),
 ]
@@ -157,6 +160,39 @@ def refuse_later_flags(args) -> None:
             raise not_ported(f"{flag} {value!r}", where)
     if args.num_devices not in (None, 1):
         one_process_per_device(args.num_devices)
+
+
+def window_args(parser: argparse.ArgumentParser, args) -> int:
+    """The JAX CLI's window flags: ``--max-sync-every`` (default ``max(
+    --sync-every, 1)``, returned), ``--sync-every-per-slice`` parsed, and
+    ``require_sync_window``'s refusals as usage errors."""
+    max_sync_every = (args.max_sync_every if args.max_sync_every is not None
+                      else max(args.sync_every, 1))
+    sync_every_per_slice = None
+    if args.sync_every_per_slice is not None:
+        try:
+            sync_every_per_slice = tuple(
+                int(x) for x in args.sync_every_per_slice.split(","))
+        except ValueError:
+            parser.error(
+                f"--sync-every-per-slice must be a comma-separated list of "
+                f"ints, got {args.sync_every_per_slice!r}")
+    if (args.sync_every != 1 or max_sync_every != 1
+            or args.outer_opt is not None
+            or sync_every_per_slice is not None):
+        meshless = (args.strategy not in ("auto", "routed")
+                    and not strat.get(args.strategy).needs_mesh)
+        try:
+            strat.require_sync_window(
+                sync_every=args.sync_every, max_sync_every=max_sync_every,
+                mesh=not meshless, overlap=args.overlap, trainer="train",
+                outer_opt=args.outer_opt,
+                outer_momentum=args.outer_momentum,
+                outer_lr=args.outer_lr,
+                sync_every_per_slice=sync_every_per_slice)
+        except ValueError as e:
+            parser.error(str(e))
+    return max_sync_every
 
 
 def build_loaders(args, n_replicas: int, replica_offset: int
@@ -185,8 +221,10 @@ def run(argv: list[str] | None = None, on_step=None) -> dict:
     "epochs": [{"loss_meter", "time_meter", "eval": (avg_loss,
     accuracy)}], "synthetic"}``.  ``on_step(step)`` is passed to
     ``Trainer.train_epoch``."""
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
     refuse_later_flags(args)
+    args.max_sync_every = window_args(parser, args)
     # rendezvous first: the device is bound (cuda:{LOCAL_RANK}) before any
     # CUDA tensor exists, as the reference's init precedes every torch call
     if args.rendezvous == "env":
@@ -215,7 +253,9 @@ def _train(args, device, on_step) -> dict:
         seed=args.seed, dcn_size=args.dcn_size,
         dcn_compress=args.dcn_compress, overlap=args.overlap,
         overlap_bucket_mb=args.overlap_bucket_mb,
-        outer_momentum=args.outer_momentum, outer_lr=args.outer_lr)
+        sync_every=args.sync_every, max_sync_every=args.max_sync_every,
+        outer_opt=args.outer_opt, outer_momentum=args.outer_momentum,
+        outer_lr=args.outer_lr)
     try:
         trainer = Trainer(cfg, num_devices=args.num_devices, device=device)
     except ValueError as e:

@@ -14,7 +14,11 @@ A ZeRO-3 run (``fsdp``) holds each rank's shards: ``from_jax_lm_sharded``
 cuts JAX's whole params (or Adam moments) to one rank's, and
 ``to_jax_lm_gathered`` puts a gang's shards back together in JAX's tree;
 a ``dcn_compress`` run's residual crosses a row a rank
-(``from_jax_sync_state``), as the VGG trainer's does.
+(``from_jax_sync_state``), as the VGG trainer's does.  Under sync windows
+the JAX trainer stacks the delta and the Adam moments on a leading
+``dcn`` axis, one row a slice; a port rank holds its slice's row
+(``from_jax_window_row``, and back over a gang,
+``to_jax_window_stacked``).
 
 The optimizer state crosses too: the Adam moments and step count of an
 optax ``chain(clip_by_global_norm, adamw)`` state (its ``ScaleByAdamState``
@@ -143,6 +147,44 @@ def to_jax_lm_gathered(shards: list[dict], dims: dict) -> dict:
                                                                   axis=dim)
     return to_jax_params({k: torch.from_numpy(np.ascontiguousarray(v))
                           for k, v in whole.items()})
+
+
+def _map_leaves(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def from_jax_window_row(tree, slice_idx: int, dims: dict, rank: int,
+                        n_data: int, device: str | torch.device = "cuda"
+                        ) -> dict[str, torch.Tensor]:
+    """One rank's share of the JAX LM trainer's ``dcn``-stacked window
+    state (the delta, or an Adam moment, each leaf with a leading slice
+    axis): row ``slice_idx`` (the rank's slice, ``rank // n_data``), then
+    the rank's ZeRO-3 shard of it (``from_jax_lm_sharded``)."""
+    row = _map_leaves(tree, lambda a: np.asarray(a)[slice_idx])
+    return from_jax_lm_sharded(row, dims, rank, n_data, device=device)
+
+
+def to_jax_window_stacked(shards: list[dict], dims: dict,
+                          n_dcn: int) -> dict:
+    """``from_jax_window_row``'s inverse over a gang: ``shards[r]`` is rank
+    r's flat dict (ranks in order, slices outermost); each slice's ranks
+    are gathered (``to_jax_lm_gathered``) and the slices stacked on a
+    leading axis, JAX's layout of the window state."""
+    n_data = len(shards) // n_dcn
+    rows = [to_jax_lm_gathered(shards[s * n_data:(s + 1) * n_data], dims)
+            for s in range(n_dcn)]
+
+    def stack(*leaves):
+        return np.stack(leaves)
+
+    def walk(nodes):
+        if isinstance(nodes[0], dict):
+            return {k: walk([n[k] for n in nodes]) for k in nodes[0]}
+        return stack(*nodes)
+
+    return walk(rows)
 
 
 def _is_adam_state(node) -> bool:
@@ -288,3 +330,22 @@ def from_jax_sync_state(sync_state, rank: int,
     row = np.array(np.asarray(sync_state)[rank], dtype=np.float32,
                    copy=True)
     return torch.from_numpy(row).to(resolve_device(device))
+
+
+def from_jax_replica_sgd_state(opt_state, rank: int,
+                               device: str | torch.device = "cuda") -> dict:
+    """Rank ``rank``'s momentum buffers from a windowed JAX mesh trainer's
+    optimizer state, whose leaves carry a leading device axis (each
+    replica's own momentum across windows): ``from_jax_sgd_state`` on row
+    ``rank``.  The VGG ``sync_state`` row (``from_jax_sync_state``) crosses
+    with its outer-momentum tail as it is: the port keeps it raveled in
+    the JAX layout."""
+    def walk(node):
+        if _is_trace_state(node):
+            return node._replace(trace=_map_leaves(
+                node.trace, lambda a: np.asarray(a)[rank]))
+        if isinstance(node, tuple) and not hasattr(node, "_fields"):
+            return tuple(walk(child) for child in node)
+        return node
+
+    return from_jax_sgd_state(walk(opt_state), device=device)

@@ -66,6 +66,20 @@ sums each sharded leaf's squares over ``data`` and counts each replicated
 leaf once.  Without these knobs a ``dp`` step is the flat all-reduce above,
 unchanged.
 
+**The sync windows** (``sync_every = H > 1``, which needs ``dcn_size >=
+2``): the slices train apart for H steps and exchange the sum of their
+updates (``LMWindowSteps``).  ``params`` hold the anchor, the last
+exchanged point; each rank keeps its slice's delta and Adam state, steps
+at ``anchor + delta`` on a gradient synced within its slice alone, and at
+each boundary the slices' deltas are averaged through the two-level sync
+(its residual under ``dcn_compress``) and move the anchor, or move it
+through the DiLoCo outer optimizer (``outer_opt``).  ``staleness = S``
+applies the exchange S steps after it launches; ``sync_every_per_slice``
+lets a slice skip boundaries.  The JAX window step's gradient carries an
+extra factor (``n_data`` on each leaf not sharded over ``data``); the port
+steps on the documented one, each slice's gradient of its own tokens at
+the full-batch rate.
+
 ``LMTrainConfig`` keeps every field of the JAX config so configs cross
 between the packages unchanged; a non-default value of a field that
 belongs to a later slice raises ``NotImplementedError`` naming it.
@@ -93,7 +107,7 @@ from .utils.device import resolve_device
 
 IGNORE = IGNORE_INDEX  # target id excluded from the loss (padding)
 
-WINDOW_SLICE, DURABILITY_SLICE = tfm.WINDOW_SLICE, tfm.DURABILITY_SLICE
+DURABILITY_SLICE = tfm.DURABILITY_SLICE
 PARALLEL_SLICE, PLANNING_SLICE = tfm.PARALLEL_SLICE, tfm.PLANNING_SLICE
 ADAM_EPS = 1e-8  # optax.adamw's default
 
@@ -158,13 +172,9 @@ class LMTrainConfig:
 # Fields whose non-default values belong to a later slice: name -> (the
 # value that means "off", the slice).
 _LATER = {
-    **{n: (1, WINDOW_SLICE) for n in ("sync_every", "max_sync_every")},
     **{n: (1, PARALLEL_SLICE) for n in ("sp", "tp", "pp", "ep",
                                         "interleave")},
-    **{n: (None, WINDOW_SLICE) for n in ("outer_opt",
-                                         "sync_every_per_slice")},
     **{n: (None, PLANNING_SLICE) for n in ("sync_plan", "sync_route")},
-    "staleness": (0, WINDOW_SLICE),
     "pp_size": (0, PARALLEL_SLICE),
     "microbatches": (0, PARALLEL_SLICE),
 }
@@ -205,6 +215,17 @@ def validate_lm_cfg(cfg: LMTrainConfig) -> None:
                 "(pp/pp_size): the pipeline gradient paths are "
                 "hand-emitted without the stateful sync-state channel "
                 "(open item); drop the pipeline or the compression")
+    if (cfg.sync_every != 1 or cfg.staleness != 0
+            or cfg.max_sync_every != 1 or cfg.outer_opt is not None
+            or cfg.sync_every_per_slice is not None):
+        strat.require_sync_window(
+            sync_every=cfg.sync_every, staleness=cfg.staleness,
+            max_sync_every=cfg.max_sync_every, mesh=True,
+            overlap=cfg.overlap, pp=pipelined,
+            grad_accum=cfg.grad_accum, dcn_size=cfg.dcn_size,
+            trainer="lm", outer_opt=cfg.outer_opt,
+            outer_momentum=cfg.outer_momentum, outer_lr=cfg.outer_lr,
+            sync_every_per_slice=cfg.sync_every_per_slice)
     if cfg.fsdp_gather_dtype is not None:
         if cfg.fsdp_gather_dtype not in ("int8", "int4"):
             raise ValueError(
@@ -343,7 +364,10 @@ def make_optimizer(cfg: LMTrainConfig):
 
     @torch.no_grad()
     def update(params: dict, grads: dict, opt_state: dict,
-               grad_sq_sum: torch.Tensor) -> None:
+               grad_sq_sum: torch.Tensor, target: dict | None = None
+               ) -> None:
+        """``target`` (a sync window's delta) takes the update in place
+        of ``params``, which the weight decay reads."""
         names = list(params)
         p = [params[n] for n in names]
         g = [grads[n] for n in names]
@@ -371,7 +395,8 @@ def make_optimizer(cfg: LMTrainConfig):
         del den
         torch._foreach_add_(upd, torch._foreach_mul(p, wd))
         torch._foreach_mul_(upd, -lr)
-        torch._foreach_add_(p, upd)
+        torch._foreach_add_(p if target is None else
+                            [target[n] for n in names], upd)
         opt_state["count"] = count
 
     return update
@@ -657,8 +682,11 @@ def sharded(cfg: LMTrainConfig) -> bool:
 
 
 def _streamed(cfg: LMTrainConfig) -> bool:
-    """Whether the dcn sync points stream per layer group."""
-    return cfg.overlap and cfg.dcn_size > 1 and cfg.grad_accum == 1
+    """Whether the dcn sync points stream per layer group (never under
+    sync windows: the compressed exchange runs at the window boundary,
+    over the whole tree)."""
+    return (cfg.overlap and cfg.dcn_size > 1 and cfg.grad_accum == 1
+            and cfg.sync_every == 1)
 
 
 def lm_sync_state_len(cfg: LMTrainConfig) -> int:
@@ -764,7 +792,8 @@ class LMSync:
 
     def stream_boundary(self, params: dict, *, dcn_sync: bool,
                         inflight, residual: torch.Tensor | None = None,
-                        new_res: dict | None = None):
+                        new_res: dict | None = None,
+                        local_sync: bool = False):
         """The ``overlap`` hook for ``transformer.apply``: at each layer
         group's boundary the group's ZeRO-3 leaves are gathered, and in the
         backward, right after the group's own backward, their gradients are
@@ -773,7 +802,8 @@ class LMSync:
         exchange), issued through ``inflight`` (a side stream on the card;
         ``.grad`` is written when the backward ends).  With compression
         each group takes its residual segment in group order; the new ones
-        land in ``new_res`` by group."""
+        land in ``new_res`` by group.  ``local_sync`` (a window's local
+        step) syncs within the slice instead (``local_sync``)."""
         cfg = self.cfg
         keys = {v: k for k, v in tfm.sync_group_index(cfg.model).items()}
         compress = cfg.dcn_compress if dcn_sync else None
@@ -789,7 +819,7 @@ class LMSync:
             # the leaves whose gradients the point delivers itself; a
             # replicated leaf without the dcn sync goes back to autograd
             mine = [i for i, d in enumerate(dims)
-                    if dcn_sync or d is not None]
+                    if dcn_sync or local_sync or d is not None]
             res = None
             if compress is not None:
                 seg = _residual_total_len(
@@ -809,6 +839,8 @@ class LMSync:
                 shards = [ct if dims[i] is None else
                           _scatter_dim(ct, dims[i], self.data)
                           for i, ct in zip(mine, cts)]
+                if local_sync:
+                    return self.local_sync(shards, [dims[i] for i in mine])
                 if not dcn_sync:
                     return shards
                 synced, new = self.two_level(
@@ -834,6 +866,22 @@ class LMSync:
             return out
 
         return boundary
+
+    def local_sync(self, grads: list, dims: list) -> list:
+        """A window's local-step gradient sync (the JAX
+        ``_local_sync_point``, without the reference's extra factor): the
+        replicated leaves summed over the slice's ``data`` ranks in one
+        flat all-reduce (the ZeRO-3 leaves come reduce-scattered), then
+        every leaf times ``n_dcn``: each slice's gradient of its own
+        tokens at the full-batch rate.  No byte crosses ``dcn``."""
+        rep = [i for i, d in enumerate(dims) if d is None]
+        out = list(grads)
+        if rep:
+            for i, t in zip(rep, flat_all_reduce([grads[i] for i in rep],
+                                                 self.data)):
+                out[i] = t
+        torch._foreach_mul_(out, float(self.n_dcn))
+        return out
 
     def global_sq(self, tensors: list) -> torch.Tensor:
         """The sum of squares of the whole leaves from this rank's (in
@@ -912,6 +960,172 @@ def _make_sharded_step(cfg: LMTrainConfig, attn_impl: str, mesh, update,
         return loss, ok, met, sync_state
 
     return step
+
+
+def window_prescales(n_dcn: int, n_data: int, dims: list) -> list[float]:
+    """The JAX ``_prescale`` of each leaf's window delta: one over ``n_dcn``
+    times ``n_data`` for a leaf not sharded over ``data`` (``dims[i]``
+    None: the slice's ``n_data`` ranks all add their copy to the sum), one
+    over ``n_dcn`` for a ZeRO-3 leaf, so that the two-level sum is the
+    slices' mean."""
+    return [1.0 / (n_dcn * (1 if d is not None else n_data)) for d in dims]
+
+
+def window_prescale(deltas: list, scales: list,
+                    keep: float | None = None) -> list:
+    """The boundary's arithmetic before the exchange, new tensors: each
+    delta times this slice's entry of the per-slice mask ``keep`` (1.0 or
+    0.0; None without ``sync_every_per_slice``), then times its
+    prescale."""
+    if keep is not None:
+        deltas = [x * keep for x in deltas]
+    return [x * sc for x, sc in zip(deltas, scales)]
+
+
+class LMWindowSteps:
+    """The sync windows' programs (``sync_every = H > 1`` over the
+    ``("dcn", "data")`` mesh; the JAX ``make_lm_window_steps``), for one
+    rank.  A rank belongs to slice ``rank // n_data`` and holds that
+    slice's row of the JAX trainer's ``dcn``-stacked window state: the
+    anchor (``LMTrainer.params``, ZeRO-3 shards under ``fsdp``), the delta
+    and the Adam state in the params' layout, the residual, and the outer
+    momentum in the anchor's layout.  Every program takes and returns
+    name-keyed dicts of this rank's tensors.
+
+    - ``local_step``: one optimizer step at ``anchor + delta``, its
+      gradient synced within the slice alone (``LMSync.local_sync``:
+      ZeRO-3 leaves through their reduce-scatter, replicated leaves
+      summed over ``data``, times ``n_dcn``), clipped by the slice's norm,
+      the AdamW update added to the delta.  The valid-token count before
+      the backward, and the loss with the metrics after it, are scalars
+      summed over the world group, the JAX step's scalar ``psum``s; the
+      metrics are the JAX step's (the grad-norm over every slice's
+      gradient, the param-norm over every slice's ``anchor + delta``).
+    - ``exchange``: the delta masked (``sync_every_per_slice``), divided
+      by ``n_dcn`` times ``n_data`` for a leaf not sharded over ``data``
+      (``_prescale``: the slice's ``n_data`` copies of a replicated delta
+      are all summed), through ``LMSync.two_level`` (the residual under
+      ``dcn_compress``) to the slices' mean, the anchor moved by it or by
+      the outer optimizer, and the delta zeroed (a skipping slice keeps
+      its own).
+    - ``launch`` / ``apply_pending`` (``staleness > 0``): the same
+      exchange, returning the mean and a copy of the delta; ``S`` steps
+      later the anchor moves by the mean and the copy is subtracted from
+      the live delta."""
+
+    def __init__(self, cfg: LMTrainConfig, mesh, update, loss_fn):
+        self.cfg = cfg
+        self.sync = LMSync(cfg, mesh, param_shapes(cfg.model))
+        self.update = update
+        self.loss_fn = loss_fn
+        self.outer = strat.OuterOptimizer.of(cfg)
+        self.slice = dist.get_rank(self.sync.dcn)
+        self.prescales = window_prescales(
+            cfg.dcn_size, self.sync.n_data,
+            [self.sync.dims[n] for n in self.sync.names])
+
+    def _local_grads(self, local: dict, tokens, targets) -> torch.Tensor:
+        cfg, sync = self.cfg, self.sync
+        n_total = (targets != IGNORE).sum().float()
+        dist.all_reduce(n_total, group=sync.world)
+        if cfg.overlap:
+            inflight = strat._InFlight()
+            boundary = sync.stream_boundary(local, dcn_sync=False,
+                                            inflight=inflight,
+                                            local_sync=True)
+            loss = self.loss_fn(local, tokens, targets, n_total,
+                                cfg.aux_coef, boundary=boundary)
+            loss.backward()
+            return loss.detach()
+        loss = self.loss_fn(sync.gather_all(local, cfg.fsdp_gather_dtype),
+                            tokens, targets, n_total, cfg.aux_coef)
+        loss.backward()
+        names = sync.names
+        synced = sync.local_sync([local[n].grad for n in names],
+                                 [sync.dims[n] for n in names])
+        for n, g in zip(names, synced):
+            local[n].grad = g
+        return loss.detach()
+
+    def local_step(self, anchor: dict, delta: dict, opt_state: dict,
+                   tokens, targets):
+        """``(loss, ok, met)``; ``delta`` and ``opt_state`` change in
+        place."""
+        sync = self.sync
+        names = sync.names
+        local = {n: (anchor[n].detach() + delta[n]).requires_grad_(True)
+                 for n in names}
+        loss = self._local_grads(local, tokens, targets)
+        grads = [local[n].grad for n in names]
+        gsq = sync.global_sq(grads)
+        self.update(local, dict(zip(names, grads)), opt_state, gsq,
+                    target=delta)
+        with torch.no_grad():
+            psq = sync.global_sq([anchor[n].detach() + delta[n]
+                                  for n in names])
+            # each slice's norms once: its data rank 0 contributes them
+            mine = float(sync.data_rank == 0)
+            vec = torch.stack([loss.float(), gsq * mine, psq * mine])
+            dist.all_reduce(vec, group=sync.world)
+        ok = (torch.isfinite(vec[0]) & torch.isfinite(vec[1])).float()
+        return vec[0], ok, vec[1:].sqrt()
+
+    @torch.no_grad()
+    def _mean(self, delta: dict, residual: torch.Tensor | None,
+              mask: list | None = None):
+        """The slices' mean delta and the new residual."""
+        cfg, sync = self.cfg, self.sync
+        names = sync.names
+        # the mask comes before the prescale and the quantization, so the
+        # residual keeps the exact error of what was sent
+        d = window_prescale([delta[n] for n in names], self.prescales,
+                            None if mask is None else mask[self.slice])
+        mean, new = sync.two_level(d, names, sync.bucket_bytes,
+                                   cfg.dcn_compress, residual)
+        return dict(zip(names, mean)), new
+
+    @torch.no_grad()
+    def _move(self, anchor: dict, d_avg: dict, m: dict | None):
+        """The anchor moved by the mean (in place); the new momentum."""
+        names = self.sync.names
+        if self.outer is None:
+            torch._foreach_add_([anchor[n] for n in names],
+                                [d_avg[n] for n in names])
+            return m
+        new, new_m = self.outer.apply([anchor[n] for n in names],
+                                      [d_avg[n] for n in names],
+                                      [m[n] for n in names])
+        for n, t in zip(names, new):
+            anchor[n].copy_(t)
+        return dict(zip(names, new_m))
+
+    @torch.no_grad()
+    def exchange(self, anchor: dict, delta: dict, residual, m,
+                 mask: list | None = None):
+        """The boundary: ``(new residual, new momentum)``; the anchor and
+        the delta change in place."""
+        d_avg, residual = self._mean(delta, residual, mask)
+        m = self._move(anchor, d_avg, m)
+        if mask is None or mask[self.slice] != 0:
+            for x in delta.values():
+                x.zero_()
+        return residual, m
+
+    @torch.no_grad()
+    def launch(self, delta: dict, residual):
+        """``(mean, a copy of the delta, new residual)``."""
+        d_avg, residual = self._mean(delta, residual)
+        return d_avg, {n: x.clone() for n, x in delta.items()}, residual
+
+    @torch.no_grad()
+    def apply_pending(self, anchor: dict, delta: dict, d_avg: dict,
+                      snap: dict, m):
+        """The deferred apply: the new momentum; the anchor and the delta
+        change in place."""
+        m = self._move(anchor, d_avg, m)
+        for n, x in delta.items():
+            x.sub_(snap[n])
+        return m
 
 
 def make_lm_train_step(cfg: LMTrainConfig, attn_impl: str = "flash",
@@ -1017,6 +1231,9 @@ class LMTrainer:
     package's draws), rank 0's broadcast; ``load_state`` takes whole params,
     optimizer state and a residual carried from a JAX run (convert.py).
     ``full_params`` gathers the whole params (every rank must call it).
+    Under ``sync_every > 1`` (``window``, ``LMWindowSteps``) ``params``
+    are the anchor, which ``evaluate`` and ``full_params`` read; the
+    rank's delta, pending exchange and outer momentum sit beside them.
     ``attn_impl`` chooses the attention of the forward (``"flash"``, the
     JAX package's default, or ``"reference"``)."""
 
@@ -1045,11 +1262,33 @@ class LMTrainer:
         self.sync_state = torch.zeros(lm_sync_state_len(cfg),
                                       dtype=torch.float32,
                                       device=self.device)
-        self.step_fn = make_lm_train_step(cfg, attn_impl, mesh)
+        self.window = None  # the sync windows' programs (sync_every > 1)
+        if cfg.sync_every > 1:
+            self.step_fn = None
+            self.window = LMWindowSteps(
+                cfg, mesh, make_optimizer(cfg),
+                partial(_loss_fn, cfg, attn_impl, n_ranks=mesh.size()))
+        else:
+            self.step_fn = make_lm_train_step(cfg, attn_impl, mesh)
+        self._init_window_state()
         self._eval_fn = make_lm_eval_step(cfg, attn_impl, mesh)
         self._step = 0
         self.last_ok = None       # health flag of the last step (tensor)
         self.last_metrics = None  # [grad-norm, param-norm] of the last step
+
+    def _init_window_state(self) -> None:
+        """Under sync windows: this rank's zero delta (the params' layout),
+        no pending exchange, and with a non-trivial ``outer_opt`` the
+        float32 zero outer momentum (the anchor's layout); ``params`` stay
+        the anchor, the last exchanged point."""
+        self._delta = self._outer_m = self._pending = None
+        if self.window is None:
+            return
+        self._delta = {n: torch.zeros_like(p, requires_grad=False)
+                       for n, p in self.params.items()}
+        if self.window.outer is not None:
+            self._outer_m = dict(zip(self.params, self.window.outer
+                                     .init_state(self.params.values())))
 
     def _shard(self, tree: dict) -> dict:
         """This rank's ZeRO-3 shards of whole leaves (copies)."""
@@ -1075,10 +1314,12 @@ class LMTrainer:
                    sync_state: torch.Tensor | None = None) -> None:
         """Take whole params (the port's flat dict, e.g. from
         ``convert.from_jax_params``), optionally the Adam state
-        (``convert.from_jax_opt_state``, whole moments) and this rank's
-        residual (``convert.from_jax_sync_state``); with ``fsdp`` each is
-        cut to this rank's shard.  The step count follows the optimizer
-        state's, or restarts at 0 without one."""
+        (``convert.from_jax_opt_state``, whole moments; under sync windows
+        this rank's slice's row) and this rank's residual
+        (``convert.from_jax_sync_state``); with ``fsdp`` each is cut to
+        this rank's shard.  The step count follows the optimizer state's,
+        or restarts at 0 without one; a sync window restarts from the
+        loaded point (zero delta and outer momentum)."""
         if sorted(params) != sorted(self.params):
             raise ValueError("params do not match the model's parameter "
                              "names")
@@ -1098,6 +1339,7 @@ class LMTrainer:
                                  f"{tuple(self.sync_state.shape)}")
             self.sync_state = sync_state.to(self.device, torch.float32)
         self._step = self.opt_state["count"]
+        self._init_window_state()
 
     @torch.no_grad()
     def full_params(self) -> dict[str, torch.Tensor]:
@@ -1120,6 +1362,8 @@ class LMTrainer:
         mesh); returns the global batch's loss as a 0-dim tensor (not
         fetched to the host)."""
         tokens, targets = self._batch(tokens, targets)
+        if self.window is not None:
+            return self._train_step_windowed(tokens, targets)
         if self.sync is not None:
             loss, self.last_ok, self.last_metrics, self.sync_state = \
                 self.step_fn(self.params, self.opt_state, tokens, targets,
@@ -1128,6 +1372,36 @@ class LMTrainer:
             loss, self.last_ok, self.last_metrics = self.step_fn(
                 self.params, self.opt_state, tokens, targets)
         self._step += 1
+        return loss
+
+    def _train_step_windowed(self, tokens, targets):
+        """One local step of the ``sync_every = H`` schedule, then what the
+        step count makes due: the exchange at multiples of H (its launch
+        with ``staleness = S > 0``, and the deferred apply at kH + S); with
+        ``sync_every_per_slice`` the exchange masks out each slice whose
+        interval does not divide the step."""
+        w, cfg = self.window, self.cfg
+        h, s = cfg.sync_every, cfg.staleness
+        loss, self.last_ok, self.last_metrics = w.local_step(
+            self.params, self._delta, self.opt_state, tokens, targets)
+        self._step += 1
+        if self._step % h == 0:
+            if s == 0:
+                per = cfg.sync_every_per_slice
+                mask = None if per is None else \
+                    [1.0 if self._step % hi == 0 else 0.0 for hi in per]
+                self.sync_state, self._outer_m = w.exchange(
+                    self.params, self._delta, self.sync_state,
+                    self._outer_m, mask)
+            else:
+                d_avg, snap, self.sync_state = w.launch(self._delta,
+                                                        self.sync_state)
+                self._pending = (d_avg, snap)
+        elif self._pending is not None and self._step % h == s:
+            d_avg, snap = self._pending
+            self._pending = None
+            self._outer_m = w.apply_pending(self.params, self._delta, d_avg,
+                                            snap, self._outer_m)
         return loss
 
     def evaluate(self, batches) -> dict[str, float]:

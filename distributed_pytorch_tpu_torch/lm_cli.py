@@ -27,9 +27,16 @@ the run ends.  The per-step sync knobs work as in the JAX package:
 int8|int4`` quantizes its gathers), ``--dcn-size S`` (the two-level sync
 over S slices; ``--dcn-compress int8|int4`` quantizes the cross-slice
 hop with an error-feedback residual), ``--bucket-mb`` and ``--overlap``.
-Each needs a gang of two or more processes (``--dp``; on GPUs, one card a
-process).  Flags of later slices (the other parallel degrees, the sync
-windows, elastic membership, checkpoints, telemetry, profiling) end the
+The sync windows too: ``--sync-every H`` (local steps, the slices
+exchanging their accumulated update every H steps), ``--staleness S``
+(the exchange applied S steps after it launches), ``--outer-opt
+nesterov|momentum`` with ``--outer-momentum`` and ``--outer-lr`` (the
+outer optimizer at each boundary), ``--sync-every-per-slice H0,H1,...``
+(a window a slice) and ``--max-sync-every`` (default ``max(H, 1)``),
+with the JAX CLI's checks as usage errors; a window needs ``--dcn-size``
+of 2 or more.  Each needs a gang of two or more processes (``--dp``; on
+GPUs, one card a process).  Flags of later slices (the other parallel
+degrees, elastic membership, checkpoints, telemetry, profiling) end the
 run with a usage error naming the slice.
 """
 
@@ -46,9 +53,10 @@ import torch
 
 from .data import lm_corpus
 from .lm import (DURABILITY_SLICE, PARALLEL_SLICE, PLANNING_SLICE,
-                 WINDOW_SLICE, LMTrainConfig, LMTrainer, make_lm_mesh)
+                 LMTrainConfig, LMTrainer, make_lm_mesh)
 from .models import transformer as tfm
 from .parallel import init as dist_init
+from .parallel import strategies as strat
 
 DEFAULT_PORT = dist_init.DEFAULT_PORT  # the JAX package's rendezvous port
 
@@ -164,12 +172,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 # (flag, argparse dest, the value that leaves it off, its slice)
 _LATER_FLAGS = [
-    ("--sync-every", "sync-every", 1, WINDOW_SLICE),
     *[(f"--{n}", n, 1, PARALLEL_SLICE)
       for n in ("sp", "tp", "pp", "ep", "interleave")],
     ("--min-nodes", "min-nodes", 1, DURABILITY_SLICE),
-    *[(f"--{n}", n, None, WINDOW_SLICE)
-      for n in ("max-sync-every", "outer-opt", "sync-every-per-slice")],
     *[(f"--{n}", n, None, PLANNING_SLICE)
       for n in ("sync-plan", "sync-route", "autotune-profile")],
     *[(f"--{n}", n, None, DURABILITY_SLICE)
@@ -178,7 +183,6 @@ _LATER_FLAGS = [
     *[(f"--{n}", n, False, DURABILITY_SLICE)
       for n in ("elastic", "checkpoint-sharded")],
     *[(f"--{n}", n, 0, PARALLEL_SLICE) for n in ("pp-size", "microbatches")],
-    ("--staleness", "staleness", 0, WINDOW_SLICE),
 ]
 
 
@@ -189,6 +193,38 @@ def refuse_later_flags(parser: argparse.ArgumentParser, args) -> None:
         if value != off:
             parser.error(f"{flag} {value!r} is not ported to PyTorch yet: "
                          f"{where}")
+
+
+def window_args(parser: argparse.ArgumentParser, args) -> None:
+    """The JAX CLI's window flags: ``args.max_sync_every`` defaulted to
+    ``max(--sync-every, 1)``, ``args.sync_every_per_slice`` parsed to a
+    tuple, and ``require_sync_window``'s refusals as usage errors."""
+    if args.max_sync_every is None:
+        args.max_sync_every = max(args.sync_every, 1)
+    if args.sync_every_per_slice is not None:
+        try:
+            args.sync_every_per_slice = tuple(
+                int(x) for x in args.sync_every_per_slice.split(","))
+        except ValueError:
+            parser.error("--sync-every-per-slice wants comma-separated "
+                         f"ints (one H per dcn slice), got "
+                         f"{args.sync_every_per_slice!r}")
+    if (args.sync_every != 1 or args.staleness != 0
+            or args.max_sync_every != 1 or args.outer_opt is not None
+            or args.sync_every_per_slice is not None):
+        try:
+            strat.require_sync_window(
+                sync_every=args.sync_every, staleness=args.staleness,
+                max_sync_every=args.max_sync_every, mesh=True,
+                overlap=args.overlap,
+                pp=args.pp > 1 or args.pp_size > 0,
+                grad_accum=args.grad_accum, dcn_size=args.dcn_size,
+                trainer="lm", outer_opt=args.outer_opt,
+                outer_momentum=args.outer_momentum,
+                outer_lr=args.outer_lr,
+                sync_every_per_slice=args.sync_every_per_slice)
+        except ValueError as e:
+            parser.error(str(e))
 
 
 def model_config(args) -> tfm.TransformerConfig:
@@ -221,6 +257,7 @@ def run(argv: list[str] | None = None, on_step=None) -> LMTrainer:
         parser.error("--remat does not compose with --pp/--pp-size: the "
                      "pipeline schedulers own their own rematerialization; "
                      "drop one")
+    window_args(parser, args)
     refuse_later_flags(parser, args)
     # rendezvous first: the device is bound (cuda:{LOCAL_RANK}) before any
     # CUDA tensor exists
@@ -248,7 +285,11 @@ def _train(args, device, on_step) -> LMTrainer:
         remat=args.remat or "none", fsdp=args.fsdp,
         fsdp_gather_dtype=args.fsdp_gather_dtype, dcn_size=args.dcn_size,
         dcn_compress=args.dcn_compress, bucket_mb=args.bucket_mb,
-        overlap=args.overlap)
+        overlap=args.overlap, sync_every=args.sync_every,
+        staleness=args.staleness, max_sync_every=args.max_sync_every,
+        outer_opt=args.outer_opt, outer_momentum=args.outer_momentum,
+        outer_lr=args.outer_lr,
+        sync_every_per_slice=args.sync_every_per_slice)
     mesh = None
     if args.rendezvous == "env" or args.num_nodes > 1 or args.dp > 1:
         mesh = make_lm_mesh(cfg, device=device)  # --dp: the gang's size

@@ -43,9 +43,7 @@ from ..utils.device import resolve_device
 Params = dict[str, torch.Tensor]
 
 # The sub-slices of slice 5 still to port, each named by the refusals of
-# its work (slices 5a and 5b's first two thirds are ported).
-WINDOW_SLICE = ("ROADMAP.md queue 1, slice 5b-iii (the sync windows: "
-                "sync_every, staleness, the outer optimizer)")
+# its work (slices 5a and 5b are ported).
 DURABILITY_SLICE = ("ROADMAP.md queue 1, slice 5c (durability and "
                     "observability)")
 PARALLEL_SLICE = "ROADMAP.md queue 1, slice 5d (model parallelism)"

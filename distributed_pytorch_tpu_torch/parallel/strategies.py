@@ -56,8 +56,14 @@ card the collective is issued on a side stream (``_InFlight``), so the
 backward kernels of the earlier layers run while it is in flight; the
 synced gradients reach ``.grad`` in a callback at the end of the backward,
 after the default stream has waited on the side stream, and nothing reads
-them before.  Local-SGD windows and the DiLoCo outer optimizer belong to
-slice 5b-iii; ``RoutedSync``, ``auto`` and ``routed`` to slice 5f.
+them before.
+
+**Sync windows** (``sync_every > 1``): ``require_sync_window`` is the one
+coherence check of both trainers and both CLIs; ``Hierarchical`` adds the
+window's two halves, ``local_sync`` (the within-slice mean of a local
+step) and ``window_exchange`` (the cross-slice mean of the accumulated
+delta at a boundary); ``OuterOptimizer`` is the DiLoCo outer step of a
+boundary.  ``RoutedSync``, ``auto`` and ``routed`` belong to slice 5f.
 """
 
 from __future__ import annotations
@@ -703,6 +709,159 @@ class Hierarchical:
             sync_state)
 
 
+    # -- the sync windows (sync_every > 1) --------------------------------
+    # A window's local steps run ``local_sync`` (the within-slice mean:
+    # the per-step path's ici hops, no dcn hop) and its boundary runs
+    # ``window_exchange`` on the accumulated update delta (the slow hop,
+    # shard-sized, once a window).
+
+    def local_sync(self, grads: list, axis) -> list:
+        """The within-slice gradient mean of a window's local step: the
+        reduce-scatter and all-gather over ``ici`` with no ``dcn`` hop,
+        scaled by ``1/n_ici``.  Never compressed (compression is the dcn
+        hop's knob), so stateless whatever ``dcn_compress`` is."""
+        _, ici = factor_groups(axis)
+        return two_level_psum(grads, None, ici, scale=1.0 / _size(ici))
+
+    def window_exchange(self, delta: list, axis,
+                        sync_state: torch.Tensor | None = None):
+        """The cross-slice mean of a window's accumulated update ``delta``,
+        equal within a slice after its ``local_sync`` steps: per bucket,
+        each rank takes its own ``ici``-indexed chunk of the padded flat
+        bucket (no reduce-scatter: the slice's ranks hold the same
+        values), exchanges it over ``dcn`` (an all-reduce, or under
+        ``dcn_compress`` the int8/int4 ring with the residual, in the
+        per-step path's segment layout), all-gathers over ``ici`` and
+        scales by ``1/n_dcn``.  The JAX package runs these three hops
+        through its route executor; the port issues them directly.
+        Compressed, returns ``(mean, new residual)``."""
+        dcn, ici = factor_groups(axis)
+        n_dcn = _size(dcn) if dcn is not None else 1
+        n_ici, me = _size(ici), dist.get_rank(ici)
+        compress = self.dcn_compress is not None
+
+        def sync_fn(j, leaves, residual):
+            flat = _flat(leaves, torch.float32)
+            total = flat.numel()
+            padded = F.pad(flat, (0, (-total) % n_ici))
+            chunk = padded.numel() // n_ici
+            shard = padded[me * chunk:(me + 1) * chunk].clone()
+            out: dict = {}
+            if compress and dcn is not None:
+                shard = ring_reduce(self._ring, dcn, n_dcn, residual,
+                                    out)(shard)
+            elif compress:  # one level: nothing crosses, nothing is lost
+                out["res"] = torch.zeros_like(residual)
+            elif dcn is not None:
+                dist.all_reduce(shard, group=dcn)
+            full = torch.empty_like(padded)
+            all_gather_flat(full, shard, group=ici)
+            return _split(full[:total] * (1.0 / n_dcn), leaves), \
+                out.get("res", residual)
+
+        segs = self._segments(delta, n_dcn, n_ici) if compress else \
+            [0] * len(make_bucket_plan(delta, self.bucket_bytes))
+        if sync_state is None:
+            sync_state = torch.zeros(0, dtype=torch.float32,
+                                     device=delta[0].device)
+        synced, new = sync_segments(
+            delta, make_bucket_plan(delta, self.bucket_bytes), segs,
+            sync_fn, sync_state)
+        return (synced, new) if compress else synced
+
+
+class OuterOptimizer:
+    """The DiLoCo outer optimizer of a window boundary: ``anchor <- anchor
+    + lr * step``, ``step`` Nesterov (``mu * m' + d``) or heavy-ball
+    (``m'``) momentum over the exchanged mean delta ``d`` (``m' = mu * m +
+    d``).  Momentum is float32, anchor-shaped; the arithmetic is float32
+    and the result is cast back to each leaf's dtype.  Each multiply-add
+    is taken in float64 and rounded once: XLA's CPU backend fuses the JAX
+    package's ``mu * m + d`` and ``a + lr * s`` into fused multiply-adds,
+    whose single rounding this reproduces.
+
+    ``trivial`` (momentum 0 and lr 1) is the plain mean: ``apply`` then
+    adds ``d`` and keeps no state, and the trainers build no momentum, so
+    a trivial outer optimizer is bitwise the plain window."""
+
+    KINDS = ("nesterov", "momentum")
+
+    def __init__(self, kind: str, momentum: float = 0.9, lr: float = 1.0):
+        if kind not in self.KINDS:
+            raise ValueError(f"outer_opt must be one of {self.KINDS} "
+                             f"(or None for the plain mean), got {kind!r}")
+        self.kind = kind
+        self.momentum = float(momentum)
+        self.lr = float(lr)
+
+    @property
+    def trivial(self) -> bool:
+        """True when the update is ``anchor + d`` exactly."""
+        return self.momentum == 0.0 and self.lr == 1.0
+
+    @classmethod
+    def of(cls, cfg) -> "OuterOptimizer | None":
+        """A trainer config's outer optimizer (``sync_every``,
+        ``outer_opt``, ``outer_momentum``, ``outer_lr``), or None for the
+        plain mean: without a window or ``outer_opt``, and when trivial,
+        so that the plain-mean path runs, bitwise."""
+        if cfg.sync_every > 1 and cfg.outer_opt is not None:
+            outer = cls(cfg.outer_opt, cfg.outer_momentum, cfg.outer_lr)
+            if not outer.trivial:
+                return outer
+        return None
+
+    # -- tree form: lists of tensors (the LM trainer's anchor-shaped state)
+    def init_state(self, anchor: list) -> list:
+        """float32 zero momentum, one tensor an anchor leaf."""
+        return [torch.zeros(a.shape, dtype=torch.float32, device=a.device)
+                for a in anchor]
+
+    @staticmethod
+    def _fma(a: float, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """``a * x + y`` over float32 tensors, rounded once to float32."""
+        a32 = float(np.float32(a))
+        return (x.double() * a32 + y.double()).float()
+
+    @torch.no_grad()
+    def apply(self, anchor: list, d_avg: list, m: list):
+        """One outer step: ``(new anchor, new momentum)``, new tensors."""
+        if self.trivial:
+            return [a + d for a, d in zip(anchor, d_avg)], m
+        mu = self.momentum
+        m = [self._fma(mu, mi, d.float()) for d, mi in zip(d_avg, m)]
+        if self.kind == "nesterov":
+            step = [self._fma(mu, mi, d.float()) for d, mi in zip(d_avg, m)]
+        else:
+            step = m
+        anchor = [self._fma(self.lr, s, a.float()).to(a.dtype)
+                  for a, s in zip(anchor, step)]
+        return anchor, m
+
+    # -- flat form: the VGG trainer's momentum rides its sync state after
+    #    the residual segments, raveled in leaf order
+    @staticmethod
+    def state_len(params: list) -> int:
+        return sum(_numel(p) for p in params)
+
+    def init_flat(self, params: list,
+                  device: str | torch.device = "cpu") -> torch.Tensor:
+        return torch.zeros(self.state_len(params), dtype=torch.float32,
+                           device=device)
+
+    def apply_flat(self, anchor: list, d_avg: list, flat_m: torch.Tensor):
+        """``apply`` with the momentum one flat float32 vector (each leaf
+        raveled in the order and shape it is given)."""
+        if self.trivial:
+            return [a + d for a, d in zip(anchor, d_avg)], flat_m
+        m, offset = [], 0
+        for a in anchor:
+            m.append(flat_m[offset:offset + a.numel()].view(a.shape))
+            offset += a.numel()
+        anchor, m = self.apply(anchor, d_avg, m)
+        return anchor, torch.cat([t.reshape(-1) for t in m])
+
+
 _REGISTRY: dict[str, Callable] = {
     "none": NoSync,
     "all_reduce": AllReduce,
@@ -772,6 +931,137 @@ def require_lm_overlap_streamable(*, fsdp: bool, dcn: bool,
         "cluster to dissolve (BASELINE.md rounds 8-9).  Enable fsdp, set "
         "dcn_size > 1, set pp_size > 0, or drop overlap (the VGG "
         "trainer's overlap=True covers the explicit-strategy case)")
+
+
+def require_sync_window(*, sync_every: int, staleness: int = 0,
+                        max_sync_every: int = 1, mesh: bool = True,
+                        overlap: bool = False, pp: bool = False,
+                        grad_accum: int = 1, dcn_size: int | None = None,
+                        steps_per_loop: int | None = None,
+                        trainer: str = "train",
+                        outer_opt: str | None = None,
+                        outer_momentum: float = 0.9,
+                        outer_lr: float = 1.0,
+                        sync_every_per_slice: tuple | None = None) -> None:
+    """The sync windows' coherence check (``TrainConfig(sync_every=H)``
+    and ``LMTrainConfig(sync_every=H)``): the one refusal site that both
+    trainers' configs and both CLIs call, the JAX package's check with its
+    messages word for word.
+
+    Refused: a window without a mesh, with a pipeline, with
+    ``grad_accum > 1`` or with the VGG trainer's ``overlap``; an LM window
+    without a slow axis (``dcn_size < 2``); staleness outside ``0 <= S <
+    H``; ``outer_opt`` without a window or with a momentum outside [0, 1)
+    or a non-positive lr; ``sync_every_per_slice`` on the VGG trainer,
+    without a window, with staleness, with other than ``dcn_size``
+    entries, with an entry not a multiple of the base or with
+    ``min != sync_every``; and a VGG ``steps_per_loop`` that does not end
+    each call on a boundary."""
+    if sync_every < 1:
+        raise ValueError(f"sync_every must be >= 1, got {sync_every}")
+    if max_sync_every < 1:
+        raise ValueError(
+            f"max_sync_every must be >= 1, got {max_sync_every}")
+    if staleness < 0:
+        raise ValueError(f"staleness must be >= 0, got {staleness}")
+    if sync_every == 1 and staleness > 0:
+        raise ValueError(
+            f"staleness={staleness} needs sync_every > 1: with per-step "
+            f"sync there are no local steps to hide the exchange under")
+    if staleness >= sync_every and staleness > 0:
+        raise ValueError(
+            f"staleness={staleness} >= sync_every={sync_every}: the "
+            f"delayed window exchange must land before the next one "
+            f"launches (0 <= S < H; S=0 applies at the boundary step)")
+    if outer_opt is not None:
+        if outer_opt not in OuterOptimizer.KINDS:
+            raise ValueError(
+                f"outer_opt must be None, 'nesterov', or 'momentum', "
+                f"got {outer_opt!r}")
+        if sync_every == 1:
+            raise ValueError(
+                f"outer_opt={outer_opt!r} needs sync_every > 1: the "
+                f"outer step applies at window boundaries — with "
+                f"per-step sync there is no window delta to apply it to")
+        if not 0.0 <= outer_momentum < 1.0:
+            raise ValueError(
+                f"outer_momentum must sit in [0, 1), got "
+                f"{outer_momentum}")
+        if outer_lr <= 0.0:
+            raise ValueError(f"outer_lr must be > 0, got {outer_lr}")
+    if sync_every_per_slice is not None:
+        per = tuple(sync_every_per_slice)
+        if trainer != "lm":
+            raise ValueError(
+                "sync_every_per_slice is an LM-trainer (factored 'dcn' "
+                "mesh) feature: the VGG trainer's windows are gang-wide "
+                "over one flat replica axis — there is no per-slice "
+                "boundary program to skip")
+        if sync_every == 1:
+            raise ValueError(
+                "sync_every_per_slice needs the windowed mode "
+                "(sync_every > 1): the base interval is the compiled "
+                "boundary cadence the per-slice windows subdivide")
+        if staleness > 0:
+            raise ValueError(
+                f"sync_every_per_slice does not compose with "
+                f"staleness={staleness}: the skip mask and the deferred "
+                f"apply would both reinterpret the same boundary; pick "
+                f"one relaxation")
+        if dcn_size is not None and len(per) != dcn_size:
+            raise ValueError(
+                f"sync_every_per_slice has {len(per)} entries but "
+                f"dcn_size={dcn_size}: one interval per slice")
+        if any(not isinstance(h, int) or h < 1 for h in per):
+            raise ValueError(
+                f"sync_every_per_slice entries must be ints >= 1, got "
+                f"{per}")
+        if any(h % sync_every for h in per):
+            raise ValueError(
+                f"every sync_every_per_slice entry must be a multiple "
+                f"of the base sync_every={sync_every} (slices exchange "
+                f"only at base boundaries), got {per}")
+        if min(per) != sync_every:
+            raise ValueError(
+                f"min(sync_every_per_slice)={min(per)} must equal the "
+                f"base sync_every={sync_every}: the base is the "
+                f"tightest slice's cadence — a larger base would mean "
+                f"boundaries no compiled program runs")
+    if sync_every == 1:
+        return
+    if not mesh:
+        raise ValueError(
+            f"sync_every={sync_every} needs a device mesh: the meshless "
+            f"single-jit path has no collective exchange to amortize "
+            f"(and no per-device window state); use a mesh-backed "
+            f"strategy or sync_every=1")
+    if pp:
+        raise ValueError(
+            f"sync_every={sync_every} is incompatible with pipeline "
+            f"parallelism (pp_size > 0): the 1F1B schedule has no "
+            f"per-step data exchange a window could skip")
+    if grad_accum > 1:
+        raise ValueError(
+            f"sync_every={sync_every} with grad_accum={grad_accum}: "
+            f"grad accumulation already amortizes the exchange over its "
+            f"micro-steps — composing the two would double-count the "
+            f"window; pick one")
+    if trainer == "train" and overlap:
+        raise ValueError(
+            f"sync_every={sync_every} with overlap=True: the in-backward "
+            f"markers stream the per-step collective a window removes; "
+            f"run windows post-backward (overlap=False)")
+    if trainer == "lm" and dcn_size is not None and dcn_size < 2:
+        raise ValueError(
+            f"sync_every={sync_every} needs dcn_size >= 2 on the LM "
+            f"trainer: windows relax the slow DCN hop specifically — "
+            f"with a single slice there is no scarce axis to relax")
+    if (trainer == "train" and steps_per_loop is not None
+            and steps_per_loop % sync_every):
+        raise ValueError(
+            f"steps_per_loop={steps_per_loop} is not a multiple of "
+            f"sync_every={sync_every}: each compiled dispatch must end "
+            f"on a window boundary so params leave the step replicated")
 
 
 # -- backward-overlapped gradient sync ----------------------------------------

@@ -33,10 +33,24 @@ steps and replicas draw differently.  The draws are torch's, not the JAX
 package's bits: equal trajectories across the packages hold with
 ``augment=False`` (or given the same draws).
 
+**Sync windows** (``sync_every = H > 1``, local SGD): ``train_steps``
+runs K/H windows of H local steps (K a multiple of H).  The params hold
+the anchor, the last exchanged point, equal on every rank; each local
+step runs at ``anchor + delta``, ``delta`` being the sum of this rank's
+optimizer updates since the anchor, the update optax's (``-lr`` times the
+momentum trace of ``g + wd * p``) from momentum buffers that stay on each
+rank across windows.  A local step syncs nothing under a flat strategy
+and takes the within-slice mean (``Hierarchical.local_sync``) under
+``hierarchical``.  At the boundary the delta goes through the strategy
+(``window_exchange`` for ``hierarchical``; the residual for stateful
+ones), and the anchor moves by the mean or, with ``outer_opt``, by the
+outer optimizer, whose float32 momentum rides ``sync_state`` as a flat
+tail after the residual segments, raveled in the JAX layout.  ``sync_every
+= 1`` is the per-step path above, untouched.
+
 ``TrainConfig`` keeps every field of the JAX config with its default.
-Local-SGD windows and the outer optimizer raise ``NotImplementedError``
-naming slice 5b-iii; ``auto``, ``routed``, the sync route and the autotune
-profile name slice 5f.
+``auto``, ``routed``, the sync route and the autotune profile raise
+``NotImplementedError`` naming slice 5f.
 """
 
 from __future__ import annotations
@@ -53,7 +67,7 @@ from .data import augment as aug
 from .data import pipeline
 from .models import vgg
 from .models.transformer import (DURABILITY_SLICE, PLANNING_SLICE,
-                                 WINDOW_SLICE, not_ported)
+                                 not_ported)
 from .ops import nn as ops
 from .parallel import strategies as strat
 from .parallel.mesh import (DATA_AXIS, axis_size, ensure_process_group,
@@ -111,10 +125,7 @@ class TrainConfig:
 
 # Fields whose other values belong to a later slice: name -> (the value
 # that leaves them off, the slice).
-_LATER = {"sync_every": (1, WINDOW_SLICE),
-          "max_sync_every": (1, WINDOW_SLICE),
-          "outer_opt": (None, WINDOW_SLICE),
-          "sync_route": (None, PLANNING_SLICE),
+_LATER = {"sync_route": (None, PLANNING_SLICE),
           "autotune_profile": (None, PLANNING_SLICE)}
 
 
@@ -213,16 +224,19 @@ def _layout_sensitive(strategy) -> bool:
         getattr(strategy, "dcn_compress", None) is not None
 
 
-def sync_grads(strategy, mesh, grads: list, sync_state=None):
-    """Run ``strategy`` over ``grads`` (the leaves' gradients in
-    ``jax_order``) and write the result back into them; returns the new
-    sync state.  The rings see each conv gradient in the JAX layout."""
+def sync_grads(strategy, mesh, grads: list, sync_state=None, call=None):
+    """Run ``strategy`` (or ``call``, a method with its protocol: the
+    boundary's ``window_exchange``) over ``grads`` (the
+    leaves' gradients in ``jax_order``) and write the result back into
+    them; returns the new sync state.  The rings see each conv gradient in
+    the JAX layout."""
     jax_layout = _layout_sensitive(strategy)
     given = [_to_jax_layout(g) for g in grads] if jax_layout else grads
+    fn = call if call is not None else strategy
     if getattr(strategy, "stateful", False):
-        synced, sync_state = strategy(given, mesh, sync_state)
+        synced, sync_state = fn(given, mesh, sync_state)
     else:
-        synced = strategy(given, mesh)
+        synced = fn(given, mesh)
     pairs = [(g, _from_jax_layout(s) if jax_layout else s)
              for g, v, s in zip(grads, given, synced) if s is not v]
     if pairs:
@@ -270,6 +284,12 @@ def _resolve_strategy(cfg: TrainConfig, strategy, mesh):
     _apply_dcn(cfg, strategy)
     _apply_bucket_mb(cfg, strategy)
     _validate_overlap(cfg, strategy, mesh)
+    if cfg.sync_every > 1 or cfg.outer_opt is not None:
+        strat.require_sync_window(
+            sync_every=cfg.sync_every, max_sync_every=cfg.max_sync_every,
+            mesh=mesh is not None, overlap=cfg.overlap, trainer="train",
+            outer_opt=cfg.outer_opt, outer_momentum=cfg.outer_momentum,
+            outer_lr=cfg.outer_lr)
     if mesh is None and strategy.needs_mesh:
         raise ValueError(f"strategy {strategy.name!r} requires a mesh")
     return strategy
@@ -341,26 +361,146 @@ def make_train_step(cfg: TrainConfig, strategy=None, mesh=None, *,
     return step
 
 
+def _make_window_run(cfg: TrainConfig, strategy, mesh, fused_bn):
+    """The windowed K steps: ``run(params, state, opt, step0, images,
+    labels, sync_state) -> (state, losses, oks, mets, sync_state)`` (per
+    step lists), K/H windows of H local steps, each window ending on the
+    boundary exchange (the JAX windowed scan).  ``params`` hold the anchor
+    and are updated in place at each boundary; ``opt`` (a
+    ``torch.optim.SGD``) only keeps the momentum buffers, keyed by the
+    anchor's leaves."""
+    strategy = _resolve_strategy(cfg, strategy, mesh)
+    group = mesh_group(mesh) if mesh is not None else None
+    rank = dist.get_rank() if mesh is not None else 0
+    bn_axis = None
+    if cfg.sync_bn and mesh is not None:
+        bn_axis = group if group is not None else dist.group.WORLD
+    bcast_buffers = cfg.broadcast_buffers_resolved and mesh is not None
+    hier = hasattr(strategy, "window_exchange")
+    outer = strat.OuterOptimizer.of(cfg)
+    h = cfg.sync_every
+    lr, mom, wd = cfg.lr, cfg.momentum, cfg.weight_decay
+    gens: dict[torch.device, torch.Generator] = {}
+
+    def nested(names, leaves) -> dict:
+        out: dict = {}
+        for (k, n), t in zip(names, leaves):
+            out.setdefault(k, {})[n] = t
+        return out
+
+    def local_step(names, anchor, delta, state, opt, step_idx, images,
+                   labels):
+        gen = gens.get(images.device)
+        if gen is None:
+            gen = gens[images.device] = torch.Generator(device=images.device)
+        gen.manual_seed(augment_seed(cfg.seed, step_idx, rank))
+        local = [(a.detach() + d).requires_grad_(True)
+                 for a, d in zip(anchor, delta)]
+        loss, new_state = _loss_fn(nested(names, local), state, gen, images,
+                                   labels, cfg=cfg, fused_bn=fused_bn,
+                                   bn_axis=bn_axis)
+        grads = list(torch.autograd.grad(loss, local))
+        if bcast_buffers:
+            new_state = _broadcast_tree(new_state, group)
+        with torch.no_grad():
+            if hier:  # the within-slice mean; flat strategies sync nothing
+                torch._foreach_copy_(grads, strategy.local_sync(grads, mesh))
+            gsq = torch.stack(torch._foreach_norm(grads)).square().sum()
+            ok = (torch.isfinite(loss) & torch.isfinite(gsq)).float()
+            # optax's add_decayed_weights then sgd: g + wd * p, the trace
+            # g + momentum * trace, the update -lr * trace
+            d_p = torch._foreach_add(grads, local, alpha=wd)
+            if mom != 0.0:
+                bufs = []
+                for a, g in zip(anchor, d_p):
+                    st = opt.state[a]
+                    buf = st.get("momentum_buffer")
+                    if buf is None:
+                        buf = st["momentum_buffer"] = g.clone()
+                    else:
+                        buf.mul_(mom).add_(g)
+                    bufs.append(buf)
+                d_p = bufs
+            torch._foreach_add_(delta, torch._foreach_mul(d_p, -lr))
+            met = ops.step_metrics(gsq, [a + d for a, d in
+                                         zip(anchor, delta)])
+        return loss.detach(), new_state, ok, met
+
+    @torch.no_grad()
+    def boundary(anchor, delta, sync_state):
+        res = sync_state
+        if outer is not None:
+            split = sync_state.numel() - outer.state_len(anchor)
+            res, m_flat = sync_state[:split], sync_state[split:]
+        res = sync_grads(strategy, mesh, delta, res,
+                         call=strategy.window_exchange if hier else None)
+        if outer is None:
+            torch._foreach_add_(anchor, delta)
+            return res
+        # the momentum is raveled in the JAX layout (conv kernels HWIO)
+        new, m_flat = outer.apply_flat(
+            [_to_jax_layout(a) for a in anchor],
+            [_to_jax_layout(d) for d in delta], m_flat)
+        for a, t in zip(anchor, new):
+            a.copy_(_from_jax_layout(t))
+        return torch.cat([res, m_flat])
+
+    def run(params, state, opt, step0, images, labels, sync_state):
+        k = images.shape[0]
+        if k % h:
+            raise ValueError(
+                f"dispatch of {k} steps is not a multiple of "
+                f"sync_every={h}: every compiled dispatch must end on a "
+                f"window boundary so params leave replicated")
+        names = jax_order(params)
+        anchor = [params[a][b] for a, b in names]
+        losses, oks, mets = [], [], []
+        for w in range(k // h):
+            delta = [torch.zeros_like(a, requires_grad=False)
+                     for a in anchor]
+            for i in range(w * h, (w + 1) * h):
+                loss, state, ok, met = local_step(
+                    names, anchor, delta, state, opt, step0 + i, images[i],
+                    labels[i])
+                losses.append(loss)
+                oks.append(ok)
+                mets.append(met)
+            sync_state = boundary(anchor, delta, sync_state)
+        return state, losses, oks, mets, sync_state
+
+    return run
+
+
 def make_multi_step(cfg: TrainConfig, strategy=None, mesh=None, *,
                     fused_bn: bool | None = None):
     """``fn(params, state, opt, step0, images, labels, sync_state=None) ->
     (state, losses, oks, mets, sync_state)`` over K stacked batches (K, B,
     ...): K optimizer steps, the i-th seeded by ``step0 + i``, so the
     trajectory equals K single steps.  Under a mesh the K losses, health
-    flags and scalars are averaged over the ranks in one all-reduce."""
-    step = make_train_step(cfg, strategy, mesh, fused_bn=fused_bn)
+    flags and scalars are averaged over the ranks in one all-reduce.  With
+    ``sync_every > 1`` the K steps are K/H windows (``_make_window_run``).
+    """
+    if cfg.sync_every > 1:
+        run = _make_window_run(cfg, strategy, mesh, fused_bn)
+    else:
+        step = make_train_step(cfg, strategy, mesh, fused_bn=fused_bn)
+
+        def run(params, state, opt, step0, images, labels, sync_state):
+            losses, oks, mets = [], [], []
+            for i in range(images.shape[0]):
+                loss, state, ok, met, sync_state = step(
+                    params, state, opt, step0 + i, images[i], labels[i],
+                    sync_state)
+                losses.append(loss)
+                oks.append(ok)
+                mets.append(met)
+            return state, losses, oks, mets, sync_state
     group = mesh_group(mesh) if mesh is not None else None
 
     def multi_step(params, state, opt, step0, images, labels,
                    sync_state=None):
-        losses, oks, mets = [], [], []
-        for i in range(images.shape[0]):
-            loss, state, ok, met, sync_state = step(
-                params, state, opt, step0 + i, images[i], labels[i],
-                sync_state)
-            losses.append(loss)
-            oks.append(ok)
-            mets.append(met)
+        state, losses, oks, mets, sync_state = run(
+            params, state, opt, step0, images, labels, sync_state)
         losses, oks, mets = (torch.stack(losses), torch.stack(oks),
                              torch.stack(mets))
         if mesh is not None:
@@ -426,6 +566,15 @@ class Trainer:
         self.n_replicas = mesh.size() if mesh is not None else 1
         self.rank = dist.get_rank() if mesh is not None else 0
         self.group = mesh_group(mesh) if mesh is not None else None
+        _apply_dcn(cfg, self.strategy)
+        _apply_bucket_mb(cfg, self.strategy)
+        _validate_overlap(cfg, self.strategy, self.mesh)
+        strat.require_sync_window(
+            sync_every=cfg.sync_every, max_sync_every=cfg.max_sync_every,
+            mesh=self.mesh is not None, overlap=cfg.overlap,
+            steps_per_loop=cfg.steps_per_loop, trainer="train",
+            outer_opt=cfg.outer_opt, outer_momentum=cfg.outer_momentum,
+            outer_lr=cfg.outer_lr)
         params, state = vgg.init(cfg.seed, cfg.model, device=self.device)
         self.params = _trainable(params, self.device)
         self.state = state
@@ -469,10 +618,18 @@ class Trainer:
         return [self.params[k][n] for k, n in jax_order(self.params)]
 
     def _init_sync_state(self) -> torch.Tensor:
+        """A stateful strategy's zero residual (empty otherwise), then,
+        with a non-trivial ``outer_opt``, the zero outer momentum."""
         if getattr(self.strategy, "stateful", False):
-            return self.strategy.init_state(self._leaves(), self.n_replicas,
-                                            device=self.device)
-        return torch.zeros(0, dtype=torch.float32, device=self.device)
+            state = self.strategy.init_state(self._leaves(), self.n_replicas,
+                                             device=self.device)
+        else:
+            state = torch.zeros(0, dtype=torch.float32, device=self.device)
+        outer = strat.OuterOptimizer.of(self.cfg)
+        if outer is not None:
+            state = torch.cat([state, outer.init_flat(self._leaves(),
+                                                      self.device)])
+        return state
 
     def _broadcast_params(self) -> None:
         """Rank 0's params on every rank (torch DDP's construction-time
@@ -541,9 +698,16 @@ class Trainer:
         (K, B, ...), numpy or tensors; returns the K losses averaged over
         the ranks (a device tensor).  The same trajectory as K
         ``train_step`` calls."""
+        k = np.shape(images)[0]
+        if self.cfg.sync_every > 1 and k % self.cfg.sync_every:
+            raise ValueError(
+                f"train_steps got {k} steps with sync_every="
+                f"{self.cfg.sync_every}: dispatches must be window-"
+                f"aligned (k % H == 0) so params leave the step "
+                f"replicated; stack window-multiple batches (train_step's "
+                f"K=1 path is likewise unavailable under windows)")
         if not isinstance(images, torch.Tensor):
             images, labels = self._to_device(images, labels)
-        k = images.shape[0]
         (self.state, losses, self.last_ok, self.last_metrics,
          self.sync_state) = self._multi_fn(
             self.params, self.state, self.opt, self._step, images,
@@ -626,12 +790,16 @@ class Trainer:
 
     def check_consistency(self) -> None:
         """The data-parallel invariants (utils/debug.py): params and
-        momentum bitwise equal on every rank, and params finite.  Every
-        rank must call it under a mesh."""
+        momentum bitwise equal on every rank, and params finite.  Under
+        ``sync_every > 1`` the momentum is each rank's own by design, so
+        only the params are compared.  Every rank must call it under a
+        mesh."""
         if self.mesh is not None:
-            dbg.assert_replicas_in_sync(
-                {"params": self.params, "momentum": self.momentum()},
-                self.group, what="params/momentum")
+            tree = {"params": self.params}
+            if self.cfg.sync_every == 1:
+                tree["momentum"] = self.momentum()
+            dbg.assert_replicas_in_sync(tree, self.group,
+                                        what="params/momentum")
         dbg.assert_finite(self.params, what="params")
 
     # -- later slices -----------------------------------------------------

@@ -366,8 +366,22 @@ def test_lm_cli_refuses_later_flags(flag, capsys):
     and ``--dcn-size 2`` are ported: in one process the JAX config checks
     refuse them (ZeRO-3 over a data axis of one rank is a no-op, and one
     rank does not factor into two slices; the 4-rank run of every sync
-    flag is tests/test_torch_dcn_sync.py's).  ``--sync-every`` names slice
-    5b-iii."""
+    flag is tests/test_torch_dcn_sync.py's).  ``--sync-every`` is ported
+    too: in one process both CLIs refuse it with the JAX window check's
+    usage error (a window needs ``--dcn-size`` >= 2; the 4-rank windows
+    are tests/test_torch_localsgd.py's)."""
+    if flag[0] == "--sync-every":
+        with pytest.raises(SystemExit) as e:
+            tcli.main(CLI_BASE + ["--steps", "1"] + flag)
+        assert e.value.code == 2
+        err = capsys.readouterr().err
+        assert "sync_every=2 needs dcn_size >= 2 on the LM trainer" in err
+        with pytest.raises(SystemExit) as je:
+            jcli.main(CLI_BASE[2:] + ["--steps", "1"] + flag)
+        assert je.value.code == 2
+        assert err.splitlines()[-1].split("error: ")[1] == \
+            capsys.readouterr().err.splitlines()[-1].split("error: ")[1]
+        return
     if flag[0] in ("--fsdp", "--dcn-size"):
         with pytest.raises(ValueError, match="no-op|does not factor"):
             tcli.main(CLI_BASE + ["--steps", "1"] + flag)
@@ -405,8 +419,6 @@ def test_lm_cli_refuses_later_flags(flag, capsys):
     assert e.value.code == 2
     err = capsys.readouterr().err
     assert "ROADMAP.md" in err
-    if flag[0] == "--sync-every":
-        assert "slice 5b-iii" in err
 
 
 def test_lm_cli_scale_flags_compose_and_check(capsys):
@@ -437,8 +449,10 @@ def test_lm_cli_scale_flags_compose_and_check(capsys):
     ids=["dp", "fsdp", "sync_every", "pp_size", "remat", "loss_impl",
          "matmul_dtype", "n_experts"])
 def test_trainer_refuses_later_slices(kw):
-    """Knobs of later slices raise, naming their ROADMAP slice
-    (``sync_every``: slice 5b-iii).  ``dp=2`` is ported: without a gang
+    """Knobs of later slices raise, naming their ROADMAP slice.
+    ``sync_every=2`` is ported: at dp 1 both packages refuse it with the
+    same ValueError (a window needs dcn_size >= 2).  ``dp=2`` is ported:
+    without a gang
     of two processes it raises, naming the launcher (the gang runs in
     tests/test_torch_lm_dp.py).  So is ``fsdp=True``: at dp 1 both
     packages refuse it as a no-op, and at dp 2 it takes a gang
@@ -475,6 +489,16 @@ def test_trainer_refuses_later_slices(kw):
                            match="launch --nproc-per-node 2"):
             tlm.LMTrainer(tlm.LMTrainConfig(**kw), device="cpu")
         return
+    if "sync_every" in kw:
+        msgs = []
+        for pkg in (jlm, tlm):
+            with pytest.raises(ValueError, match="dcn_size >= 2") as e:
+                pkg.validate_lm_cfg(pkg.LMTrainConfig(**kw))
+            msgs.append(str(e.value))
+        assert msgs[0] == msgs[1]
+        with pytest.raises(ValueError, match="dcn_size >= 2"):
+            tlm.LMTrainer(tlm.LMTrainConfig(**kw), device="cpu")
+        return
     if "model" in kw:
         _, want, states = _jax_run(3, batches, model=jtfm.TransformerConfig(
             **SHAPE, n_experts=2))
@@ -483,8 +507,7 @@ def test_trainer_refuses_later_slices(kw):
     elif "loss_impl" in kw or "matmul_dtype" in kw:
         want, states = _jax_oracle(3, batches, **kw)
     else:
-        where = "slice 5b-iii" if "sync_every" in kw else "ROADMAP.md"
-        with pytest.raises(NotImplementedError, match=where):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             tlm.LMTrainer(tlm.LMTrainConfig(**kw), device="cpu")
         return
     ttr = _port(states, **kw)

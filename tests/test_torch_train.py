@@ -204,18 +204,24 @@ def test_steps_per_loop_equals_single_steps():
     assert not torch.equal(c.params["fc"]["kernel"], b.params["fc"]["kernel"])
 
 
-# knob -> the sub-slice its refusal names, or None: ported (slice 5a: the
+# knob -> the sub-slice its refusal names, None: ported (slice 5a: the
 # data-parallel strategies, sync-BN, rank 0's buffers, the bucket size;
 # dcn_size is read by hierarchical alone, as in the JAX trainer; slice
-# 5b-ii: overlap and dcn_compress, each with a strategy that takes it)
+# 5b-ii: overlap and dcn_compress, each with a strategy that takes it;
+# slice 5b-iii: max_sync_every, stored), or "ValueError: ..." (ported, and
+# refused in this config with the JAX window check's message: a window
+# needs a mesh, an outer optimizer a window)
 _KNOB_SLICE = {("strategy", "ddp"): None, ("strategy", "auto"): "5f",
-               ("overlap", True): None, ("sync_every", 2): "5b-iii",
-               ("max_sync_every", 4): "5b-iii",
+               ("overlap", True): None,
+               ("sync_every", 2): "ValueError: sync_every=2 needs a device "
+                                  "mesh",
+               ("max_sync_every", 4): None,
                ("dcn_compress", "int8"): None,
                ("dcn_size", 4): None,
                ("sync_route", "ici:rs -> dcn:ring -> ici:ag"): "5f",
                ("autotune_profile", "uniform"): "5f", ("sync_bn", True): None,
-               ("outer_opt", "nesterov"): "5b-iii",
+               ("outer_opt", "nesterov"): "ValueError: outer_opt='nesterov' "
+                                          "needs sync_every > 1",
                ("broadcast_buffers", True): None,
                ("overlap_bucket_mb", 4.0): None}
 # the strategy a ported knob is tried with (``none`` otherwise)
@@ -234,12 +240,23 @@ def no_process_group_after():
 
 @pytest.mark.parametrize("field,value", list(_KNOB_SLICE))
 def test_later_slice_knobs_raise(field, value, no_process_group_after):
-    """A knob of a later slice raises, naming its sub-slice; a knob slice
-    5a ported builds a trainer that takes a finite step."""
+    """A knob of a later slice raises, naming its sub-slice; a ported knob
+    builds a trainer that takes a finite step, or is refused with the JAX
+    package's ValueError where the config is incoherent (the JAX trainer
+    refuses it alike)."""
     kw = dict(model="TINY", strategy="none", batch_size=4, augment=False)
     kw[field] = value
     kw.update(_KNOB_STRATEGY.get((field, value), {}))
     where = _KNOB_SLICE[(field, value)]
+    if where is not None and where.startswith("ValueError: "):
+        msg = where[len("ValueError: "):]
+        with pytest.raises(ValueError) as e:
+            ttrain.Trainer(ttrain.TrainConfig(**kw), device="cpu")
+        assert str(e.value).startswith(msg), str(e.value)
+        with pytest.raises(ValueError) as je:
+            jtrain.Trainer(jtrain.TrainConfig(**kw))
+        assert str(je.value) == str(e.value)
+        return
     if where is not None:
         with pytest.raises(NotImplementedError, match=f"slice {where}"):
             ttrain.Trainer(ttrain.TrainConfig(**kw), device="cpu")
@@ -469,19 +486,23 @@ _FLAG_OUTCOME = [
     (["--elastic"], "5c"), (["--checkpoint-dir", "ck"], "5c"),
     (["--profile-dir", "p"], "5c"), (["--telemetry-dir", "t"], "5c"),
     (["--shard-eval"], "runs"), (["--debug-checks"], "runs"),
-    (["--sync-every", "2"], "5b-iii"),
+    (["--sync-every", "2"], "usage: sync_every=2 needs a device mesh"),
     (["--overlap", "--strategy", "ddp"], "runs"),
     (["--sync-bn"], "runs"),
     (["--dcn-compress", "int8", "--strategy", "hierarchical", "--dcn-size",
       "1"], "runs"),
-    (["--outer-opt", "nesterov"], "5b-iii"),
+    (["--outer-opt", "nesterov"],
+     "usage: outer_opt='nesterov' needs sync_every > 1"),
     (["--num-devices", "4"], "nproc-per-node 4"),
     (["--sync-route", "ici:rs"], "5f")]
 
 
 @pytest.mark.parametrize("argv", [a for a, _ in _FLAG_OUTCOME])
-def test_cli_later_slice_flags_raise(small_cifar, argv):
-    """A flag of a later slice raises, naming its sub-slice; the rank
+def test_cli_later_slice_flags_raise(small_cifar, argv, capsys):
+    """A flag of a later slice raises, naming its sub-slice; the window
+    flags are ported, and in these configs both CLIs end with the JAX
+    window check's usage error (``--strategy none`` has no mesh, and an
+    outer optimizer needs a window); the rank
     flags, --shard-eval, --sync-bn, --debug-checks, --overlap (with ddp)
     and --dcn-compress (with hierarchical over 1 x 1) run one epoch (one
     rank: the rendezvous does nothing, as in the JAX package, and the
@@ -500,6 +521,17 @@ def test_cli_later_slice_flags_raise(small_cifar, argv):
     elif outcome.startswith("5"):
         with pytest.raises(NotImplementedError, match=f"slice {outcome}"):
             tcli.main(base + argv)
+    elif outcome.startswith("usage: "):
+        from distributed_pytorch_tpu import cli as jcli
+        errs = []
+        for main, args in ((tcli.main, base + argv),
+                           (jcli.main, base[4:] + argv)):
+            with pytest.raises(SystemExit) as e:
+                main(args)
+            assert e.value.code == 2
+            errs.append(capsys.readouterr().err.splitlines()[-1])
+        assert outcome[len("usage: "):] in errs[0], errs
+        assert errs[0].split("error: ")[1] == errs[1].split("error: ")[1]
     elif outcome.startswith("--master-ip"):
         with pytest.raises(ValueError, match=outcome):
             tcli.main(base + argv)

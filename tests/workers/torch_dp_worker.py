@@ -14,7 +14,8 @@ the port only, pins torch to one intra-op thread, runs every case of
   with ``dcn_compress`` int8 and int4 two rounds carrying its residual;
 - ``train``: the port's Trainer over the gang from the JAX trainer's
   initial params, one case a config of ``cases.json``: this rank's losses,
-  params (JAX layout), BN state, momentum and sync state after the steps;
+  params (JAX layout), BN state, momentum and sync state after the steps
+  (``images`` of shape (steps, global batch, ...) give a batch a step);
 - ``syncbn``: one sync-BN forward and backward on this rank's shard, the
   gradients meaned over the ranks, and the new BN state;
 - ``checks``: ``check_consistency`` after steps and after rank 1 perturbs
@@ -30,7 +31,14 @@ the port only, pins torch to one intra-op thread, runs every case of
   is not the world size, refused;
 - ``lm_sync``: the LM two-level sync on this rank's row of the input
   gradients over a 2 x 2 mesh, per case of ``cases.json`` (bucket size
-  and compression), two rounds carrying the residual.
+  and compression), two rounds carrying the residual;
+- ``window``: ``Hierarchical.local_sync`` and ``window_exchange`` over a
+  2 x 2 mesh, per case of ``cases.json`` (compression, bucket size), the
+  exchange two rounds carrying the residual;
+- ``counts``: the collectives each case's trainer issues over a run, a
+  process group at a time (``CallCounter``);
+- ``ledger``: the per-slice windows' masked exchange against the
+  all-participants exchange on a zeroed delta (``lm_ledger``).
 """
 
 import json
@@ -89,6 +97,37 @@ def strategies(data, rank: int, world: int) -> dict:
     return out
 
 
+def window(data, rank: int, world: int, cases: dict) -> dict:
+    """``Hierarchical``'s window halves over a (2, world // 2) ``("dcn",
+    "ici")`` mesh, one case a ``cases.json`` entry: ``local_sync`` on this
+    rank's row of ``g``, or ``window_exchange`` on its rows of the
+    slice-uniform deltas ``d`` then ``e`` (two rounds carrying the
+    residual under ``compress``)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    mesh = init_device_mesh("cpu", (2, world // 2),
+                            mesh_dim_names=("dcn", "ici"))
+    out = {}
+    for name, case in cases.items():
+        s = st.Hierarchical(dcn_compress=case["compress"], dcn_size=2,
+                            bucket_mb=case["bucket_mb"])
+        if case["op"] == "local_sync":
+            rounds = [("g", s.local_sync(_rows(data, "g", rank), mesh))]
+        else:
+            res = s.init_state(_rows(data, "d", rank), world) \
+                if case["compress"] else None
+            rounds = []
+            for prefix in ("d", "e"):
+                ex = s.window_exchange(_rows(data, prefix, rank), mesh, res)
+                if case["compress"]:
+                    ex, res = ex
+                    out[f"{name}{len(rounds)}/res"] = res.numpy()
+                rounds.append((prefix, ex))
+        for r, (_, synced) in enumerate(rounds):
+            for i, t in enumerate(synced):
+                out[f"{name}{r}/{i}"] = t.numpy()
+    return out
+
+
 def _jax_tree(params: dict, data, prefix: str) -> dict:
     return {k: {n: data[f"{prefix}/{k}/{n}"] for n in v}
             for k, v in params.items()}
@@ -105,7 +144,7 @@ def _trainer(data, cfg: dict, rank: int):
 
 def train(data, rank: int, world: int, cases: dict) -> dict:
     images, labels = data["images"], data["labels"]
-    per = images.shape[0] // world
+    per = images.shape[images.ndim - 4] // world
     mine = slice(rank * per, (rank + 1) * per)
     out = {}
     for name, case in cases.items():
@@ -113,10 +152,14 @@ def train(data, rank: int, world: int, cases: dict) -> dict:
         k = case.get("steps_per_call", 1)
         losses, grad_max = [], []
         before = tr.momentum()
-        for _ in range(case["steps"] // k):
-            losses += tr.train_steps(
-                np.stack([images[mine]] * k),
-                np.stack([labels[mine]] * k)).tolist()
+        for c in range(case["steps"] // k):
+            if images.ndim == 5:  # a batch a step: (steps, global, ...)
+                imgs, lbls = images[c * k:(c + 1) * k, mine], \
+                    labels[c * k:(c + 1) * k, mine]
+            else:
+                imgs, lbls = np.stack([images[mine]] * k), \
+                    np.stack([labels[mine]] * k)
+            losses += tr.train_steps(imgs, lbls).tolist()
             # the step's synced gradient (plus weight decay) is what the
             # momentum buffer gained: m_t - momentum * m_{t-1}
             after = tr.momentum()
@@ -232,9 +275,15 @@ def lm(data, rank: int, world: int, cases: dict) -> dict:
                        for k, v in init.items()})
         for k, v in tr.params.items():
             out[f"{name}/shard0/{k}"] = v.detach().numpy().copy()
-        out[f"{name}/losses"] = np.asarray(
-            [float(tr.train_step(tokens[mine], targets[mine]))
-             for _ in range(case["steps"])])
+        losses, mets = [], []
+        for _ in range(case["steps"]):
+            losses.append(float(tr.train_step(tokens[mine], targets[mine])))
+            mets.append(tr.last_metrics.numpy())
+        out[f"{name}/losses"] = np.asarray(losses)
+        out[f"{name}/met"] = np.stack(mets)
+        for tag in ("delta", "outer_m"):
+            for k, v in (getattr(tr, f"_{tag}") or {}).items():
+                out[f"{name}/{tag}/{k}"] = v.numpy()
         for k, v in tr.full_params().items():
             out[f"{name}/p/{k}"] = v.numpy()
         for k, v in tr.params.items():
@@ -282,6 +331,156 @@ def lm_sync(data, rank: int, world: int, cases: dict) -> dict:
     return out
 
 
+def lm_ledger(data, rank: int, world: int, cases: dict) -> dict:
+    """Per case (an LM config with ``sync_every_per_slice`` and
+    ``dcn_compress``): train ``steps`` steps from the input params, then
+    run the window's exchange twice from copies of the state: masked
+    ([1, 0]: slice 1 skips) and with every slice in but slice 1's delta
+    zeroed.  Writes both anchors, residuals and deltas, and the live
+    delta."""
+    from distributed_pytorch_tpu_torch import lm as tlm
+    from distributed_pytorch_tpu_torch.models import transformer as ttfm
+    init = {k[len("p/"):]: torch.from_numpy(np.array(data[k]))
+            for k in data.files if k.startswith("p/")}
+    per = data["tokens"].shape[0] // world
+    mine = slice(rank * per, (rank + 1) * per)
+    out = {}
+
+    def copy(tree):
+        return {k: v.detach().clone() for k, v in tree.items()}
+
+    for name, case in cases.items():
+        cfg = tlm.LMTrainConfig(
+            model=ttfm.TransformerConfig(**case["model"]),
+            compute_dtype=None, dp=world, **case["cfg"])
+        tr = tlm.LMTrainer(cfg, device="cpu")
+        tr.load_state(init)
+        for _ in range(case["steps"]):
+            tr.train_step(data["tokens"][mine], data["targets"][mine])
+        w = tr.window
+        runs = {}
+        for tag, mask in (("masked", [1.0, 0.0]), ("manual", [1.0, 1.0])):
+            anchor, delta = copy(tr.params), copy(tr._delta)
+            if tag == "manual" and w.slice == 1:
+                for x in delta.values():
+                    x.zero_()
+            res, _ = w.exchange(anchor, delta, tr.sync_state.clone(), None,
+                                mask)
+            runs[tag] = (anchor, delta, res)
+        for tag, (anchor, delta, res) in runs.items():
+            out[f"{name}/{tag}/res"] = res.numpy()
+            for k in anchor:
+                out[f"{name}/{tag}/anchor/{k}"] = anchor[k].numpy()
+                out[f"{name}/{tag}/delta/{k}"] = delta[k].numpy()
+        out[f"{name}/res_before"] = tr.sync_state.numpy()
+        for k, v in tr._delta.items():
+            out[f"{name}/live/{k}"] = v.numpy()
+    return out
+
+
+class CallCounter:
+    """Counts the ``torch.distributed`` collectives issued while active, a
+    group at a time: ``calls[group]`` and ``bytes[group]`` (what the rank
+    sends into each call: the all-reduced, broadcast or scattered tensor,
+    the all-gathered shard, the ring's sends), ``group`` the comma-joined
+    global ranks of the group."""
+
+    # name -> the index of the tensor whose bytes the call sends
+    FNS = {"all_reduce": 0, "broadcast": 0, "all_gather_into_tensor": 1,
+           "all_gather_single": 1, "reduce_scatter_tensor": 1,
+           "reduce_scatter_single": 1, "all_gather": 1, "gather": 0,
+           "scatter": 1, "batch_isend_irecv": None}
+
+    def __init__(self):
+        self.calls: dict = {}
+        self.bytes: dict = {}
+        self._saved: list = []
+
+    @staticmethod
+    def _key(group) -> str:
+        if group is None:
+            group = dist.group.WORLD
+        return ",".join(str(r) for r in dist.get_process_group_ranks(group))
+
+    def _record(self, name, args, kwargs):
+        if name == "batch_isend_irecv":
+            ops = args[0]
+            key = self._key(ops[0].group) if ops else ""
+            nbytes = sum(o.tensor.numel() * o.tensor.element_size()
+                         for o in ops if o.op is dist.isend)
+        else:
+            key = self._key(kwargs.get("group"))
+            t = args[self.FNS[name]] if len(args) > self.FNS[name] else \
+                kwargs.get("tensor", kwargs.get("input"))
+            if isinstance(t, (list, tuple)):
+                t = t[0] if t else None
+            nbytes = 0 if t is None else t.numel() * t.element_size()
+        self.calls[key] = self.calls.get(key, 0) + 1
+        self.bytes[key] = self.bytes.get(key, 0) + nbytes
+
+    def _wrap(self, name, fn):
+        def counted(*args, **kwargs):
+            self._record(name, args, kwargs)
+            return fn(*args, **kwargs)
+        return counted
+
+    def __enter__(self):
+        seen = {}
+        for name in self.FNS:
+            fn = getattr(dist, name, None)
+            if fn is not None:
+                seen[id(fn)] = name
+                self._saved.append((dist, name, fn))
+                setattr(dist, name, self._wrap(name, fn))
+        for attr in ("all_gather_flat", "reduce_scatter_flat"):
+            fn = getattr(st, attr)
+            self._saved.append((st, attr, fn))
+            setattr(st, attr, self._wrap(seen[id(fn)], fn))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in reversed(self._saved):
+            setattr(mod, name, fn)
+        self._saved.clear()
+
+
+def counts(data, rank: int, world: int, cases: dict) -> dict:
+    """Each case's collectives by group (``CallCounter``) over its run:
+    a VGG ``Trainer`` (``kind`` "vgg": one ``train_steps`` call of
+    ``steps`` batches) or an ``LMTrainer`` (``kind`` "lm": ``steps``
+    ``train_step`` calls), each built before counting (its construction
+    broadcasts the params)."""
+    from distributed_pytorch_tpu_torch import lm as tlm
+    from distributed_pytorch_tpu_torch.models import transformer as ttfm
+    out = {}
+    for name, case in cases.items():
+        if case["kind"] == "vgg":
+            tr = ttrain.Trainer(ttrain.TrainConfig(**case["cfg"]),
+                                device="cpu")
+            images, labels = data["images"], data["labels"]
+            per = images.shape[1] // world
+            mine = slice(rank * per, (rank + 1) * per)
+            imgs, lbls = images[:case["steps"], mine], \
+                labels[:case["steps"], mine]
+            with CallCounter() as c:
+                tr.train_steps(imgs, lbls)
+        else:
+            cfg = tlm.LMTrainConfig(
+                model=ttfm.TransformerConfig(**case["model"]),
+                compute_dtype=None, dp=world, **case.get("cfg", {}))
+            tr = tlm.LMTrainer(cfg, device="cpu")
+            per = data["tokens"].shape[0] // world
+            mine = slice(rank * per, (rank + 1) * per)
+            tok, tgt = data["tokens"][mine], data["targets"][mine]
+            with CallCounter() as c:
+                for _ in range(case["steps"]):
+                    tr.train_step(tok, tgt)
+        for key in c.calls:
+            out[f"{name}/calls/{key}"] = np.asarray(c.calls[key])
+            out[f"{name}/bytes/{key}"] = np.asarray(c.bytes[key])
+    return out
+
+
 def main() -> int:
     mode, in_path, out_dir = sys.argv[1:4]
     rank = int(os.environ["TORCH_DP_RANK"])
@@ -298,10 +497,11 @@ def main() -> int:
         out = syncbn(data, rank, world)
     elif mode == "eval":
         out = sharded_eval(data, rank, world)
-    elif mode in ("lm", "lm_sync"):
+    elif mode in ("lm", "lm_sync", "counts", "ledger", "window"):
         with open(os.path.join(os.path.dirname(in_path), "cases.json")) as f:
-            out = (lm if mode == "lm" else lm_sync)(data, rank, world,
-                                                    json.load(f))
+            out = {"lm": lm, "lm_sync": lm_sync, "counts": counts,
+                   "ledger": lm_ledger, "window": window}[mode](
+                data, rank, world, json.load(f))
     else:
         out = checks(data, rank, world)
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
