@@ -156,6 +156,17 @@ Phases, each of which raises on failure:
      ms against their bytes bound, the outer step bitwise the CPU's on
      three leaves and the per-slice mask with the prescale bitwise the
      CPU's.
+ 23. observability at LM-base width, bf16, B=8 x S=1024: (a) lm_cli 12
+     steps with --telemetry-dir and --profile-dir (a step span and three
+     gauges a step, the loss gauges bitwise the returned losses, the
+     merged trace strict JSON; the profiler trace of steps 2-11 holding
+     K2, K3 and K4 240 times each); (b) LMTrainer.train_steps of 4 stacked
+     batches bitwise 4 train_step calls; (c) telemetry off / on in A B B A
+     windows (ms a step, device ops a step and idle share from profiled
+     windows; losses bitwise, telemetry off adds no device operation to
+     phase 8's step); (d) record_memory against max_memory_allocated and
+     the trees' bytes; (e) evaluate_run with step_time p95 rules under and
+     over the measured p95.
 Phases 4, 5, 10, 11 and 18 run the batcher's defaults, in-block refill and
 overlapped dispatch on, as the JAX batcher's are.
 The second-to-last lines are the kernels' JSON record and the card's name
@@ -1150,7 +1161,9 @@ def training_run(torch, port, steps: int = 30, extra=(),
     S=1024, bf16 compute, synthetic corpus, with the flags ``extra``.  The
     host waits for the device only at the ends of the windows (and where
     lm_cli logs): steps 2-10 and 16-30 are timed unprofiled, steps 11-15
-    run under torch.profiler for device time.  The flash (K2-K4) and int8
+    run under torch.profiler for device time, a step mark between two of
+    them (``profiled_steps``: device operations step by step).  The flash
+    (K2-K4) and int8
     matmul (K5) launch counts are set to 0 before the run and read after
     it: flash once per layer per step; K5 7 times per layer per step with
     ``--matmul-dtype int8``, every one through its sm90 route, and never
@@ -1158,25 +1171,29 @@ def training_run(torch, port, steps: int = 30, extra=(),
     ``inspect(trainer)``, when given, adds its dict to the result before
     the trainer is freed."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     attn, cli, qz = port["attn"], port["lm_cli"], port["qz"]
     b, s = 8, 1024
     argv = ["--preset", "LM-base", "--steps", str(steps), "--batch-size",
             str(b), "--seq-len", str(s), "--compute-dtype", "bfloat16",
             "--log-every", "10", "--device", DEVICE, *extra]
-    prof = profile(activities=[ProfilerActivity.CUDA])
+    prof = None
     marks = (1, 10, 15, steps)  # windows (1, 10] and (15, steps] unprofiled
     losses, t = [], {}
 
     def on_step(step, trainer, loss):
+        nonlocal prof
         losses.append(loss)
+        if marks[1] < step < marks[2]:
+            mark_step(torch)
         if step in marks:
             torch.cuda.synchronize()
-            if step == marks[2]:
-                prof.stop()
+            if step == marks[2]:  # every record in (stop_profile)
+                port["tracing"].stop_profile(prof)
             t[step] = time.perf_counter()
-            if step == marks[1]:
-                prof.start()
+            if step == marks[1]:  # a warm-up cycle first (start_profile)
+                prof = port["tracing"].start_profile(
+                    [ProfilerActivity.CUDA])
 
     for f in ("flash_attention_fwd", "flash_attention_bwd_dq",
               "flash_attention_bwd_dkv"):
@@ -1205,12 +1222,13 @@ def training_run(torch, port, steps: int = 30, extra=(),
         / (marks[1] - marks[0] + marks[3] - marks[2]) * 1e3
     device_us, n_ops, top, counts = 0.0, 0, {}, {}
     for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and STEP_MARK not in e.key:
             device_us += e.self_device_time_total
             n_ops += e.count
             top[e.key] = top.get(e.key, 0.0) + e.self_device_time_total
             counts[e.key] = counts.get(e.key, 0) + e.count
     n_prof = marks[2] - marks[1]
+    by_step = profiled_steps(prof)
     device_ms = device_us / 1e3 / n_prof
     flops = lm_cfg_flops(cfg, n_active, b, s)
     res = {"flags": list(extra), "steps": steps, "batch": b, "seq": s,
@@ -1227,6 +1245,8 @@ def training_run(torch, port, steps: int = 30, extra=(),
                if "int8_matmul" in k},
            "device_ms_per_step": device_ms,
            "device_ops_per_step": n_ops / n_prof,
+           "device_ops_by_step": by_step["ops_by_step"],
+           "device_ops_step": by_step["ops_step"],
            "device_idle_share": 1.0 - device_ms / step_ms,
            "flash_share_of_device_time": {
                n: sum(us for k, us in top.items() if fn in k)
@@ -4740,6 +4760,399 @@ def windows_phase(torch, port, facts) -> dict:
     return out
 
 
+# -- phase 23: observability (slice 5c-i) -----------------------------------
+
+OBS_STEPS = 12    # (a): lm_cli steps; its --profile-dir traces steps 2-11
+OBS_PROFILED = 10
+OBS_K = 4         # (b): train_steps of K stacked batches
+OBS_WINDOW = 10   # (c): steps a window, telemetry off / on, A B B A
+# (c): steps of each profiled window (key_averages), each opened by
+# utils/tracing.py start_profile, whose warm-up cycle keeps the first
+# operations (a window opened plainly was seen to miss up to ~70)
+OBS_PROFILE = 6
+STEP_MARK = "spin_kernel"  # torch.cuda._sleep's kernel, between steps
+
+
+def mark_step(torch) -> None:
+    """Launch a one-thread kernel that does nothing (``torch.cuda._sleep(0)``)
+    whose record marks a step boundary in a profiled window; the counts
+    below leave it out."""
+    torch.cuda._sleep(0)
+
+
+def profiled_steps(prof) -> dict:
+    """A profiled window's device operations, the step marks left out:
+    ``ops`` and ``copies`` (device-to-host) in all, and each step's count
+    between marks (``ops_by_step``, ``copies_by_step``).  The profiler can
+    lose a run of records from a window, without a warning (up to a
+    step's worth); every step runs the same operations, so the most
+    common count of a step (``ops_step``, ``copies_step``) is a whole
+    step's while most steps lost nothing (ties: the larger)."""
+    from collections import Counter
+    from torch.autograd import DeviceType
+    evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    ops, copies, cur = [], [], None
+    for e in evs:
+        if STEP_MARK in e.name:
+            cur = None
+            continue
+        if cur is None:
+            ops.append(0)
+            copies.append(0)
+            cur = len(ops) - 1
+        ops[cur] += 1
+        copies[cur] += e.name.startswith("Memcpy DtoH")
+
+    def mode(xs):
+        c = Counter(xs)
+        top = max(c.values(), default=0)
+        return max((x for x, n in c.items() if n == top), default=0)
+    return {"ops": sum(ops), "copies": sum(copies), "ops_by_step": ops,
+            "copies_by_step": copies, "ops_step": mode(ops),
+            "copies_step": mode(copies)}
+
+
+def _trace_kernel_counts(trace_dir: str) -> dict:
+    """Kernel launches by name in the torch.profiler Chrome trace(s) under
+    ``trace_dir``: the K2/K3/K4 instances and the total."""
+    import os
+    counts = {k: 0 for k in SM90_KERNELS}
+    total, n_files = 0, 0
+    for name in os.listdir(trace_dir):
+        if not name.endswith(".pt.trace.json"):
+            continue
+        n_files += 1
+        with open(os.path.join(trace_dir, name)) as f:
+            events = json.load(f)["traceEvents"]
+        for e in events:
+            if e.get("cat") != "kernel":
+                continue
+            total += 1
+            for k, fn in SM90_KERNELS.items():
+                if fn in e.get("name", ""):
+                    counts[k] += 1
+    return {"files": n_files, "kernels": total, **counts}
+
+
+def _obs_batches(port, n: int, seed: int = 23) -> list:
+    corpus_mod = port["corpus"]
+    corpus = corpus_mod.load_corpus(None)
+    loader = corpus_mod.LMDataLoader(corpus, 8, 1024, seed=seed)
+    return [bt for _, bt in zip(range(n), loader)]
+
+
+def _obs_state(trainer) -> tuple:
+    """Copies of the trainer's params and Adam state (load_state's form)."""
+    p = {n: t.detach().clone() for n, t in trainer.params.items()}
+    o = {"count": trainer.opt_state["count"],
+         **{m: {n: t.clone() for n, t in trainer.opt_state[m].items()}
+            for m in ("mu", "nu")}}
+    return p, o
+
+
+def _max_gap(torch, a: dict, b: dict) -> float:
+    return max((x.float() - b[n].float()).abs().max().item()
+               for n, x in a.items())
+
+
+def observability_phase(torch, port, facts, phase8_ops: int) -> dict:
+    """Phase 23: the observability layer (slice 5c-i) at LM-base width,
+    bf16, B=8 x S=1024.
+
+    (a) ``lm_cli.run --steps 12 --telemetry-dir D --profile-dir P``: D
+        holds rank 0's file, epoch first; 12 ``lm_train_step`` spans and 12
+        each of the loss / grad_norm / param_norm gauges, the loss gauges
+        bitwise the losses the run's ``on_step`` hook fetched; the merged
+        trace strict JSON and the summary's 12 steps; P's profiler trace
+        holds K2, K3 and K4 24 x 10 times each (steps 2-11).  Both
+        directories are temporary and deleted after.
+    (b) ``LMTrainer.train_steps`` of K=4 stacked batches against four
+        ``train_step`` calls from the same state: losses and params
+        bitwise (or, where two runs of the four calls already differ,
+        within that repeat's largest gap).
+    (c) telemetry off and on in 10-step windows from one state, A B B A
+        (ms a step), and CUDA-profiled 6-step windows apart, A B B A
+        (device ops a step, each window's most common step's, and idle
+        share from each side's fuller window): the losses bitwise on and
+        off; telemetry off adds no device operation to phase 8's step and
+        makes no device-to-host copy, on makes one a step.
+    (d) ``record_memory`` on the trainer's params and Adam state: its
+        ``device_peak_bytes`` is ``torch.cuda.max_memory_allocated()``,
+        its tree bytes ``numel x element_size`` summed.
+    (e) ``evaluate_run(D)`` with a ``step_time`` p95 rule under the
+        measured p95 breaches, one over it does not."""
+    import os
+    import shutil
+    import tempfile
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    attn, cli, lm = port["attn"], port["lm_cli"], port["lm"]
+    tel_mod, mon = port["telemetry"], port["monitor"]
+    tracing = port["tracing"]
+    b, s = 8, 1024
+    model = lm_base_bytes(port)
+    n_layers = model.n_layers
+    out = {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_obs_") as tmp:
+        run_dir, prof_dir = os.path.join(tmp, "run"), os.path.join(tmp,
+                                                                   "prof")
+        # (a)
+        losses = []
+        for f in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                  "flash_attention_bwd_dkv"):
+            getattr(attn, f).launches = 0
+        t0 = time.perf_counter()
+        cli.run(["--preset", "LM-base", "--steps", str(OBS_STEPS),
+                 "--batch-size", str(b), "--seq-len", str(s),
+                 "--compute-dtype", "bfloat16", "--log-every", "100",
+                 "--device", DEVICE, "--telemetry-dir", run_dir,
+                 "--profile-dir", prof_dir],
+                on_step=lambda step, tr, loss: losses.append(
+                    loss.detach().clone()))
+        launches = {"K2": attn.flash_attention_fwd.launches,
+                    "K3": attn.flash_attention_bwd_dq.launches,
+                    "K4": attn.flash_attention_bwd_dkv.launches}
+        run_s = time.perf_counter() - t0
+        losses = [float(x) for x in losses]
+        files = sorted(os.listdir(run_dir))
+        if len(files) != 1 or not files[0].startswith("events_rank0_gen0_"):
+            fail(f"(a) the run directory holds {files}, want rank 0's file")
+        with open(os.path.join(run_dir, files[0])) as f:
+            first = json.loads(f.readline())
+        if first.get("type") != "epoch":
+            fail(f"(a) the first record is {first}, not the epoch")
+        (_, recs), = tel_mod.read_run(run_dir)
+        by = {}
+        for r in recs:
+            by.setdefault((r["type"], r["name"]), []).append(r)
+        spans = by.get(("span", "lm_train_step"), [])
+        counts = {n: len(by.get(("gauge", n), []))
+                  for n in ("loss", "grad_norm", "param_norm")}
+        if len(spans) != OBS_STEPS or set(counts.values()) != {OBS_STEPS}:
+            fail(f"(a) {len(spans)} step spans and gauges {counts}, want "
+                 f"{OBS_STEPS} each")
+        gauged = [r["value"] for r in by[("gauge", "loss")]]
+        if gauged != losses:
+            fail(f"(a) the loss gauges {gauged} are not the losses the "
+                 f"run returned {losses}")
+        trace = tel_mod.merge_chrome_trace(run_dir)
+        json.loads(json.dumps(trace, allow_nan=False))  # strict JSON
+        summary = tel_mod.run_summary(run_dir)
+        if summary["counters"].get("rank0/train/steps") != OBS_STEPS:
+            fail(f"(a) run_summary counts {summary['counters']}")
+        t0 = time.perf_counter()
+        kern = _trace_kernel_counts(prof_dir)
+        parse_s = time.perf_counter() - t0
+        trace_mb = sum(os.path.getsize(os.path.join(prof_dir, n))
+                       for n in os.listdir(prof_dir)) / 1e6
+        want = n_layers * OBS_PROFILED
+        traces = [kern]
+        if kern["files"] == 1 and any(kern[k] != want for k in SM90_KERNELS):
+            # the profiler has lost a run of kernel records from a trace
+            # (66-67 of 47,680, K2 239, in two whole runs of this script):
+            # trace the same steps once more, through lm_cli alone
+            shutil.rmtree(prof_dir)
+            cli.run(["--preset", "LM-base", "--steps", str(OBS_STEPS),
+                     "--batch-size", str(b), "--seq-len", str(s),
+                     "--compute-dtype", "bfloat16", "--log-every", "100",
+                     "--device", DEVICE, "--profile-dir", prof_dir])
+            kern = _trace_kernel_counts(prof_dir)
+            traces.append(kern)
+        if kern["files"] != 1 or any(kern[k] != want for k in SM90_KERNELS):
+            fail(f"(a) the profiler traces hold {traces}, want one file "
+                 f"with {want} launches each of K2, K3, K4")
+        if any(n != n_layers * OBS_STEPS for n in launches.values()):
+            fail(f"(a) {launches} launches in {OBS_STEPS} steps")
+        step = summary["spans"]["rank0/train/lm_train_step"]
+        out["a"] = {
+            "steps": OBS_STEPS, "run_s": run_s, "launches": launches,
+            "profiled_steps": OBS_PROFILED, "trace_kernels": kern,
+            "traces": len(traces), "first_trace_kernels": traces[0],
+            "trace_mb": trace_mb, "trace_parse_s": parse_s,
+            "records": len(recs), "merged_trace_events":
+                len(trace["traceEvents"]),
+            "step_span_ms": {"p50": step["p50_s"] * 1e3,
+                             "p95": step["p95_s"] * 1e3,
+                             "max": step["max_s"] * 1e3},
+            "compile_spans": {k: v["count"] for k, v in
+                              summary["spans"].items() if "/compile/" in k}}
+        print("  (a) lm_cli with --telemetry-dir and --profile-dir: "
+              + json.dumps(out["a"]))
+        # (e), on (a)'s run directory
+        p95_ms = step["p95_s"] * 1e3
+        rules = [mon.SloRule(name="under", metric="lm_train_step",
+                             threshold=p95_ms * 0.5, agg="p95",
+                             severity="critical"),
+                 mon.SloRule(name="over", metric="lm_train_step",
+                             threshold=p95_ms * 2.0, agg="p95")]
+        st = mon.evaluate_run(run_dir, rules)
+        if not st["under"]["breached"] or st["over"]["breached"]:
+            fail(f"(e) evaluate_run: {st}")
+        out["e"] = {"measured_p95_ms": p95_ms,
+                    "rules": {k: {"threshold_ms": v["rule"]["threshold"],
+                                  "current_ms": v["current"],
+                                  "breached": v["breached"],
+                                  "samples": v["samples"]}
+                              for k, v in st.items()}}
+        print("  (e) evaluate_run step_time p95 rules: "
+              + json.dumps(out["e"]))
+
+        # (b)
+        cfg = lm.LMTrainConfig(model=model, compute_dtype="bfloat16")
+        tr = lm.LMTrainer(cfg, device=DEVICE)
+        batches = _obs_batches(port, max(OBS_K, OBS_WINDOW))
+        tk = np.stack([x[0] for x in batches[:OBS_K]])
+        tg = np.stack([x[1] for x in batches[:OBS_K]])
+        p0, o0 = _obs_state(tr)
+        got = tr.train_steps(tk, tg)
+        many = ([float(x) for x in got], _obs_state(tr)[0],
+                tr.last_metrics.float().cpu().numpy().tolist())
+        singles = []
+        for _ in range(2):
+            tr.load_state(p0, o0)
+            ls = [float(tr.train_step(*bt)) for bt in batches[:OBS_K]]
+            singles.append((ls, _obs_state(tr)[0]))
+        repeat_gap = max(_max_gap(torch, singles[0][1], singles[1][1]),
+                         max(abs(x - y) for x, y in zip(singles[0][0],
+                                                        singles[1][0])))
+        gap = max(_max_gap(torch, many[1], singles[0][1]),
+                  max(abs(x - y) for x, y in zip(many[0], singles[0][0])))
+        if not gap <= repeat_gap:
+            fail(f"(b) train_steps differs from {OBS_K} train_step calls "
+                 f"by {gap} (the calls' own repeat: {repeat_gap})")
+        out["b"] = {"k": OBS_K, "losses": many[0],
+                    "losses_train_step": singles[0][0],
+                    "max_gap": gap, "repeat_gap": repeat_gap,
+                    "bitwise": gap == 0.0, "last_metrics": many[2]}
+        print("  (b) train_steps(K=4) against 4 train_step calls: "
+              + json.dumps(out["b"]))
+
+        # (c)
+        win = batches[:OBS_WINDOW]
+
+        def window(on: bool, profiled: bool = False):
+            tr.load_state(p0, o0)
+            steps = win[:OBS_PROFILE] if profiled else win
+            prof = None
+            if on:
+                tel_mod.enable(os.path.join(tmp, "windows"), rank=0)
+            try:
+                sync(torch)
+                if profiled:
+                    prof = tracing.start_profile([ProfilerActivity.CUDA])
+                t0 = time.perf_counter()
+                ls = []
+                for i, bt in enumerate(steps):
+                    if profiled and i:
+                        mark_step(torch)
+                    ls.append(tr.train_step(*bt))
+                sync(torch)
+                dt = time.perf_counter() - t0
+                if prof is not None:
+                    tracing.stop_profile(prof)
+            finally:
+                tel_mod.disable()
+            return [float(x) for x in ls], dt / len(steps) * 1e3, prof
+
+        ms = {"off": [], "on": []}
+        seen = {}
+        for mode in ("off", "on", "on", "off"):
+            ls, m, _ = window(mode == "on")
+            ms[mode].append(m)
+            seen.setdefault(mode, []).append(ls)
+        # two profiled windows a side, A B B A, a step mark between two
+        # steps: a profiled window can lose a run of records (72, a step's
+        # worth, of 6 steps; 30 of phase 8's 5), so the counts a step are
+        # each window's most common step's (profiled_steps) and each side
+        # reads its fuller window
+        prof_res, windows = {}, {"off": [], "on": []}
+        for mode in ("off", "on", "on", "off"):
+            ls, m, prof = window(mode == "on", profiled=True)
+            seen[mode].append(ls)
+            dev_us = sum(e.self_device_time_total
+                         for e in prof.key_averages()
+                         if e.device_type == DeviceType.CUDA
+                         and STEP_MARK not in e.key)
+            st = profiled_steps(prof)
+            windows[mode].append({
+                "steps": OBS_PROFILE, "ms_per_step_profiled": m,
+                "device_ms_per_step": dev_us / 1e3 / OBS_PROFILE,
+                "device_ops_per_step": st["ops"] / OBS_PROFILE,
+                "device_ops_step": st["ops_step"],
+                "device_ops_by_step": st["ops_by_step"],
+                "device_to_host_copies": st["copies"],
+                "device_to_host_copies_step": st["copies_step"],
+                "device_idle_share": 1.0 - dev_us / 1e3 / OBS_PROFILE / m})
+        for mode, ws in windows.items():
+            prof_res[mode] = dict(max(ws, key=lambda w: w["device_ops"
+                                                         "_per_step"]),
+                                  windows_ops_step=[w["device_ops_step"]
+                                                    for w in ws],
+                                  windows_copies=[w["device_to_host_copies"]
+                                                  for w in ws])
+        runs = seen["off"] + seen["on"]  # for the failure message
+        off_spread = max(abs(x - y) for r in seen["off"][1:]
+                         for x, y in zip(r, seen["off"][0]))
+        on_gap = max(abs(x - y) for r in seen["on"]  # zip: 6 or 10 steps
+                     for x, y in zip(r, seen["off"][0]))
+        if not on_gap <= off_spread:
+            fail(f"(c) losses with telemetry on differ from off by {on_gap} "
+                 f"(off against off: {off_spread}): {runs}")
+        # Telemetry's operations are a concatenation and a device-to-host
+        # copy a step: with it off the windows hold no such copy, with it
+        # on one a step.  Off, a step runs no more operations than phase
+        # 8's step (each the most common step of its window).
+        pr = prof_res
+        if any(pr["off"]["windows_copies"]) or max(
+                w["device_to_host_copies_step"] for w in windows["on"]) != 1:
+            fail(f"(c) device-to-host copies off / on: {pr}")
+        if not pr["off"]["device_ops_step"] <= phase8_ops:
+            fail(f"(c) telemetry off runs {pr['off']} device operations a "
+                 f"step, phase 8 {phase8_ops}")
+        med = {k: float(np.median(v)) for k, v in ms.items()}
+        out["c"] = {"window_steps": OBS_WINDOW, "order": "off on on off",
+                    "ms_per_step": ms, "ms_median": med,
+                    "on_over_off_ms": med["on"] / med["off"],
+                    "profiled": prof_res,
+                    "phase8_device_ops_step": phase8_ops,
+                    "added_device_ops_per_step":
+                        prof_res["on"]["device_ops_step"]
+                        - prof_res["off"]["device_ops_step"],
+                    "losses_bitwise_on_off": on_gap == 0.0,
+                    "loss_gap_on_off": on_gap, "loss_spread_off": off_spread}
+        print("  (c) telemetry off / on windows: " + json.dumps(out["c"])
+              + f"; {facts['smi']}")
+
+        # (d)
+        tel_mod.enable(os.path.join(tmp, "mem"), rank=0)
+        try:
+            wm = mon.record_memory(params=tr.params, opt=tr.opt_state)
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            tel_mod.disable()
+        (_, mrecs), = tel_mod.read_run(os.path.join(tmp, "mem"))
+        g = {r["name"]: r["value"] for r in mrecs}
+        want_p = sum(t.numel() * t.element_size()
+                     for t in tr.params.values())
+        want_o = sum(t.numel() * t.element_size()
+                     for m in ("mu", "nu") for t in tr.opt_state[m].values())
+        if g.get("device_peak_bytes") != peak or \
+                g.get("params_bytes") != want_p or \
+                g.get("opt_bytes") != want_o:
+            fail(f"(d) record_memory gave {g}; max_memory_allocated "
+                 f"{peak}, params {want_p}, optimizer {want_o}")
+        out["d"] = {"gauges": g, "max_memory_allocated": peak,
+                    "devices": wm["devices"]}
+        print("  (d) record_memory: " + json.dumps(out["d"]))
+    del tr
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 23 took {out['seconds']:.1f} s")
+    return out
+
+
 T_START = time.perf_counter()
 
 
@@ -4768,6 +5181,8 @@ def main() -> int:
         from distributed_pytorch_tpu_torch.parallel import init as pinit
         from distributed_pytorch_tpu_torch.parallel import mesh as pmesh
         from distributed_pytorch_tpu_torch.parallel import strategies
+        from distributed_pytorch_tpu_torch.utils import (monitor, telemetry,
+                                                          tracing)
     except ImportError as e:
         print(f"chip_smoke: the port's package is not importable: {e}",
               file=sys.stderr)
@@ -4778,7 +5193,8 @@ def main() -> int:
             "train": train, "cli": cli, "vgg": vgg, "fused_bn": fused_bn,
             "cifar10": cifar10, "nn": nn, "qz": qz, "losses": losses,
             "corpus": lm_corpus, "strategies": strategies, "mesh": pmesh,
-            "parallel_init": pinit, "moe": moe}
+            "parallel_init": pinit, "moe": moe, "telemetry": telemetry,
+            "monitor": monitor, "tracing": tracing}
 
     # 1. card facts
     facts = card_facts(torch)
@@ -4893,6 +5309,10 @@ def main() -> int:
     phase(22, "sync windows at world size 1 (NCCL): VGG-11 local SGD, the "
               "outer optimizer, the LM window arithmetic")
     windows_phase(torch, port, facts)
+    phase(23, "observability at LM-base width: telemetry, the profiler, "
+              "train_steps, memory and SLO lanes")
+    obs_res = observability_phase(torch, port, facts,
+                                  train_res["device_ops_step"])
     print(f"  phases done at {time.perf_counter() - T_START:.0f} s")
 
     kernels = []
@@ -4946,6 +5366,9 @@ def main() -> int:
             "replaces": f"distributed_pytorch_tpu/ops/attention.py:{line}",
             "launches": train_res["launches"][name],
             "launches_moe_path": moe_res["b"]["launches"][name],
+            "launches_observability_path": obs_res["a"]["launches"][name],
+            "launches_in_profiler_trace": obs_res["a"]["trace_kernels"][
+                name],
             "max_abs_err": flash_worst[name]["max_abs_err"],
             "err_over_tol": flash_worst[name]["err_over_tol"],
             "tolerance": FLASH_TOL,

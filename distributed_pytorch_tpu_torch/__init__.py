@@ -17,6 +17,9 @@ Ported so far, each with its hand-written CUDA kernels under csrc/:
 - VGG training: models/vgg.py, train.py, eval.py, cli.py, the CIFAR-10
   data path (the fused BN+ReLU backward, csrc/fused_bn.cu), and data
   parallel over torch.distributed, one process a device: parallel/
-  (rendezvous, mesh, the gradient-sync strategies), sync-BN, launch.py.
+  (rendezvous, mesh, the gradient-sync strategies), sync-BN, launch.py;
+- observability: utils/telemetry.py (the run's event stream),
+  utils/monitor.py (SLO monitors, memory and compile lanes, postmortems),
+  utils/logging.py, profiler traces (utils/tracing.py).
 See ROADMAP.md for what follows.
 """

@@ -26,17 +26,20 @@ and ``--dcn-compress`` quantizes hierarchical's cross-slice hop.
 outer optimizer; ``--max-sync-every`` defaults to ``max(H, 1)``), with
 the JAX CLI's checks: a window must end each ``train_steps`` call, which
 at the trainer's ``steps_per_loop`` of 1 the trainer refuses, as the JAX
-one does, and ``--sync-every-per-slice`` is the LM trainer's.  The
-checkpoint, profile, telemetry and elastic flags of slice 5c and the
-planner's flags of slice 5f raise ``NotImplementedError`` naming their
-sub-slice.  ``--model`` also takes
+one does, and ``--sync-every-per-slice`` is the LM trainer's.
+``--telemetry-dir D`` (default: the launcher's ``TELEMETRY_DIR``) streams
+the run's rank-tagged events into D (utils/telemetry.py; read them with
+``scripts/torch_telemetry_summary.py D``), and ``--profile-dir P`` writes a
+``torch.profiler`` Chrome trace of the first epoch into P.  The checkpoint
+and elastic flags of slice 5c and the planner's flags of slice 5f raise
+``NotImplementedError`` naming their sub-slice.  ``--model`` also takes
 ``TINY``, the package's smoke configuration.
 """
 
 from __future__ import annotations
 
 import argparse
-import logging
+import contextlib
 import sys
 
 from . import eval as evaluation
@@ -49,6 +52,8 @@ from .parallel import init as dist_init
 from .parallel import strategies as strat
 from .parallel.mesh import one_process_per_device
 from .train import STRATEGIES, TrainConfig, Trainer
+from .utils import telemetry, tracing
+from .utils.logging import get_logger, setup_logging
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -120,8 +125,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "--nproc-per-node N runs N processes)")
     # capabilities of the JAX package beyond the reference
     p.add_argument("--checkpoint-dir", default=None)
-    p.add_argument("--profile-dir", default=None)
-    p.add_argument("--telemetry-dir", default=None)
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler Chrome trace of the first "
+                        "epoch into this directory")
+    p.add_argument("--telemetry-dir", default=None,
+                   help="stream rank-tagged JSONL events (step spans, "
+                        "loss/grad-norm/param-norm gauges) into this run "
+                        "directory; defaults from the launcher-exported "
+                        "TELEMETRY_DIR; off (and free) when neither is "
+                        "set.  Read it with "
+                        "scripts/torch_telemetry_summary.py")
     p.add_argument("--shard-eval", action="store_true",
                    help="shard the test set over the ranks (all-reduced "
                         "sums) instead of the reference's redundant "
@@ -145,7 +158,7 @@ _LATER_FLAGS = [
     *[(f"--{n}", None, PLANNING_SLICE) for n in ("sync-route",
                                                  "autotune-profile")],
     *[(f"--{n}", None, DURABILITY_SLICE) for n in (
-        "checkpoint-dir", "profile-dir", "telemetry-dir", "max-nodes")],
+        "checkpoint-dir", "max-nodes")],
     ("--elastic", False, DURABILITY_SLICE),
     ("--min-nodes", 1, DURABILITY_SLICE),
 ]
@@ -234,17 +247,20 @@ def run(argv: list[str] | None = None, on_step=None) -> dict:
         device = dist_init.init_distributed(
             args.master_ip, args.num_nodes, args.rank, port=args.port,
             timeout_s=args.rendezvous_timeout, device=args.device)
+    setup_logging(args.log_level)
+    tel = telemetry.enable_from_cli(args.telemetry_dir)
     try:
-        return _train(args, device, on_step)
+        return _train(args, device, on_step, tel)
     finally:
+        if tel is not None and telemetry.active() is tel:
+            telemetry.disable()
         dist_init.shutdown()
 
 
-def _train(args, device, on_step) -> dict:
-    logging.basicConfig(
-        level=args.log_level,
-        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
-    log = logging.getLogger("cli")
+def _train(args, device, on_step, tel) -> dict:
+    log = get_logger("cli")
+    if tel is not None:
+        log.info("telemetry: streaming to %s", tel.run_dir)
     cfg = TrainConfig(
         model=args.model, lr=args.lr, momentum=args.momentum,
         weight_decay=args.weight_decay, batch_size=args.batch_size,
@@ -277,8 +293,11 @@ def _train(args, device, on_step) -> dict:
              "synthetic" if synthetic else "on disk")
     epochs = []
     for epoch in range(args.epochs):
-        loss_meter, time_meter = trainer.train_epoch(
-            train_loaders, epoch, on_step=on_step)
+        with (tracing.trace(args.profile_dir)
+              if args.profile_dir and epoch == 0
+              else contextlib.nullcontext()):
+            loss_meter, time_meter = trainer.train_epoch(
+                train_loaders, epoch, on_step=on_step)
         if args.debug_checks:
             trainer.check_consistency()
             log.info("epoch %d: replica-consistency checks passed",

@@ -19,8 +19,15 @@ tears the gang down too.  Several nodes restart together through a
 generation-numbered rendezvous that the node-0 agent hosts on
 ``--agent-port`` (default master_port + 1).
 
-Elastic resize (``--elastic`` and its bounds), heartbeats and telemetry
-belong to slice 5c and raise ``NotImplementedError`` naming it.
+``--telemetry-dir D`` puts the gang on one timeline: the agent logs its
+gang events (``worker_start``, ``worker_exit``, ``gang_done``) into D as
+rank -1 ("agent" in the merged trace) and exports ``TELEMETRY_DIR=D`` to
+the workers, whose CLIs stream into the same directory; a worker that
+exits non-zero leaves a ``worker_fault`` postmortem bundle there
+(utils/monitor.py; ``scripts/torch_postmortem.py D`` renders it).
+
+Elastic resize (``--elastic`` and its bounds) and heartbeats belong to
+slice 5c and raise ``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -37,7 +44,11 @@ import time
 from dataclasses import dataclass, field
 
 # The agent imports no torch: it supervises the workers that own the
-# devices.
+# devices.  utils.telemetry, utils.monitor and utils.logging import none
+# either, so its events and logs ride the workers' machinery.
+from .utils import monitor, telemetry
+from .utils.logging import get_logger, setup_logging
+
 DURABILITY_SLICE = ("ROADMAP.md queue 1, slice 5c (durability and "
                     "observability)")
 
@@ -49,6 +60,16 @@ TERM_GRACE_S = 10.0
 BARRIER_TIMEOUT_S = 600.0   # max skew between agents reaching a generation
 RPC_TIMEOUT_S = 5.0         # status/fail round-trip budget
 CONNECT_RETRY_S = 60.0      # waiting for the node-0 coordinator to come up
+
+
+def _tel_event(name: str, **args) -> None:
+    """A gang event (a worker's start or exit, the gang's end) in the
+    'gang' lane when the agent runs with --telemetry-dir; free otherwise.
+    The agent's registry is rank -1 and generation 0; the generation an
+    event belongs to rides in its args."""
+    tel = telemetry.active()
+    if tel is not None:
+        tel.event(name, phase="gang", **args)
 
 
 class _Coordinator:
@@ -202,14 +223,17 @@ class LocalAgent:
     """Spawns and supervises this node's workers (torchrun's agent).
 
     ``argv`` is passed to the Python interpreter verbatim, so both script
-    paths and modules (``-m pkg.cli ...``) work."""
+    paths and modules (``-m pkg.cli ...``) work; ``worker_env`` is added to
+    every worker's environment.  Every line the agent logs also lands in
+    the monitor's log ring, so a postmortem bundle carries it."""
 
     def __init__(self, argv: list[str], *, nnodes: int = 1,
                  node_rank: int = 0, nproc_per_node: int = 1,
                  master_addr: str = "127.0.0.1",
                  master_port: int = DEFAULT_PORT, max_restarts: int = 0,
                  monitor_interval_s: float = 0.1,
-                 agent_port: int | None = None, log=print):
+                 agent_port: int | None = None, log=print,
+                 worker_env: dict[str, str] | None = None):
         self.argv = argv
         self.nnodes = nnodes
         self.node_rank = node_rank
@@ -220,7 +244,12 @@ class LocalAgent:
         self.monitor_interval_s = monitor_interval_s
         self.agent_port = (agent_port if agent_port is not None
                            else master_port + 1)
-        self.log = log
+        self.worker_env = dict(worker_env or {})
+
+        def _log(msg, _inner=log):
+            monitor.log_line(str(msg))
+            _inner(msg)
+        self.log = _log
         self._procs: dict[int, subprocess.Popen] = {}
         self._gen = 0  # current rendezvous generation (RESTART_ATTEMPT)
         self._drain_stats = {"exited": 0, "killed": 0}
@@ -239,10 +268,14 @@ class LocalAgent:
         for spec in self.specs():
             env = spec.env()
             env["RESTART_ATTEMPT"] = str(self._gen)
+            env.update(self.worker_env)
             self._procs[spec.rank] = subprocess.Popen(
                 [sys.executable] + self.argv, env=env)
             self.log(f"[launch] node {self.node_rank}: started rank "
                      f"{spec.rank} (pid {self._procs[spec.rank].pid})")
+            _tel_event("worker_start", rank=spec.rank, gen=self._gen,
+                       pid=self._procs[spec.rank].pid,
+                       world_size=spec.world_size)
 
     def _terminate_all(self, grace_s: float = TERM_GRACE_S) -> dict:
         """SIGTERM the gang, SIGKILL whoever is left after ``grace_s``;
@@ -271,6 +304,27 @@ class LocalAgent:
             self._drain_stats[k] += v
         return outcome
 
+    def _gang_view(self) -> dict:
+        """The agent's view of the gang for a postmortem bundle."""
+        return {
+            "nnodes": self.nnodes, "node_rank": self.node_rank,
+            "world_size": self.nnodes * self.nproc, "gen": self._gen,
+            "ranks": {r: p.poll() for r, p in self._procs.items()},
+        }
+
+    def _postmortem(self, trigger: str, **detail) -> str | None:
+        """The flight recorder at a worker's failure: a bundle in the run's
+        telemetry directory (the agent's registry, or the TELEMETRY_DIR
+        its workers write to); without one there is nowhere to put it."""
+        tel, env = telemetry.active(), telemetry.TELEMETRY_DIR_ENV
+        run_dir = (tel.run_dir if tel is not None
+                   else self.worker_env.get(env) or os.environ.get(env))
+        if not run_dir:
+            return None
+        return monitor.write_postmortem(trigger, run_dir=run_dir, tel=tel,
+                                        detail=detail,
+                                        gang=self._gang_view())
+
     def _monitor(self, watch_remote: bool = False) -> GangResult:
         """Block until the gang finishes or any worker fails: a non-zero
         or signal-killed worker is noticed within ``monitor_interval_s``
@@ -289,6 +343,10 @@ class LocalAgent:
                             else "failure")
                     self.log(f"[launch] rank {rank} FAILED with exit code "
                              f"{code} ({kind}); terminating gang")
+                    _tel_event("worker_exit", rank=rank, gen=self._gen,
+                               code=code, kind=kind)
+                    self._postmortem("worker_fault", rank=rank, code=code,
+                                     classified=kind)
                     self._terminate_all()
                     return GangResult(
                         returncode=code, failed_rank=rank,
@@ -450,7 +508,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--agent-port", type=int, default=None,
                    help="coordinator port for multi-node restarts "
                         "(default master_port+1; node 0 hosts)")
-    # elastic resize and telemetry: slice 5c
+    # elastic resize: slice 5c
     p.add_argument("--elastic", action="store_true")
     p.add_argument("--min-nodes", type=int, default=1)
     p.add_argument("--max-nodes", type=int, default=None)
@@ -459,23 +517,29 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--rejoin-delay", type=float, default=0.0)
     p.add_argument("--grow-after-steps", type=int, default=1)
     p.add_argument("--max-resizes", type=int, default=16)
-    p.add_argument("--telemetry-dir", default=None)
+    p.add_argument("--telemetry-dir", default=None,
+                   help="log the gang's events (worker start/exit) into "
+                        "this run directory and export it to the workers "
+                        "(TELEMETRY_DIR), so every rank's stream merges "
+                        "into one Chrome trace "
+                        "(scripts/torch_telemetry_summary.py)")
     p.add_argument("cmd", nargs=argparse.REMAINDER,
                    help="worker command: a script path or '-m module', "
                         "optionally preceded by '--'")
     return p
 
 
-# (flag, the value that leaves it off): elastic resize and telemetry
+# (flag, the value that leaves it off): elastic resize
 _LATER_FLAGS = [("--elastic", False), ("--min-nodes", 1),
                 ("--max-nodes", None), ("--heartbeat-timeout", 300.0),
                 ("--drain-grace", 30.0), ("--rejoin-delay", 0.0),
-                ("--grow-after-steps", 1), ("--max-resizes", 16),
-                ("--telemetry-dir", None)]
+                ("--grow-after-steps", 1), ("--max-resizes", 16)]
 
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
+    setup_logging()
+    log = get_logger("launch")
     for flag, off in _LATER_FLAGS:
         value = getattr(args, flag[2:].replace("-", "_"))
         if value != off:
@@ -487,20 +551,35 @@ def main(argv: list[str] | None = None) -> int:
         cmd = cmd[1:]
     if not cmd:
         build_parser().error("no worker command given")
-    agent = LocalAgent(
-        cmd, nnodes=args.nnodes, node_rank=args.node_rank,
-        nproc_per_node=args.nproc_per_node, master_addr=args.master_addr,
-        master_port=args.master_port, max_restarts=args.max_restarts,
-        monitor_interval_s=args.monitor_interval,
-        agent_port=args.agent_port)
-    # a scheduler's SIGTERM must tear down the gang, not orphan it: raising
-    # SystemExit routes through run()'s BaseException cleanup
-    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
-    result = agent.run()
-    if result.returncode != 0:
-        print(f"[launch] gang failed: rank {result.failed_rank} exit "
-              f"{result.returncode} after {result.restarts_used} restarts",
-              flush=True)
+    worker_env = {}
+    if args.telemetry_dir:
+        # the agent's own events (rank -1, "agent" in the merged trace),
+        # and the workers' streams in the same run directory
+        telemetry.enable(args.telemetry_dir, rank=-1, gen=0, label="agent")
+        worker_env[telemetry.TELEMETRY_DIR_ENV] = args.telemetry_dir
+    try:
+        agent = LocalAgent(
+            cmd, nnodes=args.nnodes, node_rank=args.node_rank,
+            nproc_per_node=args.nproc_per_node,
+            master_addr=args.master_addr, master_port=args.master_port,
+            max_restarts=args.max_restarts,
+            monitor_interval_s=args.monitor_interval,
+            agent_port=args.agent_port, worker_env=worker_env)
+        # a scheduler's SIGTERM must tear down the gang, not orphan it:
+        # raising SystemExit routes through run()'s BaseException cleanup
+        signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+        result = agent.run()
+        if result.drain:
+            log.info("drain outcome: %s", result.drain)
+        if result.returncode != 0:
+            log.error("gang failed: rank %s exit %d after %d restarts",
+                      result.failed_rank, result.returncode,
+                      result.restarts_used)
+        _tel_event("gang_done", returncode=result.returncode,
+                   restarts_used=result.restarts_used, drain=result.drain)
+    finally:
+        if args.telemetry_dir:
+            telemetry.disable()  # flush before the agent exits
     return result.returncode
 
 

@@ -80,6 +80,18 @@ extra factor (``n_data`` on each leaf not sharded over ``data``); the port
 steps on the documented one, each slice's gradient of its own tokens at
 the full-batch rate.
 
+**K steps a call.**  ``LMTrainer.train_steps`` takes K stacked batches
+(K, B, S) and runs the step K times, the trajectory of K ``train_step``
+calls; it returns the K losses (the JAX ``make_lm_multi_step`` scan).
+
+**Telemetry** (utils/telemetry.py): with it on, each ``train_step`` emits
+an ``lm_train_step`` span (host dispatch time), the step's ``loss``,
+``grad_norm`` and ``param_norm`` gauges fetched in one copy after the
+dispatch, and at a window boundary a ``sync_window`` span with its
+``window_wire_bytes`` gauge (and the outer optimizer's gauges);
+``train_steps`` emits one ``lm_train_steps`` span and K of each gauge.
+With it off nothing is fetched and no operation is added.
+
 ``LMTrainConfig`` keeps every field of the JAX config so configs cross
 between the packages unchanged; a non-default value of a field that
 belongs to a later slice raises ``NotImplementedError`` naming it.
@@ -88,6 +100,7 @@ belongs to a later slice raises ``NotImplementedError`` naming it.
 from __future__ import annotations
 
 import math
+import time
 from dataclasses import dataclass, field
 from functools import partial
 from typing import Any
@@ -103,6 +116,7 @@ from .parallel import strategies as strat
 from .parallel.mesh import (DATA_AXIS, ensure_process_group, make_mesh,
                             mesh_group, one_process_per_device)
 from .parallel.strategies import flat_all_reduce
+from .utils import monitor, telemetry, tracing
 from .utils.device import resolve_device
 
 IGNORE = IGNORE_INDEX  # target id excluded from the loss (padding)
@@ -709,6 +723,25 @@ def lm_sync_state_len(cfg: LMTrainConfig) -> int:
                                    bucket_bytes) for run in runs)
 
 
+def _lm_window_wire_bytes(cfg: LMTrainConfig) -> int:
+    """One rank's float32 payload of one window-boundary exchange over
+    ``dcn`` (the JAX ``_lm_window_wire_bytes``), for the
+    ``window_wire_bytes`` gauge: the whole tree's sync partition, a ZeRO-3
+    bucket crossing at its shard's size, any other at its ``data`` shard
+    of the bucket."""
+    n_data = cfg.dp // cfg.dcn_size
+    shapes = param_shapes(cfg.model)
+    specs = param_specs(cfg, shapes)
+    names = jax_order(shapes)
+    sizes = _local_sizes(cfg, names, specs, shapes)
+    total = 0
+    for kind, idxs in _sync_partition(sizes, [specs[n] for n in names],
+                                      _sync_bucket_bytes(cfg)):
+        elems = sum(sizes[i] for i in idxs)
+        total += 4 * (elems if kind == "fsdp" else -(-elems // n_data))
+    return total
+
+
 class LMSync:
     """One rank's view of the sharded data-parallel step: the mesh's groups,
     each leaf's spec and ZeRO-3 dim, this rank's ``data`` index, and the
@@ -1263,13 +1296,21 @@ class LMTrainer:
                                       dtype=torch.float32,
                                       device=self.device)
         self.window = None  # the sync windows' programs (sync_every > 1)
-        if cfg.sync_every > 1:
-            self.step_fn = None
-            self.window = LMWindowSteps(
-                cfg, mesh, make_optimizer(cfg),
-                partial(_loss_fn, cfg, attn_impl, n_ranks=mesh.size()))
-        else:
-            self.step_fn = make_lm_train_step(cfg, attn_impl, mesh)
+        self._window_wire_bytes = None
+        kind = "localsgd" if cfg.sync_every > 1 else (
+            "sharded" if sharded(cfg) else "dp" if mesh is not None
+            else "single")
+        with monitor.compile_span(
+                "lm_step_build", kind=kind,
+                key=(kind, cfg.grad_clip, cfg.dp, cfg.dcn_size)):
+            if cfg.sync_every > 1:
+                self.step_fn = None
+                self.window = LMWindowSteps(
+                    cfg, mesh, make_optimizer(cfg),
+                    partial(_loss_fn, cfg, attn_impl, n_ranks=mesh.size()))
+                self._window_wire_bytes = _lm_window_wire_bytes(cfg)
+            else:
+                self.step_fn = make_lm_train_step(cfg, attn_impl, mesh)
         self._init_window_state()
         self._eval_fn = make_lm_eval_step(cfg, attn_impl, mesh)
         self._step = 0
@@ -1282,6 +1323,8 @@ class LMTrainer:
         float32 zero outer momentum (the anchor's layout); ``params`` stay
         the anchor, the last exchanged point."""
         self._delta = self._outer_m = self._pending = None
+        self._window_t0 = None  # host clock at the window's first step
+        self._outer_steps = 0   # outer-optimizer steps applied
         if self.window is None:
             return
         self._delta = {n: torch.zeros_like(p, requires_grad=False)
@@ -1357,6 +1400,15 @@ class LMTrainer:
                 torch.as_tensor(np.asarray(targets), device=self.device)
                 .long())
 
+    def _run_step(self, tokens, targets):
+        """One step of ``step_fn``: ``(loss, ok, met)``."""
+        if self.sync is not None:
+            loss, ok, met, self.sync_state = self.step_fn(
+                self.params, self.opt_state, tokens, targets,
+                self.sync_state)
+            return loss, ok, met
+        return self.step_fn(self.params, self.opt_state, tokens, targets)
+
     def train_step(self, tokens: np.ndarray, targets: np.ndarray):
         """One optimizer step on a (B, S) batch (this rank's rows under a
         mesh); returns the global batch's loss as a 0-dim tensor (not
@@ -1364,15 +1416,56 @@ class LMTrainer:
         tokens, targets = self._batch(tokens, targets)
         if self.window is not None:
             return self._train_step_windowed(tokens, targets)
-        if self.sync is not None:
-            loss, self.last_ok, self.last_metrics, self.sync_state = \
-                self.step_fn(self.params, self.opt_state, tokens, targets,
-                             self.sync_state)
-        else:
-            loss, self.last_ok, self.last_metrics = self.step_fn(
-                self.params, self.opt_state, tokens, targets)
+        t0 = time.perf_counter()
+        loss, self.last_ok, self.last_metrics = self._run_step(tokens,
+                                                               targets)
         self._step += 1
+        tel = telemetry.active()
+        if tel is not None:
+            telemetry.emit_train_steps(
+                tel, t0, self._step - 1, 1, *tracing.lazy_host(
+                    loss, self.last_ok, self.last_metrics),
+                span_name="lm_train_step")
         return loss
+
+    def train_steps(self, tokens: np.ndarray, targets: np.ndarray):
+        """``K = tokens.shape[0]`` optimizer steps over stacked (K, B, S)
+        batches (this rank's rows of each under a mesh), the trajectory of
+        K ``train_step`` calls; returns the K losses as a (K,) tensor, with
+        ``last_ok`` (K,) and ``last_metrics`` (K, 2).  The JAX ``lax.scan``
+        of ``make_lm_multi_step``, here a loop over the same step; it takes
+        neither the pipeline, gradient accumulation, the compressed
+        residual nor sync windows, with the JAX trainer's messages."""
+        cfg = self.cfg
+        if cfg.pp > 1 or cfg.pp_size > 0:
+            raise ValueError("train_steps (K-step scan) supports the "
+                             "(data, expert, seq, model) layout; with pp "
+                             "or pp_size use train_step")
+        if cfg.grad_accum > 1:
+            raise ValueError("train_steps does not implement gradient "
+                             "accumulation; use train_step with "
+                             "grad_accum, or stack more steps instead")
+        if cfg.dcn_compress is not None:
+            raise ValueError("train_steps does not thread the stateful "
+                             "sync-state (EF residual) carry; with "
+                             "dcn_compress use train_step")
+        if cfg.sync_every > 1:
+            raise ValueError("train_steps does not thread the window "
+                             "delta / per-slice optimizer carries; with "
+                             "sync_every > 1 use train_step")
+        tokens, targets = self._batch(tokens, targets)
+        k = tokens.shape[0]
+        t0 = time.perf_counter()
+        out = [self._run_step(tokens[i], targets[i]) for i in range(k)]
+        losses, oks, mets = (torch.stack(x) for x in zip(*out))
+        self.last_ok, self.last_metrics = oks, mets
+        self._step += k
+        tel = telemetry.active()
+        if tel is not None:
+            telemetry.emit_train_steps(
+                tel, t0, self._step - k, k, *tracing.lazy_host(
+                    losses, oks, mets), span_name="lm_train_steps")
+        return losses
 
     def _train_step_windowed(self, tokens, targets):
         """One local step of the ``sync_every = H`` schedule, then what the
@@ -1382,10 +1475,14 @@ class LMTrainer:
         interval does not divide the step."""
         w, cfg = self.window, self.cfg
         h, s = cfg.sync_every, cfg.staleness
+        t0 = time.perf_counter()
+        if self._step % h == 0:
+            self._window_t0 = t0
         loss, self.last_ok, self.last_metrics = w.local_step(
             self.params, self._delta, self.opt_state, tokens, targets)
         self._step += 1
-        if self._step % h == 0:
+        boundary = self._step % h == 0
+        if boundary:
             if s == 0:
                 per = cfg.sync_every_per_slice
                 mask = None if per is None else \
@@ -1393,6 +1490,8 @@ class LMTrainer:
                 self.sync_state, self._outer_m = w.exchange(
                     self.params, self._delta, self.sync_state,
                     self._outer_m, mask)
+                if self._outer_m is not None:
+                    self._outer_steps += 1
             else:
                 d_avg, snap, self.sync_state = w.launch(self._delta,
                                                         self.sync_state)
@@ -1402,6 +1501,26 @@ class LMTrainer:
             self._pending = None
             self._outer_m = w.apply_pending(self.params, self._delta, d_avg,
                                             snap, self._outer_m)
+            if self._outer_m is not None:
+                self._outer_steps += 1
+        tel = telemetry.active()
+        if tel is not None:
+            telemetry.emit_train_steps(
+                tel, t0, self._step - 1, 1, *tracing.lazy_host(
+                    loss, self.last_ok, self.last_metrics),
+                span_name="lm_train_step")
+            if boundary and self._window_t0 is not None:
+                telemetry.emit_sync_windows(
+                    tel, self._window_t0, self._step - h, h, h,
+                    wire_bytes=self._window_wire_bytes, phase="train")
+                if (cfg.sync_every_per_slice is not None
+                        or self._outer_m is not None):
+                    telemetry.emit_window_plan(
+                        tel, step=self._step - 1,
+                        sync_every_per_slice=cfg.sync_every_per_slice,
+                        outer_steps=(self._outer_steps
+                                     if self._outer_m is not None
+                                     else None), phase="train")
         return loss
 
     def evaluate(self, batches) -> dict[str, float]:

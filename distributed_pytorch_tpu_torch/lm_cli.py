@@ -35,16 +35,20 @@ outer optimizer at each boundary), ``--sync-every-per-slice H0,H1,...``
 (a window a slice) and ``--max-sync-every`` (default ``max(H, 1)``),
 with the JAX CLI's checks as usage errors; a window needs ``--dcn-size``
 of 2 or more.  Each needs a gang of two or more processes (``--dp``; on
-GPUs, one card a process).  Flags of later slices (the other parallel
-degrees, elastic membership, checkpoints, telemetry, profiling) end the
-run with a usage error naming the slice.
+GPUs, one card a process).  ``--telemetry-dir D`` (default: the launcher's
+``TELEMETRY_DIR``) streams each step's span and loss / grad-norm /
+param-norm gauges into D (read it with ``scripts/torch_telemetry_summary.py
+D``), and ``--profile-dir P`` writes a ``torch.profiler`` Chrome trace of
+steps 2-11 into P.  Flags of later slices (the other parallel degrees,
+elastic membership, checkpoints) end the run with a usage error naming the
+slice.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
-import logging
 import sys
 import time
 
@@ -57,6 +61,8 @@ from .lm import (DURABILITY_SLICE, PARALLEL_SLICE, PLANNING_SLICE,
 from .models import transformer as tfm
 from .parallel import init as dist_init
 from .parallel import strategies as strat
+from .utils import telemetry, tracing
+from .utils.logging import get_logger, setup_logging
 
 DEFAULT_PORT = dist_init.DEFAULT_PORT  # the JAX package's rendezvous port
 
@@ -164,8 +170,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--top-p", type=float, default=None)
     p.add_argument("--kv-dtype", default=None, choices=("int8",),
                    help="KV-cache storage for sampling")
-    p.add_argument("--profile-dir", default=None)
-    p.add_argument("--telemetry-dir", default=None)
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler Chrome trace of steps "
+                        "2-11 into this directory")
+    p.add_argument("--telemetry-dir", default=None,
+                   help="stream rank-tagged JSONL events (step spans, "
+                        "loss/grad-norm/param-norm gauges) into this run "
+                        "directory; defaults from the launcher-exported "
+                        "TELEMETRY_DIR; off (and free) when neither is "
+                        "set.  Read it with "
+                        "scripts/torch_telemetry_summary.py")
     p.add_argument("--log-level", default="INFO")
     return p
 
@@ -178,8 +192,7 @@ _LATER_FLAGS = [
     *[(f"--{n}", n, None, PLANNING_SLICE)
       for n in ("sync-plan", "sync-route", "autotune-profile")],
     *[(f"--{n}", n, None, DURABILITY_SLICE)
-      for n in ("max-nodes", "checkpoint-dir", "profile-dir",
-                "telemetry-dir")],
+      for n in ("max-nodes", "checkpoint-dir")],
     *[(f"--{n}", n, False, DURABILITY_SLICE)
       for n in ("elastic", "checkpoint-sharded")],
     *[(f"--{n}", n, 0, PARALLEL_SLICE) for n in ("pp-size", "microbatches")],
@@ -267,13 +280,16 @@ def run(argv: list[str] | None = None, on_step=None) -> LMTrainer:
         device = dist_init.init_distributed(
             args.master_ip, args.num_nodes, args.rank, port=args.port,
             device=args.device)
+    tel = telemetry.enable_from_cli(args.telemetry_dir)
     try:
-        return _train(args, device, on_step)
+        return _train(args, device, on_step, tel)
     finally:
+        if tel is not None and telemetry.active() is tel:
+            telemetry.disable()
         dist_init.shutdown()
 
 
-def _train(args, device, on_step) -> LMTrainer:
+def _train(args, device, on_step, tel) -> LMTrainer:
     cfg = LMTrainConfig(
         model=model_config(args), lr=args.lr, seed=args.seed,
         compute_dtype=(None if args.compute_dtype == "float32"
@@ -294,10 +310,10 @@ def _train(args, device, on_step) -> LMTrainer:
     if args.rendezvous == "env" or args.num_nodes > 1 or args.dp > 1:
         mesh = make_lm_mesh(cfg, device=device)  # --dp: the gang's size
     rank, world = dist_init.process_info()
-    logging.basicConfig(
-        level=args.log_level if rank == 0 else "WARNING",
-        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
-    log = logging.getLogger("lm_cli")
+    setup_logging(args.log_level if rank == 0 else "WARNING")
+    log = get_logger("lm_cli")
+    if tel is not None:
+        log.info("telemetry: streaming to %s", tel.run_dir)
     trainer = LMTrainer(cfg, device=device, mesh=mesh)
     log.info("model: %s | device: %s | rank %d/%d", cfg.model,
              trainer.device, rank, world)
@@ -344,28 +360,36 @@ def _train(args, device, on_step) -> LMTrainer:
 
     step, epoch = 0, 0
     t_last, s_last = time.perf_counter(), 0
-    while step < args.steps:
-        loader.set_epoch(epoch)
-        for tokens, targets in loader:
-            loss = trainer.train_step(tokens, targets)
-            step += 1
-            if on_step is not None:
-                on_step(step, trainer, loss)
-            if step % args.log_every == 0:
-                loss_v = float(loss)  # waits for the device
-                dt = time.perf_counter() - t_last
-                tok_s = ((step - s_last) * args.batch_size * args.seq_len
-                         / max(dt, 1e-9))
-                log.info("step %d | loss %.4f | %.0f tok/s", step, loss_v,
-                         tok_s)
-                t_last, s_last = time.perf_counter(), step
-            if val_loader is not None and step % args.eval_every == 0:
-                m = trainer.evaluate(iter(val_loader))
-                log.info("step %d | val loss %.4f | ppl %.2f (%d tokens)",
-                         step, m["loss"], m["ppl"], m["tokens"])
-            if step >= args.steps:
-                break
-        epoch += 1
+    # the trace of steps 2-11 under --profile-dir, closed early by a
+    # shorter run or an error
+    profile = contextlib.ExitStack()
+    with profile:
+        while step < args.steps:
+            loader.set_epoch(epoch)
+            for tokens, targets in loader:
+                if args.profile_dir and step == 1:
+                    profile.enter_context(tracing.trace(args.profile_dir))
+                loss = trainer.train_step(tokens, targets)
+                step += 1
+                if args.profile_dir and step == 11:
+                    profile.close()
+                if on_step is not None:
+                    on_step(step, trainer, loss)
+                if step % args.log_every == 0:
+                    loss_v = float(loss)  # waits for the device
+                    dt = time.perf_counter() - t_last
+                    tok_s = ((step - s_last) * args.batch_size * args.seq_len
+                             / max(dt, 1e-9))
+                    log.info("step %d | loss %.4f | %.0f tok/s", step, loss_v,
+                             tok_s)
+                    t_last, s_last = time.perf_counter(), step
+                if val_loader is not None and step % args.eval_every == 0:
+                    m = trainer.evaluate(iter(val_loader))
+                    log.info("step %d | val loss %.4f | ppl %.2f (%d tokens)",
+                             step, m["loss"], m["ppl"], m["tokens"])
+                if step >= args.steps:
+                    break
+            epoch += 1
 
     if args.generate is not None:
         params = trainer.full_params()  # a gather: every rank takes part

@@ -5,7 +5,9 @@ plain C interface, loaded with ``ctypes``.  The library lands in
 ``build/torch_kernels/`` at the repository root (listed in .gitignore),
 named by a hash of the source and the flags, so a changed source rebuilds
 and an unchanged one loads at once.  Nothing builds when a module is
-imported: the first call of a kernel's wrapper on a CUDA tensor builds it.
+imported: the first call of a kernel's wrapper on a CUDA tensor builds it,
+timed as a ``kernel_build`` span on the telemetry stream's compile lane when
+telemetry is on (utils/monitor.py ``compile_span``).
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+from ..utils import monitor
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -154,7 +158,9 @@ def load_library(name: str) -> ctypes.CDLL:
     """The loaded kernel library ``name``, built on first use."""
     lib = _loaded.get(name)
     if lib is None:
-        build_all([name])
+        with monitor.compile_span("kernel_build", key=library_path(name).name,
+                                  library=name):
+            build_all([name])
         lib = ctypes.CDLL(str(library_path(name)))
         for fn, (restype, argtypes) in _SIGNATURES[name].items():
             getattr(lib, fn).restype = restype

@@ -48,6 +48,12 @@ outer optimizer, whose float32 momentum rides ``sync_state`` as a flat
 tail after the residual segments, raveled in the JAX layout.  ``sync_every
 = 1`` is the per-step path above, untouched.
 
+With telemetry on (utils/telemetry.py), each ``train_steps`` call emits a
+``train_steps`` span, each step's loss, grad-norm and param-norm gauges
+(fetched in one copy after the dispatch) and, under windows, a
+``sync_window`` span and ``window_wire_bytes`` gauge a window; with it off
+nothing is fetched.
+
 ``TrainConfig`` keeps every field of the JAX config with its default.
 ``auto``, ``routed``, the sync route and the autotune profile raise
 ``NotImplementedError`` naming slice 5f.
@@ -73,6 +79,7 @@ from .parallel import strategies as strat
 from .parallel.mesh import (DATA_AXIS, axis_size, ensure_process_group,
                             make_mesh, mesh_group, one_process_per_device)
 from .utils import debug as dbg
+from .utils import monitor, telemetry, tracing
 from .utils.device import resolve_device
 from .utils.metrics import IterTimeMeter, LossMeter
 
@@ -580,11 +587,33 @@ class Trainer:
         self.state = state
         self._broadcast_params()
         self.opt = make_optimizer(cfg, self.params)
-        self._multi_fn = make_multi_step(cfg, self.strategy, self.mesh)
+        with monitor.compile_span(
+                "train_step_build", key=(cfg.strategy, cfg.sync_every,
+                                         self.n_replicas),
+                strategy=cfg.strategy):
+            self._multi_fn = make_multi_step(cfg, self.strategy, self.mesh)
         self.sync_state = self._init_sync_state()
         self._step = 0
         self.last_ok = None       # (K,) health flags of the last call
         self.last_metrics = None  # (K, 2) [grad-norm, param-norm]
+        self._window_wire_bytes = self._compute_window_wire_bytes()
+
+    def _compute_window_wire_bytes(self) -> int | None:
+        """The float32 payload of one window-boundary exchange (the
+        ``window_wire_bytes`` gauge): the shard-sized dcn hop for
+        ``hierarchical`` (each bucket's ceil(bucket / n_ici) elements), the
+        whole tree for the flat strategies; compression sends less.  None
+        without windows."""
+        if self.cfg.sync_every <= 1:
+            return None
+        leaves = self._leaves()
+        if hasattr(self.strategy, "window_exchange"):
+            n_ici = max(self.n_replicas // self.cfg.dcn_size, 1)
+            return sum(
+                4 * -(-sum(leaves[i].numel() for i in b) // n_ici)
+                for b in strat.make_bucket_plan(leaves,
+                                                self.strategy.bucket_bytes))
+        return sum(4 * leaf.numel() for leaf in leaves)
 
     def _build_mesh(self, cfg: TrainConfig, num_devices, device):
         if len(self.data_axes) == 1:
@@ -708,11 +737,21 @@ class Trainer:
                 f"K=1 path is likewise unavailable under windows)")
         if not isinstance(images, torch.Tensor):
             images, labels = self._to_device(images, labels)
+        t0 = time.perf_counter()
         (self.state, losses, self.last_ok, self.last_metrics,
          self.sync_state) = self._multi_fn(
             self.params, self.state, self.opt, self._step, images,
             labels.long(), self.sync_state)
         self._step += k
+        tel = telemetry.active()
+        if tel is not None:
+            telemetry.emit_train_steps(
+                tel, t0, self._step - k, k, *tracing.lazy_host(
+                    losses, self.last_ok, self.last_metrics))
+            if self.cfg.sync_every > 1:
+                telemetry.emit_sync_windows(
+                    tel, t0, self._step - k, k, self.cfg.sync_every,
+                    wire_bytes=self._window_wire_bytes)
         return losses
 
     def train_epoch(self, loaders, epoch: int, *, log=print, on_step=None):
@@ -772,7 +811,8 @@ class Trainer:
             if on_step is not None:
                 on_step(self._step)
             begin = time.perf_counter()
-            losses = self.train_steps(images, labels).cpu().numpy()
+            with tracing.annotate_step(self._step):
+                losses = self.train_steps(images, labels).cpu().numpy()
             per_step = (time.perf_counter() - begin) / k
             for loss_val in losses:
                 record(batch_idx, float(loss_val), per_step)

@@ -1,12 +1,15 @@
 """The port's launcher (distributed_pytorch_tpu_torch/launch.py, the
-non-elastic gang), its rank flags through cli.py, and ``evaluate_sharded``,
-on the CPU.  No JAX oracle: the launcher's contract is the JAX package's
+non-elastic gang), its rank flags through cli.py, its ``--telemetry-dir``
+(the gang's events and every rank's stream in one run directory, a
+``worker_fault`` postmortem), and ``evaluate_sharded``, on the CPU.  No
+JAX oracle: the launcher's contract is the JAX package's
 tests/test_launch.py (the torchrun env convention, teardown of a failed
 gang, ``--max-restarts``, generation-coordinated restarts across nodes),
 and the command-line runs hold the ranks against each other.  Every TCP
 port is picked free at run time.
 """
 
+import json
 import os
 import pickle
 import re
@@ -25,6 +28,8 @@ from distributed_pytorch_tpu_torch import launch as tlaunch
 from distributed_pytorch_tpu_torch.data import cifar10 as tcifar
 from distributed_pytorch_tpu_torch.data import pipeline as tpipe
 from distributed_pytorch_tpu_torch.models import vgg as tvgg
+from distributed_pytorch_tpu_torch.utils import monitor as tmon
+from distributed_pytorch_tpu_torch.utils import telemetry as ttel
 from workers.torch_dp_worker import run_gang, shared_result
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -138,9 +143,99 @@ def test_parser_takes_torchrun_flags():
 
 @pytest.mark.parametrize("argv", [["--elastic"], ["--min-nodes", "2"],
                                   ["--telemetry-dir", "t"]])
-def test_elastic_and_telemetry_flags_name_slice_5c(argv):
-    with pytest.raises(NotImplementedError, match="slice 5c"):
-        tlaunch.main(argv + ["--", "-c", "pass"])
+def test_elastic_and_telemetry_flags_name_slice_5c(argv, tmp_path,
+                                                   monkeypatch):
+    """The elastic flags raise, naming slice 5c; ``--telemetry-dir`` is
+    ported (slice 5c-i): the gang runs, the agent's file (rank -1) holds
+    its start, exit and end events, and the workers get the directory in
+    ``TELEMETRY_DIR`` while the agent's own environment is left alone."""
+    if argv[0] != "--telemetry-dir":
+        with pytest.raises(NotImplementedError, match="slice 5c"):
+            tlaunch.main(argv + ["--", "-c", "pass"])
+        return
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.delenv(ttel.TELEMETRY_DIR_ENV, raising=False)
+    prog = ("import os, pathlib; pathlib.Path(os.environ['RANK']).write_text("
+            "os.environ['TELEMETRY_DIR'])")
+    assert tlaunch.main(argv + ["--nproc-per-node", "2", "--", "-c",
+                                prog]) == 0
+    assert ttel.TELEMETRY_DIR_ENV not in os.environ
+    assert ttel.active() is None
+    assert [(tmp_path / r).read_text() for r in "01"] == ["t", "t"]
+    s = ttel.run_summary(str(tmp_path / "t"))
+    assert s["ranks"] == [-1]
+    ev = s["events"]
+    assert ev["rank-1/gang/worker_start"]["count"] == 2
+    assert ev["rank-1/gang/gang_done"]["count"] == 1
+    assert "rank-1/gang/worker_exit" not in ev
+    assert tmon.find_postmortems(str(tmp_path / "t")) == []
+
+
+def test_entry_points_take_telemetry_and_profile_dirs():
+    """cli, lm_cli and launch take ``--telemetry-dir`` (default None: the
+    CLIs then read the launcher's TELEMETRY_DIR), the two CLIs
+    ``--profile-dir``, under the JAX package's spellings."""
+    from distributed_pytorch_tpu_torch import cli, lm_cli
+    for mod in (cli, lm_cli, tlaunch):
+        tail = ["--", "-c", "pass"] if mod is tlaunch else []
+        args = mod.build_parser().parse_args(["--telemetry-dir", "/tmp/t"]
+                                             + tail)
+        assert args.telemetry_dir == "/tmp/t"
+        assert mod.build_parser().parse_args(tail).telemetry_dir is None
+        if mod is not tlaunch:
+            assert mod.build_parser().parse_args(
+                ["--profile-dir", "p"]).profile_dir == "p"
+
+
+def test_lm_cli_writes_a_trace_and_a_jsonl(tmp_path):
+    """A tiny ``lm_cli`` run with both flags: one torch.profiler Chrome
+    trace (steps 2-3 of 3, closed by the short run) and rank 0's JSONL
+    file with a step span and three gauges a step."""
+    from distributed_pytorch_tpu_torch import lm_cli
+    run, prof = tmp_path / "run", tmp_path / "prof"
+    lm_cli.run(["--device", "cpu", "--d-model", "32", "--n-layers", "1",
+                "--n-heads", "1", "--head-dim", "32", "--seq-len", "32",
+                "--batch-size", "2", "--steps", "3", "--telemetry-dir",
+                str(run), "--profile-dir", str(prof)])
+    (trace,) = os.listdir(prof)
+    assert trace.endswith(".pt.trace.json")
+    with open(prof / trace) as f:
+        assert json.load(f)["traceEvents"]
+    (name,) = os.listdir(run)
+    assert name.startswith("events_rank0_gen0_") and name.endswith(".jsonl")
+    s = ttel.run_summary(str(run))
+    assert s["spans"]["rank0/train/lm_train_step"]["count"] == 3
+    assert s["gauges"]["rank0/train/param_norm"]["count"] == 3
+    assert ttel.active() is None
+
+
+@pytest.mark.parametrize("code", [3, 77])
+def test_failed_worker_leaves_a_worker_fault_bundle(tmp_path, code):
+    """A worker that exits non-zero (a failure, or an injected fault's
+    code 77) tears the gang down and leaves one ``worker_fault`` bundle
+    in the run directory: strict JSON, the failed rank and its code, the
+    agent's view of the gang, the agent's events in its ring and its log
+    lines in the tail; the agent's stream records the exit."""
+    run = str(tmp_path / "run")
+    prog = ("import os, sys, time\n"
+            f"if os.environ['RANK'] == '1': sys.exit({code})\n"
+            "time.sleep(60)\n")
+    assert tlaunch.main(["--telemetry-dir", run, "--nproc-per-node", "2",
+                         "--monitor-interval", "0.05", "--", "-c",
+                         prog]) == code
+    (path,) = tmon.find_postmortems(run)
+    b = tmon.load_postmortem(path)
+    kind = "injected fault" if code == 77 else "failure"
+    assert b["trigger"] == {"kind": "worker_fault", "rank": 1,
+                            "code": code, "classified": kind}
+    assert b["gang"]["world_size"] == 2 and b["gang"]["gen"] == 0
+    assert b["gang"]["ranks"]["1"] == code
+    assert [r["name"] for r in b["ring"]] == ["worker_start"] * 2 + [
+        "worker_exit"]
+    assert any("FAILED with exit code" in ln for ln in b["log_tail"])
+    ev = ttel.run_summary(run)["events"]
+    assert ev["rank-1/gang/worker_exit"]["count"] == 1
+    assert ev["rank-1/slo/postmortem"]["count"] == 1
 
 
 def test_coordinated_multinode_restart():
@@ -218,10 +313,12 @@ def cli_runs(tmp_path_factory):
     lines."""
     def compute():
         data = _write_cifar(str(tmp_path_factory.mktemp("cifar")), 160, 16)
+        run_dir = str(tmp_path_factory.mktemp("cli_telemetry"))
         port = _free_port()
         env_run = subprocess.run(
             [sys.executable, "-m", "distributed_pytorch_tpu_torch.launch",
-             "--nproc-per-node", "2", "--master-port", str(port), "--"]
+             "--nproc-per-node", "2", "--master-port", str(port),
+             "--telemetry-dir", run_dir, "--"]
             + CLI + ["--rendezvous", "env", "--data-dir", data,
                      "--shard-eval"],
             env=_env(), cwd=REPO, capture_output=True, text=True,
@@ -234,8 +331,12 @@ def cli_runs(tmp_path_factory):
             env=_env(), cwd=REPO, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True) for r in range(2)]
         outs = [p.communicate(timeout=240)[0] for p in procs]
+        trace = ttel.merge_chrome_trace(run_dir)
         return {"env_rc": np.asarray(env_run.returncode),
                 "env_out": np.asarray(env_run.stdout + env_run.stderr),
+                "tel_summary": np.asarray(json.dumps(
+                    ttel.run_summary(run_dir))),
+                "tel_trace": np.asarray(json.dumps(trace)),
                 "args_rc": np.asarray([p.returncode for p in procs]),
                 "args_out0": np.asarray(outs[0]),
                 "args_out1": np.asarray(outs[1])}
@@ -253,6 +354,30 @@ def test_two_rank_cli_through_launch_and_env_rendezvous(cli_runs):
     assert len(losses) == 2 and losses[0] == losses[1], lines
     assert len(evals) == 2 and evals[0] == evals[1], lines
     assert out.count("replica-consistency checks passed") == 2
+
+
+def test_two_rank_launch_telemetry_merges_agent_and_ranks(cli_runs):
+    """The 2-rank launch above ran with --telemetry-dir: the merged trace
+    has pids -1 (the agent), 0 and 1, each rank's 20 steps as
+    ``train_steps`` spans with their gauges, and the agent's gang
+    events; the merged trace is strict JSON."""
+    s = json.loads(str(cli_runs["tel_summary"]))
+    trace = json.loads(str(cli_runs["tel_trace"]))
+    assert s["ranks"] == [-1, 0, 1]
+    assert {e["pid"] for e in trace["traceEvents"]} == {-1, 0, 1}
+    names = {e["pid"]: e["args"]["name"] for e in trace["traceEvents"]
+             if e.get("ph") == "M" and e["name"] == "process_name"}
+    assert names == {-1: "agent", 0: "rank 0", 1: "rank 1"}
+    for r in (0, 1):
+        assert s["counters"][f"rank{r}/train/steps"] == 20
+        assert s["spans"][f"rank{r}/train/train_steps"]["count"] == 20
+        assert s["gauges"][f"rank{r}/train/loss"]["count"] == 20
+        assert s["gauges"][f"rank{r}/train/window_loss"]["count"] == 1
+        assert s["spans"][f"rank{r}/compile/train_step_build"]["count"] == 1
+    assert s["events"]["rank-1/gang/worker_start"]["count"] == 2
+    assert s["events"]["rank-1/gang/gang_done"]["count"] == 1
+    # both ranks gauge the same rank-averaged losses
+    assert s["gauges"]["rank0/train/loss"] == s["gauges"]["rank1/train/loss"]
 
 
 def test_two_rank_cli_through_args_rendezvous(cli_runs):

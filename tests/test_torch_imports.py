@@ -48,7 +48,8 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "models.vgg", "ops.fused_bn", "train", "eval", "cli",
                 "data.cifar10", "data.sampler", "data.pipeline",
                 "data.augment", "utils.metrics", "ops.quantized",
-                "ops.moe"):
+                "ops.moe", "utils.telemetry", "utils.monitor",
+                "utils.logging"):
         assert f"distributed_pytorch_tpu_torch.{mod}" in got["modules"]
     assert got["bad"] == [], f"the port imported {got['bad']}"
 

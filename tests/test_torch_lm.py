@@ -18,6 +18,8 @@ do not match), while the unsharded functions run.
 """
 
 import dataclasses
+import os
+import types
 from functools import partial
 
 import jax
@@ -29,6 +31,7 @@ import torch
 
 from distributed_pytorch_tpu import lm as jlm
 from distributed_pytorch_tpu import lm_cli as jcli
+from distributed_pytorch_tpu.utils import telemetry as jtel
 from distributed_pytorch_tpu.data import lm_corpus as jcorpus
 from distributed_pytorch_tpu.models import transformer as jtfm
 from distributed_pytorch_tpu.ops import losses as jlosses
@@ -39,6 +42,7 @@ from distributed_pytorch_tpu_torch.data import lm_corpus as tcorpus
 from distributed_pytorch_tpu_torch.models import transformer as ttfm
 from distributed_pytorch_tpu_torch.ops import losses as tlosses
 from distributed_pytorch_tpu_torch.ops import nn as tnn
+from distributed_pytorch_tpu_torch.utils import telemetry as ttel
 
 LOSS_TOL = dict(rtol=1e-5, atol=1e-6)
 PARAM_TOL = dict(rtol=1e-4, atol=5e-4)
@@ -349,7 +353,8 @@ def _cli_losses(extra):
 
 
 @pytest.mark.parametrize("flag", REFUSED_FLAGS, ids=lambda f: f[0])
-def test_lm_cli_refuses_later_flags(flag, capsys):
+def test_lm_cli_refuses_later_flags(flag, capsys, tmp_path, monkeypatch,
+                                    one_thread):
     """Flags of later slices end the run with a usage error naming the
     slice.  Six are ported now and run instead: the trainer gets the
     knob, and against the same run without it (bf16, two steps) ``--remat
@@ -369,7 +374,13 @@ def test_lm_cli_refuses_later_flags(flag, capsys):
     flag is tests/test_torch_dcn_sync.py's).  ``--sync-every`` is ported
     too: in one process both CLIs refuse it with the JAX window check's
     usage error (a window needs ``--dcn-size`` >= 2; the 4-rank windows
-    are tests/test_torch_localsgd.py's)."""
+    are tests/test_torch_localsgd.py's).  ``--telemetry-dir`` and
+    ``--profile-dir`` are ported: the losses are bitwise those of the run
+    without them; the run directory holds a step span and three gauges a
+    step, the loss gauges being the losses the steps returned, and the
+    profile directory a torch.profiler trace (of step 2, the run's last
+    here).  Their directories are relative to the working directory, a
+    temporary one here."""
     if flag[0] == "--sync-every":
         with pytest.raises(SystemExit) as e:
             tcli.main(CLI_BASE + ["--steps", "1"] + flag)
@@ -381,6 +392,23 @@ def test_lm_cli_refuses_later_flags(flag, capsys):
         assert je.value.code == 2
         assert err.splitlines()[-1].split("error: ")[1] == \
             capsys.readouterr().err.splitlines()[-1].split("error: ")[1]
+        return
+    if flag[0] in ("--telemetry-dir", "--profile-dir"):
+        from distributed_pytorch_tpu_torch.utils import telemetry
+        monkeypatch.chdir(tmp_path)
+        _, got = _cli_losses(flag)
+        _, want = _cli_losses([])
+        assert got == want and telemetry.active() is None
+        if flag[0] == "--profile-dir":
+            (trace,) = os.listdir(tmp_path / "p")
+            assert trace.endswith(".pt.trace.json")
+            return
+        s = telemetry.run_summary(str(tmp_path / "tel"))
+        assert s["spans"]["rank0/train/lm_train_step"]["count"] == 2
+        for g in ("loss", "grad_norm", "param_norm"):
+            assert s["gauges"][f"rank0/train/{g}"]["count"] == 2
+        (_, recs), = telemetry.read_run(str(tmp_path / "tel"))
+        assert [r["value"] for r in recs if r["name"] == "loss"] == got
         return
     if flag[0] in ("--fsdp", "--dcn-size"):
         with pytest.raises(ValueError, match="no-op|does not factor"):
@@ -581,3 +609,236 @@ def test_trainer_refuses_checkpoints_and_the_cpu_by_default(monkeypatch):
         tlm.LMTrainer(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         tcli.main(["--steps", "1"])
+
+
+# -- K steps a call, and telemetry ------------------------------------------
+
+@pytest.fixture
+def one_thread():
+    """Bitwise run-to-run checks pin torch to one intra-op thread: with
+    several, the port's CPU step sums in a thread-dependent order (two
+    identical 3-step runs of this module's model differ by an ulp)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _stacked(k, seed=20):
+    batches = [_data(seed=seed + i) for i in range(k)]
+    return (np.stack([b[0] for b in batches]),
+            np.stack([b[1] for b in batches]), batches)
+
+
+def test_train_steps_is_k_train_steps_bitwise(base, one_thread):
+    """``train_steps`` over 3 stacked batches against 3 ``train_step``
+    calls from the same state, float32: losses, health flags, metrics,
+    params and Adam state bitwise equal; (K,) and (K, 2) shapes."""
+    _, _, _, states = base
+    tokens, targets, batches = _stacked(3)
+    one = _port(states)
+    want = [one.train_step(*b) for b in batches]
+    many = _port(states)
+    got = many.train_steps(tokens, targets)
+    assert got.shape == (3,) and many.last_ok.shape == (3,)
+    assert many.last_metrics.shape == (3, 2) and many._step == one._step
+    np.testing.assert_array_equal(got.numpy(), torch.stack(want).numpy())
+    np.testing.assert_array_equal(many.last_metrics[-1].numpy(),
+                                  one.last_metrics.numpy())
+    for name, p in one.params.items():
+        np.testing.assert_array_equal(many.params[name].detach().numpy(),
+                                      p.detach().numpy(), err_msg=name)
+        for m in ("mu", "nu"):
+            np.testing.assert_array_equal(many.opt_state[m][name].numpy(),
+                                          one.opt_state[m][name].numpy())
+    assert many.opt_state["count"] == one.opt_state["count"] == 3
+
+
+def test_train_steps_matches_jax(base):
+    """Against JAX ``LMTrainer.train_steps`` (its ``lax.scan``) from the
+    same initial params: the K losses at the loss tolerance, the params
+    within the trainer bands, the health flags and (K, 2) metrics."""
+    _, _, _, states = base
+    tokens, targets, _ = _stacked(3)
+    jtr = jlm.LMTrainer(jlm.LMTrainConfig(
+        model=jtfm.TransformerConfig(**SHAPE), compute_dtype=None))
+    init = _snapshot(jtr)
+    want = np.asarray(jtr.train_steps(tokens, targets))
+    ttr = _port([init])
+    got = ttr.train_steps(tokens, targets).numpy()
+    np.testing.assert_allclose(got, want, **LOSS_TOL)
+    _assert_params_close(ttr, jax.tree.map(np.array, jtr.params))
+    np.testing.assert_array_equal(ttr.last_ok.numpy(),
+                                  np.asarray(jtr.last_ok))
+    np.testing.assert_allclose(ttr.last_metrics.numpy(),
+                               np.asarray(jtr.last_metrics), rtol=1e-5)
+
+
+STEPS_REFUSED = [dict(pp=2), dict(pp_size=2), dict(grad_accum=2),
+                 dict(dcn_compress="int8"), dict(sync_every=2)]
+
+
+@pytest.mark.parametrize("kw", STEPS_REFUSED, ids=lambda k: next(iter(k)))
+def test_train_steps_refusals_match_jax(kw):
+    """The configs the K-step call does not take, refused with the JAX
+    trainer's messages word for word (each checked before the trainer
+    state is touched, so a stand-in trainer holding only the config is
+    enough on both sides)."""
+    tokens, targets, _ = _stacked(2)
+    msgs = []
+    for mod in (jlm, tlm):
+        fake = types.SimpleNamespace(cfg=dataclasses.replace(
+            mod.LMTrainConfig(), **kw))
+        with pytest.raises(ValueError) as e:
+            mod.LMTrainer.train_steps(fake, tokens, targets)
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1] and "use train_step" in msgs[1]
+
+
+def _vgg_run(run_dir=None):
+    from distributed_pytorch_tpu_torch import train as ttrain
+    from distributed_pytorch_tpu_torch.data import cifar10 as tcifar
+    if run_dir is not None:
+        ttel.enable(run_dir, rank=0)
+    try:
+        tr = ttrain.Trainer(ttrain.TrainConfig(
+            model="TINY", strategy="none", steps_per_loop=2), device="cpu")
+        ds = tcifar._synthetic(16, seed=2)
+        images = ds.images.reshape(2, 8, 32, 32, 3)
+        labels = ds.labels.reshape(2, 8)
+        losses = [tr.train_steps(images, labels).numpy() for _ in range(2)]
+        return losses, tr.last_metrics.numpy(), {
+            f"{k}/{n}": p.detach().numpy() for k, v in tr.params.items()
+            for n, p in v.items()}
+    finally:
+        ttel.disable()
+
+
+def _lm_run(states, run_dir=None):
+    if run_dir is not None:
+        ttel.enable(run_dir, rank=0)
+    try:
+        ttr = _port(states)
+        tokens, targets, batches = _stacked(2)
+        losses = [ttr.train_step(*b).numpy() for b in batches]
+        losses.append(ttr.train_steps(tokens, targets).numpy())
+        return losses, ttr.last_metrics.numpy(), {
+            n: p.detach().numpy() for n, p in ttr.params.items()}
+    finally:
+        ttel.disable()
+
+
+@pytest.mark.parametrize("trainer", ["lm", "vgg"])
+def test_telemetry_off_is_bitwise_free(base, trainer, tmp_path, one_thread):
+    """Telemetry on and off give bitwise the same losses, metrics and
+    params (the LM: two ``train_step`` and one ``train_steps`` call; VGG:
+    two ``train_steps`` calls of 2 steps); the run directory holds what
+    each call emitted (the LM windows: tests/test_torch_telemetry.py)."""
+    if trainer == "lm":
+        run = partial(_lm_run, base[3])
+        spans = {"lm_train_step": 2, "lm_train_steps": 1}
+        build = "lm_step_build"
+    else:
+        run = _vgg_run
+        spans = {"train_steps": 2}
+        build = "train_step_build"
+    off, on = run(), run(str(tmp_path))
+    for a, b in zip(off[0], on[0]):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(off[1], on[1])
+    for name in off[2]:
+        np.testing.assert_array_equal(off[2][name], on[2][name])
+    s = ttel.run_summary(str(tmp_path))
+    for name, n in spans.items():
+        assert s["spans"][f"rank0/train/{name}"]["count"] == n
+    assert s["counters"]["rank0/train/steps"] == 4
+    assert s["spans"][f"rank0/compile/{build}"]["count"] == 1
+    (_, recs), = ttel.read_run(str(tmp_path))
+    assert [r["value"] for r in recs if r["name"] == "loss"] == [
+        float(x) for x in np.concatenate([np.ravel(x) for x in on[0]])]
+
+
+def test_telemetry_gauges_match_jax(base, tmp_path):
+    """Three ``train_step`` calls of each trainer from the same params,
+    each streaming into its own run: the ``loss``, ``grad_norm`` and
+    ``param_norm`` gauges agree at rtol 1e-5, step for step, and the
+    records are the JAX package's shape (one span and three gauges a
+    step, a ``steps`` counter)."""
+    batches, _, _, states = base
+    jtel.enable(str(tmp_path / "jax"), rank=0)
+    try:
+        _jax_run(3, batches)
+    finally:
+        jtel.disable()
+    ttel.enable(str(tmp_path / "port"), rank=0)
+    try:
+        ttr = _port(states)
+        for i in range(3):
+            ttr.train_step(*batches[i % 2])
+    finally:
+        ttel.disable()
+    runs = []
+    for d in ("jax", "port"):
+        (_, recs), = ttel.read_run(str(tmp_path / d))
+        runs.append([r for r in recs if r["phase"] == "train"])
+    want, got = runs
+    assert [(r["type"], r["name"], r.get("args")) for r in got] == \
+        [(r["type"], r["name"], r.get("args")) for r in want]
+    gauges = [(r["value"], w["value"]) for r, w in zip(got, want)
+              if r["type"] == "gauge"]
+    assert len(gauges) == 9
+    np.testing.assert_allclose(*zip(*gauges), rtol=1e-5)
+
+
+@pytest.mark.parametrize("mesh", [(2, 2, {}), (4, 2, dict(fsdp=True)),
+                                  (4, 2, dict(bucket_mb=0.05)),
+                                  (8, 4, dict(fsdp=True, bucket_mb=0.05)),
+                                  (4, 4, {})],
+                         ids=lambda m: f"dp{m[0]}-dcn{m[1]}-"
+                         + "-".join(m[2]) if m[2] else f"dp{m[0]}-dcn{m[1]}")
+def test_lm_window_wire_bytes_match_jax(mesh):
+    """The LM window's per-boundary payload against JAX
+    ``_lm_window_wire_bytes`` on the factored meshes the JAX suite builds
+    over its 8 CPU devices (ZeRO-3 and bucketed partitions included)."""
+    dp, dcn, kw = mesh
+    model = dict(SHAPE, n_layers=2)
+    jcfg = jlm.LMTrainConfig(model=jtfm.TransformerConfig(**model), dp=dp,
+                             dcn_size=dcn, sync_every=2, **kw)
+    tcfg = tlm.LMTrainConfig(model=ttfm.TransformerConfig(**model), dp=dp,
+                             dcn_size=dcn, sync_every=2, **kw)
+    want = jlm._lm_window_wire_bytes(jcfg, jlm.make_lm_mesh(jcfg))
+    assert tlm._lm_window_wire_bytes(tcfg) == want > 0
+
+
+@pytest.mark.parametrize("strategy,dcn", [("hierarchical", 2), ("ddp", 1),
+                                          ("quantized_ring_ef", 1)])
+def test_vgg_window_wire_bytes_match_jax(strategy, dcn):
+    """The VGG window's per-boundary payload against JAX
+    ``Trainer._compute_window_wire_bytes`` (a stand-in holding its four
+    inputs: the JAX trainer's own TINY params over a 4-replica mesh):
+    the shard-sized dcn hop per bucket for hierarchical, the tree for the
+    flat strategies."""
+    from distributed_pytorch_tpu import train as jtrain
+    from distributed_pytorch_tpu.models import vgg as jvgg
+    from distributed_pytorch_tpu.parallel import strategies as jstrat
+    from distributed_pytorch_tpu_torch import train as ttrain
+    from distributed_pytorch_tpu_torch.models import vgg as tvgg
+    from distributed_pytorch_tpu_torch.parallel import strategies as tstrat
+    jparams, _ = jvgg.init(jax.random.key(0), "TINY")
+    params, _ = tvgg.init(0, "TINY", device="cpu")
+    kw = dict(model="TINY", sync_every=2, dcn_size=dcn, strategy=strategy)
+    got = []
+    for mod, smod, p, leaves in (
+            (jtrain, jstrat, jparams, None),
+            (ttrain, tstrat, params,
+             [params[k][n] for k, n in ttrain.jax_order(params)])):
+        st = smod.get(strategy)
+        if strategy == "hierarchical":
+            st.bucket_bytes = 40_000  # several buckets over TINY
+        fake = types.SimpleNamespace(cfg=mod.TrainConfig(**kw), params=p,
+                                     n_replicas=4, strategy=st,
+                                     _leaves=lambda leaves=leaves: leaves)
+        got.append(mod.Trainer._compute_window_wire_bytes(fake))
+    assert got[1] == got[0] > 0
+    if strategy == "hierarchical":
+        assert len(tstrat.make_bucket_plan(leaves, 40_000)) > 1

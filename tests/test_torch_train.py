@@ -19,6 +19,7 @@ tensor's largest entry (measured 2.3e-4, 4.8e-6, 1.9e-3).
 """
 
 import dataclasses
+import os
 
 import jax
 import numpy as np
@@ -484,7 +485,7 @@ _FLAG_OUTCOME = [
     (["--num-nodes", "2"], "--master-ip is required"),
     (["--rank", "1"], "runs"), (["--rendezvous", "env"], "runs"),
     (["--elastic"], "5c"), (["--checkpoint-dir", "ck"], "5c"),
-    (["--profile-dir", "p"], "5c"), (["--telemetry-dir", "t"], "5c"),
+    (["--profile-dir", "p"], "runs"), (["--telemetry-dir", "t"], "runs"),
     (["--shard-eval"], "runs"), (["--debug-checks"], "runs"),
     (["--sync-every", "2"], "usage: sync_every=2 needs a device mesh"),
     (["--overlap", "--strategy", "ddp"], "runs"),
@@ -498,7 +499,8 @@ _FLAG_OUTCOME = [
 
 
 @pytest.mark.parametrize("argv", [a for a, _ in _FLAG_OUTCOME])
-def test_cli_later_slice_flags_raise(small_cifar, argv, capsys):
+def test_cli_later_slice_flags_raise(small_cifar, argv, capsys, tmp_path,
+                                     monkeypatch):
     """A flag of a later slice raises, naming its sub-slice; the window
     flags are ported, and in these configs both CLIs end with the JAX
     window check's usage error (``--strategy none`` has no mesh, and an
@@ -506,7 +508,10 @@ def test_cli_later_slice_flags_raise(small_cifar, argv, capsys):
     flags, --shard-eval, --sync-bn, --debug-checks, --overlap (with ddp)
     and --dcn-compress (with hierarchical over 1 x 1) run one epoch (one
     rank: the rendezvous does nothing, as in the JAX package, and the
-    default ddp syncs over a one-rank group); --num-nodes 2 without a
+    default ddp syncs over a one-rank group), and so do --profile-dir (a
+    torch.profiler trace of the epoch) and --telemetry-dir (the epoch's
+    span and gauges; a run directory relative to the working directory, a
+    temporary one here); --num-nodes 2 without a
     master is a ValueError, and --num-devices 4 in one process points at
     launch.py."""
     outcome = dict((tuple(a), o) for a, o in _FLAG_OUTCOME)[tuple(argv)]
@@ -514,10 +519,22 @@ def test_cli_later_slice_flags_raise(small_cifar, argv, capsys):
     if "--strategy" not in argv and argv:
         base += ["--strategy", "none"]
     if outcome == "runs":
+        monkeypatch.chdir(tmp_path)
         out = tcli.run(base + argv)
         (epoch,) = out["epochs"]
         assert np.isfinite(epoch["eval"][0])
         assert not torch.distributed.is_initialized()
+        if argv[:1] == ["--profile-dir"]:
+            (trace,) = os.listdir(tmp_path / "p")
+            assert trace.endswith(".pt.trace.json")
+        if argv[:1] == ["--telemetry-dir"]:
+            from distributed_pytorch_tpu_torch.utils import telemetry
+            assert telemetry.active() is None  # the run closed its own
+            s = telemetry.run_summary(str(tmp_path / "t"))
+            steps = out["trainer"]._step
+            assert s["counters"]["rank0/train/steps"] == steps
+            assert s["spans"]["rank0/train/train_steps"]["count"] == steps
+            assert s["gauges"]["rank0/train/loss"]["count"] == steps
     elif outcome.startswith("5"):
         with pytest.raises(NotImplementedError, match=f"slice {outcome}"):
             tcli.main(base + argv)

@@ -27,8 +27,9 @@ the port only, pins torch to one intra-op thread, runs every case of
   included), on this rank's contiguous rows of the global batch: the
   losses, the whole params after the steps (gathered), this rank's shards
   at construction and after the steps, its residual, and ``evaluate`` on
-  this rank's rows of the eval batches; and an ``LMTrainer`` whose ``dp``
-  is not the world size, refused;
+  this rank's rows of the eval batches (a case with ``telemetry`` streams
+  into that run directory); and an ``LMTrainer`` whose ``dp`` is not the
+  world size, refused;
 - ``lm_sync``: the LM two-level sync on this rank's row of the input
   gradients over a 2 x 2 mesh, per case of ``cases.json`` (bucket size
   and compression), two rounds carrying the residual;
@@ -258,6 +259,20 @@ def sharded_eval(data, rank: int, world: int) -> dict:
 
 
 def lm(data, rank: int, world: int, cases: dict) -> dict:
+    from distributed_pytorch_tpu_torch.utils import telemetry
+    out = {}
+    for name, case in cases.items():
+        if case.get("telemetry"):
+            telemetry.enable(case["telemetry"], rank=rank)
+        try:
+            _lm_case(data, rank, world, name, case, out)
+        finally:
+            telemetry.disable()
+    return _lm_refusal(world, out)
+
+
+def _lm_case(data, rank: int, world: int, name: str, case: dict,
+             out: dict) -> None:
     from distributed_pytorch_tpu_torch import lm as tlm
     from distributed_pytorch_tpu_torch.models import transformer as ttfm
     init = {k[len("p/"):]: data[k] for k in data.files
@@ -265,35 +280,37 @@ def lm(data, rank: int, world: int, cases: dict) -> dict:
     tokens, targets = data["tokens"], data["targets"]
     per = tokens.shape[0] // world
     mine = slice(rank * per, (rank + 1) * per)
-    out = {}
-    for name, case in cases.items():
-        cfg = tlm.LMTrainConfig(
-            model=ttfm.TransformerConfig(**case["model"]),
-            compute_dtype=None, dp=world, **case.get("cfg", {}))
-        tr = tlm.LMTrainer(cfg, device="cpu")
-        tr.load_state({k: torch.from_numpy(np.array(v))
-                       for k, v in init.items()})
-        for k, v in tr.params.items():
-            out[f"{name}/shard0/{k}"] = v.detach().numpy().copy()
-        losses, mets = [], []
-        for _ in range(case["steps"]):
-            losses.append(float(tr.train_step(tokens[mine], targets[mine])))
-            mets.append(tr.last_metrics.numpy())
-        out[f"{name}/losses"] = np.asarray(losses)
-        out[f"{name}/met"] = np.stack(mets)
-        for tag in ("delta", "outer_m"):
-            for k, v in (getattr(tr, f"_{tag}") or {}).items():
-                out[f"{name}/{tag}/{k}"] = v.numpy()
-        for k, v in tr.full_params().items():
-            out[f"{name}/p/{k}"] = v.numpy()
-        for k, v in tr.params.items():
-            out[f"{name}/shard/{k}"] = v.detach().numpy()
-        for m in ("mu", "nu"):
-            for k, v in tr.opt_state[m].items():
-                out[f"{name}/{m}/{k}"] = v.numpy()
-        out[f"{name}/sync_state"] = tr.sync_state.numpy()
-        ev = tr.evaluate([(tokens[mine], targets[mine])])
-        out[f"{name}/eval"] = np.asarray([ev["loss"], ev["tokens"]])
+    cfg = tlm.LMTrainConfig(
+        model=ttfm.TransformerConfig(**case["model"]),
+        compute_dtype=None, dp=world, **case.get("cfg", {}))
+    tr = tlm.LMTrainer(cfg, device="cpu")
+    tr.load_state({k: torch.from_numpy(np.array(v))
+                   for k, v in init.items()})
+    for k, v in tr.params.items():
+        out[f"{name}/shard0/{k}"] = v.detach().numpy().copy()
+    losses, mets = [], []
+    for _ in range(case["steps"]):
+        losses.append(float(tr.train_step(tokens[mine], targets[mine])))
+        mets.append(tr.last_metrics.numpy())
+    out[f"{name}/losses"] = np.asarray(losses)
+    out[f"{name}/met"] = np.stack(mets)
+    for tag in ("delta", "outer_m"):
+        for k, v in (getattr(tr, f"_{tag}") or {}).items():
+            out[f"{name}/{tag}/{k}"] = v.numpy()
+    for k, v in tr.full_params().items():
+        out[f"{name}/p/{k}"] = v.numpy()
+    for k, v in tr.params.items():
+        out[f"{name}/shard/{k}"] = v.detach().numpy()
+    for m in ("mu", "nu"):
+        for k, v in tr.opt_state[m].items():
+            out[f"{name}/{m}/{k}"] = v.numpy()
+    out[f"{name}/sync_state"] = tr.sync_state.numpy()
+    ev = tr.evaluate([(tokens[mine], targets[mine])])
+    out[f"{name}/eval"] = np.asarray([ev["loss"], ev["tokens"]])
+
+
+def _lm_refusal(world: int, out: dict) -> dict:
+    from distributed_pytorch_tpu_torch import lm as tlm
     try:
         tlm.LMTrainer(tlm.LMTrainConfig(dp=world + 1), device="cpu")
         out["refused"] = np.asarray("")
