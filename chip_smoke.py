@@ -82,7 +82,7 @@ Phases, each of which raises on failure:
      phase 8: ms/step, tokens/s, idle share, peak memory, device
      operations a step, mfu over the bf16 peak, falling loss; K5 launched
      7 x 24 times per step, every launch through its sm90 route, and
-     K2/K3/K4 24), alternated int8/bf16 windows (4 pairs x 10 steps) and
+     K2/K3/K4 24), alternated int8/bf16 windows (2 pairs x 10 steps) and
      the int8-vs-bf16 argmax flip rate (reported), and one 2-layer
      LM-base-width f32 int8 step through K5 against the plain product
      (loss bitwise, gradients within the spread of two K5 runs);
@@ -98,8 +98,9 @@ Phases, each of which raises on failure:
      batcher with prefill_chunk=64 and with speculate=4 (dense and paged),
      generate_lookup, and generate_speculative with a 2-layer draft
      (acceptance reported); (b) bf16 overlapped dispatch on against off on
-     phase 5's load in alternated windows (A B B A, twice; tokens/s, wall
-     ms per decode step, chained dispatches; tokens bitwise equal), and in
+     phase 5's load, one window a side, the on side phase 5's run
+     (tokens/s, wall ms per decode step,
+     chained dispatches; tokens bitwise equal), and in
      pure-decode windows where every block chains (wall ms per decode
      step; idle share and device operations per emitted token from one
      profiled window a side; scripts/serving_overlap_ab.py also profiles
@@ -126,8 +127,8 @@ Phases, each of which raises on failure:
      batcher against static generate(); (b) 20 bf16 steps of lm_cli
      --n-experts 8 (as phase 8, mfu over the active parameters; the MoE
      layers' share of device time, aux and drop share; K2-K4 once per
-     layer per step); (c) phase 5's load dense and paged (K6 / K8 once
-     per layer per decode step); (d) lm_cli --rendezvous env --dp 1
+     layer per step); (c) phase 5's 8-request load dense and paged (K6 /
+     K8 once per layer per decode step); (d) lm_cli --rendezvous env --dp 1
      under launch.py over a one-rank NCCL group, losses bitwise equal to
      the run with no group, two all-reduces a step.
  21. the per-step sync knobs at world size 1 over a one-rank NCCL group,
@@ -167,6 +168,22 @@ Phases, each of which raises on failure:
      phase 8's step); (d) record_memory against max_memory_allocated and
      the trees' bytes; (e) evaluate_run with step_time p95 rules under and
      over the measured p95.
+ 24. checkpoints and faults at LM-base width, bf16, B=8 x S=1024: (a)
+     launch.py --max-restarts 1 over lm_cli with phase 8's flags and
+     --steps 30 --checkpoint-dir --checkpoint-every 10 --telemetry-dir, a
+     FAULT_PLAN crash at step 15 in generation 0: one injected fault and
+     one restart, generation 1 restoring step 10, its losses over steps
+     11-30 (the telemetry's loss gauges) bitwise phase 8's, K2-K4 once per
+     layer per step; each save's bytes, fetch and background write, the
+     restore's ms; (b) the training sentry at 4 layers: NaN, Inf and
+     loss-spike plans rolled back and skipped, bitwise the clean run
+     without the window, the stats the predicted ones; a persistent NaN
+     tightening the clip, then aborting with a sentry_abort postmortem; a
+     snapshot's ms and sentry off / on ms a step, A B B A; (c) ckpt_corrupt
+     plans (bitflip, truncate) on the whole-tree and sharded formats: the
+     corrupt generation quarantined, the restore bitwise the previous save;
+     (d) with no plan a step's device operations equal phase 8's, and a
+     fired NaN tap adds only the poison's.
 Phases 4, 5, 10, 11 and 18 run the batcher's defaults, in-block refill and
 overlapped dispatch on, as the JAX batcher's are.
 The second-to-last lines are the kernels' JSON record and the card's name
@@ -1234,6 +1251,7 @@ def training_run(torch, port, steps: int = 30, extra=(),
     res = {"flags": list(extra), "steps": steps, "batch": b, "seq": s,
            "n_params": n_params, "n_active_params": n_active,
            "losses_every_10": [losses[0]] + losses[9::10],
+           "losses": losses,
            "ms_per_step": step_ms,
            "ms_per_step_windows": [w * 1e3 for w in windows],
            "tokens_per_s": b * s / (step_ms / 1e3),
@@ -1813,13 +1831,16 @@ def scheduling_exactness(torch, port) -> dict:
 
 def overlap_windows(torch, port, load, pairs: int = 2,
                     decode_pairs: int = 1, decode_blocks: int = 3,
-                    profile_load: bool = False) -> dict:
+                    profile_load: bool = False, base: dict | None = None
+                    ) -> dict:
     """Phase 18 (b): LM-base bf16, phase 5's batcher (8 slots, 16 steps a
     block, in-block refill on) with overlap on (A) against off (B).
 
     Load windows: each serves ``load`` (phase 5's 16 requests at their
     64-256 budgets) from a drained batcher to its end, alternated A B B A
-    ``pairs`` times; with ``profile_load``, then one profiled load window
+    ``pairs`` times (``pairs=0``: one window a side, the overlapped one
+    ``base``, phase 5's run of the same load under the same batcher, when
+    given); with ``profile_load``, then one profiled load window
     of each (CUDA activity only: the load's device time and operations
     per emitted token; ~75 s each with the profile's parse).  Decode
     windows (decode_window): the load's first 8 prompts admitted, then
@@ -1864,8 +1885,12 @@ def overlap_windows(torch, port, load, pairs: int = 2,
                      device_ops=sum(n for _, n in ev))
         return d
 
-    def alternate(fn, n_pairs):
+    def alternate(fn, n_pairs, base=None):
         runs = {True: [], False: []}
+        if n_pairs == 0:  # one window a side
+            for on in (True, False):
+                runs[on].append(base if on and base is not None
+                                else fn(cbs[on]))
         for i in range(2 * n_pairs):
             for on in ((True, False), (False, True))[i % 2]:
                 runs[on].append(fn(cbs[on]))
@@ -1879,7 +1904,7 @@ def overlap_windows(torch, port, load, pairs: int = 2,
         w["chained_dispatches"] = cb.stats["chained_dispatches"] - c0
         return w
 
-    runs = alternate(window, pairs)
+    runs = alternate(window, pairs, base)
     profs = {on: window(cbs[on], profiled=True) for on in (True, False)} \
         if profile_load else {}
     ref = runs[True][0]["tokens"]
@@ -1973,9 +1998,11 @@ def scheduling_serving(torch, port, base) -> dict:
     against."""
     cfg = port["cfg"]
     load16 = phase5_load(cfg, 16, (64, 256))
-    # one A B B A pass (two before slice 6b's phase 20 took its time:
-    # neither resolved a gain, PERF.md section 6)
-    res = {"b": overlap_windows(torch, port, load16, pairs=1)}
+    # one load window a side, the overlapped one phase 5's run (A B B A
+    # twice before slice 6b's phase 20 took its time, once before slice
+    # 5c-ii's phase 24 did: none resolved a gain, PERF.md section 6);
+    # every gate stands
+    res = {"b": overlap_windows(torch, port, load16, pairs=0, base=base)}
     keys = ("tokens_per_s", "utilization", "emitted_per_slot_step",
             "inblock_refills", "inblock_prefill_steps",
             "chained_dispatches", "ttft_p50_s", "ttft_p95_s",
@@ -3967,9 +3994,11 @@ def moe_phase(torch, port, facts) -> dict:
         step), the MoE layers' share of the step's device time (12 x one
         layer's forward + backward from (a), over the profiled step), and
         the trained model's aux and drop share;
-    (c) bf16 serving: phase 5's load through the batcher at its defaults,
-        dense and paged (tokens/s, TTFT; gated: K6, resp. K8, once per
-        layer per decode step);
+    (c) bf16 serving: phase 5's second load (8 requests of 32-64 new
+        tokens; its 16-request load until slice 5c-ii's phase 24 took the
+        time) through the batcher at its defaults, dense and paged
+        (tokens/s, TTFT; gated: K6, resp. K8, once per layer per decode
+        step);
     (d) LM data parallel at world size 1: LMDP_STEPS bf16 steps of the same
         lm_cli run through ``launch.py --nproc-per-node 1`` with
         ``--rendezvous env --dp 1`` (a one-rank NCCL group), gated bitwise
@@ -4015,7 +4044,7 @@ def moe_phase(torch, port, facts) -> dict:
           f"{out['a']['bf16_fwd_bwd_ms']:.3f} ms of "
           f"{train['device_ms_per_step']:.2f}); {facts['smi']}")
 
-    load = phase5_load(exact_cfg, 16, (64, 256))
+    load = phase5_load(exact_cfg, 8, (32, 64))
     out["c"] = {}
     for name, kw in (("dense", {}), ("paged", {"paged": True})):
         r = serving_run(torch, mport, label=f"(c) MoE bf16 {name}",
@@ -5153,6 +5182,441 @@ def observability_phase(torch, port, facts, phase8_ops: int) -> dict:
     return out
 
 
+# -- phase 24: checkpoints and faults (slice 5c-ii) -------------------------
+
+CKPT_STEPS = 30          # (a): phase 8's run, crashed and resumed
+CKPT_EVERY = 10
+CKPT_CRASH = 15          # (a): the generation-0 crash step
+CKPT_LAYERS = 4          # (b), (c): LM-base width, 4 layers
+SENTRY_WINDOW = 10       # (b): steps a window, sentry off / on, A B B A
+POISON_OPS = 1           # (d): a fired nan_grad tap's device operations
+
+# One rank of phase 24 (a)'s gang (launch.py --max-restarts 1): lm_cli.run
+# with the given argv; K2-K4's launches, the losses as float hex, each
+# save call's ms (the step loop's stall) and its synchronous fetch's ms
+# (utils/checkpoint._flatten), and the restored meta.  A generation the
+# crash plan kills prints nothing.
+CKPT_CHILD = r"""
+import json, os, sys, time
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+from distributed_pytorch_tpu_torch import lm, lm_cli
+from distributed_pytorch_tpu_torch.ops import attention as attn
+from distributed_pytorch_tpu_torch.utils import checkpoint as ck
+fns = ("flash_attention_fwd", "flash_attention_bwd_dq",
+       "flash_attention_bwd_dkv")
+for f in fns:
+    getattr(attn, f).launches = 0
+losses, save_ms, fetch_ms, start = [], [], [], []
+save, flatten = lm.LMTrainer.save_checkpoint, ck._flatten
+def timed_save(self, *a, **k):
+    t0 = time.perf_counter()
+    save(self, *a, **k)
+    save_ms.append((time.perf_counter() - t0) * 1e3)
+def timed_flatten(*a, **k):
+    t0 = time.perf_counter()
+    out = flatten(*a, **k)
+    fetch_ms.append((time.perf_counter() - t0) * 1e3)
+    return out
+lm.LMTrainer.save_checkpoint, ck._flatten = timed_save, timed_flatten
+def on_step(step, trainer, loss):
+    if not start:
+        start.append(step - 1)
+    losses.append(loss.detach().clone())
+tr = lm_cli.run(json.loads(sys.argv[1]), on_step=on_step)
+print("CKPT " + json.dumps({
+    "attempt": int(os.environ.get("RESTART_ATTEMPT", "0")),
+    "start": start[0] if start else None, "steps": len(losses),
+    "restored_step": tr.restored_meta.get("step"),
+    "restored_loader": tr.restored_meta.get("loader"),
+    "losses": [float(x).hex() for x in losses],
+    "launches": {k: getattr(attn, f).launches
+                 for k, f in zip(("K2", "K3", "K4"), fns)},
+    "save_call_ms": save_ms, "fetch_ms": fetch_ms}), flush=True)
+"""
+
+
+def _ckpt_gang(argv: list[str], env: dict, run_dir: str,
+               timeout_s: float = 600.0):
+    """``launch.py --nproc-per-node 1 --max-restarts 1 --telemetry-dir
+    run_dir`` running CKPT_CHILD over ``argv`` with ``env`` added, in a
+    session of its own (killed whole on a timeout); its exit code and
+    output."""
+    import os
+    import signal
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "distributed_pytorch_tpu_torch.launch",
+         "--nproc-per-node", "1", "--max-restarts", "1", "--master-port",
+         str(free_port()), "--telemetry-dir", run_dir, "--", "-c",
+         CKPT_CHILD, json.dumps(argv)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True, env=dict(os.environ, **env),
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        text, _ = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        fail(f"(a) the crashed gang did not finish in {timeout_s} s")
+    return proc.returncode, text
+
+
+def _host_state(tr) -> dict:
+    """Host copies of an LM trainer's params and Adam moments, and its
+    step count."""
+    return {"count": tr.opt_state["count"], "step": tr._step,
+            **{f"{m}/{n}": t.detach().float().cpu().clone()
+               for m, tree in (("p", tr.params), ("mu", tr.opt_state["mu"]),
+                               ("nu", tr.opt_state["nu"]))
+               for n, t in tree.items()}}
+
+
+def _same_state(torch, a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(
+        torch.equal(v, b[k]) if hasattr(v, "shape") else v == b[k]
+        for k, v in a.items())
+
+
+def checkpoint_phase(torch, port, facts, phase8: dict) -> dict:
+    """Phase 24: checkpoints and faults (slice 5c-ii) at LM-base width,
+    bf16, B=8 x S=1024.
+
+    (a) The main path: ``launch.py --nproc-per-node 1 --max-restarts 1``
+        over lm_cli with phase 8's flags and ``--steps 30
+        --checkpoint-dir D --checkpoint-every 10 --telemetry-dir T``,
+        ``FAULT_PLAN`` a crash at step 15 in generation 0.  The launcher
+        sees one injected fault and restarts once; generation 1 restores
+        step 10 (its loader position too) and trains steps 11-30, whose
+        loss gauges in T are bitwise phase 8's, with K2-K4 once per layer
+        per step.  Reports each save's bytes, its synchronous fetch (the
+        step loop's stall), the background write's ms, the restore's ms
+        (read and verified), and the disk's free bytes before.  D and T
+        are deleted after.
+    (b) The training sentry, 4 layers in-process: ``nan_grad`` and
+        ``inf_grad`` at step 4 and a 1e6 ``loss_spike`` at step 5, each
+        rolled back and its window skipped, the params and Adam state
+        bitwise a clean run's without that window and the stats the
+        predicted ones; a persistent ``nan_grad`` (count 3) tightens the
+        clip, then aborts (``SentryAbort``) with a ``sentry_abort``
+        postmortem; a snapshot's ms, and sentry off / on ms a step in
+        A B B A windows.
+    (c) Corruption, 4 layers: a ``ckpt_corrupt`` plan (bitflip, truncate)
+        on the whole-tree and the sharded format at world size 1: the
+        corrupt generation is quarantined and the restore is bitwise the
+        previous save.
+    (d) No plan, no cost: LM-base (24 layers) in profiled windows read as
+        phase 23 (c) reads them, the faults module loaded and no plan: a
+        step's device operations equal phase 8's; with a ``nan_grad``
+        plan the fired step adds only the poison's."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+    from torch.profiler import ProfilerActivity
+    from distributed_pytorch_tpu_torch.utils import checkpoint as ck
+    from distributed_pytorch_tpu_torch.utils import faults, sentry
+    lm, tel_mod, mon = port["lm"], port["telemetry"], port["monitor"]
+    tracing = port["tracing"]
+    out = {}
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+
+    # (a)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        ckpt_dir, run_dir = os.path.join(tmp, "ckpt"), os.path.join(tmp,
+                                                                   "tel")
+        free = shutil.disk_usage(tmp).free
+        argv = ["--preset", "LM-base", "--steps", str(CKPT_STEPS),
+                "--batch-size", "8", "--seq-len", "1024", "--compute-dtype",
+                "bfloat16", "--log-every", "10", "--device", DEVICE,
+                "--checkpoint-dir", ckpt_dir, "--checkpoint-every",
+                str(CKPT_EVERY), "--telemetry-dir", run_dir]
+        plan = faults.FaultPlan(kind="crash", step=CKPT_CRASH, gen=0)
+        t0 = time.perf_counter()
+        rc, text = _ckpt_gang(argv, {faults.ENV_VAR: plan.to_env()},
+                              run_dir)
+        run_s = time.perf_counter() - t0
+        lines = [json.loads(x[5:]) for x in text.splitlines()
+                 if x.startswith("CKPT ")]
+        if rc != 0 or len(lines) != 1:
+            fail(f"(a) the gang exited {rc} with {len(lines)} result "
+                 f"line(s):\n{text[-4000:]}")
+        child = lines[0]
+        if text.count("(injected fault)") != 1 or \
+                f"injected crash at step {CKPT_CRASH}" not in text:
+            fail(f"(a) want one injected crash at step {CKPT_CRASH}:\n"
+                 f"{text[-4000:]}")
+        n_steps = CKPT_STEPS - CKPT_EVERY
+        n_layers = lm_base_bytes(port).n_layers
+        if (child["attempt"], child["restored_step"], child["start"],
+                child["steps"]) != (1, CKPT_EVERY, CKPT_EVERY, n_steps):
+            fail(f"(a) generation 1 ran {child}, want attempt 1 restoring "
+                 f"step {CKPT_EVERY} and running {n_steps} steps")
+        if any(n != n_layers * n_steps for n in child["launches"].values()):
+            fail(f"(a) {child['launches']} launches in {n_steps} steps of "
+                 f"{n_layers} layers")
+        runs = {(ep["rank"], ep["gen"]): recs
+                for ep, recs in tel_mod.read_run(run_dir)}
+        gen1 = runs.get((0, 1), [])
+        gauged = {r["args"]["step"]: r["value"] for r in gen1
+                  if r["type"] == "gauge" and r["name"] == "loss"}
+        want = phase8["losses"][CKPT_EVERY:CKPT_STEPS]
+        got = [gauged.get(s) for s in range(CKPT_EVERY, CKPT_STEPS)]
+        child_losses = [float.fromhex(x) for x in child["losses"]]
+        if got != child_losses:
+            fail(f"(a) the loss gauges {got} are not the losses generation "
+                 f"1 returned {child_losses}")
+        if got != want:
+            fail(f"(a) steps {CKPT_EVERY + 1}-{CKPT_STEPS} after the resume "
+                 f"{got} are not phase 8's {want}")
+        agent = runs.get((-1, 0), [])
+        done = [r for r in agent if r.get("name") == "gang_done"]
+        exits = [r for r in agent if r.get("name") == "worker_exit"]
+        if len(done) != 1 or done[0]["args"].get("restarts_used") != 1 or \
+                [r["args"].get("kind") for r in exits] != ["injected fault"]:
+            fail(f"(a) the agent's events: {done} {exits}")
+        spans = [r for r in gen1 if r["type"] == "span"
+                 and r["name"] in ("ckpt_save", "ckpt_restore")]
+        saves = [{"step": r["args"]["step"], "bytes": r["args"]["bytes"],
+                  "write_ms": r["dur"] * 1e3} for r in spans
+                 if r["name"] == "ckpt_save"]
+        restore = [{"step": r["args"]["step"], "bytes": r["args"]["bytes"],
+                    "ms": r["dur"] * 1e3} for r in spans
+                   if r["name"] == "ckpt_restore"]
+        if [s["step"] for s in saves] != [20, 30, 30] or \
+                [r["step"] for r in restore] != [CKPT_EVERY]:
+            fail(f"(a) generation 1's checkpoint spans: {saves} {restore}")
+        out["a"] = {
+            "steps": CKPT_STEPS, "every": CKPT_EVERY, "crash": CKPT_CRASH,
+            "run_s": run_s, "disk_free_bytes_before": free,
+            "restored": {"step": child["restored_step"],
+                         "loader": child["restored_loader"]},
+            "losses_bitwise_phase8": True, "launches": child["launches"],
+            "saves_gen1": saves, "restore_gen1": restore,
+            "save_call_ms_gen1": child["save_call_ms"],
+            "fetch_ms_gen1": child["fetch_ms"],
+            "param_bytes": phase8["n_params"] * 4}
+        print("  (a) crash at step 15, restart, resume from step 10: "
+              + json.dumps(out["a"]) + f"; {facts['smi']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (b)
+    model = dataclasses.replace(lm_base_bytes(port), n_layers=CKPT_LAYERS)
+
+    def trainer():
+        return lm.LMTrainer(lm.LMTrainConfig(model=model,
+                                             compute_dtype="bfloat16"),
+                            device=DEVICE)
+
+    tr = trainer()
+    batches = _obs_batches(port, 9)
+    p0, o0 = _obs_state(tr)
+    quiet = lambda *a: None  # noqa: E731
+
+    def guarded(plan, cfg, n, t=tr):
+        faults.reset()
+        faults.install(plan)
+        t.load_state(p0, o0)
+        s = sentry.TrainingSentry(t, cfg, log=quiet)
+        try:
+            skipped = [i for i, bt in enumerate(batches[:n])
+                       if s.step(*bt) is None]
+        finally:
+            faults.reset()
+        return skipped, dict(s.stats), _host_state(t)
+
+    def clean(skip, n):
+        tr.load_state(p0, o0)
+        for i, bt in enumerate(batches[:n]):
+            if i not in skip:
+                tr.train_step(*bt)
+        return _host_state(tr)
+
+    spike_cfg = sentry.SentryConfig(checkpoint_every=2, spike_window=8,
+                                    spike_threshold=1000.0,
+                                    spike_min_history=3)
+    cases = {
+        "nan_grad": (faults.FaultPlan(kind="nan_grad", step=4, seed=3),
+                     sentry.SentryConfig(checkpoint_every=2), 8, [4],
+                     dict(steps=7, nonfinite=1, rollbacks=1,
+                          skipped_steps=1, snapshots=4)),
+        "inf_grad": (faults.FaultPlan(kind="inf_grad", step=4, seed=3),
+                     sentry.SentryConfig(checkpoint_every=2), 8, [4],
+                     dict(steps=7, nonfinite=1, rollbacks=1,
+                          skipped_steps=1, snapshots=4)),
+        "loss_spike": (faults.FaultPlan(kind="loss_spike", step=5,
+                                        magnitude=1e6),
+                       spike_cfg, 9, [5],
+                       dict(steps=8, spikes=1, rollbacks=1, skipped_steps=2,
+                            snapshots=4))}
+    out["b"] = {}
+    for kind, (plan, cfg, n, want_skip, want) in cases.items():
+        skipped, stats, st = guarded(plan, cfg, n)
+        want = dict(dict.fromkeys(stats, 0), **want)
+        # the skipped window: the batches since the last snapshot
+        window = set(range(want_skip[0] - want["skipped_steps"] + 1,
+                           want_skip[0] + 1))
+        ref = clean(window, n)
+        if skipped != want_skip or stats != want:
+            fail(f"(b) {kind}: skipped {skipped}, stats {stats}; want "
+                 f"{want_skip}, {want}")
+        if not _same_state(torch, st, ref):
+            fail(f"(b) {kind}: the state after the rollback is not the "
+                 f"clean run's without batches {sorted(window)}")
+        out["b"][kind] = {"skipped": skipped, "stats": stats,
+                          "bitwise_clean_without": sorted(window)}
+    # a persistent fault: count 3 crossings of step 2
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sentry_") as rd:
+        tel_mod.enable(rd, rank=0)
+        t2 = trainer()
+        try:
+            guarded(faults.FaultPlan(kind="nan_grad", step=2, count=3),
+                    sentry.SentryConfig(checkpoint_every=100, skip_budget=1,
+                                        max_rollbacks=2), 9, t=t2)
+            fail("(b) the persistent fault did not abort")
+        except sentry.SentryAbort as e:
+            abort = e.stats
+        finally:
+            tel_mod.disable()
+        bundles = mon.find_postmortems(rd)
+        kinds = [mon.load_postmortem(b)["trigger"]["kind"] for b in bundles]
+        want = dict(dict.fromkeys(abort, 0), steps=6, nonfinite=3,
+                    rollbacks=2, skipped_steps=6, clip_tightened=1,
+                    snapshots=1)
+        if abort != want or kinds != ["sentry_abort"] or \
+                t2.cfg.grad_clip != 0.5:
+            fail(f"(b) persistent fault: stats {abort} (want {want}), "
+                 f"bundles {kinds}, clip {t2.cfg.grad_clip}")
+        out["b"]["persistent"] = {"stats": abort, "bundles": kinds,
+                                  "grad_clip": t2.cfg.grad_clip}
+        del t2
+    # a snapshot's ms, and the sentry's cost a step
+    tr.load_state(p0, o0)
+    s = sentry.TrainingSentry(tr, log=quiet)
+    snap_ms = []
+    for _ in range(3):
+        sync(torch)
+        t0 = time.perf_counter()
+        s.snapshot()
+        snap_ms.append((time.perf_counter() - t0) * 1e3)
+    ms = {"off": [], "on": []}
+    win = (batches * 2)[:SENTRY_WINDOW]
+    for mode in ("off", "on", "on", "off"):
+        tr.load_state(p0, o0)
+        s = sentry.TrainingSentry(tr, log=quiet)  # its snapshot: untimed
+        sync(torch)
+        t0 = time.perf_counter()
+        for bt in win:
+            (s.step if mode == "on" else tr.train_step)(*bt)
+        sync(torch)
+        ms[mode].append((time.perf_counter() - t0) / len(win) * 1e3)
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    snap_bytes = sum(t.numel() * 4 for t in tr.params.values()) * 3
+    out["b"]["cost"] = {"layers": CKPT_LAYERS, "snapshot_ms": snap_ms,
+                        "snapshot_bytes": snap_bytes,
+                        "window_steps": SENTRY_WINDOW,
+                        "order": "off on on off", "ms_per_step": ms,
+                        "on_over_off_ms": med["on"] / med["off"]}
+    print("  (b) the training sentry: " + json.dumps(out["b"])
+          + f"; {facts['smi']}")
+
+    # (c)
+    out["c"] = {}
+    for fmt in ("whole", "sharded"):
+        # one good save at step 1, then each mode corrupts a step-2 save
+        # (the second quarantine takes the name's next suffix)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_cor_") as d:
+            tr.load_state(p0, o0)
+            tr.train_step(*batches[0])
+            tr.save_checkpoint(d, sharded=fmt == "sharded")
+            tr.flush_checkpoints()
+            good = _host_state(tr)
+            for n, mode in enumerate(("bitflip", "truncate")):
+                tr.train_step(*batches[1])
+                faults.install(faults.FaultPlan(kind="ckpt_corrupt", seed=11,
+                                                mode=mode))
+                try:
+                    tr.save_checkpoint(d, sharded=fmt == "sharded")
+                    tr.flush_checkpoints()
+                finally:
+                    faults.reset()
+                tr.load_state(p0, o0)
+                t0 = time.perf_counter()
+                got = tr.maybe_restore(d)
+                restore_ms = (time.perf_counter() - t0) * 1e3
+                bad = os.path.join(d, ("ckpt_2.npz" if fmt == "whole"
+                                       else "ckpt_2") + ".corrupt"
+                                   + (f".{n}" if n else ""))
+                if got != 1 or not os.path.exists(bad) or \
+                        not _same_state(torch, _host_state(tr), good):
+                    fail(f"(c) {fmt} {mode}: restored step {got}, "
+                         f"quarantined {os.path.exists(bad)}, "
+                         f"{sorted(os.listdir(d))}")
+                out["c"][f"{fmt}_{mode}"] = {
+                    "restored_step": got,
+                    "quarantined": os.path.basename(bad),
+                    "bitwise_previous_save": True,
+                    "restore_ms_with_fallback": restore_ms}
+    print("  (c) corrupt checkpoints quarantined, previous save restored: "
+          + json.dumps(out["c"]))
+    del tr
+    torch.cuda.empty_cache()
+
+    # (d)
+    big = lm.LMTrainer(lm.LMTrainConfig(model=lm_base_bytes(port),
+                                        compute_dtype="bfloat16"),
+                       device=DEVICE)
+    steps = _obs_batches(port, 6)
+    q0, r0 = _obs_state(big)
+
+    def profiled(plan):
+        faults.reset()
+        if plan is not None:
+            faults.install(plan)
+        try:
+            big.load_state(q0, r0)
+            sync(torch)
+            prof = tracing.start_profile([ProfilerActivity.CUDA])
+            for i, bt in enumerate(steps):
+                if i:
+                    mark_step(torch)
+                big.train_step(*bt)
+            sync(torch)
+            tracing.stop_profile(prof)
+        finally:
+            faults.reset()
+        return profiled_steps(prof)
+
+    fire = faults.FaultPlan(kind="nan_grad", step=2, seed=0)
+    plain = [profiled(None)]
+    fired = [profiled(fire) for _ in range(2)]
+    clean_ops = max(w["ops_step"] for w in plain)
+    fired_ops = max((w["ops_by_step"][2] for w in fired
+                     if len(w["ops_by_step"]) == len(steps)), default=-1)
+    if clean_ops != phase8["device_ops_step"]:
+        fail(f"(d) no plan: {clean_ops} device operations a step, phase 8 "
+             f"{phase8['device_ops_step']}")
+    if fired_ops - clean_ops != POISON_OPS or \
+            max(w["ops_step"] for w in fired) != clean_ops:
+        fail(f"(d) the fired step ran {fired_ops} device operations, the "
+             f"others {[w['ops_by_step'] for w in fired]}; a clean step "
+             f"{clean_ops}, the poison {POISON_OPS}")
+    out["d"] = {"phase8_device_ops_step": phase8["device_ops_step"],
+                "no_plan_device_ops_step": clean_ops,
+                "no_plan_by_step": [w["ops_by_step"] for w in plain],
+                "fired_step_device_ops": fired_ops,
+                "fired_by_step": [w["ops_by_step"] for w in fired],
+                "poison_ops": fired_ops - clean_ops}
+    print("  (d) no plan, no cost: " + json.dumps(out["d"]))
+    del big
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 24 took {out['seconds']:.1f} s")
+    return out
+
+
 T_START = time.perf_counter()
 
 
@@ -5289,11 +5753,11 @@ def main() -> int:
               "int8")
     int8_res = training_run(torch, port, extra=("--matmul-dtype", "int8"),
                             label="LM-base bf16 int8 training")
-    int8_bf16_windows(torch, port)
+    int8_bf16_windows(torch, port, pairs=2)
     int8_step_check(torch, port)
     phase(17, "remat and the chunked head at LM-base width")
     remat_runs(torch, port)
-    remat_windows(torch, port)
+    remat_windows(torch, port, pairs=2)
     chunked_head_check(torch, port)
     phase(18, "serving scheduling at LM-base width")
     scheduling_exactness(torch, port)
@@ -5313,6 +5777,10 @@ def main() -> int:
               "train_steps, memory and SLO lanes")
     obs_res = observability_phase(torch, port, facts,
                                   train_res["device_ops_step"])
+    phase(24, "checkpoints and faults at LM-base width: crash, restart and "
+              "resume through launch.py, the sentry, corruption, no-plan "
+              "cost")
+    ckpt_res = checkpoint_phase(torch, port, facts, train_res)
     print(f"  phases done at {time.perf_counter() - T_START:.0f} s")
 
     kernels = []
@@ -5369,6 +5837,7 @@ def main() -> int:
             "launches_observability_path": obs_res["a"]["launches"][name],
             "launches_in_profiler_trace": obs_res["a"]["trace_kernels"][
                 name],
+            "launches_checkpoint_path": ckpt_res["a"]["launches"][name],
             "max_abs_err": flash_worst[name]["max_abs_err"],
             "err_over_tol": flash_worst[name]["err_over_tol"],
             "tolerance": FLASH_TOL,

@@ -30,10 +30,15 @@ one does, and ``--sync-every-per-slice`` is the LM trainer's.
 ``--telemetry-dir D`` (default: the launcher's ``TELEMETRY_DIR``) streams
 the run's rank-tagged events into D (utils/telemetry.py; read them with
 ``scripts/torch_telemetry_summary.py D``), and ``--profile-dir P`` writes a
-``torch.profiler`` Chrome trace of the first epoch into P.  The checkpoint
-and elastic flags of slice 5c and the planner's flags of slice 5f raise
-``NotImplementedError`` naming their sub-slice.  ``--model`` also takes
-``TINY``, the package's smoke configuration.
+``torch.profiler`` Chrome trace of the first epoch into P.
+``--checkpoint-dir C`` restores the newest verified checkpoint in C (a
+corrupt one is quarantined and the one before it taken), resumes at its
+epoch, and saves after every epoch (utils/checkpoint.py ``Checkpointer``:
+params, every rank's BN state, the momentum); a worker the launcher
+restarts after a crash resumes there.  The elastic flags of slice 5c-iii
+and the planner's flags of slice 5f raise ``NotImplementedError`` naming
+their sub-slice.  ``--model`` also takes ``TINY``, the package's smoke
+configuration.
 """
 
 from __future__ import annotations
@@ -46,13 +51,13 @@ from . import eval as evaluation
 from .data.cifar10 import load
 from .data.pipeline import DataLoader
 from .data.sampler import DistributedSampler
-from .models.transformer import (DURABILITY_SLICE, PLANNING_SLICE,
+from .models.transformer import (ELASTIC_SLICE, PLANNING_SLICE,
                                  not_ported)
 from .parallel import init as dist_init
 from .parallel import strategies as strat
 from .parallel.mesh import one_process_per_device
 from .train import STRATEGIES, TrainConfig, Trainer
-from .utils import telemetry, tracing
+from .utils import checkpoint, telemetry, tracing
 from .utils.logging import get_logger, setup_logging
 
 
@@ -124,7 +129,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="devices of this process: one (launch.py "
                         "--nproc-per-node N runs N processes)")
     # capabilities of the JAX package beyond the reference
-    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="restore the newest checkpoint here, then save "
+                        "one after every epoch")
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler Chrome trace of the first "
                         "epoch into this directory")
@@ -157,10 +164,9 @@ def build_parser() -> argparse.ArgumentParser:
 _LATER_FLAGS = [
     *[(f"--{n}", None, PLANNING_SLICE) for n in ("sync-route",
                                                  "autotune-profile")],
-    *[(f"--{n}", None, DURABILITY_SLICE) for n in (
-        "checkpoint-dir", "max-nodes")],
-    ("--elastic", False, DURABILITY_SLICE),
-    ("--min-nodes", 1, DURABILITY_SLICE),
+    ("--max-nodes", None, ELASTIC_SLICE),
+    ("--elastic", False, ELASTIC_SLICE),
+    ("--min-nodes", 1, ELASTIC_SLICE),
 ]
 
 
@@ -232,7 +238,8 @@ def run(argv: list[str] | None = None, on_step=None) -> dict:
     """Parse ``argv``, rendezvous, train ``--epochs`` epochs and evaluate
     after each, then destroy the process group; returns ``{"trainer",
     "epochs": [{"loss_meter", "time_meter", "eval": (avg_loss,
-    accuracy)}], "synthetic"}``.  ``on_step(step)`` is passed to
+    accuracy)}], "synthetic", "start_epoch"}`` (the epochs run, from the
+    restored one).  ``on_step(step)`` is passed to
     ``Trainer.train_epoch``."""
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -291,10 +298,16 @@ def _train(args, device, on_step, tel) -> dict:
     log.info("CIFAR-10: %d train / %d test images (%s)",
              len(train_loaders[0].dataset), len(test_loader.dataset),
              "synthetic" if synthetic else "on disk")
+    start_epoch, ckpt = 0, None
+    if args.checkpoint_dir:
+        ckpt = checkpoint.Checkpointer(args.checkpoint_dir)
+        start_epoch = ckpt.maybe_restore(trainer)
+        if start_epoch:
+            log.info("resumed from checkpoint at epoch %d", start_epoch)
     epochs = []
-    for epoch in range(args.epochs):
+    for epoch in range(start_epoch, args.epochs):
         with (tracing.trace(args.profile_dir)
-              if args.profile_dir and epoch == 0
+              if args.profile_dir and epoch == start_epoch
               else contextlib.nullcontext()):
             loss_meter, time_meter = trainer.train_epoch(
                 train_loaders, epoch, on_step=on_step)
@@ -318,7 +331,10 @@ def _train(args, device, on_step, tel) -> dict:
                 fold_bn=args.fold_bn_eval, device=trainer.device)
         epochs.append({"loss_meter": loss_meter, "time_meter": time_meter,
                        "eval": result})
-    return {"trainer": trainer, "epochs": epochs, "synthetic": synthetic}
+        if ckpt is not None:
+            ckpt.save(trainer, epoch + 1)
+    return {"trainer": trainer, "epochs": epochs, "synthetic": synthetic,
+            "start_epoch": start_epoch}
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -12,8 +12,7 @@ as the reference uses it (reference: main_all_reduce.py:112):
 
 The permutation comes from numpy's ``default_rng``, not torch's ``randperm``,
 so the order equals the JAX package's, not the reference's.
-``ElasticSampler`` comes with slice 5c (ROADMAP.md queue 1: durability
-and observability).
+``ElasticSampler`` comes with slice 5c-iii (ROADMAP.md queue 1: elastic).
 """
 
 from __future__ import annotations

@@ -26,8 +26,12 @@ the workers, whose CLIs stream into the same directory; a worker that
 exits non-zero leaves a ``worker_fault`` postmortem bundle there
 (utils/monitor.py; ``scripts/torch_postmortem.py D`` renders it).
 
-Elastic resize (``--elastic`` and its bounds) and heartbeats belong to
-slice 5c and raise ``NotImplementedError`` naming it.
+A worker that exits ``FAULT_EXIT_CODE`` (an injected crash,
+utils/faults.py) is restarted like any other and counted in
+``GangResult.injected_failures``; a restarted worker resumes from its
+checkpoint (``--checkpoint-dir`` of cli.py and lm_cli.py).  Elastic resize
+(``--elastic`` and its bounds) and heartbeats belong to slice 5c-iii and
+raise ``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -49,8 +53,7 @@ from dataclasses import dataclass, field
 from .utils import monitor, telemetry
 from .utils.logging import get_logger, setup_logging
 
-DURABILITY_SLICE = ("ROADMAP.md queue 1, slice 5c (durability and "
-                    "observability)")
+ELASTIC_SLICE = "ROADMAP.md queue 1, slice 5c-iii (elastic)"
 
 # Exit code of injected crashes (the JAX package's utils/faults.py).
 FAULT_EXIT_CODE = 77
@@ -508,7 +511,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--agent-port", type=int, default=None,
                    help="coordinator port for multi-node restarts "
                         "(default master_port+1; node 0 hosts)")
-    # elastic resize: slice 5c
+    # elastic resize: slice 5c-iii
     p.add_argument("--elastic", action="store_true")
     p.add_argument("--min-nodes", type=int, default=1)
     p.add_argument("--max-nodes", type=int, default=None)
@@ -545,7 +548,7 @@ def main(argv: list[str] | None = None) -> int:
         if value != off:
             raise NotImplementedError(
                 f"launch {flag} {value!r} is not ported to PyTorch yet: "
-                f"{DURABILITY_SLICE}")
+                f"{ELASTIC_SLICE}")
     cmd = args.cmd
     if cmd and cmd[0] == "--":
         cmd = cmd[1:]
@@ -575,6 +578,10 @@ def main(argv: list[str] | None = None) -> int:
             log.error("gang failed: rank %s exit %d after %d restarts",
                       result.failed_rank, result.returncode,
                       result.restarts_used)
+        elif result.restarts_used:
+            log.info("gang done after %d restart(s), %d of them after an "
+                     "injected fault", result.restarts_used,
+                     result.injected_failures)
         _tel_event("gang_done", returncode=result.returncode,
                    restarts_used=result.restarts_used, drain=result.drain)
     finally:

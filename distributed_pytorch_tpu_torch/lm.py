@@ -92,6 +92,15 @@ dispatch, and at a window boundary a ``sync_window`` span with its
 ``train_steps`` emits one ``lm_train_steps`` span and K of each gauge.
 With it off nothing is fetched and no operation is added.
 
+**Checkpoints and faults** (utils/checkpoint.py, utils/faults.py):
+``save_checkpoint`` writes params, Adam state and the step (one whole-tree
+npz on a background thread, or with ``sharded=True`` each rank's own
+pieces), ``maybe_restore`` takes the newest of either format back.  Around
+each step the host runs the fault hooks (a straggler plan's sleep, the
+taps' arming, an injected crash after it); a fired tap poisons one
+gradient leaf or scales the loss after the backward and before the sync.
+``tighten_grad_clip`` is the training sentry's escalation.
+
 ``LMTrainConfig`` keeps every field of the JAX config so configs cross
 between the packages unchanged; a non-default value of a field that
 belongs to a later slice raises ``NotImplementedError`` naming it.
@@ -116,12 +125,12 @@ from .parallel import strategies as strat
 from .parallel.mesh import (DATA_AXIS, ensure_process_group, make_mesh,
                             mesh_group, one_process_per_device)
 from .parallel.strategies import flat_all_reduce
-from .utils import monitor, telemetry, tracing
+from .utils import faults, monitor, telemetry, tracing
 from .utils.device import resolve_device
 
 IGNORE = IGNORE_INDEX  # target id excluded from the loss (padding)
 
-DURABILITY_SLICE = tfm.DURABILITY_SLICE
+ELASTIC_SLICE = tfm.ELASTIC_SLICE
 PARALLEL_SLICE, PLANNING_SLICE = tfm.PARALLEL_SLICE, tfm.PLANNING_SLICE
 ADAM_EPS = 1e-8  # optax.adamw's default
 
@@ -942,7 +951,8 @@ def _make_sharded_step(cfg: LMTrainConfig, attn_impl: str, mesh, update,
     compress = cfg.dcn_compress if dcn else None
     stream_dcn = _streamed(cfg)
 
-    def step(params, opt_state, tokens, targets, sync_state=None):
+    def step(params, opt_state, tokens, targets, sync_state=None,
+             step_no=0, fault_arm=0.0):
         names = sync.names
         for p in params.values():
             p.grad = None
@@ -967,6 +977,9 @@ def _make_sharded_step(cfg: LMTrainConfig, attn_impl: str, mesh, update,
             loss_i.backward()
             loss = loss + loss_i.detach() if a > 1 else loss_i.detach()
         grads = [params[n].grad for n in names]
+        if fault_arm:  # the fault taps, before the sync (JAX tree order)
+            grads = faults.tap_grads(grads, step_no, fault_arm)
+            loss = faults.tap_loss(loss, step_no, fault_arm)
         if dcn and not stream_dcn:
             # the whole tree after the backward (or the microbatches): JAX
             # buckets here only for the accumulation path and compression
@@ -1057,7 +1070,8 @@ class LMWindowSteps:
             cfg.dcn_size, self.sync.n_data,
             [self.sync.dims[n] for n in self.sync.names])
 
-    def _local_grads(self, local: dict, tokens, targets) -> torch.Tensor:
+    def _local_grads(self, local: dict, tokens, targets, step_no=0,
+                     fault_arm=0.0) -> torch.Tensor:
         cfg, sync = self.cfg, self.sync
         n_total = (targets != IGNORE).sum().float()
         dist.all_reduce(n_total, group=sync.world)
@@ -1069,26 +1083,40 @@ class LMWindowSteps:
             loss = self.loss_fn(local, tokens, targets, n_total,
                                 cfg.aux_coef, boundary=boundary)
             loss.backward()
-            return loss.detach()
+            return self._tap(local, loss.detach(), step_no, fault_arm)
         loss = self.loss_fn(sync.gather_all(local, cfg.fsdp_gather_dtype),
                             tokens, targets, n_total, cfg.aux_coef)
         loss.backward()
+        loss = self._tap(local, loss.detach(), step_no, fault_arm)
         names = sync.names
         synced = sync.local_sync([local[n].grad for n in names],
                                  [sync.dims[n] for n in names])
         for n, g in zip(names, synced):
             local[n].grad = g
-        return loss.detach()
+        return loss
+
+    def _tap(self, local: dict, loss, step_no, fault_arm):
+        """The fault taps on the local step's gradients (in ``.grad``,
+        JAX tree order) and loss: before the local sync, or under
+        ``overlap`` after it (it runs inside the backward)."""
+        if not fault_arm:
+            return loss
+        names = self.sync.names
+        grads = faults.tap_grads([local[n].grad for n in names], step_no,
+                                 fault_arm)
+        for n, g in zip(names, grads):
+            local[n].grad = g
+        return faults.tap_loss(loss, step_no, fault_arm)
 
     def local_step(self, anchor: dict, delta: dict, opt_state: dict,
-                   tokens, targets):
+                   tokens, targets, step_no=0, fault_arm=0.0):
         """``(loss, ok, met)``; ``delta`` and ``opt_state`` change in
-        place."""
+        place.  ``step_no`` and ``fault_arm`` feed the fault taps."""
         sync = self.sync
         names = sync.names
         local = {n: (anchor[n].detach() + delta[n]).requires_grad_(True)
                  for n in names}
-        loss = self._local_grads(local, tokens, targets)
+        loss = self._local_grads(local, tokens, targets, step_no, fault_arm)
         grads = [local[n].grad for n in names]
         gsq = sync.global_sq(grads)
         self.update(local, dict(zip(names, grads)), opt_state, gsq,
@@ -1173,7 +1201,10 @@ def make_lm_train_step(cfg: LMTrainConfig, attn_impl: str = "flash",
     [grad-norm, param-norm] (the gradient's before the clip, the params'
     after the update).  With ``fsdp`` or ``dcn_size > 1`` the step is
     ``_make_sharded_step``'s, over this rank's shards, and takes and
-    returns the residual too."""
+    returns the residual too.  ``step_no`` and ``fault_arm`` (keywords)
+    feed the fault taps (utils/faults.py): on the armed step one gradient
+    leaf is poisoned, or the loss scaled, after the backward and before
+    the sync."""
     validate_lm_cfg(cfg)
     update = make_optimizer(cfg)
     a = cfg.grad_accum
@@ -1181,8 +1212,9 @@ def make_lm_train_step(cfg: LMTrainConfig, attn_impl: str = "flash",
     loss_fn = partial(_loss_fn, cfg, attn_impl, n_ranks=n_ranks)
     if sharded(cfg):
         return _make_sharded_step(cfg, attn_impl, mesh, update, loss_fn)
+    order = jax_order(param_shapes(cfg.model))  # the fault taps' leaf order
 
-    def step(params, opt_state, tokens, targets):
+    def step(params, opt_state, tokens, targets, step_no=0, fault_arm=0.0):
         for p in params.values():
             p.grad = None
         n_total = (targets != IGNORE).sum().float()
@@ -1200,6 +1232,10 @@ def make_lm_train_step(cfg: LMTrainConfig, attn_impl: str = "flash",
                 loss_i.backward()
                 loss = loss + loss_i.detach()
         grads = {n: p.grad for n, p in params.items()}
+        if fault_arm:  # the fault taps, before the sync
+            grads.update(zip(order, faults.tap_grads(
+                [grads[n] for n in order], step_no, fault_arm)))
+            loss = faults.tap_loss(loss, step_no, fault_arm)
         if mesh is not None:  # gradients and loss summed over the ranks
             *summed, loss = flat_all_reduce(list(grads.values()) + [loss],
                                             mesh)
@@ -1297,6 +1333,20 @@ class LMTrainer:
                                       device=self.device)
         self.window = None  # the sync windows' programs (sync_every > 1)
         self._window_wire_bytes = None
+        self._build_steps()
+        self._init_window_state()
+        self._eval_fn = make_lm_eval_step(cfg, attn_impl, mesh)
+        self._step = 0
+        self.last_ok = None       # health flag of the last step (tensor)
+        self.last_metrics = None  # [grad-norm, param-norm] of the last step
+        self._ckptr = None        # the cached checkpointer and its key
+        self._ckptr_key = None
+        self.restored_meta: dict = {}
+
+    def _build_steps(self) -> None:
+        """The step (or the sync windows' programs) for ``self.cfg``: the
+        optimizer captures ``grad_clip`` when built."""
+        cfg, mesh = self.cfg, self.mesh
         kind = "localsgd" if cfg.sync_every > 1 else (
             "sharded" if sharded(cfg) else "dp" if mesh is not None
             else "single")
@@ -1307,15 +1357,21 @@ class LMTrainer:
                 self.step_fn = None
                 self.window = LMWindowSteps(
                     cfg, mesh, make_optimizer(cfg),
-                    partial(_loss_fn, cfg, attn_impl, n_ranks=mesh.size()))
+                    partial(_loss_fn, cfg, self.attn_impl,
+                            n_ranks=mesh.size()))
                 self._window_wire_bytes = _lm_window_wire_bytes(cfg)
             else:
-                self.step_fn = make_lm_train_step(cfg, attn_impl, mesh)
-        self._init_window_state()
-        self._eval_fn = make_lm_eval_step(cfg, attn_impl, mesh)
-        self._step = 0
-        self.last_ok = None       # health flag of the last step (tensor)
-        self.last_metrics = None  # [grad-norm, param-norm] of the last step
+                self.step_fn = make_lm_train_step(cfg, self.attn_impl, mesh)
+
+    def tighten_grad_clip(self, factor: float = 0.5) -> float:
+        """Multiply the gradient-clip norm by ``factor`` and rebuild the
+        step, whose optimizer captured the old norm: the training sentry's
+        mid-ladder escalation (utils/sentry.py).  The clip is stateless,
+        so the live optimizer state carries over.  Returns the new
+        norm."""
+        self.cfg.grad_clip *= factor
+        self._build_steps()
+        return self.cfg.grad_clip
 
     def _init_window_state(self) -> None:
         """Under sync windows: this rank's zero delta (the params' layout),
@@ -1400,26 +1456,37 @@ class LMTrainer:
                 torch.as_tensor(np.asarray(targets), device=self.device)
                 .long())
 
-    def _run_step(self, tokens, targets):
+    def _run_step(self, tokens, targets, step_no=0, fault_arm=0.0):
         """One step of ``step_fn``: ``(loss, ok, met)``."""
         if self.sync is not None:
             loss, ok, met, self.sync_state = self.step_fn(
                 self.params, self.opt_state, tokens, targets,
-                self.sync_state)
+                self.sync_state, step_no=step_no, fault_arm=fault_arm)
             return loss, ok, met
-        return self.step_fn(self.params, self.opt_state, tokens, targets)
+        return self.step_fn(self.params, self.opt_state, tokens, targets,
+                            step_no=step_no, fault_arm=fault_arm)
+
+    def _fault_arm(self) -> float:
+        """The host's arming of the fault taps for the step about to run
+        (0.0, and nothing consumed, with no step plan installed)."""
+        return (faults.arm_window(self._step)
+                if faults.step_plan() is not None else 0.0)
 
     def train_step(self, tokens: np.ndarray, targets: np.ndarray):
         """One optimizer step on a (B, S) batch (this rank's rows under a
         mesh); returns the global batch's loss as a 0-dim tensor (not
-        fetched to the host)."""
+        fetched to the host).  The fault hooks run around it: a straggler
+        plan's sleep before, the taps' arming, an injected crash after."""
+        faults.maybe_delay(self._step)
         tokens, targets = self._batch(tokens, targets)
         if self.window is not None:
             return self._train_step_windowed(tokens, targets)
+        arm = self._fault_arm()
         t0 = time.perf_counter()
-        loss, self.last_ok, self.last_metrics = self._run_step(tokens,
-                                                               targets)
+        loss, self.last_ok, self.last_metrics = self._run_step(
+            tokens, targets, self._step, arm)
         self._step += 1
+        faults.maybe_crash(self._step, before_exit=self.flush_checkpoints)
         tel = telemetry.active()
         if tel is not None:
             telemetry.emit_train_steps(
@@ -1460,6 +1527,7 @@ class LMTrainer:
         losses, oks, mets = (torch.stack(x) for x in zip(*out))
         self.last_ok, self.last_metrics = oks, mets
         self._step += k
+        faults.maybe_crash(self._step, k, before_exit=self.flush_checkpoints)
         tel = telemetry.active()
         if tel is not None:
             telemetry.emit_train_steps(
@@ -1475,11 +1543,13 @@ class LMTrainer:
         interval does not divide the step."""
         w, cfg = self.window, self.cfg
         h, s = cfg.sync_every, cfg.staleness
+        arm = self._fault_arm()
         t0 = time.perf_counter()
         if self._step % h == 0:
             self._window_t0 = t0
         loss, self.last_ok, self.last_metrics = w.local_step(
-            self.params, self._delta, self.opt_state, tokens, targets)
+            self.params, self._delta, self.opt_state, tokens, targets,
+            step_no=self._step, fault_arm=arm)
         self._step += 1
         boundary = self._step % h == 0
         if boundary:
@@ -1503,6 +1573,7 @@ class LMTrainer:
                                             snap, self._outer_m)
             if self._outer_m is not None:
                 self._outer_steps += 1
+        faults.maybe_crash(self._step, before_exit=self.flush_checkpoints)
         tel = telemetry.active()
         if tel is not None:
             telemetry.emit_train_steps(
@@ -1536,16 +1607,133 @@ class LMTrainer:
         return {"loss": loss, "ppl": float(np.exp(min(loss, 30.0))),
                 "tokens": count}
 
+    # -- checkpointing ----------------------------------------------------
+    def _checkpointer(self, directory: str, sharded: bool = False):
+        """One cached checkpointer per (directory, format): the whole-tree
+        async writer's background handle survives across saves."""
+        from .utils.checkpoint import PyTreeCheckpointer, ShardedCheckpointer
+        key = (directory, sharded)
+        if self._ckptr_key != key:
+            self._ckptr = (ShardedCheckpointer(directory) if sharded
+                           else PyTreeCheckpointer(directory,
+                                                   async_write=True))
+            self._ckptr_key = key
+        return self._ckptr
+
+    def flush_checkpoints(self) -> None:
+        """Block until any in-flight background checkpoint write has been
+        published."""
+        if self._ckptr is not None:
+            self._ckptr.wait()
+
+    def _pieces(self, tree: dict, stacked: bool) -> dict:
+        """This rank's leaves of ``tree`` (params' layout) as the
+        ``Shard``s of the global arrays they are: a ZeRO-3 leaf the
+        ``narrow`` of its dim at this rank's ``data`` index, a replicated
+        leaf whole (rank 0's copy written); ``stacked`` (a sync window's
+        optimizer state, one row a slice) adds the leading ``dcn`` axis."""
+        from .utils.checkpoint import Shard, full_index
+        shapes = param_shapes(self.cfg.model)
+        out = {}
+        for n, t in tree.items():
+            shape = tuple(shapes[n])
+            dim = self.sync.dims[n] if self.sync is not None else None
+            index = list(full_index(shape))
+            if dim is not None:
+                m = shape[dim] // self.sync.n_data
+                r = self.sync.data_rank
+                index[dim] = slice(r * m, (r + 1) * m)
+            data = t.detach()
+            if stacked:
+                s = self.window.slice
+                shape = (self.cfg.dcn_size,) + shape
+                index = [slice(s, s + 1)] + index
+                data = data.unsqueeze(0)
+                replica = 0 if dim is not None else self.sync.data_rank
+            elif dim is None:
+                replica = self.rank
+            else:
+                replica = (dist.get_rank(self.sync.dcn)
+                           if self.sync.dcn is not None else 0)
+            out[n] = Shard(data, shape, tuple(index), replica)
+        return out
+
+    def _whole(self, tree: dict, stacked: bool) -> dict:
+        """The global arrays of this rank's leaves (ZeRO-3 shards gathered
+        over ``data``; ``stacked`` rows gathered over ``dcn``): every rank
+        must call it."""
+        out = {}
+        for n, t in tree.items():
+            t = t.detach()
+            dim = self.sync.dims[n] if self.sync is not None else None
+            if dim is not None:
+                t = _gather_dim(t, dim, self.sync.data)
+            if stacked:
+                t = _gather_dim(t.unsqueeze(0), 0, self.sync.dcn)
+            out[n] = t
+        return out
+
+    def _ckpt_trees(self, pieces: bool) -> dict:
+        stacked = self.window is not None
+        conv = self._pieces if pieces else self._whole
+        return {"params": conv(self.params, False),
+                "opt": {"count": self.opt_state["count"],
+                        **{m: conv(self.opt_state[m], stacked)
+                           for m in ("mu", "nu")}}}
+
+    def save_checkpoint(self, directory: str,
+                        extra_meta: dict | None = None,
+                        sharded: bool = False) -> None:
+        """Snapshot params, Adam state and the step (utils/checkpoint.py);
+        every rank must call it.  Default format: one whole-tree npz (the
+        ZeRO-3 shards gathered, each sync-window slice's optimizer row
+        stacked), fetched synchronously, with the checksums, serialization
+        and IO on a background thread (``async_write``).  ``sharded=True``
+        writes each rank's own pieces instead (no gather, no full-tree host
+        copy).  ``extra_meta`` rides along in the JSON meta (the CLI's
+        loader position)."""
+        trees = self._ckpt_trees(pieces=sharded)
+        self._checkpointer(directory, sharded).save(
+            trees, self._step,
+            meta=dict(extra_meta or {},
+                      dp=self.cfg.dp, sp=self.cfg.sp, tp=self.cfg.tp,
+                      pp=self.cfg.pp, interleave=self.cfg.interleave))
+
+    def maybe_restore(self, directory: str) -> int:
+        """Restore the latest checkpoint if there is one; returns the step
+        to resume from (0 = fresh).  The format is detected, and in a
+        directory of both the newest step wins; the checkpoint's meta
+        (with any ``extra_meta``) lands in ``self.restored_meta``.  A
+        per-shard checkpoint restores through ``load_resharded``: the
+        layout of the save or another one, each piece cut from the saved
+        pieces that intersect it.  A sync window restarts from the
+        restored anchor with a zero delta."""
+        from .utils.checkpoint import PyTreeCheckpointer, ShardedCheckpointer
+        sh_list = ShardedCheckpointer(directory).list()
+        npz_list = PyTreeCheckpointer(directory).list()
+        if not sh_list and not npz_list:
+            return 0
+        sharded = bool(sh_list) and (
+            not npz_list or sh_list[-1][0] >= npz_list[-1][0])
+        ckptr = self._checkpointer(directory, sharded)
+        load = ckptr.load_resharded if sharded else ckptr.restore
+        got = load(self._ckpt_trees(pieces=True))
+        if got is None:
+            return 0
+        trees, meta = got
+        stacked = self.window is not None
+        self.params = {n: t.requires_grad_(True)
+                       for n, t in trees["params"].items()}
+        self.opt_state = {"count": int(trees["opt"]["count"]),
+                          **{m: {n: t[0] if stacked else t for n, t in
+                                 trees["opt"][m].items()}
+                             for m in ("mu", "nu")}}
+        self._step = meta["step"]
+        self._init_window_state()
+        self.restored_meta = meta
+        return self._step
+
     # -- later slices -----------------------------------------------------
-    def save_checkpoint(self, *args, **kwargs):
-        raise tfm.not_ported("LMTrainer.save_checkpoint", DURABILITY_SLICE)
-
-    def maybe_restore(self, *args, **kwargs):
-        raise tfm.not_ported("LMTrainer.maybe_restore", DURABILITY_SLICE)
-
-    def flush_checkpoints(self):
-        raise tfm.not_ported("LMTrainer.flush_checkpoints", DURABILITY_SLICE)
-
     def rebuild(self, *args, **kwargs):
         raise tfm.not_ported("LMTrainer.rebuild (elastic resize)",
-                             DURABILITY_SLICE)
+                             ELASTIC_SLICE)

@@ -39,9 +39,18 @@ GPUs, one card a process).  ``--telemetry-dir D`` (default: the launcher's
 ``TELEMETRY_DIR``) streams each step's span and loss / grad-norm /
 param-norm gauges into D (read it with ``scripts/torch_telemetry_summary.py
 D``), and ``--profile-dir P`` writes a ``torch.profiler`` Chrome trace of
-steps 2-11 into P.  Flags of later slices (the other parallel degrees,
-elastic membership, checkpoints) end the run with a usage error naming the
-slice.
+steps 2-11 into P.
+
+``--checkpoint-dir C`` resumes from the newest checkpoint in C (either
+format; a corrupt one is quarantined and the one before it taken), the
+data loader at the recorded (epoch, offset), and saves every
+``--checkpoint-every`` steps and at the end (when a step ran): one
+whole-tree npz written on a background thread, or with
+``--checkpoint-sharded`` each rank's own pieces (utils/checkpoint.py).
+Under ``launch.py --max-restarts N`` a worker killed by a ``FAULT_PLAN``
+crash (utils/faults.py) is restarted and resumes there.  Flags of later
+slices (the other parallel degrees, elastic membership) end the run with a
+usage error naming the slice.
 """
 
 from __future__ import annotations
@@ -56,7 +65,7 @@ import numpy as np
 import torch
 
 from .data import lm_corpus
-from .lm import (DURABILITY_SLICE, PARALLEL_SLICE, PLANNING_SLICE,
+from .lm import (ELASTIC_SLICE, PARALLEL_SLICE, PLANNING_SLICE,
                  LMTrainConfig, LMTrainer, make_lm_mesh)
 from .models import transformer as tfm
 from .parallel import init as dist_init
@@ -188,13 +197,11 @@ def build_parser() -> argparse.ArgumentParser:
 _LATER_FLAGS = [
     *[(f"--{n}", n, 1, PARALLEL_SLICE)
       for n in ("sp", "tp", "pp", "ep", "interleave")],
-    ("--min-nodes", "min-nodes", 1, DURABILITY_SLICE),
+    ("--min-nodes", "min-nodes", 1, ELASTIC_SLICE),
     *[(f"--{n}", n, None, PLANNING_SLICE)
       for n in ("sync-plan", "sync-route", "autotune-profile")],
-    *[(f"--{n}", n, None, DURABILITY_SLICE)
-      for n in ("max-nodes", "checkpoint-dir")],
-    *[(f"--{n}", n, False, DURABILITY_SLICE)
-      for n in ("elastic", "checkpoint-sharded")],
+    ("--max-nodes", "max-nodes", None, ELASTIC_SLICE),
+    ("--elastic", "elastic", False, ELASTIC_SLICE),
     *[(f"--{n}", n, 0, PARALLEL_SLICE) for n in ("pp-size", "microbatches")],
 ]
 
@@ -317,6 +324,11 @@ def _train(args, device, on_step, tel) -> LMTrainer:
     trainer = LMTrainer(cfg, device=device, mesh=mesh)
     log.info("model: %s | device: %s | rank %d/%d", cfg.model,
              trainer.device, rank, world)
+    start = 0
+    if args.checkpoint_dir:
+        start = trainer.maybe_restore(args.checkpoint_dir)
+        if start:
+            log.info("resumed at step %d", start)
     # each rank feeds its share of the global batch
     if args.batch_size % world:
         raise SystemExit(f"--batch-size {args.batch_size} must divide "
@@ -358,21 +370,41 @@ def _train(args, device, on_step, tel) -> LMTrainer:
             f"{loader.batch_size}; use a larger --corpus or smaller "
             f"--batch-size/--seq-len")
 
-    step, epoch = 0, 0
-    t_last, s_last = time.perf_counter(), 0
-    # the trace of steps 2-11 under --profile-dir, closed early by a
-    # shorter run or an error
+    step = start
+    t_last, s_last = time.perf_counter(), start
+    steps_per_epoch = len(loader)
+    # the loader position: a checkpoint records it (epoch, offset); the
+    # step counter gives it for one that does not
+    pos = trainer.restored_meta.get("loader") if start else None
+    if pos is not None and pos.get("steps_per_epoch") != steps_per_epoch:
+        log.warning(
+            "checkpoint loader position was recorded at %s steps/epoch, "
+            "now %d — resuming from the recorded (epoch, offset) anyway",
+            pos.get("steps_per_epoch"), steps_per_epoch)
+    if pos is not None:
+        epoch, skip = int(pos["epoch"]), int(pos["offset"])
+        if skip >= steps_per_epoch:  # recorded at an epoch boundary
+            epoch, skip = epoch + 1, 0
+    else:
+        epoch, skip = step // steps_per_epoch, step % steps_per_epoch
+    loader_pos = None
+    # the trace of the run's steps 2-11 under --profile-dir, closed early
+    # by a shorter run or an error
     profile = contextlib.ExitStack()
     with profile:
         while step < args.steps:
             loader.set_epoch(epoch)
-            for tokens, targets in loader:
-                if args.profile_dir and step == 1:
+            for i, (tokens, targets) in enumerate(loader):
+                if i < skip:
+                    continue
+                if args.profile_dir and step == start + 1:
                     profile.enter_context(tracing.trace(args.profile_dir))
                 loss = trainer.train_step(tokens, targets)
                 step += 1
-                if args.profile_dir and step == 11:
+                if args.profile_dir and step == start + 11:
                     profile.close()
+                loader_pos = {"epoch": epoch, "offset": i + 1,
+                              "steps_per_epoch": steps_per_epoch}
                 if on_step is not None:
                     on_step(step, trainer, loss)
                 if step % args.log_every == 0:
@@ -383,13 +415,28 @@ def _train(args, device, on_step, tel) -> LMTrainer:
                     log.info("step %d | loss %.4f | %.0f tok/s", step, loss_v,
                              tok_s)
                     t_last, s_last = time.perf_counter(), step
+                if (args.checkpoint_dir
+                        and step % args.checkpoint_every == 0):
+                    trainer.save_checkpoint(
+                        args.checkpoint_dir,
+                        extra_meta={"loader": loader_pos},
+                        sharded=args.checkpoint_sharded)
                 if val_loader is not None and step % args.eval_every == 0:
                     m = trainer.evaluate(iter(val_loader))
                     log.info("step %d | val loss %.4f | ppl %.2f (%d tokens)",
                              step, m["loss"], m["ppl"], m["tokens"])
                 if step >= args.steps:
                     break
-            epoch += 1
+            epoch, skip = epoch + 1, 0
+
+    if args.checkpoint_dir and step > start:
+        # (none when nothing trained: rewriting the restored checkpoint
+        # would erase its recorded loader position)
+        trainer.save_checkpoint(args.checkpoint_dir,
+                                extra_meta={"loader": loader_pos},
+                                sharded=args.checkpoint_sharded)
+    if args.checkpoint_dir:
+        trainer.flush_checkpoints()  # the files exist when run returns
 
     if args.generate is not None:
         params = trainer.full_params()  # a gather: every rank takes part

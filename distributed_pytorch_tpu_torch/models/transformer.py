@@ -44,8 +44,7 @@ Params = dict[str, torch.Tensor]
 
 # The sub-slices of slice 5 still to port, each named by the refusals of
 # its work (slices 5a and 5b are ported).
-DURABILITY_SLICE = ("ROADMAP.md queue 1, slice 5c (durability and "
-                    "observability)")
+ELASTIC_SLICE = "ROADMAP.md queue 1, slice 5c-iii (elastic)"
 PARALLEL_SLICE = "ROADMAP.md queue 1, slice 5d (model parallelism)"
 FLEET_SLICE = "ROADMAP.md queue 1, slice 5e (the fleet)"
 PLANNING_SLICE = ("ROADMAP.md queue 1, slice 5f (planning, accounting and "

@@ -20,6 +20,9 @@ process drives one card: on ``cuda`` the process binds
 tensor exists and hands that device to the group, so that every rank does
 not land on ``cuda:0``.
 
+A ``rendezvous`` fault plan (utils/faults.py) refuses the first dials, as
+a flapping coordinator would.
+
 With ``num_nodes == 1`` nothing happens here, as in the JAX package; the
 one-rank group the data-parallel strategies run over is made by
 ``mesh.make_mesh``.
@@ -35,6 +38,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..utils import faults
 from ..utils.device import resolve_device
 
 DEFAULT_PORT = 6585  # the reference's hard-coded port (main_all_reduce.py:96)
@@ -156,6 +160,7 @@ def init_distributed(
         if remaining <= 0 and attempt > 0:
             break
         try:
+            faults.maybe_refuse_rendezvous()  # an injected flap (a plan)
             initialize(
                 backend=backend,
                 init_method=f"tcp://{coordinator}",

@@ -77,6 +77,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch.distributed.device_mesh import DeviceMesh
 
+from ..utils import faults
+
 
 BUCKET_CAP_MB = 25  # torch DDP default bucket size
 
@@ -1227,10 +1229,14 @@ class OverlapSync:
     The model calls ``params = boundary(group, params)`` at each layer-group
     boundary in forward order.  ``layout`` is a pair of callables that take
     a cotangent to the layout the strategy syncs (the rings': the JAX
-    package's) and back."""
+    package's) and back.  ``tap`` (a fault plan firing this step,
+    utils/faults.py ``grad_tap``) poisons its leaf's cotangent before that
+    leaf's bucket is launched, as the post-backward path poisons it before
+    the sync."""
 
     def __init__(self, strategy, axis, params: dict, group_index: dict, *,
-                 sync_state: torch.Tensor | None = None, layout=None):
+                 sync_state: torch.Tensor | None = None, layout=None,
+                 tap=None):
         require_overlap_capable(strategy)
         self.strategy, self.axis = strategy, axis
         self.order = [(k, n) for k in sorted(params)
@@ -1257,6 +1263,9 @@ class OverlapSync:
             self._due.setdefault(min(groups[i] for i in bucket), []).append(b)
         self._marked: set[int] = set()
         self._inflight = _InFlight()
+        self._tap = tap
+        self._tap_leaf = (faults.tap_index(tap, len(self.leaves))
+                          if tap is not None else None)
 
     def boundary(self, group: int, params: dict) -> dict:
         """``params`` with the leaves of the buckets due at this boundary
@@ -1272,7 +1281,11 @@ class OverlapSync:
             sub = [out[k][n] for k, n in (self.order[i] for i in bucket)]
             targets = [self.leaves[i] for i in bucket]
 
-            def backward_fn(cts, b=b, targets=targets):
+            def backward_fn(cts, b=b, targets=targets, bucket=bucket):
+                if self._tap_leaf in bucket:
+                    cts = list(cts)
+                    j = bucket.index(self._tap_leaf)
+                    cts[j] = faults.poison(self._tap, cts[j])
                 self._inflight.launch(partial(self._sync, b), cts, targets)
                 return [None] * len(cts)
 

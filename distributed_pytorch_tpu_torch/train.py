@@ -54,6 +54,13 @@ With telemetry on (utils/telemetry.py), each ``train_steps`` call emits a
 ``sync_window`` span and ``window_wire_bytes`` gauge a window; with it off
 nothing is fetched.
 
+Around each ``train_steps`` call the host runs the fault hooks
+(utils/faults.py: a straggler plan's sleep, the taps' arming, an injected
+crash after it); a fired tap poisons one gradient leaf or scales the loss
+after the backward and before the sync.  ``opt_state`` exposes the
+momentum buffers for checkpoints (utils/checkpoint.py ``Checkpointer``)
+and the training sentry.
+
 ``TrainConfig`` keeps every field of the JAX config with its default.
 ``auto``, ``routed``, the sync route and the autotune profile raise
 ``NotImplementedError`` naming slice 5f.
@@ -72,14 +79,14 @@ import torch.distributed as dist
 from .data import augment as aug
 from .data import pipeline
 from .models import vgg
-from .models.transformer import (DURABILITY_SLICE, PLANNING_SLICE,
+from .models.transformer import (ELASTIC_SLICE, PLANNING_SLICE,
                                  not_ported)
 from .ops import nn as ops
 from .parallel import strategies as strat
 from .parallel.mesh import (DATA_AXIS, axis_size, ensure_process_group,
                             make_mesh, mesh_group, one_process_per_device)
 from .utils import debug as dbg
-from .utils import monitor, telemetry, tracing
+from .utils import faults, monitor, telemetry, tracing
 from .utils.device import resolve_device
 from .utils.metrics import IterTimeMeter, LossMeter
 
@@ -317,7 +324,11 @@ def make_train_step(cfg: TrainConfig, strategy=None, mesh=None, *,
     param-norm after the update]; ``loss``, ``ok`` and ``met`` are this
     rank's.  ``sync_state`` is a stateful strategy's residual on this rank
     (``Trainer.sync_state``).  ``fused_bn`` is the model's own switch
-    (``vgg.apply``), None (the plain path) as in the JAX trainer."""
+    (``vgg.apply``), None (the plain path) as in the JAX trainer.
+    ``fault_arm`` feeds the fault taps (utils/faults.py): at the plan's
+    step one gradient leaf is poisoned, or the loss scaled, after the
+    backward and before the sync (under ``overlap``, before that leaf's
+    bucket is launched)."""
     strategy = _resolve_strategy(cfg, strategy, mesh)
     group = mesh_group(mesh) if mesh is not None else None
     rank = dist.get_rank() if mesh is not None else 0
@@ -332,7 +343,8 @@ def make_train_step(cfg: TrainConfig, strategy=None, mesh=None, *,
         if _layout_sensitive(strategy) else None
     gens: dict[torch.device, torch.Generator] = {}
 
-    def step(params, state, opt, step_idx, images, labels, sync_state=None):
+    def step(params, state, opt, step_idx, images, labels, sync_state=None,
+             fault_arm=0.0):
         gen = gens.get(images.device)
         if gen is None:
             gen = gens[images.device] = torch.Generator(device=images.device)
@@ -340,8 +352,11 @@ def make_train_step(cfg: TrainConfig, strategy=None, mesh=None, *,
         opt.zero_grad(set_to_none=True)
         ov = None
         if cfg.overlap:  # the buckets sync inside the backward
-            ov = strat.OverlapSync(strategy, mesh, params, group_idx,
-                                   sync_state=sync_state, layout=layout)
+            ov = strat.OverlapSync(
+                strategy, mesh, params, group_idx, sync_state=sync_state,
+                layout=layout,
+                tap=faults.grad_tap(step_idx, fault_arm) if fault_arm
+                else None)
         loss, new_state = _loss_fn(params, state, gen, images, labels,
                                    cfg=cfg, fused_bn=fused_bn,
                                    bn_axis=bn_axis,
@@ -353,6 +368,12 @@ def make_train_step(cfg: TrainConfig, strategy=None, mesh=None, *,
             new_state = _broadcast_tree(new_state, group)
         leaves = [params[k][n] for k, n in jax_order(params)]
         grads = [p.grad for p in leaves]
+        if fault_arm:  # the fault taps, before the sync
+            if ov is None:
+                grads = faults.tap_grads(grads, step_idx, fault_arm)
+                for p, g in zip(leaves, grads):
+                    p.grad = g
+            loss = faults.tap_loss(loss, step_idx, fault_arm)
         if ov is not None:
             if stateful:
                 sync_state = ov.new_state()
@@ -396,7 +417,7 @@ def _make_window_run(cfg: TrainConfig, strategy, mesh, fused_bn):
         return out
 
     def local_step(names, anchor, delta, state, opt, step_idx, images,
-                   labels):
+                   labels, fault_arm):
         gen = gens.get(images.device)
         if gen is None:
             gen = gens[images.device] = torch.Generator(device=images.device)
@@ -407,6 +428,9 @@ def _make_window_run(cfg: TrainConfig, strategy, mesh, fused_bn):
                                    labels, cfg=cfg, fused_bn=fused_bn,
                                    bn_axis=bn_axis)
         grads = list(torch.autograd.grad(loss, local))
+        if fault_arm:  # the fault taps, before the local sync
+            grads = faults.tap_grads(grads, step_idx, fault_arm)
+            loss = faults.tap_loss(loss, step_idx, fault_arm)
         if bcast_buffers:
             new_state = _broadcast_tree(new_state, group)
         with torch.no_grad():
@@ -452,7 +476,8 @@ def _make_window_run(cfg: TrainConfig, strategy, mesh, fused_bn):
             a.copy_(_from_jax_layout(t))
         return torch.cat([res, m_flat])
 
-    def run(params, state, opt, step0, images, labels, sync_state):
+    def run(params, state, opt, step0, images, labels, sync_state,
+            fault_arm=0.0):
         k = images.shape[0]
         if k % h:
             raise ValueError(
@@ -468,7 +493,7 @@ def _make_window_run(cfg: TrainConfig, strategy, mesh, fused_bn):
             for i in range(w * h, (w + 1) * h):
                 loss, state, ok, met = local_step(
                     names, anchor, delta, state, opt, step0 + i, images[i],
-                    labels[i])
+                    labels[i], fault_arm)
                 losses.append(loss)
                 oks.append(ok)
                 mets.append(met)
@@ -483,7 +508,8 @@ def make_multi_step(cfg: TrainConfig, strategy=None, mesh=None, *,
     """``fn(params, state, opt, step0, images, labels, sync_state=None) ->
     (state, losses, oks, mets, sync_state)`` over K stacked batches (K, B,
     ...): K optimizer steps, the i-th seeded by ``step0 + i``, so the
-    trajectory equals K single steps.  Under a mesh the K losses, health
+    trajectory equals K single steps; ``fault_arm`` is the host's arming of
+    the fault taps for the K steps.  Under a mesh the K losses, health
     flags and scalars are averaged over the ranks in one all-reduce.  With
     ``sync_every > 1`` the K steps are K/H windows (``_make_window_run``).
     """
@@ -492,12 +518,13 @@ def make_multi_step(cfg: TrainConfig, strategy=None, mesh=None, *,
     else:
         step = make_train_step(cfg, strategy, mesh, fused_bn=fused_bn)
 
-        def run(params, state, opt, step0, images, labels, sync_state):
+        def run(params, state, opt, step0, images, labels, sync_state,
+                fault_arm=0.0):
             losses, oks, mets = [], [], []
             for i in range(images.shape[0]):
                 loss, state, ok, met, sync_state = step(
                     params, state, opt, step0 + i, images[i], labels[i],
-                    sync_state)
+                    sync_state, fault_arm)
                 losses.append(loss)
                 oks.append(ok)
                 mets.append(met)
@@ -505,9 +532,10 @@ def make_multi_step(cfg: TrainConfig, strategy=None, mesh=None, *,
     group = mesh_group(mesh) if mesh is not None else None
 
     def multi_step(params, state, opt, step0, images, labels,
-                   sync_state=None):
+                   sync_state=None, fault_arm=0.0):
         state, losses, oks, mets, sync_state = run(
-            params, state, opt, step0, images, labels, sync_state)
+            params, state, opt, step0, images, labels, sync_state,
+            fault_arm)
         losses, oks, mets = (torch.stack(losses), torch.stack(oks),
                              torch.stack(mets))
         if mesh is not None:
@@ -597,6 +625,10 @@ class Trainer:
         self.last_ok = None       # (K,) health flags of the last call
         self.last_metrics = None  # (K, 2) [grad-norm, param-norm]
         self._window_wire_bytes = self._compute_window_wire_bytes()
+        # whether the fault taps are armed at all, decided at construction
+        # as the JAX trainer decides its step's signature: a plan installed
+        # later consumes no firing
+        self._fault_sig = faults.step_plan() is not None
 
     def _compute_window_wire_bytes(self) -> int | None:
         """The float32 payload of one window-boundary exchange (the
@@ -711,6 +743,38 @@ class Trainer:
                              else buf).detach().clone()
         return out
 
+    @property
+    def opt_state(self) -> dict:
+        """The optimizer state as a tree: ``{"momentum": {layer: {name:
+        buffer or None}}}``, the live SGD momentum buffers (None before a
+        leaf's first step), for the checkpoint and the training sentry."""
+        return {"momentum": {
+            k: {n: self.opt.state.get(p, {}).get("momentum_buffer")
+                for n, p in v.items()} for k, v in self.params.items()}}
+
+    @opt_state.setter
+    def opt_state(self, tree: dict) -> None:
+        """Install momentum buffers (a tensor is copied into the live buffer
+        when one exists; None removes the buffer, so the next step starts
+        it from its gradient, as a fresh optimizer does)."""
+        mom = tree["momentum"]
+        for k, v in self.params.items():
+            for n, p in v.items():
+                buf = mom[k][n]
+                st = self.opt.state[p]
+                if buf is None:
+                    st.pop("momentum_buffer", None)
+                    continue
+                live = st.get("momentum_buffer")
+                if live is buf:
+                    continue
+                if live is not None and live.shape == buf.shape:
+                    with torch.no_grad():
+                        live.copy_(buf)
+                else:
+                    st["momentum_buffer"] = buf.detach().to(
+                        self.device, torch.float32).clone()
+
     def _to_device(self, images, labels):
         return (torch.as_tensor(np.asarray(images)).to(self.device),
                 torch.as_tensor(np.asarray(labels)).to(self.device))
@@ -735,14 +799,19 @@ class Trainer:
                 f"aligned (k % H == 0) so params leave the step "
                 f"replicated; stack window-multiple batches (train_step's "
                 f"K=1 path is likewise unavailable under windows)")
+        faults.maybe_delay(self._step, k)  # a straggler plan's sleep
         if not isinstance(images, torch.Tensor):
             images, labels = self._to_device(images, labels)
+        # the taps' one-shot arming for the K steps (only when a step plan
+        # was installed before construction: _fault_sig)
+        arm = faults.arm_window(self._step, k) if self._fault_sig else 0.0
         t0 = time.perf_counter()
         (self.state, losses, self.last_ok, self.last_metrics,
          self.sync_state) = self._multi_fn(
             self.params, self.state, self.opt, self._step, images,
-            labels.long(), self.sync_state)
+            labels.long(), self.sync_state, arm)
         self._step += k
+        faults.maybe_crash(self._step, k)  # an injected crash
         tel = telemetry.active()
         if tel is not None:
             telemetry.emit_train_steps(
@@ -845,4 +914,4 @@ class Trainer:
     # -- later slices -----------------------------------------------------
     def rebuild(self, *args, **kwargs):
         raise not_ported("Trainer.rebuild (elastic resize)",
-                         DURABILITY_SLICE)
+                         ELASTIC_SLICE)

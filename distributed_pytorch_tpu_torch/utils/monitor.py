@@ -16,6 +16,8 @@ telemetry stream (utils/telemetry.py) while the run is alive:
   the SLO states, the gang, serve stats, memory and a log tail into one
   strict-JSON bundle at a failure (the launcher's ``worker_fault``);
   ``scripts/torch_postmortem.py`` renders it.
+- **Hooks**: ``sentry_breach_hook`` turns a breach into the training
+  sentry's resize rung.
 
 Like telemetry.py this module imports no torch (the launcher agent imports
 it): device figures are read through ``sys.modules.get("torch")``, so a
@@ -572,6 +574,24 @@ class RunTailer:
                 except ValueError:
                     continue
         return out
+
+
+# ---------------------------------------------------------------------------
+# the wired hooks
+
+def sentry_breach_hook(sentry, *, severity: str = "critical"):
+    """Breach hook escalating through ``TrainingSentry``'s resize rung
+    (utils/sentry.py): a breach at or above ``severity`` calls
+    ``sentry.request_resize``, the rollback + ``on_resize`` + ladder reset
+    the exhausted ladder takes, so an SLO breach and a loss-spike
+    escalation recover the same way."""
+    floor = SEVERITIES.index(severity)
+
+    def hook(st: SloState) -> None:
+        if SEVERITIES.index(st.rule.severity) < floor:
+            return
+        sentry.request_resize(f"slo:{st.rule.name}")
+    return hook
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of
 distributed_pytorch_tpu_torch pulls in neither JAX nor the JAX package, and
-no source of the port, nor chip_smoke.py, names either in an import."""
+no source of the port, nor chip_smoke.py or the port's scripts, names
+either in an import."""
 
 import ast
 import json
@@ -49,7 +50,8 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "data.cifar10", "data.sampler", "data.pipeline",
                 "data.augment", "utils.metrics", "ops.quantized",
                 "ops.moe", "utils.telemetry", "utils.monitor",
-                "utils.logging"):
+                "utils.logging", "utils.faults", "utils.checkpoint",
+                "utils.sentry"):
         assert f"distributed_pytorch_tpu_torch.{mod}" in got["modules"]
     assert got["bad"] == [], f"the port imported {got['bad']}"
 
@@ -63,7 +65,9 @@ def test_port_sources_and_chip_smoke_import_no_jax():
     at any depth (kernels import lazily inside functions), names neither
     JAX nor the JAX package."""
     files = sorted((ROOT / "distributed_pytorch_tpu_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py"] + sorted(
+        (ROOT / "scripts").glob("torch_*.py")) + [
+        ROOT / "scripts" / "checkpoint_probe.py"]
     bad = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), filename=str(f))):

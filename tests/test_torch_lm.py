@@ -329,6 +329,7 @@ def test_lm_cli_parser_matches_jax():
 
 REFUSED_FLAGS = [["--dp", "2"], ["--tp", "2"], ["--pp-size", "2"],
                  ["--fsdp"], ["--elastic"], ["--checkpoint-dir", "ck"],
+                 ["--max-nodes", "4"],
                  ["--telemetry-dir", "tel"], ["--profile-dir", "p"],
                  ["--sync-every", "2"], ["--dcn-size", "2"],
                  ["--matmul-dtype", "int8"], ["--loss-impl", "chunked"],
@@ -380,7 +381,12 @@ def test_lm_cli_refuses_later_flags(flag, capsys, tmp_path, monkeypatch,
     step, the loss gauges being the losses the steps returned, and the
     profile directory a torch.profiler trace (of step 2, the run's last
     here).  Their directories are relative to the working directory, a
-    temporary one here."""
+    temporary one here.  ``--checkpoint-dir`` is ported (slice 5c-ii): the
+    losses are bitwise those of the run without it, the directory holds
+    the step-2 checkpoint with its loader position, and a 3-step run
+    resumes there, its one step's loss bitwise the third loss of an
+    uninterrupted 3-step run.  ``--elastic`` and ``--max-nodes`` still
+    name slice 5c-iii."""
     if flag[0] == "--sync-every":
         with pytest.raises(SystemExit) as e:
             tcli.main(CLI_BASE + ["--steps", "1"] + flag)
@@ -409,6 +415,25 @@ def test_lm_cli_refuses_later_flags(flag, capsys, tmp_path, monkeypatch,
             assert s["gauges"][f"rank0/train/{g}"]["count"] == 2
         (_, recs), = telemetry.read_run(str(tmp_path / "tel"))
         assert [r["value"] for r in recs if r["name"] == "loss"] == got
+        return
+    if flag[0] == "--checkpoint-dir":
+        monkeypatch.chdir(tmp_path)
+        _, got = _cli_losses(flag)
+        _, want = _cli_losses([])
+        assert got == want
+        from distributed_pytorch_tpu_torch.utils import checkpoint
+        flat, meta = checkpoint._load_npz_verified(
+            str(tmp_path / "ck" / "ckpt_2.npz"))
+        assert meta["step"] == 2 and meta["loader"]["offset"] == 2
+        assert flat["opt/count"] == 2
+        resumed = []
+        tr = tcli.run(CLI_BASE + ["--steps", "3"] + flag,
+                      on_step=lambda step, t, loss: resumed.append(
+                          float(loss)))
+        whole = []
+        tcli.run(CLI_BASE + ["--steps", "3"],
+                 on_step=lambda step, t, loss: whole.append(float(loss)))
+        assert tr.restored_meta["step"] == 2 and resumed == whole[2:]
         return
     if flag[0] in ("--fsdp", "--dcn-size"):
         with pytest.raises(ValueError, match="no-op|does not factor"):
@@ -447,6 +472,8 @@ def test_lm_cli_refuses_later_flags(flag, capsys, tmp_path, monkeypatch,
     assert e.value.code == 2
     err = capsys.readouterr().err
     assert "ROADMAP.md" in err
+    if flag[0] in ("--elastic", "--max-nodes"):
+        assert "slice 5c-iii (elastic)" in err
 
 
 def test_lm_cli_scale_flags_compose_and_check(capsys):
@@ -597,13 +624,29 @@ def test_scale_knob_values_are_checked_as_in_jax():
             tlm.validate_lm_cfg(tlm.LMTrainConfig(**model, **kw))
 
 
-def test_trainer_refuses_checkpoints_and_the_cpu_by_default(monkeypatch):
+def test_trainer_refuses_checkpoints_and_the_cpu_by_default(monkeypatch,
+                                                           tmp_path):
+    """The checkpoint methods work now (slice 5c-ii): an empty directory
+    restores nothing, a save flushed and restored into a fresh trainer
+    gives the params, Adam state and step back bitwise.  ``rebuild`` still
+    names slice 5c-iii, and without a GPU the default device raises."""
     cfg = tlm.LMTrainConfig(model=ttfm.TransformerConfig(**SHAPE))
     ttr = tlm.LMTrainer(cfg, device="cpu")
-    for call in (lambda: ttr.save_checkpoint("ck"),
-                 lambda: ttr.maybe_restore("ck"), ttr.flush_checkpoints):
-        with pytest.raises(NotImplementedError, match="slice 5"):
-            call()
+    ck = str(tmp_path / "ck")
+    assert ttr.maybe_restore(ck) == 0 and ttr.restored_meta == {}
+    ttr.train_step(*_data())
+    ttr.save_checkpoint(ck, extra_meta={"tag": 7})
+    ttr.flush_checkpoints()
+    fresh = tlm.LMTrainer(cfg, device="cpu")
+    assert fresh.maybe_restore(ck) == 1 and fresh.restored_meta["tag"] == 7
+    assert fresh.opt_state["count"] == 1
+    for n, p in ttr.params.items():
+        assert torch.equal(fresh.params[n], p) and fresh.params[n] \
+            .requires_grad
+        for m in ("mu", "nu"):
+            assert torch.equal(fresh.opt_state[m][n], ttr.opt_state[m][n])
+    with pytest.raises(NotImplementedError, match="slice 5c-iii"):
+        ttr.rebuild()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         tlm.LMTrainer(cfg)

@@ -484,7 +484,8 @@ _FLAG_OUTCOME = [
     (["--strategy", "auto"], "5f"), (["--master-ip", "10.0.0.1"], "runs"),
     (["--num-nodes", "2"], "--master-ip is required"),
     (["--rank", "1"], "runs"), (["--rendezvous", "env"], "runs"),
-    (["--elastic"], "5c"), (["--checkpoint-dir", "ck"], "5c"),
+    (["--elastic"], "5c"), (["--checkpoint-dir", "ck"], "runs"),
+    (["--max-nodes", "4"], "5c-iii"),
     (["--profile-dir", "p"], "runs"), (["--telemetry-dir", "t"], "runs"),
     (["--shard-eval"], "runs"), (["--debug-checks"], "runs"),
     (["--sync-every", "2"], "usage: sync_every=2 needs a device mesh"),
@@ -511,7 +512,9 @@ def test_cli_later_slice_flags_raise(small_cifar, argv, capsys, tmp_path,
     default ddp syncs over a one-rank group), and so do --profile-dir (a
     torch.profiler trace of the epoch) and --telemetry-dir (the epoch's
     span and gauges; a run directory relative to the working directory, a
-    temporary one here); --num-nodes 2 without a
+    temporary one here) and --checkpoint-dir (the epoch's checkpoint, which
+    a second run resumes past, running no epoch); --elastic and
+    --max-nodes name slice 5c-iii; --num-nodes 2 without a
     master is a ValueError, and --num-devices 4 in one process points at
     launch.py."""
     outcome = dict((tuple(a), o) for a, o in _FLAG_OUTCOME)[tuple(argv)]
@@ -527,6 +530,12 @@ def test_cli_later_slice_flags_raise(small_cifar, argv, capsys, tmp_path,
         if argv[:1] == ["--profile-dir"]:
             (trace,) = os.listdir(tmp_path / "p")
             assert trace.endswith(".pt.trace.json")
+        if argv[:1] == ["--checkpoint-dir"]:
+            # the epoch's checkpoint; a second run resumes past it
+            assert os.listdir(tmp_path / "ck") == ["ckpt_1.npz"]
+            again = tcli.run(base + argv)
+            assert again["start_epoch"] == 1 and again["epochs"] == []
+            assert again["trainer"]._step == out["trainer"]._step
         if argv[:1] == ["--telemetry-dir"]:
             from distributed_pytorch_tpu_torch.utils import telemetry
             assert telemetry.active() is None  # the run closed its own

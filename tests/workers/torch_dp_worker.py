@@ -39,7 +39,16 @@ the port only, pins torch to one intra-op thread, runs every case of
 - ``counts``: the collectives each case's trainer issues over a run, a
   process group at a time (``CallCounter``);
 - ``ledger``: the per-slice windows' masked exchange against the
-  all-participants exchange on a zeroed delta (``lm_ledger``).
+  all-participants exchange on a zeroed delta (``lm_ledger``);
+- ``ckpt``: checkpoints over the gang (``lm_ckpt``).  At world size 4:
+  ``LMTrainer(dp=4)`` with ZeRO-3 ``fsdp`` and with sync windows (``dcn_size
+  2, sync_every 2``), 2 steps, saved in both formats, restored into fresh
+  trainers (each rank's pieces compared bitwise) and 2 more steps from
+  each, beside the uninterrupted run's; the whole arrays at the save; and
+  a VGG ``all_reduce`` step saved by ``Checkpointer`` (BN state, each
+  rank's own, stacked over the ranks).  At world size 2: the 4-rank ZeRO-3 checkpoints restored into
+  ``LMTrainer(dp=2, fsdp=True)`` (``load_resharded``), the whole arrays and
+  the reshard's accounting.
 """
 
 import json
@@ -461,6 +470,87 @@ class CallCounter:
         self._saved.clear()
 
 
+def lm_ckpt(data, rank: int, world: int, cases: dict) -> dict:
+    from distributed_pytorch_tpu_torch import lm as tlm
+    from distributed_pytorch_tpu_torch.models import transformer as ttfm
+    model = ttfm.TransformerConfig(**cases["model"])
+    tokens, targets = data["tokens"], data["targets"]
+    base = cases["dir"]
+    out = {}
+
+    def rows(i):
+        per = tokens.shape[1] // world
+        mine = slice(rank * per, (rank + 1) * per)
+        return tokens[i, mine], targets[i, mine]
+
+    def local(tr) -> dict:
+        return {f"{m}/{n}": t.detach().clone() for m, tree in (
+            ("p", tr.params), ("mu", tr.opt_state["mu"]),
+            ("nu", tr.opt_state["nu"])) for n, t in tree.items()}
+
+    def whole(tr, tag):
+        stacked = tr.window is not None
+        for m, tree in (("p", tr._whole(tr.params, False)),
+                        ("mu", tr._whole(tr.opt_state["mu"], stacked)),
+                        ("nu", tr._whole(tr.opt_state["nu"], stacked))):
+            for n, t in tree.items():
+                out[f"{tag}/{m}/{n}"] = t.numpy()
+
+    if world == 2:  # the 4-rank ZeRO-3 checkpoints onto two ranks
+        cfg = tlm.LMTrainConfig(model=model, compute_dtype=None, dp=2,
+                                fsdp=True)
+        for fmt in ("sharded", "whole"):
+            tr = tlm.LMTrainer(cfg, device="cpu")
+            out[f"re/{fmt}/step"] = np.asarray(
+                tr.maybe_restore(os.path.join(base, f"fsdp_{fmt}")))
+            whole(tr, f"re/{fmt}")
+            if fmt == "sharded":
+                for k, v in tr._ckptr.last_reshard_stats.items():
+                    out[f"re/stats/{k}"] = np.asarray(v)
+        return out
+    for name, kw in (("fsdp", dict(fsdp=True)),
+                     ("window", dict(dcn_size=2, sync_every=2))):
+        cfg = tlm.LMTrainConfig(model=model, compute_dtype=None, dp=world,
+                                **kw)
+        tr = tlm.LMTrainer(cfg, device="cpu")
+        for i in range(2):
+            tr.train_step(*rows(i))
+        dirs = {fmt: os.path.join(base, f"{name}_{fmt}")
+                for fmt in ("sharded", "whole")}
+        tr.save_checkpoint(dirs["sharded"], sharded=True)
+        tr.save_checkpoint(dirs["whole"], extra_meta={"at": 2})
+        tr.flush_checkpoints()
+        saved = local(tr)
+        whole(tr, name)
+        out[f"{name}/cont"] = np.asarray(
+            [float(tr.train_step(*rows(i))) for i in (2, 3)])
+        for fmt, d in dirs.items():
+            fresh = tlm.LMTrainer(cfg, device="cpu")
+            out[f"{name}/{fmt}/step"] = np.asarray(fresh.maybe_restore(d))
+            got = local(fresh)
+            out[f"{name}/{fmt}/equal"] = np.asarray(
+                got.keys() == saved.keys() and all(
+                    torch.equal(v, saved[k]) for k, v in got.items()))
+            out[f"{name}/{fmt}/losses"] = np.asarray(
+                [float(fresh.train_step(*rows(i))) for i in (2, 3)])
+    from distributed_pytorch_tpu_torch.utils import checkpoint as tck
+    # all_reduce: no buffer broadcast, so each rank keeps its own BN stats
+    tr = ttrain.Trainer(ttrain.TrainConfig(model="TINY",
+                                           strategy="all_reduce",
+                                           batch_size=2, augment=False),
+                        device="cpu")
+    images, labels = data["images"], data["labels"]
+    per = images.shape[0] // world
+    tr.train_step(images[rank * per:(rank + 1) * per],
+                  labels[rank * per:(rank + 1) * per])
+    tck.Checkpointer(os.path.join(base, "vgg")).save(tr, 1)
+    for tag, tree in (("p", tr.params), ("s", tr.state)):
+        for k1, v in tree.items():
+            for n, t in v.items():
+                out[f"vgg/{tag}/{k1}/{n}"] = t.detach().numpy()
+    return out
+
+
 def counts(data, rank: int, world: int, cases: dict) -> dict:
     """Each case's collectives by group (``CallCounter``) over its run:
     a VGG ``Trainer`` (``kind`` "vgg": one ``train_steps`` call of
@@ -514,10 +604,11 @@ def main() -> int:
         out = syncbn(data, rank, world)
     elif mode == "eval":
         out = sharded_eval(data, rank, world)
-    elif mode in ("lm", "lm_sync", "counts", "ledger", "window"):
+    elif mode in ("lm", "lm_sync", "counts", "ledger", "window", "ckpt"):
         with open(os.path.join(os.path.dirname(in_path), "cases.json")) as f:
             out = {"lm": lm, "lm_sync": lm_sync, "counts": counts,
-                   "ledger": lm_ledger, "window": window}[mode](
+                   "ledger": lm_ledger, "window": window,
+                   "ckpt": lm_ckpt}[mode](
                 data, rank, world, json.load(f))
     else:
         out = checks(data, rank, world)
