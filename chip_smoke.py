@@ -50,8 +50,9 @@ Phases, each of which raises on failure:
      step's logits through K8 against the plain paged path;
  11. LM-base bf16 paged serving: phase 5's load on the default pool
      without compaction (tokens equal to phase 5's, request by request),
-     with compaction, on an oversubscribed pool, the int8 pool (K9), and a
-     shared-system-prompt load with and without the prefix cache; every
+     with compaction (its first 8 requests), on an oversubscribed pool,
+     the int8 pool (K9), and a shared-system-prompt load of 16 requests
+     with and without the prefix cache (freed slots refilled); every
      decode step through K8/K9 once per layer and never through K6/K7;
  12. the fused BN+ReLU backward kernels (K1a sums, K1b da) against their
      plain version on the eight VGG-11 batch-256 BN shapes and TINY widths
@@ -104,12 +105,14 @@ Phases, each of which raises on failure:
      pure-decode windows where every block chains (wall ms per decode
      step; idle share and device operations per emitted token from one
      profiled window a side; scripts/serving_overlap_ab.py also profiles
-     the load); (c) phase 5's load with in-block refill off
-     against phase 5's run (utilization, refills, tokens/s, TTFT; bf16
-     token flips counted); (d) speculate=4 against 0 on a lookup-friendly
-     load (acceptance, emissions per slot-step, verify rounds per token;
-     no decode-kernel launch in the speculative run); (e) phase 5's load
-     with prefill_chunk=128 against phase 5's run (TTFT, tokens/s);
+     the load); (c) phase 5's load with in-block refill off against phase
+     5's run (utilization, refills, tokens/s, TTFT; bf16 token flips
+     counted; the off run refills a freed slot at a block boundary);
+     (d) speculate=4 against 0 on a lookup-friendly load, both admitting
+     by batched prefills (acceptance, emissions per slot-step, verify
+     rounds per token; no decode-kernel launch in the speculative run);
+     (e) phase 5's first 8 requests with prefill_chunk=128 against the
+     same 8 unchunked (TTFT, tokens/s);
  19. data-parallel VGG-11 at world size 1 over a one-rank NCCL group, bf16,
      batch 256: every strategy on one saved set of gradients (the exact
      ones and the rings bitwise, quantized within half a quantum), 20
@@ -170,20 +173,35 @@ Phases, each of which raises on failure:
      over the measured p95.
  24. checkpoints and faults at LM-base width, bf16, B=8 x S=1024: (a)
      launch.py --max-restarts 1 over lm_cli with phase 8's flags and
-     --steps 30 --checkpoint-dir --checkpoint-every 10 --telemetry-dir, a
+     --steps 19 --checkpoint-dir --checkpoint-every 10 --telemetry-dir, a
      FAULT_PLAN crash at step 15 in generation 0: one injected fault and
      one restart, generation 1 restoring step 10, its losses over steps
-     11-30 (the telemetry's loss gauges) bitwise phase 8's, K2-K4 once per
+     11-19 (the telemetry's loss gauges) bitwise phase 8's, K2-K4 once per
      layer per step; each save's bytes, fetch and background write, the
      restore's ms; (b) the training sentry at 4 layers: NaN, Inf and
      loss-spike plans rolled back and skipped, bitwise the clean run
-     without the window, the stats the predicted ones; a persistent NaN
+     without the window, the stats (but the wall-clock stragglers) the
+     predicted ones; a persistent NaN
      tightening the clip, then aborting with a sentry_abort postmortem; a
      snapshot's ms and sentry off / on ms a step, A B B A; (c) ckpt_corrupt
      plans (bitflip, truncate) on the whole-tree and sharded formats: the
      corrupt generation quarantined, the restore bitwise the previous save;
      (d) with no plan a step's device operations equal phase 8's, and a
      fired NaN tap adds only the poison's.
+ 25. elastic at LM-base width, bf16, B=8 x S=1024: (a) lm_cli --elastic
+     --checkpoint-sharded alone, ELASTIC_DIR set, SIGTERMed once its
+     beacon reports step 10: exit 78, a complete checkpoint at the drain
+     step with the loader position, its losses bitwise phase 8's; the
+     time from SIGTERM to exit and the save against --drain-grace; (b)
+     launch.py --elastic --min-nodes 1 --max-nodes 1 over lm_cli --elastic
+     to step 20 from that checkpoint: exit 0, no resize, every beat the
+     agent could judge "fresh", the losses from the drain step on bitwise
+     phase 8's, K2-K4 once per layer per step, the longest gap between
+     beats (the first step and a periodic save in it) against
+     --heartbeat-timeout; (c) SyncRelaxHook on phase 22's VGG-11 ddp
+     window: a forced step-time breach widens H 4 -> 8 and the clear
+     narrows it back, the gradient all-reduces per 8 steps following H
+     (2, 1, 2), and each rebuild's wall time.
 Phases 4, 5, 10, 11 and 18 run the batcher's defaults, in-block refill and
 overlapped dispatch on, as the JAX batcher's are.
 The second-to-last lines are the kernels' JSON record and the card's name
@@ -1708,9 +1726,12 @@ def paged_serving(torch, port, dense_tokens) -> dict:
              f"requests {bad}")
     print(f"  (a): tokens equal phase 5's dense tokens for all "
           f"{len(dense_tokens)} requests")
-    res["b"] = serving_run(torch, port, label="(b) paged, compact_tail=True",
-                           prompts=load16[0], max_new=load16[1], paged=True,
-                           window_blocks=0)
+    # (b) over 8 requests since slice 5c-iii's phase 25 took its time
+    # (its gate stands)
+    res["b"] = serving_run(torch, port, label="(b) paged, compact_tail=True, "
+                           "phase 5's first 8 requests",
+                           prompts=load16[0][:8], max_new=load16[1][:8],
+                           paged=True, window_blocks=0)
     if res["b"]["compact_dispatches"] < 1:
         fail("(b): no compact dispatch")
     res["c"] = serving_run(torch, port, label="(c) paged, pool_pages=9",
@@ -1732,8 +1753,10 @@ def paged_serving(torch, port, dense_tokens) -> dict:
     kw = dict(prompts=prompts, max_new=max_new, paged=True,
               prompt_buckets=(128, 512, 1536))
     res["e"] = serving_run(torch, port, label="(e) shared 1024-token "
-                           "system prompt, prefix cache", prefix_cache=True,
-                           window_blocks=0, **kw)
+                           "system prompt, prefix cache",
+                           prefix_cache=True, window_blocks=0, **kw)
+    # every request after the first shares the prompt's two pages, the 8
+    # admitted into freed slots too
     if res["e"]["prefix_hits"] != 15 or res["e"]["prefix_pages_shared"] != 30:
         fail(f"(e): {res['e']['prefix_hits']} prefix hits sharing "
              f"{res['e']['prefix_pages_shared']} pages (want 15 and 30)")
@@ -1743,6 +1766,13 @@ def paged_serving(torch, port, dense_tokens) -> dict:
     res["e0"] = serving_run(torch, port, label="(e) the same load without "
                             "the prefix cache, in-block refill off",
                             window_blocks=0, inblock_refill=False, **kw)
+    # 16 requests on 8 slots: both runs refill freed slots by a batched
+    # admission (the prefix cache's with a cached prefix)
+    for key in ("e", "e0"):
+        if res[key]["batch_admissions"] <= 8 or res["e0"]["inblock_refills"]:
+            fail(f"({key}): {res[key]['batch_admissions']} batched "
+                 f"admissions, {res[key]['inblock_refills']} in-block "
+                 f"refills")
     print(f"  (e) ms per prefill: {res['e']['ms_per_prefill']:.3f} with the "
           f"prefix cache, {res['e0']['ms_per_prefill']:.3f} without "
           f"({res['e0']['ms_per_prefill'] / res['e']['ms_per_prefill']:.2f}"
@@ -2010,8 +2040,13 @@ def scheduling_serving(torch, port, base) -> dict:
     off = serving_run(torch, port, label="(c) inblock_refill=False",
                       prompts=load16[0], max_new=load16[1],
                       inblock_refill=False, window_blocks=0)
+    # 16 requests on 8 slots: the off run refills freed slots at block
+    # boundaries, by a batched admission, never in-block
+    if off["batch_admissions"] <= 8 or off["inblock_refills"]:
+        fail(f"(c): the off run made {off['batch_admissions']} batched "
+             f"admissions and {off['inblock_refills']} in-block refills")
     res["c"] = {"on": {k: base[k] for k in keys},
-                "off": {k: off[k] for k in keys},
+                "off": {k: off[k] for k in keys + ("batch_admissions",)},
                 "bf16_token_flips_on_vs_off": token_flips(
                     base["tokens"], off["tokens"], load16[0])}
     print("  (c) in-block refill on (phase 5's run) against off: "
@@ -2020,17 +2055,27 @@ def scheduling_serving(torch, port, base) -> dict:
     spec = serving_run(torch, port, label="(d) speculate=4, lookup-friendly "
                        "load", prompts=prompts, max_new=max_new,
                        speculate=4, window_blocks=0)
-    plain = serving_run(torch, port, label="(d) speculate=0, the same load",
-                        prompts=prompts, max_new=max_new, window_blocks=0)
+    # the speculative run admits every request by a batched prefill, so
+    # its plain twin does too: in-block refill would teacher-force the
+    # 128-480-token prompts a token a lockstep step, a cost of admission,
+    # not of decoding
+    plain = serving_run(torch, port, label="(d) speculate=0, the same load, "
+                        "in-block refill off", prompts=prompts,
+                        max_new=max_new, inblock_refill=False,
+                        window_blocks=0)
     if spec["launches"] or spec["decode_steps"] or not spec["spec_rounds"]:
         fail(f"(d): the speculative run launched the decode kernel "
              f"{spec['launches']} times over {spec['decode_steps']} "
              f"lockstep steps ({spec['spec_rounds']} verify rounds)")
+    # 16 requests on 8 slots: both sides refill freed slots
+    if spec["batch_admissions"] <= 8 or plain["batch_admissions"] <= 8:
+        fail(f"(d): {spec['batch_admissions']} and "
+             f"{plain['batch_admissions']} batched admissions")
     sampled = spec["emitted_tokens"] - spec["batch_admissions"]
     res["d"] = {
         "speculate=4": {k: spec[k] for k in keys + (
             "spec_rounds", "spec_proposed", "spec_accepted")},
-        "speculate=0": {k: plain[k] for k in keys},
+        "speculate=0": {k: plain[k] for k in keys + ("batch_admissions",)},
         "acceptance": spec["spec_accepted"] / max(spec["spec_proposed"], 1),
         "verify_rounds_per_emitted_token": spec["spec_rounds"]
         / max(sampled, 1),
@@ -2039,16 +2084,25 @@ def scheduling_serving(torch, port, base) -> dict:
         "bf16_token_flips_spec_vs_plain": token_flips(
             spec["tokens"], plain["tokens"], prompts)}
     print("  (d) speculation: " + json.dumps(res["d"]))
-    chunk = serving_run(torch, port, label="(e) prefill_chunk=128",
-                        prompts=load16[0], max_new=load16[1],
-                        prefill_chunk=128, window_blocks=0)
-    res["e"] = {"chunked": {k: chunk[k] for k in keys + (
+    # (e) over phase 5's first 8 requests, against an unchunked run of
+    # the same 8: over the whole load the later 8 refill in-block on both
+    # sides (phase 5's path, no prompt chunk in it)
+    few = {"prompts": load16[0][:8], "max_new": load16[1][:8],
+           "window_blocks": 0}
+    chunk = serving_run(torch, port, label="(e) prefill_chunk=128, phase "
+                        "5's first 8 requests", prefill_chunk=128, **few)
+    whole = serving_run(torch, port, label="(e) unchunked, the same 8 "
+                        "requests", **few)
+    if chunk["prefill_dispatches"] <= whole["prefill_dispatches"]:
+        fail(f"(e): {chunk['prefill_dispatches']} chunked prefill "
+             f"dispatches against {whole['prefill_dispatches']} unchunked")
+    res["e"] = {"requests": 8, "chunked": {k: chunk[k] for k in keys + (
         "prefill_dispatches", "batch_admissions")},
-        "unchunked": {k: base[k] for k in keys + (
+        "unchunked": {k: whole[k] for k in keys + (
             "prefill_dispatches", "batch_admissions")},
         "bf16_token_flips_chunked_vs_unchunked": token_flips(
-            chunk["tokens"], base["tokens"], load16[0])}
-    print("  (e) chunked prefill against phase 5's unchunked run: "
+            chunk["tokens"], whole["tokens"], few["prompts"])}
+    print("  (e) chunked prefill against the unchunked run: "
           + json.dumps(res["e"]))
     return res
 
@@ -3956,18 +4010,102 @@ def free_port() -> int:
         return sk.getsockname()[1]
 
 
+SESSIONS: list[int] = []  # the sessions the script opened (leader pids)
+
+
+def session_popen(cmd: list[str], **kw) -> subprocess.Popen:
+    """``Popen`` in a session of its own (a launcher's workers join it),
+    recorded so that ``end_session`` and ``stop_strays`` can stop the
+    whole of it."""
+    proc = subprocess.Popen(cmd, start_new_session=True, **kw)
+    SESSIONS.append(proc.pid)
+    return proc
+
+
+def end_session(proc: subprocess.Popen) -> None:
+    """SIGKILL whatever is left of ``proc``'s session once ``proc`` has
+    been waited for (a worker its launcher left behind)."""
+    import os
+    import signal
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except (ProcessLookupError, PermissionError):
+        pass
+
+
+def _proc_table() -> dict[int, tuple[str, int, int, str]]:
+    """{pid: (state, ppid, session, command line)} from /proc."""
+    import os
+    table = {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                stat = f.read()
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        rest = stat[stat.rindex(")") + 2:].split()
+        table[int(d)] = (rest[0], int(rest[1]), int(rest[3]), cmd[:200])
+    return table
+
+
+def stop_strays(timeout_s: float = 30.0) -> list[str]:
+    """SIGKILL every process the script started that is still there (its
+    own descendants and the members of the sessions it opened), reap its
+    own children, and wait up to ``timeout_s`` for the rest to go; the
+    command lines of those it found."""
+    import os
+    import signal
+    me = os.getpid()
+
+    def strays() -> dict[int, str]:
+        table = _proc_table()
+        kids: dict[int, list[int]] = {}
+        for pid, (_, ppid, _, _) in table.items():
+            kids.setdefault(ppid, []).append(pid)
+        found, todo = set(), [me]
+        while todo:
+            for c in kids.get(todo.pop(), []):
+                if c not in found:
+                    found.add(c)
+                    todo.append(c)
+        found |= {pid for pid, (_, _, sid, _) in table.items()
+                  if sid in SESSIONS}
+        found.discard(me)
+        return {pid: table[pid][3] for pid in found
+                if table[pid][0] != "Z" or table[pid][1] == me}
+
+    first = strays()
+    left, t0 = first, time.perf_counter()
+    while left and time.perf_counter() - t0 < timeout_s:
+        for pid in left:
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except OSError:
+                pass
+            try:
+                os.waitpid(pid, os.WNOHANG)
+            except ChildProcessError:
+                pass
+        time.sleep(0.05)
+        left = strays()
+    return [f"{pid}: {cmd}" for pid, cmd in sorted(first.items())]
+
+
 def run_gang_of_one(argv: list[str], timeout_s: float = 400.0):
     """``launch.py --nproc-per-node 1`` running LMDP_CHILD over ``argv`` in
     a session of its own (killed whole on a timeout); its exit code and
     output."""
     import os
     import signal
-    proc = subprocess.Popen(
+    proc = session_popen(
         [sys.executable, "-m", "distributed_pytorch_tpu_torch.launch",
          "--nproc-per-node", "1", "--master-port", str(free_port()), "--",
          "-c", LMDP_CHILD, json.dumps(argv)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        start_new_session=True,
         cwd=os.path.dirname(os.path.abspath(__file__)))
     try:
         text, _ = proc.communicate(timeout=timeout_s)
@@ -3975,6 +4113,8 @@ def run_gang_of_one(argv: list[str], timeout_s: float = 400.0):
         os.killpg(proc.pid, signal.SIGKILL)
         proc.communicate()
         fail(f"(d) the gang of one did not finish in {timeout_s} s")
+    finally:
+        end_session(proc)
     return proc.returncode, text
 
 
@@ -5184,7 +5324,9 @@ def observability_phase(torch, port, facts, phase8_ops: int) -> dict:
 
 # -- phase 24: checkpoints and faults (slice 5c-ii) -------------------------
 
-CKPT_STEPS = 30          # (a): phase 8's run, crashed and resumed
+# (a): phase 8's first steps, crashed and resumed; not a multiple of
+# CKPT_EVERY, so generation 1's final save is its only one
+CKPT_STEPS = 19
 CKPT_EVERY = 10
 CKPT_CRASH = 15          # (a): the generation-0 crash step
 CKPT_LAYERS = 4          # (b), (c): LM-base width, 4 layers
@@ -5244,13 +5386,13 @@ def _ckpt_gang(argv: list[str], env: dict, run_dir: str,
     output."""
     import os
     import signal
-    proc = subprocess.Popen(
+    proc = session_popen(
         [sys.executable, "-m", "distributed_pytorch_tpu_torch.launch",
          "--nproc-per-node", "1", "--max-restarts", "1", "--master-port",
          str(free_port()), "--telemetry-dir", run_dir, "--", "-c",
          CKPT_CHILD, json.dumps(argv)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        start_new_session=True, env=dict(os.environ, **env),
+        env=dict(os.environ, **env),
         cwd=os.path.dirname(os.path.abspath(__file__)))
     try:
         text, _ = proc.communicate(timeout=timeout_s)
@@ -5258,6 +5400,8 @@ def _ckpt_gang(argv: list[str], env: dict, run_dir: str,
         os.killpg(proc.pid, signal.SIGKILL)
         proc.communicate()
         fail(f"(a) the crashed gang did not finish in {timeout_s} s")
+    finally:
+        end_session(proc)
     return proc.returncode, text
 
 
@@ -5271,6 +5415,13 @@ def _host_state(tr) -> dict:
                for n, t in tree.items()}}
 
 
+def _planned(stats: dict) -> dict:
+    """The sentry's counts that a fault plan decides: all but
+    ``stragglers``, steps slower than the others by the host's wall clock
+    (a busy host makes some; reported, not held to 0)."""
+    return {k: v for k, v in stats.items() if k != "stragglers"}
+
+
 def _same_state(torch, a: dict, b: dict) -> bool:
     return a.keys() == b.keys() and all(
         torch.equal(v, b[k]) if hasattr(v, "shape") else v == b[k]
@@ -5282,11 +5433,11 @@ def checkpoint_phase(torch, port, facts, phase8: dict) -> dict:
     bf16, B=8 x S=1024.
 
     (a) The main path: ``launch.py --nproc-per-node 1 --max-restarts 1``
-        over lm_cli with phase 8's flags and ``--steps 30
+        over lm_cli with phase 8's flags and ``--steps 19
         --checkpoint-dir D --checkpoint-every 10 --telemetry-dir T``,
         ``FAULT_PLAN`` a crash at step 15 in generation 0.  The launcher
         sees one injected fault and restarts once; generation 1 restores
-        step 10 (its loader position too) and trains steps 11-30, whose
+        step 10 (its loader position too) and trains steps 11-19, whose
         loss gauges in T are bitwise phase 8's, with K2-K4 once per layer
         per step.  Reports each save's bytes, its synchronous fetch (the
         step loop's stall), the background write's ms, the restore's ms
@@ -5296,7 +5447,8 @@ def checkpoint_phase(torch, port, facts, phase8: dict) -> dict:
         ``inf_grad`` at step 4 and a 1e6 ``loss_spike`` at step 5, each
         rolled back and its window skipped, the params and Adam state
         bitwise a clean run's without that window and the stats the
-        predicted ones; a persistent ``nan_grad`` (count 3) tightens the
+        predicted ones (stragglers, a wall-clock count, reported); a
+        persistent ``nan_grad`` (count 3) tightens the
         clip, then aborts (``SentryAbort``) with a ``sentry_abort``
         postmortem; a snapshot's ms, and sentry off / on ms a step in
         A B B A windows.
@@ -5384,7 +5536,10 @@ def checkpoint_phase(torch, port, facts, phase8: dict) -> dict:
         restore = [{"step": r["args"]["step"], "bytes": r["args"]["bytes"],
                     "ms": r["dur"] * 1e3} for r in spans
                    if r["name"] == "ckpt_restore"]
-        if [s["step"] for s in saves] != [20, 30, 30] or \
+        # gen 1's periodic saves after the restore, then the final one
+        want_saves = list(range(2 * CKPT_EVERY, CKPT_STEPS + 1,
+                                CKPT_EVERY)) + [CKPT_STEPS]
+        if [s["step"] for s in saves] != want_saves or \
                 [r["step"] for r in restore] != [CKPT_EVERY]:
             fail(f"(a) generation 1's checkpoint spans: {saves} {restore}")
         out["a"] = {
@@ -5454,12 +5609,12 @@ def checkpoint_phase(torch, port, facts, phase8: dict) -> dict:
     out["b"] = {}
     for kind, (plan, cfg, n, want_skip, want) in cases.items():
         skipped, stats, st = guarded(plan, cfg, n)
-        want = dict(dict.fromkeys(stats, 0), **want)
+        want = dict(dict.fromkeys(_planned(stats), 0), **want)
         # the skipped window: the batches since the last snapshot
         window = set(range(want_skip[0] - want["skipped_steps"] + 1,
                            want_skip[0] + 1))
         ref = clean(window, n)
-        if skipped != want_skip or stats != want:
+        if skipped != want_skip or _planned(stats) != want:
             fail(f"(b) {kind}: skipped {skipped}, stats {stats}; want "
                  f"{want_skip}, {want}")
         if not _same_state(torch, st, ref):
@@ -5482,10 +5637,10 @@ def checkpoint_phase(torch, port, facts, phase8: dict) -> dict:
             tel_mod.disable()
         bundles = mon.find_postmortems(rd)
         kinds = [mon.load_postmortem(b)["trigger"]["kind"] for b in bundles]
-        want = dict(dict.fromkeys(abort, 0), steps=6, nonfinite=3,
-                    rollbacks=2, skipped_steps=6, clip_tightened=1,
-                    snapshots=1)
-        if abort != want or kinds != ["sentry_abort"] or \
+        want = dict(dict.fromkeys(_planned(abort), 0), steps=6,
+                    nonfinite=3, rollbacks=2, skipped_steps=6,
+                    clip_tightened=1, snapshots=1)
+        if _planned(abort) != want or kinds != ["sentry_abort"] or \
                 t2.cfg.grad_clip != 0.5:
             fail(f"(b) persistent fault: stats {abort} (want {want}), "
                  f"bundles {kinds}, clip {t2.cfg.grad_clip}")
@@ -5614,6 +5769,349 @@ def checkpoint_phase(torch, port, facts, phase8: dict) -> dict:
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_phase
     print(f"  phase 24 took {out['seconds']:.1f} s")
+    return out
+
+
+# -- phase 25: elastic (slice 5c-iii) ---------------------------------------
+
+ELASTIC_DRAIN_AT = 10   # (a): SIGTERM once the beacon reports this step
+ELASTIC_STEPS = 20      # (b): the supervised resume runs to this step
+ELASTIC_EVERY = 15      # (b): one periodic save between two beats
+ELASTIC_GRACE = 30.0    # --drain-grace's default
+ELASTIC_HB_TIMEOUT = 300.0  # --heartbeat-timeout's default
+
+# One elastic worker of phase 25: lm_cli.run with the given argv; K2-K4's
+# launches, the losses as float hex, each beat's host time, each save
+# call's ms.  A drain prints its line from inside drain_exit, after the
+# save closure ran (the process leaves by os._exit).
+ELASTIC_CHILD = r"""
+import json, os, sys, time
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+from distributed_pytorch_tpu_torch import lm, lm_cli
+from distributed_pytorch_tpu_torch.ops import attention as attn
+from distributed_pytorch_tpu_torch.parallel import elastic
+fns = ("flash_attention_fwd", "flash_attention_bwd_dq",
+       "flash_attention_bwd_dkv")
+for f in fns:
+    getattr(attn, f).launches = 0
+losses, beats, save_ms, start = [], [], [], []
+save, beat, drain_exit = (lm.LMTrainer.save_checkpoint,
+                          elastic.Heartbeat.beat, elastic.drain_exit)
+def timed_save(self, *a, **k):
+    t0 = time.perf_counter()
+    save(self, *a, **k)
+    save_ms.append((time.perf_counter() - t0) * 1e3)
+def timed_beat(self, step):
+    beats.append((step, time.time()))
+    beat(self, step)
+def report(tr, drained):
+    print("ELASTIC " + json.dumps({
+        "attempt": int(os.environ.get("RESTART_ATTEMPT", "0")),
+        "drained": drained, "start": start[0] if start else None,
+        "steps": len(losses),
+        "restored_step": tr.restored_meta.get("step") if tr else None,
+        "losses": [float(x).hex() for x in losses], "beats": beats,
+        "launches": {k: getattr(attn, f).launches
+                     for k, f in zip(("K2", "K3", "K4"), fns)},
+        "save_call_ms": save_ms}), flush=True)
+def drained(save_fn, **k):
+    t0 = time.perf_counter()
+    save_fn()
+    torch.cuda.synchronize()
+    report(None, (time.perf_counter() - t0) * 1e3)
+    drain_exit(lambda: None, **k)
+lm.LMTrainer.save_checkpoint = timed_save
+elastic.Heartbeat.beat = timed_beat
+elastic.drain_exit = drained
+def on_step(step, trainer, loss):
+    if not start:
+        start.append(step - 1)
+    losses.append(loss.detach().clone())
+report(lm_cli.run(json.loads(sys.argv[1]), on_step=on_step), None)
+"""
+
+
+def _elastic_proc(cmd: list[str], env: dict):
+    import os
+    return session_popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, **env),
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def _elastic_line(text: str, what: str) -> dict:
+    lines = [json.loads(x[len("ELASTIC "):]) for x in text.splitlines()
+             if x.startswith("ELASTIC ")]
+    if len(lines) != 1:
+        fail(f"{what}: {len(lines)} result lines:\n{text[-4000:]}")
+    return lines[0]
+
+
+def _finish(proc, timeout_s: float, what: str) -> str:
+    import os
+    import signal
+    try:
+        text, _ = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        fail(f"{what} did not finish in {timeout_s} s")
+    finally:
+        end_session(proc)
+    return text
+
+
+def _beat_gaps(beats) -> list[float]:
+    return [b[1] - a[1] for a, b in zip(beats, beats[1:])]
+
+
+def elastic_phase(torch, port, facts, phase8: dict) -> dict:
+    """Phase 25: elastic (slice 5c-iii) at LM-base width, bf16, B=8 x
+    S=1024, on the one card (a gang of one: a shrink needs two cards; the
+    shrink and the grow-back are the CPU gangs' tests).
+
+    (a) The drain: ELASTIC_CHILD over lm_cli with phase 8's flags and
+        ``--elastic --steps 19 --checkpoint-dir D --checkpoint-sharded``,
+        ``ELASTIC_DIR`` set; the port's ``read_heartbeat`` polls its
+        beacon, and once it reports step ELASTIC_DRAIN_AT the process gets
+        SIGTERM.  It must exit 78 with a complete checkpoint at the drain
+        step (ShardedCheckpointer's newest, its meta holding the loader
+        position), its losses bitwise phase 8's; the time from SIGTERM to
+        exit and the save's stall (the per-shard save is synchronous: the
+        stall is the write) against --drain-grace.
+    (b) The resume under the agent: ``launch.py --elastic --min-nodes 1
+        --max-nodes 1 --nproc-per-node 1 --telemetry-dir T`` over
+        ELASTIC_CHILD with (a)'s flags and ``--steps ELASTIC_STEPS
+        --checkpoint-every ELASTIC_EVERY``: exit 0, no ``gang_resize`` or
+        ``heartbeat_stale`` event, every beacon the phase reads judged
+        "fresh" by ``heartbeat_verdict`` at the default timeout once the
+        first beat of the generation landed, the losses from the drain
+        step on bitwise phase 8's, K2-K4 once per layer per step; the
+        longest gap between beats (the first step and the periodic save
+        fall in it) against --heartbeat-timeout.
+    (c) The in-process rebuild on phase 22's VGG-11 ddp window (bf16,
+        H = WIN_H, ``max_sync_every = 2 WIN_H``, steps_per_loop 2 WIN_H):
+        ``SyncRelaxHook`` on a RunDoctor; a forced step-time breach
+        widens H to 2 WIN_H, the clear narrows it back; the gradient
+        all-reduces of a profiled 2 WIN_H-step run (``dp_calls``, less
+        the one loss all-reduce of its ``train_steps`` call) are 2 WIN_H
+        / H at each H; each rebuild's wall time."""
+    import glob
+    import os
+    import shutil
+    import signal
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    from distributed_pytorch_tpu_torch import launch
+    from distributed_pytorch_tpu_torch.utils import checkpoint as ck
+    tel_mod, mon = port["telemetry"], port["monitor"]
+    out = {"card": facts["smi"]}
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    n_layers = lm_base_bytes(port).n_layers
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    try:
+        ckpt_dir = os.path.join(tmp, "ckpt")
+        hb_dir = os.path.join(tmp, "hb")
+        base = ["--preset", "LM-base", "--batch-size", "8", "--seq-len",
+                "1024", "--compute-dtype", "bfloat16", "--log-every", "10",
+                "--device", DEVICE, "--elastic", "--checkpoint-dir",
+                ckpt_dir, "--checkpoint-sharded"]
+        free = shutil.disk_usage(tmp).free
+
+        # (a)
+        t0 = time.perf_counter()
+        proc = _elastic_proc(
+            [sys.executable, "-c", ELASTIC_CHILD, json.dumps(
+                base + ["--steps", str(CKPT_STEPS), "--checkpoint-every",
+                        "1000"])],
+            {launch.ELASTIC_DIR_ENV: hb_dir, "RESTART_ATTEMPT": "0"})
+        beacon = launch.heartbeat_path(hb_dir, 0)
+        t_sig = None
+        while time.perf_counter() - t0 < 300 and proc.poll() is None:
+            hb = launch.read_heartbeat(beacon)
+            if hb is not None and hb["step"] >= ELASTIC_DRAIN_AT:
+                t_sig = time.perf_counter()
+                proc.send_signal(signal.SIGTERM)
+                break
+            time.sleep(0.02)
+        if t_sig is None:
+            fail(f"(a) no beat of step {ELASTIC_DRAIN_AT}:\n"
+                 f"{_finish(proc, 60, '(a)')[-4000:]}")
+        text = _finish(proc, 300, "(a) the drain")
+        drain_s = time.perf_counter() - t_sig
+        child = _elastic_line(text, "(a)")
+        k = child["steps"]
+        listed = ck.ShardedCheckpointer(ckpt_dir).list()
+        meta = {}
+        if listed:
+            with open(os.path.join(listed[-1][1], "meta.json")) as f:
+                meta = json.load(f)
+        if proc.returncode != launch.ELASTIC_DRAIN_EXIT_CODE or \
+                not listed or listed[-1][0] != k or meta.get("step") != k \
+                or (meta.get("loader") or {}).get("offset") != k:
+            fail(f"(a) exit {proc.returncode}, checkpoints {listed}, meta "
+                 f"{meta}, {k} steps run:\n{text[-4000:]}")
+        got = [float.fromhex(x) for x in child["losses"]]
+        if got != phase8["losses"][:k]:
+            fail(f"(a) losses {got} are not phase 8's {phase8['losses'][:k]}")
+        if any(n != n_layers * k for n in child["launches"].values()):
+            fail(f"(a) {child['launches']} launches in {k} steps")
+        out["a"] = {"drain_step": k, "sigterm_to_exit_s": drain_s,
+                    "drain_save_ms": child["drained"],
+                    "save_call_ms": child["save_call_ms"],
+                    "drain_grace_s": ELASTIC_GRACE,
+                    "run_s": time.perf_counter() - t0,
+                    "loader": meta["loader"], "launches": child["launches"],
+                    "beat_gaps_s": _beat_gaps(child["beats"]),
+                    "losses_bitwise_phase8": True,
+                    "disk_free_bytes_before": free}
+        print("  (a) drained at step " + str(k) + ": "
+              + json.dumps(out["a"]) + f"; {facts['smi']}")
+        if not drain_s < ELASTIC_GRACE:
+            fail(f"(a) the drain took {drain_s} s, over the "
+                 f"{ELASTIC_GRACE} s grace")
+
+        # (b)
+        t0 = time.perf_counter()
+        agent_tmp, run_dir = os.path.join(tmp, "agent"), os.path.join(
+            tmp, "tel")
+        os.makedirs(agent_tmp)
+        proc = _elastic_proc(
+            [sys.executable, "-m", "distributed_pytorch_tpu_torch.launch",
+             "--elastic", "--min-nodes", "1", "--max-nodes", "1",
+             "--nproc-per-node", "1", "--master-port", str(free_port()),
+             "--telemetry-dir", run_dir, "--", "-c", ELASTIC_CHILD,
+             json.dumps(base + ["--steps", str(ELASTIC_STEPS),
+                                "--checkpoint-every", str(ELASTIC_EVERY)])],
+            {"TMPDIR": agent_tmp})
+        verdicts, seen = {}, set()
+        while proc.poll() is None and time.perf_counter() - t0 < 400:
+            for path in glob.glob(os.path.join(agent_tmp, "elastic_gang_*",
+                                               "hb_rank0.json")):
+                hb = launch.read_heartbeat(path)
+                v = launch.heartbeat_verdict(hb, stale_s=ELASTIC_HB_TIMEOUT,
+                                             gen=0)
+                verdicts[v] = verdicts.get(v, 0) + 1
+                if hb is not None:
+                    seen.add(hb["step"])
+            time.sleep(0.05)
+        text = _finish(proc, 400, "(b) the supervised resume")
+        child = _elastic_line(text, "(b)")
+        runs = {(ep["rank"], ep["gen"]): recs
+                for ep, recs in tel_mod.read_run(run_dir)}
+        agent = runs.get((-1, 0), [])
+        bad = [r for r in agent if r.get("name") in (
+            "gang_resize", "heartbeat_stale", "gang_drain")]
+        done = [r["args"] for r in agent if r.get("name") == "gang_done"]
+        n = ELASTIC_STEPS - k
+        got = [float.fromhex(x) for x in child["losses"]]
+        if proc.returncode != 0 or bad or len(done) != 1 or \
+                done[0].get("resizes") != 0:
+            fail(f"(b) exit {proc.returncode}, events {bad}, {done}:\n"
+                 f"{text[-4000:]}")
+        if (child["restored_step"], child["start"], child["steps"]) != \
+                (k, k, n) or got != phase8["losses"][k:ELASTIC_STEPS]:
+            fail(f"(b) restored {child['restored_step']}, ran {child['steps']}"
+                 f" steps from {child['start']}: {got} against phase 8's "
+                 f"{phase8['losses'][k:ELASTIC_STEPS]}")
+        if set(verdicts) - {"cold", "fresh"} or not verdicts.get("fresh"):
+            fail(f"(b) the beacon's verdicts {verdicts}")
+        if any(c != n_layers * n for c in child["launches"].values()):
+            fail(f"(b) {child['launches']} launches in {n} steps")
+        gaps = _beat_gaps(child["beats"])
+        out["b"] = {"restored_step": k, "steps": n,
+                    "verdicts": verdicts, "beat_steps_read": len(seen),
+                    "max_beat_gap_s": max(gaps), "beat_gaps_s": gaps,
+                    "heartbeat_timeout_s": ELASTIC_HB_TIMEOUT,
+                    "save_call_ms": child["save_call_ms"],
+                    "run_s": time.perf_counter() - t0,
+                    "launches": child["launches"],
+                    "losses_bitwise_phase8": True}
+        print("  (b) supervised resume: " + json.dumps(out["b"])
+              + f"; {facts['smi']}")
+        if not max(gaps) < ELASTIC_HB_TIMEOUT:
+            fail(f"(b) a gap of {max(gaps)} s between beats")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (c)
+    t0 = time.perf_counter()
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    steps = 2 * WIN_H  # one train_steps call: 2 exchanges, then 1
+    ds = port["cifar10"]._synthetic(VGG_BATCH * steps, seed=11)
+    images = torch.as_tensor(ds.images).to(DEVICE).view(
+        steps, VGG_BATCH, 32, 32, 3)
+    labels = torch.as_tensor(ds.labels).to(DEVICE).long().view(
+        steps, VGG_BATCH)
+    p0, s0 = port["vgg"].init(0, "VGG11", device=DEVICE)
+    cfg = port["train"].TrainConfig(
+        model="VGG11", batch_size=VGG_BATCH, augment=False,
+        compute_dtype="bfloat16", strategy="ddp", sync_every=WIN_H,
+        max_sync_every=2 * WIN_H, steps_per_loop=2 * WIN_H)
+    t = port["train"].Trainer(cfg, device=DEVICE)
+    t.load_state(*_fresh(p0, s0))
+    backend = torch.distributed.get_backend()
+    spl = cfg.steps_per_loop
+
+    def counted() -> int:
+        sync(torch)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(0, steps, spl):
+                t.train_steps(images[i:i + spl], labels[i:i + spl])
+            sync(torch)
+        return dp_calls(prof, backend)["calls"].get(
+            f"{backend}:all_reduce", 0) - steps // spl
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_relax_")
+    tel = tel_mod.enable(tmp, rank=0)
+    doctor = mon.RunDoctor([mon.SloRule(
+        name="step_time", metric="step_ms", threshold=100.0, op="<=",
+        window=4, agg="mean", record="gauge", min_samples=2)])
+    rebuild, rebuild_s = t.rebuild, []
+
+    def timed(**kw):
+        sync(torch)
+        t1 = time.perf_counter()
+        rebuild(**kw)
+        sync(torch)
+        rebuild_s.append(time.perf_counter() - t1)
+    t.rebuild = timed
+    try:
+        mon.SyncRelaxHook(t).register(doctor)
+        doctor.attach(tel)
+        t.train_steps(images[:spl], labels[:spl])  # warm
+        counts = [(t.cfg.sync_every, counted())]
+        for _ in range(3):
+            tel.gauge("step_ms", 1e4, phase="train")  # a forced breach
+        counts.append((t.cfg.sync_every, counted()))
+        for _ in range(6):
+            tel.gauge("step_ms", 1.0, phase="train")
+        counts.append((t.cfg.sync_every, counted()))
+    finally:
+        doctor.detach()
+        tel_mod.disable()
+        torch.backends.cudnn.deterministic = det
+    relax = [r["args"] for _, recs in tel_mod.read_run(tmp) for r in recs
+             if r.get("name") == "request_sync_relax"]
+    shutil.rmtree(tmp, ignore_errors=True)
+    want = [(WIN_H, steps // WIN_H), (2 * WIN_H, steps // (2 * WIN_H)),
+            (WIN_H, steps // WIN_H)]
+    if counts != want or [r["direction"] for r in relax] != \
+            ["widen", "narrow"]:
+        fail(f"(c) (H, gradient all-reduces in {steps} steps): {counts}, "
+             f"want {want}; events {relax}")
+    out["c"] = {"h_and_grad_all_reduces": counts, "rebuild_s": rebuild_s,
+                "events": relax, "seconds": time.perf_counter() - t0}
+    print("  (c) SyncRelaxHook on the VGG-11 window: " + json.dumps(out["c"])
+          + f"; {facts['smi']}")
+    del t
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 25 took {out['seconds']:.1f} s")
     return out
 
 
@@ -5781,6 +6279,9 @@ def main() -> int:
               "resume through launch.py, the sentry, corruption, no-plan "
               "cost")
     ckpt_res = checkpoint_phase(torch, port, facts, train_res)
+    phase(25, "elastic at LM-base width: the drain, the supervised resume, "
+              "SyncRelaxHook's rebuilds")
+    elastic_res = elastic_phase(torch, port, facts, train_res)
     print(f"  phases done at {time.perf_counter() - T_START:.0f} s")
 
     kernels = []
@@ -5838,6 +6339,9 @@ def main() -> int:
             "launches_in_profiler_trace": obs_res["a"]["trace_kernels"][
                 name],
             "launches_checkpoint_path": ckpt_res["a"]["launches"][name],
+            "launches_elastic_path": {
+                "drain": elastic_res["a"]["launches"][name],
+                "supervised_resume": elastic_res["b"]["launches"][name]},
             "max_abs_err": flash_worst[name]["max_abs_err"],
             "err_over_tol": flash_worst[name]["err_over_tol"],
             "tolerance": FLASH_TOL,
@@ -5935,6 +6439,10 @@ def main() -> int:
         "per_shape": k5_timing["shapes"]})
     if not all(k["launches"] for k in kernels):
         fail("a kernel of the main path was never launched")
+    pinit.shutdown()
+    strays = stop_strays()
+    print(f"processes the phases left, stopped: {len(strays)}"
+          + "".join(f"\n  {x}" for x in strays))
     print(json.dumps({"kernels": kernels}))
     print(f"card: {facts['smi']}")
     print(json.dumps({"ok": True, "device": {
@@ -5943,4 +6451,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        stop_strays()
+    sys.exit(code)

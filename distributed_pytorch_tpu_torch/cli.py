@@ -35,9 +35,14 @@ the run's rank-tagged events into D (utils/telemetry.py; read them with
 corrupt one is quarantined and the one before it taken), resumes at its
 epoch, and saves after every epoch (utils/checkpoint.py ``Checkpointer``:
 params, every rank's BN state, the momentum); a worker the launcher
-restarts after a crash resumes there.  The elastic flags of slice 5c-iii
-and the planner's flags of slice 5f raise ``NotImplementedError`` naming
-their sub-slice.  ``--model`` also takes ``TINY``, the package's smoke
+restarts after a crash resumes there.  ``--elastic`` (with
+``--checkpoint-dir`` and a strategy with a mesh) makes the run an elastic
+gang's member: under ``launch.py --elastic`` it publishes a heartbeat at
+each dispatch, and on SIGTERM it leaves at the next epoch boundary, every
+rank at the same one, saves its checkpoint and exits
+``ELASTIC_DRAIN_EXIT_CODE`` (parallel/elastic.py), so the resized gang
+resumes there.  The planner's flags of slice 5f raise
+``NotImplementedError`` naming it.  ``--model`` also takes ``TINY``, the package's smoke
 configuration.
 """
 
@@ -51,8 +56,8 @@ from . import eval as evaluation
 from .data.cifar10 import load
 from .data.pipeline import DataLoader
 from .data.sampler import DistributedSampler
-from .models.transformer import (ELASTIC_SLICE, PLANNING_SLICE,
-                                 not_ported)
+from .models.transformer import PLANNING_SLICE, not_ported
+from .parallel import elastic as elastic_mod
 from .parallel import init as dist_init
 from .parallel import strategies as strat
 from .parallel.mesh import one_process_per_device
@@ -149,9 +154,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fold-bn-eval", action="store_true",
                    help="fold BatchNorm statistics into the conv weights "
                         "for evaluation")
-    p.add_argument("--elastic", action="store_true")
-    p.add_argument("--min-nodes", type=int, default=1)
-    p.add_argument("--max-nodes", type=int, default=None)
+    p.add_argument("--elastic", action="store_true",
+                   help="run as an elastic gang's member (launch.py "
+                        "--elastic): publish heartbeats at dispatch "
+                        "cadence and honour the agent's drain at epoch "
+                        "boundaries: save a checkpoint and exit with the "
+                        "drain code so the resized gang resumes "
+                        "resharded (requires --checkpoint-dir; the LM "
+                        "CLI drains at step granularity)")
+    p.add_argument("--min-nodes", type=int, default=1,
+                   help="elastic: smallest world size this config can "
+                        "train at (the agent enforces the bound)")
+    p.add_argument("--max-nodes", type=int, default=None,
+                   help="elastic: largest world size (default: the "
+                        "launch world size)")
     p.add_argument("--debug-checks", action="store_true",
                    help="after each epoch, verify the data-parallel "
                         "invariants: params and momentum bitwise equal on "
@@ -164,9 +180,6 @@ def build_parser() -> argparse.ArgumentParser:
 _LATER_FLAGS = [
     *[(f"--{n}", None, PLANNING_SLICE) for n in ("sync-route",
                                                  "autotune-profile")],
-    ("--max-nodes", None, ELASTIC_SLICE),
-    ("--elastic", False, ELASTIC_SLICE),
-    ("--min-nodes", 1, ELASTIC_SLICE),
 ]
 
 
@@ -179,6 +192,29 @@ def refuse_later_flags(args) -> None:
             raise not_ported(f"{flag} {value!r}", where)
     if args.num_devices not in (None, 1):
         one_process_per_device(args.num_devices)
+
+
+def elastic_args(parser: argparse.ArgumentParser, args) -> None:
+    """The JAX CLI's ``--elastic`` checks, as usage errors: it needs
+    ``--checkpoint-dir`` and a strategy with a mesh, and the bounds need
+    it."""
+    if args.elastic:
+        if not args.checkpoint_dir:
+            parser.error(
+                "--elastic requires --checkpoint-dir: the drain sync "
+                "point must flush a checkpoint for the resized gang to "
+                "resume from")
+        if args.strategy == "none":
+            parser.error(
+                "--elastic needs a mesh-backed strategy (there is no "
+                "topology to resize under --strategy none)")
+        if args.min_nodes < 1 or (args.max_nodes is not None
+                                  and args.max_nodes < args.min_nodes):
+            parser.error("--min-nodes/--max-nodes must satisfy "
+                         "1 <= min <= max")
+    elif args.min_nodes != 1 or args.max_nodes is not None:
+        parser.error("--min-nodes/--max-nodes configure --elastic; pass "
+                     "it (or drop the bounds)")
 
 
 def window_args(parser: argparse.ArgumentParser, args) -> int:
@@ -243,6 +279,7 @@ def run(argv: list[str] | None = None, on_step=None) -> dict:
     ``Trainer.train_epoch``."""
     parser = build_parser()
     args = parser.parse_args(argv)
+    elastic_args(parser, args)
     refuse_later_flags(args)
     args.max_sync_every = window_args(parser, args)
     # rendezvous first: the device is bound (cuda:{LOCAL_RANK}) before any
@@ -304,13 +341,38 @@ def _train(args, device, on_step, tel) -> dict:
         start_epoch = ckpt.maybe_restore(trainer)
         if start_epoch:
             log.info("resumed from checkpoint at epoch %d", start_epoch)
+    heartbeat = drain_guard = None
+    if args.elastic:
+        # a drain on SIGTERM (at epoch boundaries: train_epoch is one
+        # dispatch pipeline; the LM CLI drains a step at a time), and
+        # heartbeats when an elastic agent launched us
+        drain_guard = elastic_mod.DrainGuard().install()
+        ectx = elastic_mod.ElasticContext.from_env()
+        if ectx is not None:
+            heartbeat = elastic_mod.Heartbeat(ectx.run_dir, ectx.rank,
+                                              ectx.generation)
+
+    def step_hook(step):
+        # a heartbeat at dispatch cadence: an epoch longer than the
+        # agent's staleness bound must not read as a hang
+        if heartbeat is not None:
+            heartbeat.beat(step)
+        if on_step is not None:
+            on_step(step)
+
     epochs = []
     for epoch in range(start_epoch, args.epochs):
+        if drain_guard is not None and drain_guard.sync():
+            log.info("drain requested: flushing checkpoint at epoch %d "
+                     "and leaving at the sync point", epoch)
+            elastic_mod.drain_exit(lambda: ckpt.save(trainer, epoch))
         with (tracing.trace(args.profile_dir)
               if args.profile_dir and epoch == start_epoch
               else contextlib.nullcontext()):
             loss_meter, time_meter = trainer.train_epoch(
-                train_loaders, epoch, on_step=on_step)
+                train_loaders, epoch,
+                on_step=(step_hook if heartbeat is not None
+                         or on_step is not None else None))
         if args.debug_checks:
             trainer.check_consistency()
             log.info("epoch %d: replica-consistency checks passed",

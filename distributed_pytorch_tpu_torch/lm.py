@@ -101,6 +101,16 @@ taps' arming, an injected crash after it); a fired tap poisons one
 gradient leaf or scales the loss after the backward and before the sync.
 ``tighten_grad_clip`` is the training sentry's escalation.
 
+**Rebuild** (``LMTrainer.rebuild(**overrides)``): the step rebuilt in
+place with ``LMTrainConfig`` overrides (``sync_every`` and
+``sync_every_per_slice``: the monitor's ``SyncRelaxHook``; ``fsdp``, the
+clip, ...), the params, Adam state and step carried across over the
+group: ZeRO-3 shards gathered and re-cut, a window's per-slice Adam row
+collapsed to slice 0's (broadcast over ``dcn``); the residual, the window
+delta and the outer momentum start again.  A pipeline config refuses, and
+so does a change of ``dp``: one process drives one device, so a gang
+changes size by drain and re-rendezvous (``launch.py --elastic``).
+
 ``LMTrainConfig`` keeps every field of the JAX config so configs cross
 between the packages unchanged; a non-default value of a field that
 belongs to a later slice raises ``NotImplementedError`` naming it.
@@ -130,7 +140,6 @@ from .utils.device import resolve_device
 
 IGNORE = IGNORE_INDEX  # target id excluded from the loss (padding)
 
-ELASTIC_SLICE = tfm.ELASTIC_SLICE
 PARALLEL_SLICE, PLANNING_SLICE = tfm.PARALLEL_SLICE, tfm.PLANNING_SLICE
 ADAM_EPS = 1e-8  # optax.adamw's default
 
@@ -1733,7 +1742,82 @@ class LMTrainer:
         self.restored_meta = meta
         return self._step
 
-    # -- later slices -----------------------------------------------------
-    def rebuild(self, *args, **kwargs):
-        raise tfm.not_ported("LMTrainer.rebuild (elastic resize)",
-                             ELASTIC_SLICE)
+    # -- elastic resize ---------------------------------------------------
+    def _carried(self, tree: dict, stacked: bool) -> dict:
+        """Whole copies of this rank's leaves of ``tree`` (params' layout),
+        the same on every rank: ZeRO-3 shards gathered over ``data``, and
+        ``stacked`` (a window's per-slice rows) slice 0's row broadcast
+        over ``dcn``.  Every rank must call it."""
+        out = {}
+        for n, t in tree.items():
+            t = t.detach()
+            dim = self.sync.dims[n] if self.sync is not None else None
+            if dim is not None:
+                t = _gather_dim(t, dim, self.sync.data)
+            out[n] = t.clone()
+        if stacked:
+            dcn = self.sync.dcn
+            src = dist.get_global_rank(dcn, 0)
+            for t in out.values():
+                dist.broadcast(t, src=src, group=dcn)
+        return out
+
+    def rebuild(self, mesh=None, **overrides) -> None:
+        """Rebuild the step with ``LMTrainConfig`` field ``overrides``
+        (``sync_every``, ``sync_every_per_slice``, ``fsdp``, the clip, the
+        precision knobs, ...), carrying the live state across: the params
+        (the anchor under a window) and Adam state, whole then re-cut for
+        the new layout, and the step counter.  A window's per-slice Adam
+        rows collapse to slice 0's; the residual, the un-exchanged window
+        delta and the outer momentum start again (the JAX trainer's carry
+        rules).  ``mesh`` (default: this trainer's, or ``make_lm_mesh``'s
+        when the ``dcn`` extent changed) must span the ranks there are.
+
+        A pipeline config raises ``ValueError`` (JAX's message), and so
+        does a mesh whose size is not ``dp``.  A ``dp`` other than the
+        process group's world size raises ``NotImplementedError``: one
+        process drives one device, so a gang changes size by the elastic
+        agent's drain and re-rendezvous, as the JAX trainer's
+        multi-process gangs do.  Every rank must call it."""
+        import dataclasses
+        cfg = (dataclasses.replace(self.cfg, **overrides) if overrides
+               else self.cfg)
+        if cfg.pp > 1 or cfg.pp_size > 0:
+            raise ValueError(
+                "cannot resize a pipeline (pp/pp_size) config for now: "
+                "stage placement is baked into the hand-emitted step — "
+                "relaunch at the new size instead")
+        validate_lm_cfg(cfg)
+        if mesh is not None and mesh.size() != cfg.dp:
+            raise ValueError(
+                f"resized mesh has {mesh.size()} devices, config wants "
+                f"{cfg.dp}")
+        if cfg.dp != (self.mesh.size() if self.mesh is not None else 1):
+            one_process_per_device(cfg.dp)  # a gang resizes by relaunch
+        if mesh is None and (self.mesh is not None or cfg.dp > 1):
+            same = (self.mesh is not None
+                    and self.cfg.dcn_size == cfg.dcn_size)
+            mesh = self.mesh if same else make_lm_mesh(cfg, self.device)
+        stacked = self.window is not None
+        params = self._carried(self.params, False)
+        moments = {m: self._carried(self.opt_state[m], stacked)
+                   for m in ("mu", "nu")}
+        count = self.opt_state["count"]
+        self.cfg = cfg
+        self.mesh = mesh
+        self.sync = (LMSync(cfg, mesh, param_shapes(cfg.model))
+                     if sharded(cfg) else None)
+        self.params = self._leaves(params)
+        self.opt_state = {"count": count,
+                          **{m: self._shard(moments[m])
+                             for m in ("mu", "nu")}}
+        self.sync_state = torch.zeros(lm_sync_state_len(cfg),
+                                      dtype=torch.float32,
+                                      device=self.device)
+        self.window = None
+        self._window_wire_bytes = None
+        self._build_steps()
+        self._init_window_state()
+        self._eval_fn = make_lm_eval_step(cfg, self.attn_impl, mesh)
+        self.last_ok = None
+        self.last_metrics = None

@@ -48,9 +48,24 @@ data loader at the recorded (epoch, offset), and saves every
 whole-tree npz written on a background thread, or with
 ``--checkpoint-sharded`` each rank's own pieces (utils/checkpoint.py).
 Under ``launch.py --max-restarts N`` a worker killed by a ``FAULT_PLAN``
-crash (utils/faults.py) is restarted and resumes there.  Flags of later
-slices (the other parallel degrees, elastic membership) end the run with a
-usage error naming the slice.
+crash (utils/faults.py) is restarted and resumes there.
+
+``--elastic`` (with ``--checkpoint-dir``) makes the run an elastic gang's
+member (parallel/elastic.py):
+
+  python -m distributed_pytorch_tpu_torch.launch --elastic --min-nodes 1 \\
+      --max-nodes N -- -m distributed_pytorch_tpu_torch.lm_cli --elastic \\
+      --rendezvous env --dp N --checkpoint-dir C --checkpoint-sharded
+
+Under the agent it publishes a heartbeat before every step; on SIGTERM
+(the agent's drain, or any other) it leaves at the next step boundary,
+every rank at the same one, saves its checkpoint with the loader position,
+waits for the write, and exits ``ELASTIC_DRAIN_EXIT_CODE``.  The loader
+takes the world-size-free order (``LMDataLoader(elastic_order=True)``), so
+the resized gang resumes from the recorded position with no window
+dropped or repeated; a gang's ``--dp`` is the world size each generation
+stands at.  Flags of later slices (the other parallel
+degrees) end the run with a usage error naming the slice.
 """
 
 from __future__ import annotations
@@ -65,9 +80,10 @@ import numpy as np
 import torch
 
 from .data import lm_corpus
-from .lm import (ELASTIC_SLICE, PARALLEL_SLICE, PLANNING_SLICE,
-                 LMTrainConfig, LMTrainer, make_lm_mesh)
+from .lm import (PARALLEL_SLICE, PLANNING_SLICE, LMTrainConfig, LMTrainer,
+                 make_lm_mesh)
 from .models import transformer as tfm
+from .parallel import elastic as elastic_mod
 from .parallel import init as dist_init
 from .parallel import strategies as strat
 from .utils import telemetry, tracing
@@ -140,9 +156,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--outer-lr", type=float, default=1.0)
     p.add_argument("--sync-every-per-slice", default=None)
     p.add_argument("--fsdp", action="store_true")
-    p.add_argument("--elastic", action="store_true")
-    p.add_argument("--min-nodes", type=int, default=1)
-    p.add_argument("--max-nodes", type=int, default=None)
+    # elastic gang membership (launch.py --elastic is the agent's side)
+    p.add_argument("--elastic", action="store_true",
+                   help="run as an elastic gang's member (launch.py "
+                        "--elastic): publish per-step heartbeats, and on "
+                        "the agent's drain signal leave the step loop at "
+                        "a sync point: save a checkpoint and exit with "
+                        "the drain code so the resized gang resumes "
+                        "resharded (requires --checkpoint-dir; refuses "
+                        "pipeline configs)")
+    p.add_argument("--min-nodes", type=int, default=1,
+                   help="elastic: smallest world size this config can "
+                        "train at (the agent enforces the bound)")
+    p.add_argument("--max-nodes", type=int, default=None,
+                   help="elastic: largest world size (default: the "
+                        "launch world size)")
     p.add_argument("--overlap", action="store_true")
     # training
     p.add_argument("--steps", type=int, default=100)
@@ -197,11 +225,8 @@ def build_parser() -> argparse.ArgumentParser:
 _LATER_FLAGS = [
     *[(f"--{n}", n, 1, PARALLEL_SLICE)
       for n in ("sp", "tp", "pp", "ep", "interleave")],
-    ("--min-nodes", "min-nodes", 1, ELASTIC_SLICE),
     *[(f"--{n}", n, None, PLANNING_SLICE)
       for n in ("sync-plan", "sync-route", "autotune-profile")],
-    ("--max-nodes", "max-nodes", None, ELASTIC_SLICE),
-    ("--elastic", "elastic", False, ELASTIC_SLICE),
     *[(f"--{n}", n, 0, PARALLEL_SLICE) for n in ("pp-size", "microbatches")],
 ]
 
@@ -247,6 +272,30 @@ def window_args(parser: argparse.ArgumentParser, args) -> None:
             parser.error(str(e))
 
 
+def elastic_args(parser: argparse.ArgumentParser, args) -> None:
+    """The JAX CLI's ``--elastic`` checks, as usage errors: a pipeline
+    cannot resize, a drain needs ``--checkpoint-dir``, and the bounds need
+    ``--elastic``."""
+    if args.elastic:
+        if args.pp_size > 1 or args.pp > 1:
+            parser.error(
+                "--elastic cannot resize pipeline configs (--pp/--pp-size "
+                "> 1): stage placement is baked into the compiled step; "
+                "drop the pipeline axis or --elastic")
+        if not args.checkpoint_dir:
+            parser.error(
+                "--elastic requires --checkpoint-dir: the drain sync "
+                "point must flush a checkpoint for the resized gang to "
+                "resume from")
+        if args.min_nodes < 1 or (args.max_nodes is not None
+                                  and args.max_nodes < args.min_nodes):
+            parser.error("--min-nodes/--max-nodes must satisfy "
+                         "1 <= min <= max")
+    elif args.min_nodes != 1 or args.max_nodes is not None:
+        parser.error("--min-nodes/--max-nodes configure --elastic; pass "
+                     "it (or drop the bounds)")
+
+
 def model_config(args) -> tfm.TransformerConfig:
     cfg = tfm.PRESETS[args.preset]
     # byte-level corpus: the vocab is always 256
@@ -278,6 +327,7 @@ def run(argv: list[str] | None = None, on_step=None) -> LMTrainer:
                      "pipeline schedulers own their own rematerialization; "
                      "drop one")
     window_args(parser, args)
+    elastic_args(parser, args)
     refuse_later_flags(parser, args)
     # rendezvous first: the device is bound (cuda:{LOCAL_RANK}) before any
     # CUDA tensor exists
@@ -297,6 +347,9 @@ def run(argv: list[str] | None = None, on_step=None) -> LMTrainer:
 
 
 def _train(args, device, on_step, tel) -> LMTrainer:
+    if args.elastic and (args.rendezvous == "env" or args.num_nodes > 1):
+        # an elastic gang's data-parallel degree is the size it stands at
+        args.dp = dist_init.process_info()[1]
     cfg = LMTrainConfig(
         model=model_config(args), lr=args.lr, seed=args.seed,
         compute_dtype=(None if args.compute_dtype == "float32"
@@ -322,6 +375,18 @@ def _train(args, device, on_step, tel) -> LMTrainer:
     if tel is not None:
         log.info("telemetry: streaming to %s", tel.run_dir)
     trainer = LMTrainer(cfg, device=device, mesh=mesh)
+    heartbeat = drain_guard = None
+    if args.elastic:
+        # the drain handler, and heartbeats when an elastic agent launched
+        # us (ELASTIC_DIR); a standalone --elastic run drains on SIGTERM
+        drain_guard = elastic_mod.DrainGuard().install()
+        ectx = elastic_mod.ElasticContext.from_env()
+        if ectx is not None:
+            heartbeat = elastic_mod.Heartbeat(ectx.run_dir, ectx.rank,
+                                              ectx.generation)
+            log.info("elastic member: rank %d/%d gen %d bounds [%d, %d]",
+                     ectx.rank, ectx.world_size, ectx.generation,
+                     ectx.min_nodes, ectx.max_nodes)
     log.info("model: %s | device: %s | rank %d/%d", cfg.model,
              trainer.device, rank, world)
     start = 0
@@ -362,7 +427,10 @@ def _train(args, device, on_step, tel) -> LMTrainer:
         "affine" if args.mmap_corpus else "permutation")
     loader = lm_corpus.LMDataLoader(
         corpus, per_rank, args.seq_len, num_replicas=world, rank=rank,
-        seed=args.seed, shuffle_mode=shuffle_mode)
+        seed=args.seed, shuffle_mode=shuffle_mode,
+        # elastic: a world-size-free global order, so the recorded
+        # (epoch, offset) resumes with nothing lost at another size
+        elastic_order=args.elastic)
     if len(loader) == 0:
         raise SystemExit(
             f"corpus yields 0 batches: {loader.per_rank} windows/process "
@@ -397,6 +465,22 @@ def _train(args, device, on_step, tel) -> LMTrainer:
             for i, (tokens, targets) in enumerate(loader):
                 if i < skip:
                     continue
+                if heartbeat is not None:
+                    heartbeat.beat(step)
+                if drain_guard is not None and drain_guard.sync():
+                    # every rank agreed on this boundary, so the save's
+                    # collectives cannot deadlock; the write is waited for
+                    # before the exit, or a background write dies with us
+                    pos = {"epoch": epoch, "offset": i,
+                           "steps_per_epoch": steps_per_epoch}
+                    log.info("drain requested: flushing checkpoint at "
+                             "step %d and leaving at the sync point", step)
+                    profile.close()
+                    elastic_mod.drain_exit(lambda: (
+                        trainer.save_checkpoint(
+                            args.checkpoint_dir, extra_meta={"loader": pos},
+                            sharded=args.checkpoint_sharded),
+                        trainer.flush_checkpoints()))
                 if args.profile_dir and step == start + 1:
                     profile.enter_context(tracing.trace(args.profile_dir))
                 loss = trainer.train_step(tokens, targets)

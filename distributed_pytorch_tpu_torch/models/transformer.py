@@ -43,8 +43,7 @@ from ..utils.device import resolve_device
 Params = dict[str, torch.Tensor]
 
 # The sub-slices of slice 5 still to port, each named by the refusals of
-# its work (slices 5a and 5b are ported).
-ELASTIC_SLICE = "ROADMAP.md queue 1, slice 5c-iii (elastic)"
+# its work (slices 5a, 5b and 5c are ported).
 PARALLEL_SLICE = "ROADMAP.md queue 1, slice 5d (model parallelism)"
 FLEET_SLICE = "ROADMAP.md queue 1, slice 5e (the fleet)"
 PLANNING_SLICE = ("ROADMAP.md queue 1, slice 5f (planning, accounting and "

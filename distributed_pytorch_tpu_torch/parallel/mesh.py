@@ -11,6 +11,11 @@ world 1): the counterpart of the JAX trainer's mesh over its one local
 device, so a data-parallel strategy on one card still issues its NCCL
 collectives.
 
+``resize_mesh`` keeps the JAX package's rule (the leading axis takes the
+change, every inner extent stays) over the process group that stands: a
+gang changes its size by drain and re-rendezvous (``launch.py
+--elastic``), never in a running process.
+
 ``data_sharding``, ``replicated`` and ``shard_batch`` have no counterpart:
 each rank holds its own shard of the batch.
 """
@@ -51,14 +56,17 @@ def one_process_per_device(num_devices: int | None) -> None:
     """Refuse ``num_devices`` other than this process group's world size:
     one process drives one device, so several devices take a gang of
     processes (a deliberate divergence from the JAX package's one process
-    over all its local chips)."""
+    over all its local chips), and a running gang changes its size by
+    drain and re-rendezvous."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     if num_devices not in (None, world):
         raise NotImplementedError(
             f"{num_devices} devices in a process group of {world}: the "
             f"port runs one process per device, so launch {num_devices} "
             f"of them with `python -m distributed_pytorch_tpu_torch.launch "
-            f"--nproc-per-node {num_devices} -- ...`")
+            f"--nproc-per-node {num_devices} -- ...`; an elastic gang "
+            f"changes its size by drain and re-rendezvous (`launch.py "
+            f"--elastic`), not in a running process")
 
 
 def make_mesh(num_devices: int | None = None, *,
@@ -83,6 +91,29 @@ def make_mesh(num_devices: int | None = None, *,
                          f"does not cover the {world} ranks")
     return init_device_mesh(dev.type, tuple(axis_shape),
                             mesh_dim_names=tuple(axis_names))
+
+
+def resize_mesh(mesh: DeviceMesh, num_devices: int) -> DeviceMesh:
+    """``mesh`` rebuilt over ``num_devices`` ranks with its axis names and
+    every inner axis extent (the leading data / dcn axis takes the
+    change); ``num_devices`` must be a multiple of the inner extents, and
+    the world size of the process group that stands (the re-rendezvoused
+    gang's).  The JAX function's ``devices`` has no counterpart: a rank is
+    a process."""
+    shape = tuple(mesh.mesh.shape)
+    names = tuple(mesh.mesh_dim_names or (DATA_AXIS,))
+    inner = 1
+    for n in shape[1:]:
+        inner *= n
+    if num_devices % inner:
+        raise ValueError(
+            f"cannot resize mesh {dict(zip(names, shape))} "
+            f"to {num_devices} devices: inner axes fix a multiple of "
+            f"{inner}")
+    one_process_per_device(num_devices)
+    return make_mesh(num_devices, axis_names=names,
+                     axis_shape=(num_devices // inner,) + shape[1:],
+                     device=mesh.device_type)
 
 
 def mesh_group(mesh: DeviceMesh):

@@ -61,6 +61,15 @@ after the backward and before the sync.  ``opt_state`` exposes the
 momentum buffers for checkpoints (utils/checkpoint.py ``Checkpointer``)
 and the training sentry.
 
+``rebuild(mesh=None, **overrides)`` rebuilds the step in place with
+``TrainConfig`` overrides (``sync_every``: the monitor's
+``SyncRelaxHook``) or a new mesh of the same ranks, carrying the params,
+the momentum and the step; rank 0's BN statistics, and under a window
+rank 0's momentum, are broadcast to every rank; the residual and the outer
+momentum start again.  One process drives one device, so a rebuild keeps
+the world size: a gang changes size by drain and re-rendezvous
+(``launch.py --elastic``).
+
 ``TrainConfig`` keeps every field of the JAX config with its default.
 ``auto``, ``routed``, the sync route and the autotune profile raise
 ``NotImplementedError`` naming slice 5f.
@@ -69,7 +78,7 @@ and the training sentry.
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any
 
 import numpy as np
@@ -79,8 +88,7 @@ import torch.distributed as dist
 from .data import augment as aug
 from .data import pipeline
 from .models import vgg
-from .models.transformer import (ELASTIC_SLICE, PLANNING_SLICE,
-                                 not_ported)
+from .models.transformer import PLANNING_SLICE, not_ported
 from .ops import nn as ops
 from .parallel import strategies as strat
 from .parallel.mesh import (DATA_AXIS, axis_size, ensure_process_group,
@@ -911,7 +919,110 @@ class Trainer:
                                         what="params/momentum")
         dbg.assert_finite(self.params, what="params")
 
-    # -- later slices -----------------------------------------------------
-    def rebuild(self, *args, **kwargs):
-        raise not_ported("Trainer.rebuild (elastic resize)",
-                         ELASTIC_SLICE)
+    # -- elastic resize ---------------------------------------------------
+    def rebuild(self, mesh=None, num_devices: int | None = None,
+                **overrides) -> None:
+        """Rebuild the step on ``mesh`` (default: this trainer's, or one
+        built as ``__init__`` builds it when the config's ``dcn_size``
+        changed) with ``TrainConfig`` field ``overrides``, carrying the
+        live state across: the params (rank 0's, broadcast), the momentum
+        (under a window each rank's own until now: rank 0's is broadcast),
+        BN state (rank 0's statistics, broadcast) and the step counter.
+        The residual and the outer momentum start again; an un-exchanged
+        window delta does not exist between ``train_steps`` calls, which
+        end on a window boundary.
+
+        The JAX trainer's checks with its messages: the overrides
+        re-tune step knobs on the live strategy (``require_sync_window``),
+        a strategy change and a strategy without a mesh raise
+        ``ValueError``, and so does a factored mesh whose axes or ``dcn``
+        extent do not match.  A mesh or ``num_devices`` of another size
+        than the process group's raises ``NotImplementedError``: one
+        process drives one device, so a gang resizes by the elastic
+        agent's drain and re-rendezvous, as the JAX trainer's
+        multi-process gangs do.  A refusal leaves the trainer as it was.
+        Every rank must call it."""
+        was_windowed = self.cfg.sync_every > 1
+        cfg = self.cfg
+        if overrides:
+            cfg = replace(self.cfg, **overrides)
+            if cfg.strategy != self.cfg.strategy:
+                raise ValueError(
+                    "rebuild(**overrides) re-tunes step knobs on the "
+                    "live strategy; changing the strategy itself needs "
+                    "a fresh Trainer")
+            strat.require_sync_window(
+                sync_every=cfg.sync_every,
+                max_sync_every=cfg.max_sync_every, mesh=True,
+                overlap=cfg.overlap, steps_per_loop=cfg.steps_per_loop,
+                trainer="train", outer_opt=cfg.outer_opt,
+                outer_momentum=cfg.outer_momentum, outer_lr=cfg.outer_lr)
+        if not self.strategy.needs_mesh:
+            raise ValueError(
+                f"strategy {self.strategy.name!r} runs without a mesh; "
+                f"there is no topology to resize")
+        factored = len(self.data_axes) > 1
+        one_process_per_device(mesh.size() if mesh is not None
+                               else num_devices)
+        if mesh is None:
+            n = dist.get_world_size()
+            if factored and n % cfg.dcn_size:
+                raise ValueError(
+                    f"dcn_size {cfg.dcn_size} must divide the "
+                    f"resized {n}-device fleet")
+            if factored and axis_size(self.mesh, self.data_axes[0]) \
+                    != cfg.dcn_size:
+                mesh = make_mesh(n, axis_names=self.data_axes,
+                                 axis_shape=(cfg.dcn_size,
+                                             n // cfg.dcn_size),
+                                 device=self.device)
+            else:
+                mesh = self.mesh
+        if factored:
+            names = tuple(mesh.mesh_dim_names or ())
+            if names != self.data_axes:
+                raise ValueError(
+                    f"strategy {self.strategy.name!r} needs a mesh with "
+                    f"axes {self.data_axes}, got {names}")
+            dcn_axis = self.data_axes[0]
+            if axis_size(mesh, dcn_axis) != cfg.dcn_size:
+                raise ValueError(
+                    f"resized mesh {dcn_axis!r} axis has size "
+                    f"{axis_size(mesh, dcn_axis)} but cfg.dcn_size is "
+                    f"{cfg.dcn_size}; pass a matching mesh (or "
+                    f"mesh=None to build one)")
+        # every refusal above leaves the trainer as it was (the JAX trainer
+        # commits the overrides before its mesh checks)
+        self.cfg = cfg
+        momentum = self.opt_state
+        self.mesh = mesh
+        self.n_replicas = mesh.size()
+        self.group = mesh_group(mesh)
+        # rank 0's params, BN statistics and (from a window, whose
+        # momentum is each rank's own) momentum on every rank
+        self._broadcast_params()
+        self.state = _buffers(_broadcast_tree(self.state, self.group),
+                              self.device)
+        mom = momentum["momentum"]
+        have = {k: {n: b for n, b in v.items() if b is not None}
+                for k, v in mom.items()}
+        have = {k: v for k, v in have.items() if v}
+        if was_windowed and have:
+            got = _buffers(_broadcast_tree(have, self.group), self.device)
+            momentum = {"momentum": {k: {n: got.get(k, {}).get(n)
+                                         for n in v}
+                                     for k, v in mom.items()}}
+        _apply_dcn(cfg, self.strategy)
+        _apply_bucket_mb(cfg, self.strategy)
+        _validate_overlap(cfg, self.strategy, self.mesh)
+        self.opt = make_optimizer(cfg, self.params)
+        self.opt_state = momentum
+        with monitor.compile_span(
+                "train_step_build", key=(cfg.strategy, cfg.sync_every,
+                                         self.n_replicas),
+                strategy=cfg.strategy):
+            self._multi_fn = make_multi_step(cfg, self.strategy, self.mesh)
+        self.sync_state = self._init_sync_state()
+        self.last_ok = None
+        self.last_metrics = None
+        self._window_wire_bytes = self._compute_window_wire_bytes()

@@ -17,7 +17,8 @@ telemetry stream (utils/telemetry.py) while the run is alive:
   strict-JSON bundle at a failure (the launcher's ``worker_fault``);
   ``scripts/torch_postmortem.py`` renders it.
 - **Hooks**: ``sentry_breach_hook`` turns a breach into the training
-  sentry's resize rung.
+  sentry's resize rung; ``SyncRelaxHook`` widens a trainer's local-SGD
+  window on a step-time breach and narrows it back on the clear.
 
 Like telemetry.py this module imports no torch (the launcher agent imports
 it): device figures are read through ``sys.modules.get("torch")``, so a
@@ -44,8 +45,9 @@ BUNDLE_VERSION = 1
 BUNDLE_PREFIX = "postmortem_"
 
 # the JAX package's trigger classes, so bundles cross between the packages;
-# the port writes "worker_fault" (launch.py) so far, and the others come
-# with the slices that own their failure points (ROADMAP.md queue 1)
+# the port writes "worker_fault" and "elastic_shrink" (launch.py) and
+# "sentry_abort" (utils/sentry.py); the others come with the slices that
+# own their failure points (ROADMAP.md queue 1)
 TRIGGERS = ("sentry_abort", "worker_fault", "elastic_shrink",
             "replica_loss", "transport")
 SEVERITIES = ("info", "warn", "critical")
@@ -596,6 +598,135 @@ def sentry_breach_hook(sentry, *, severity: str = "critical"):
 
 # ---------------------------------------------------------------------------
 # rule presets / serialization
+
+class SyncRelaxHook:
+    """The straggler actuator: a step-time SLO breach widens the trainer's
+    local-SGD window, ``rebuild(sync_every=2 * current)`` within
+    ``cfg.max_sync_every``, so a congested slow hop amortizes over more
+    local steps; the clear narrows it back to the config's base.  Any
+    ``SloRule`` name can drive it (the stock pairing is ``default_rules``'s
+    ``step_time``).  With ``max_sync_every`` at its default 1 every widen
+    clamps to nothing.  The rebuild drops the per-rank optimizer
+    divergence and any un-exchanged window delta (both trainers' carry
+    rules), acceptable for an actuator that fires on the SLO cadence.
+
+    Per-slice mode: ``slice_rules`` maps more rule names to slice indices;
+    a breach of one widens only that slice's entry of
+    ``cfg.sync_every_per_slice`` (doubling within ``max_sync_every``) and
+    its clear narrows that entry back.  Every entry moves by powers of two
+    from the base tuple, so the window check's min / multiple rules hold
+    at every step.  A rebuild the trainer refuses is logged, not
+    raised."""
+
+    def __init__(self, trainer, *, rule: str = "step_time", log=None,
+                 slice_rules: dict[str, int] | None = None):
+        self.trainer = trainer
+        self.rule = rule
+        self.log = log
+        self.base = trainer.cfg.sync_every
+        self.slice_rules = dict(slice_rules or {})
+        per = getattr(trainer.cfg, "sync_every_per_slice", None)
+        dcn = getattr(trainer.cfg, "dcn_size", 1) or 1
+        # the tuple the clear narrows back to (a uniform window expands to
+        # (H, ..., H) on its first per-slice widen)
+        self.base_slices = (tuple(per) if per is not None
+                            else (self.base,) * dcn)
+        self.had_per = per is not None  # a narrow back to the base
+        # restores None when the config started uniform
+
+    def _emit(self, cur: int | tuple, target: int | tuple,
+              direction: str, st: SloState,
+              slice_idx: int | None = None) -> None:
+        scope = "" if slice_idx is None else f" [slice {slice_idx}]"
+        msg = (f"[monitor] request_sync_relax{scope}: sync_every "
+               f"{cur} -> {target} ({direction}, rule {st.rule.name})")
+        log_line(msg)
+        if self.log is not None:
+            try:
+                self.log(msg)
+            except Exception:
+                pass
+        tel = telemetry.active()
+        if tel is not None:
+            extra = {} if slice_idx is None else {"slice": slice_idx}
+            tel.event("request_sync_relax", phase="slo",
+                      rule=st.rule.name, direction=direction,
+                      sync_every=(target if isinstance(target, int)
+                                  else min(target)), previous=str(cur),
+                      max_sync_every=self.trainer.cfg.max_sync_every,
+                      **extra)
+
+    def _retarget(self, target: int, direction: str,
+                  st: SloState) -> None:
+        cur = self.trainer.cfg.sync_every
+        if target == cur:
+            return
+        try:
+            self.trainer.rebuild(sync_every=target)
+        except ValueError as e:
+            # a config that cannot window (overlap, meshless, ...) must
+            # not kill the doctor: log the refusal and stand down
+            log_line(f"[monitor] sync relax refused: {e}")
+            return
+        self._emit(cur, target, direction, st)
+
+    def _retarget_slice(self, idx: int, direction: str,
+                        st: SloState) -> None:
+        cfg = self.trainer.cfg
+        per = getattr(cfg, "sync_every_per_slice", None)
+        cur = list(per if per is not None else self.base_slices)
+        if idx < 0 or idx >= len(cur):
+            log_line(f"[monitor] sync relax refused: slice {idx} out "
+                     f"of range for {len(cur)} slices")
+            return
+        prev = tuple(cur)
+        if direction == "widen":
+            cur[idx] = min(max(2 * cur[idx], 2),
+                           max(cfg.max_sync_every, 1))
+        else:
+            cur[idx] = self.base_slices[idx]
+        target = tuple(cur)
+        if target == prev:
+            # at the ceiling or the base already: no rebuild, no event
+            return
+        install = (None if (target == self.base_slices
+                            and not self.had_per) else target)
+        try:
+            # the base interval follows min(tuple), the window check's
+            # min(per_slice) == sync_every rule
+            self.trainer.rebuild(sync_every=min(target),
+                                 sync_every_per_slice=install)
+        except (TypeError, ValueError) as e:
+            log_line(f"[monitor] sync relax refused: {e}")
+            return
+        self._emit(prev, target, direction, st, slice_idx=idx)
+
+    def breach(self, st: SloState) -> None:
+        if st.rule.name in self.slice_rules:
+            self._retarget_slice(self.slice_rules[st.rule.name],
+                                 "widen", st)
+            return
+        if st.rule.name != self.rule:
+            return
+        cur = self.trainer.cfg.sync_every
+        ceiling = self.trainer.cfg.max_sync_every
+        self._retarget(min(max(2 * cur, 2), max(ceiling, 1)),
+                       "widen", st)
+
+    def clear(self, st: SloState) -> None:
+        if st.rule.name in self.slice_rules:
+            self._retarget_slice(self.slice_rules[st.rule.name],
+                                 "narrow", st)
+            return
+        if st.rule.name != self.rule:
+            return
+        self._retarget(self.base, "narrow", st)
+
+    def register(self, doctor: RunDoctor) -> "SyncRelaxHook":
+        doctor.on_breach(self.breach)
+        doctor.on_clear(self.clear)
+        return self
+
 
 def default_rules(*, step_ms_p95: float = 1000.0,
                   heartbeat_age_s: float = 300.0,

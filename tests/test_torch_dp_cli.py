@@ -145,13 +145,26 @@ def test_parser_takes_torchrun_flags():
                                   ["--telemetry-dir", "t"]])
 def test_elastic_and_telemetry_flags_name_slice_5c(argv, tmp_path,
                                                    monkeypatch):
-    """The elastic flags raise, naming slice 5c; ``--telemetry-dir`` is
-    ported (slice 5c-i): the gang runs, the agent's file (rank -1) holds
-    its start, exit and end events, and the workers get the directory in
-    ``TELEMETRY_DIR`` while the agent's own environment is left alone."""
-    if argv[0] != "--telemetry-dir":
-        with pytest.raises(NotImplementedError, match="slice 5c"):
+    """The elastic flags are ported (slice 5c-iii): ``--elastic`` runs a
+    one-worker elastic gang, whose worker gets the heartbeat directory and
+    the bounds, and ``--min-nodes`` without it is the JAX launcher's
+    usage error; ``--telemetry-dir`` is ported (slice 5c-i): the gang
+    runs, the agent's file (rank -1) holds its start, exit and end events,
+    and the workers get the directory in ``TELEMETRY_DIR`` while the
+    agent's own environment is left alone."""
+    if argv[0] == "--min-nodes":
+        with pytest.raises(SystemExit) as e:
             tlaunch.main(argv + ["--", "-c", "pass"])
+        assert e.value.code == 2
+        return
+    if argv[0] == "--elastic":
+        monkeypatch.chdir(tmp_path)
+        prog = ("import os, pathlib; pathlib.Path('env').write_text("
+                "' '.join(os.environ[k] for k in ('ELASTIC_MIN_NODES', "
+                "'ELASTIC_MAX_NODES', 'WORLD_SIZE')) + ' ' + str(os.path."
+                "isdir(os.environ['ELASTIC_DIR'])))")
+        assert tlaunch.main(argv + ["--", "-c", prog]) == 0
+        assert (tmp_path / "env").read_text() == "1 1 1 True"
         return
     monkeypatch.chdir(tmp_path)
     monkeypatch.delenv(ttel.TELEMETRY_DIR_ENV, raising=False)

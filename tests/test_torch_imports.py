@@ -51,7 +51,7 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "data.augment", "utils.metrics", "ops.quantized",
                 "ops.moe", "utils.telemetry", "utils.monitor",
                 "utils.logging", "utils.faults", "utils.checkpoint",
-                "utils.sentry"):
+                "utils.sentry", "parallel.elastic", "launch"):
         assert f"distributed_pytorch_tpu_torch.{mod}" in got["modules"]
     assert got["bad"] == [], f"the port imported {got['bad']}"
 
@@ -67,7 +67,8 @@ def test_port_sources_and_chip_smoke_import_no_jax():
     files = sorted((ROOT / "distributed_pytorch_tpu_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py"] + sorted(
         (ROOT / "scripts").glob("torch_*.py")) + [
-        ROOT / "scripts" / "checkpoint_probe.py"]
+        ROOT / "scripts" / "observability_probe.py",
+        ROOT / "scripts" / "phase_probe.py"]
     bad = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), filename=str(f))):

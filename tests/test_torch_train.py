@@ -271,7 +271,8 @@ def test_later_slice_knobs_raise(field, value, no_process_group_after):
 def test_refusals_and_default_device(no_process_group_after):
     """The default config trains with ddp over a one-rank group; a
     process over several devices is refused (one process a device,
-    launch.py); an unknown strategy is a ValueError; without a GPU the
+    launch.py), and so is a rebuild to another size (drain and
+    re-rendezvous); an unknown strategy is a ValueError; without a GPU the
     default device raises."""
     tr = ttrain.Trainer(ttrain.TrainConfig(model="TINY"), device="cpu")
     assert tr.strategy.name == "ddp" and tr.mesh.size() == 1
@@ -281,8 +282,8 @@ def test_refusals_and_default_device(no_process_group_after):
     with pytest.raises(NotImplementedError, match="nproc-per-node 4"):
         ttrain.Trainer(ttrain.TrainConfig(model="TINY", strategy="none"),
                        num_devices=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 5c"):
-        tr.rebuild()
+    with pytest.raises(NotImplementedError, match="re-rendezvous"):
+        tr.rebuild(num_devices=4)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ttrain.Trainer(ttrain.TrainConfig(model="TINY",
@@ -484,8 +485,10 @@ _FLAG_OUTCOME = [
     (["--strategy", "auto"], "5f"), (["--master-ip", "10.0.0.1"], "runs"),
     (["--num-nodes", "2"], "--master-ip is required"),
     (["--rank", "1"], "runs"), (["--rendezvous", "env"], "runs"),
-    (["--elastic"], "5c"), (["--checkpoint-dir", "ck"], "runs"),
-    (["--max-nodes", "4"], "5c-iii"),
+    (["--elastic"], "usage: --elastic requires --checkpoint-dir"),
+    (["--checkpoint-dir", "ck"], "runs"),
+    (["--max-nodes", "4"],
+     "usage: --min-nodes/--max-nodes configure --elastic"),
     (["--profile-dir", "p"], "runs"), (["--telemetry-dir", "t"], "runs"),
     (["--shard-eval"], "runs"), (["--debug-checks"], "runs"),
     (["--sync-every", "2"], "usage: sync_every=2 needs a device mesh"),
@@ -513,8 +516,9 @@ def test_cli_later_slice_flags_raise(small_cifar, argv, capsys, tmp_path,
     torch.profiler trace of the epoch) and --telemetry-dir (the epoch's
     span and gauges; a run directory relative to the working directory, a
     temporary one here) and --checkpoint-dir (the epoch's checkpoint, which
-    a second run resumes past, running no epoch); --elastic and
-    --max-nodes name slice 5c-iii; --num-nodes 2 without a
+    a second run resumes past, running no epoch); --elastic without
+    --checkpoint-dir and --max-nodes without --elastic end both CLIs with
+    the JAX CLI's usage error (slice 5c-iii); --num-nodes 2 without a
     master is a ValueError, and --num-devices 4 in one process points at
     launch.py."""
     outcome = dict((tuple(a), o) for a, o in _FLAG_OUTCOME)[tuple(argv)]

@@ -48,7 +48,23 @@ the port only, pins torch to one intra-op thread, runs every case of
   a VGG ``all_reduce`` step saved by ``Checkpointer`` (BN state, each
   rank's own, stacked over the ranks).  At world size 2: the 4-rank ZeRO-3 checkpoints restored into
   ``LMTrainer(dp=2, fsdp=True)`` (``load_resharded``), the whole arrays and
-  the reshard's accounting.
+  the reshard's accounting;
+- ``elastic``: the elastic slice at world size 2 (``lm_elastic``): an LM
+  window over 2 slices rebuilt from ``sync_every`` 2 to 4 mid-window (rank
+  1's delta poisoned first: the rebuild drops it), each rank's Adam row
+  before and after, and a fresh trainer given the carried state; a flat
+  ``dp=2`` trainer rebuilt to ``fsdp`` beside a fresh ZeRO-3 trainer
+  restored from the per-shard checkpoint taken at the rebuild step; a VGG
+  ``ddp`` window rebuilt from H 2 to 4 (each rank's momentum and BN state
+  before and after); ``DrainGuard.sync`` before and after rank 1 alone
+  gets a SIGTERM; ``resize_mesh`` over a (1, 2) mesh and its refusals.
+
+``python torch_dp_worker.py lm_cli <out_dir> <lm_cli argv...>`` is no gang
+rank of its own: it runs ``lm_cli.run(argv)`` (the launcher's environment
+rendezvouses it) and appends a line a step to
+``<out_dir>/steps_r<RANK>_g<RESTART_ATTEMPT>.jsonl``: the step, the loss
+(a float's hex) and a digest of each token row of the rank's batch;
+``TORCH_ELASTIC_STEP_SLEEP`` seconds of sleep after each step pace it.
 """
 
 import json
@@ -551,6 +567,146 @@ def lm_ckpt(data, rank: int, world: int, cases: dict) -> dict:
     return out
 
 
+def lm_elastic(data, rank: int, world: int, cases: dict) -> dict:
+    import signal
+    from distributed_pytorch_tpu_torch import lm as tlm
+    from distributed_pytorch_tpu_torch.models import transformer as ttfm
+    from distributed_pytorch_tpu_torch.parallel import elastic as tel
+    from distributed_pytorch_tpu_torch.parallel import mesh as tmesh
+    model = ttfm.TransformerConfig(**cases["model"])
+    tokens, targets = data["tokens"], data["targets"]
+    init = {k[len("init/"):]: torch.from_numpy(np.array(data[k]))
+            for k in data.files if k.startswith("init/")}
+    out = {}
+
+    def rows(i):
+        per = tokens.shape[1] // world
+        mine = slice(rank * per, (rank + 1) * per)
+        return tokens[i, mine], targets[i, mine]
+
+    def moments(tr, tag):
+        for m in ("mu", "nu"):
+            for n, t in tr.opt_state[m].items():
+                out[f"{tag}/{m}/{n}"] = t.detach().numpy().copy()
+
+    # the LM window: 3 steps (one window and one step into the next),
+    # rebuilt to H = 4, 4 more steps
+    cfg = tlm.LMTrainConfig(model=model, compute_dtype=None, dp=world,
+                            **cases["window"])
+    tr = tlm.LMTrainer(cfg, device="cpu")
+    tr.load_state(init)
+    losses = [float(tr.train_step(*rows(i))) for i in range(3)]
+    moments(tr, "win/pre")
+    if rank == 1:
+        for d in tr._delta.values():
+            d.fill_(float("nan"))
+    anchor = {n: p.detach().clone() for n, p in tr.params.items()}
+    tr.rebuild(sync_every=4)
+    out["win/sync_every"] = np.asarray(tr.cfg.sync_every)
+    moments(tr, "win/post")
+    carried = {"count": tr.opt_state["count"],
+               **{m: {n: t.detach().clone() for n, t in tr.opt_state[m]
+                      .items()} for m in ("mu", "nu")}}
+    losses += [float(tr.train_step(*rows(i))) for i in range(3, 7)]
+    out["win/losses"] = np.asarray(losses)
+    fresh = tlm.LMTrainer(tlm.LMTrainConfig(
+        model=model, compute_dtype=None, dp=world,
+        **dict(cases["window"], sync_every=4)), device="cpu")
+    fresh.load_state(anchor, carried)
+    out["win/fresh"] = np.asarray(
+        [float(fresh.train_step(*rows(i))) for i in range(3, 7)])
+
+    # flat dp -> ZeRO-3, against a fresh ZeRO-3 trainer restored from the
+    # per-shard checkpoint taken at the rebuild step
+    d = os.path.join(cases["dir"], "fsdp")
+    tr = tlm.LMTrainer(tlm.LMTrainConfig(model=model, compute_dtype=None,
+                                         dp=world), device="cpu")
+    tr.load_state(init)
+    for i in range(2):
+        tr.train_step(*rows(i))
+    tr.save_checkpoint(d, sharded=True)
+    tr.rebuild(fsdp=True)
+    out["fsdp/losses"] = np.asarray(
+        [float(tr.train_step(*rows(i))) for i in (2, 3)])
+    fresh = tlm.LMTrainer(tlm.LMTrainConfig(
+        model=model, compute_dtype=None, dp=world, fsdp=True), device="cpu")
+    out["fsdp/step"] = np.asarray(fresh.maybe_restore(d))
+    out["fsdp/fresh"] = np.asarray(
+        [float(fresh.train_step(*rows(i))) for i in (2, 3)])
+
+    # the VGG ddp window, H 2 -> 4: rank 0's momentum and BN statistics
+    vt = ttrain.Trainer(ttrain.TrainConfig(
+        model="TINY", strategy="ddp", batch_size=2, augment=False, lr=0.01,
+        sync_every=2, max_sync_every=4, steps_per_loop=4), device="cpu")
+    images, labels = data["images"], data["labels"]
+    per = images.shape[1] // world
+    vt.train_steps(images[:, rank * per:(rank + 1) * per],
+                   labels[:, rank * per:(rank + 1) * per])
+    for tag in ("pre", "post"):
+        if tag == "post":
+            vt.rebuild(sync_every=4)
+            out["vgg/sync_every"] = np.asarray(vt.cfg.sync_every)
+        for k1, v in vt.momentum().items():
+            for n, t in v.items():
+                out[f"vgg/{tag}/m/{k1}/{n}"] = t.numpy().copy()
+        for k1, v in vt.state.items():
+            for n, t in v.items():
+                out[f"vgg/{tag}/s/{k1}/{n}"] = t.detach().numpy().copy()
+    out["vgg/after"] = vt.train_steps(
+        images[:, rank * per:(rank + 1) * per],
+        labels[:, rank * per:(rank + 1) * per]).numpy()
+
+    # the drain agreement: rank 1 alone is signalled
+    guard = tel.DrainGuard().install()
+    out["drain/before"] = np.asarray(guard.sync())
+    if rank == 1:
+        os.kill(os.getpid(), signal.SIGTERM)
+    out["drain/after"] = np.asarray(guard.sync())
+    out["drain/local"] = np.asarray(guard.requested)
+    signal.signal(signal.SIGTERM, signal.SIG_DFL)
+
+    # resize_mesh over a (1, 2) mesh
+    m = tmesh.make_mesh(world, axis_names=("data", "model"),
+                        axis_shape=(1, world), device="cpu")
+    r = tmesh.resize_mesh(m, world)
+    out["mesh/shape"] = np.asarray(tuple(r.mesh.shape))
+    out["mesh/names"] = np.asarray(r.mesh_dim_names)
+    for n, exc in ((3, ValueError), (4, NotImplementedError)):
+        try:
+            tmesh.resize_mesh(m, n)
+            out[f"mesh/{n}"] = np.asarray("no error")
+        except exc as e:
+            out[f"mesh/{n}"] = np.asarray(str(e))
+    return out
+
+
+def lm_cli_child(out_dir: str, argv: list[str]) -> int:
+    """``lm_cli.run(argv)``, recording each step (see the module
+    docstring)."""
+    import hashlib
+    import time
+    from distributed_pytorch_tpu_torch import lm as tlm
+    from distributed_pytorch_tpu_torch import lm_cli
+    pause = float(os.environ.get("TORCH_ELASTIC_STEP_SLEEP", "0"))
+    path = os.path.join(out_dir, f"steps_r{os.environ.get('RANK', '0')}_g"
+                        f"{os.environ.get('RESTART_ATTEMPT', '0')}.jsonl")
+    step_fn = tlm.LMTrainer.train_step
+
+    def recorded(self, tokens, targets):
+        loss = step_fn(self, tokens, targets)
+        rows = [hashlib.sha1(np.ascontiguousarray(r).tobytes()).hexdigest()
+                [:16] for r in np.asarray(tokens)]
+        with open(path, "a") as f:
+            f.write(json.dumps({"step": self._step,
+                                "loss": float(loss).hex(),
+                                "rows": rows}) + "\n")
+        time.sleep(pause)
+        return loss
+    tlm.LMTrainer.train_step = recorded
+    lm_cli.run(argv)
+    return 0
+
+
 def counts(data, rank: int, world: int, cases: dict) -> dict:
     """Each case's collectives by group (``CallCounter``) over its run:
     a VGG ``Trainer`` (``kind`` "vgg": one ``train_steps`` call of
@@ -589,6 +745,8 @@ def counts(data, rank: int, world: int, cases: dict) -> dict:
 
 
 def main() -> int:
+    if sys.argv[1] == "lm_cli":
+        return lm_cli_child(sys.argv[2], sys.argv[3:])
     mode, in_path, out_dir = sys.argv[1:4]
     rank = int(os.environ["TORCH_DP_RANK"])
     world = int(os.environ["TORCH_DP_WORLD"])
@@ -604,11 +762,12 @@ def main() -> int:
         out = syncbn(data, rank, world)
     elif mode == "eval":
         out = sharded_eval(data, rank, world)
-    elif mode in ("lm", "lm_sync", "counts", "ledger", "window", "ckpt"):
+    elif mode in ("lm", "lm_sync", "counts", "ledger", "window", "ckpt",
+                  "elastic"):
         with open(os.path.join(os.path.dirname(in_path), "cases.json")) as f:
             out = {"lm": lm, "lm_sync": lm_sync, "counts": counts,
                    "ledger": lm_ledger, "window": window,
-                   "ckpt": lm_ckpt}[mode](
+                   "ckpt": lm_ckpt, "elastic": lm_elastic}[mode](
                 data, rank, world, json.load(f))
     else:
         out = checks(data, rank, world)
