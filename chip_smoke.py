@@ -49,9 +49,10 @@ Phases, each of which raises on failure:
      also against K8's plain version, tokens equal), and one decode
      step's logits through K8 against the plain paged path;
  11. LM-base bf16 paged serving: phase 5's load on the default pool
-     without compaction (tokens equal to phase 5's, request by request),
-     with compaction (its first 8 requests), on an oversubscribed pool,
-     the int8 pool (K9), and a shared-system-prompt load of 16 requests
+     without compaction (its first 8 requests: tokens equal to phase
+     5's, request by request), with compaction (phase 5's second load),
+     on an oversubscribed pool (its 16 prompts at 64-128 new tokens: 8
+     requests do not oversubscribe it), the int8 pool (K9), and a shared-system-prompt load of 16 requests
      with and without the prefix cache (freed slots refilled); every
      decode step through K8/K9 once per layer and never through K6/K7;
  12. the fused BN+ReLU backward kernels (K1a sums, K1b da) against their
@@ -99,20 +100,20 @@ Phases, each of which raises on failure:
      batcher with prefill_chunk=64 and with speculate=4 (dense and paged),
      generate_lookup, and generate_speculative with a 2-layer draft
      (acceptance reported); (b) bf16 overlapped dispatch on against off on
-     phase 5's load, one window a side, the on side phase 5's run
-     (tokens/s, wall ms per decode step,
+     phase 5's second load, one window a side, the on side (e)'s
+     unchunked run (tokens/s, wall ms per decode step,
      chained dispatches; tokens bitwise equal), and in
-     pure-decode windows where every block chains (wall ms per decode
-     step; idle share and device operations per emitted token from one
-     profiled window a side; scripts/serving_overlap_ab.py also profiles
-     the load); (c) phase 5's load with in-block refill off against phase
+     pure-decode windows where every block chains, A B B A (wall ms
+     per decode step; idle share and device operations per emitted token
+     from one profiled window a side; scripts/serving_overlap_ab.py also
+     profiles the load); (c) phase 5's load with in-block refill off against phase
      5's run (utilization, refills, tokens/s, TTFT; bf16 token flips
      counted; the off run refills a freed slot at a block boundary);
      (d) speculate=4 against 0 on a lookup-friendly load, both admitting
      by batched prefills (acceptance, emissions per slot-step, verify
      rounds per token; no decode-kernel launch in the speculative run);
-     (e) phase 5's first 8 requests with prefill_chunk=128 against the
-     same 8 unchunked (TTFT, tokens/s);
+     (e) phase 5's second load with prefill_chunk=128 against the same
+     8 requests unchunked (TTFT, tokens/s);
  19. data-parallel VGG-11 at world size 1 over a one-rank NCCL group, bf16,
      batch 256: every strategy on one saved set of gradients (the exact
      ones and the rings bitwise, quantized within half a quantum), 20
@@ -132,8 +133,9 @@ Phases, each of which raises on failure:
      layers' share of device time, aux and drop share; K2-K4 once per
      layer per step); (c) phase 5's 8-request load dense and paged (K6 /
      K8 once per layer per decode step); (d) lm_cli --rendezvous env --dp 1
-     under launch.py over a one-rank NCCL group, losses bitwise equal to
-     the run with no group, two all-reduces a step.
+     --sp 1 --tp 1 under launch.py over a one-rank NCCL group, losses
+     bitwise equal to the run with no group, two all-reduces a step and
+     no P2P operation.
  21. the per-step sync knobs at world size 1 over a one-rank NCCL group,
      bf16: (a) VGG-11 overlap=True for every overlap-capable strategy and
      hierarchical's int8 and int4 hops, 10 steps each, bitwise the
@@ -197,11 +199,27 @@ Phases, each of which raises on failure:
      to step 20 from that checkpoint: exit 0, no resize, every beat the
      agent could judge "fresh", the losses from the drain step on bitwise
      phase 8's, K2-K4 once per layer per step, the longest gap between
-     beats (the first step and a periodic save in it) against
-     --heartbeat-timeout; (c) SyncRelaxHook on phase 22's VGG-11 ddp
-     window: a forced step-time breach widens H 4 -> 8 and the clear
-     narrows it back, the gradient all-reduces per 8 steps following H
-     (2, 1, 2), and each rebuild's wall time.
+     beats (the first step in it) against --heartbeat-timeout; (c)
+     SyncRelaxHook on phase 22's VGG-11 ddp window: a forced step-time
+     breach widens H 4 -> 8 and the clear narrows it back, the gradient
+     all-reduces per 8 steps following H (2, 1, 2), and each rebuild's
+     wall time.
+ 26. tensor and sequence parallel at LM-base width: (a) ring attention
+     (parallel/context.py) at a tp = 2 rank's attention shape (B=8 H=4
+     S=1024 D=128), f32 and bf16, sp 2, 4 and 8 in both layouts, every
+     rank's ring steps in one process (the loopback: rank r's chunk after
+     rotation t is rank (r - t) mod sp's): the output and dq, dk, dv
+     against one causal K2-K4 over the whole sequence (f32 atol + rtol
+     2e-5 / 1e-4, bf16 twice phase 6's gates: K2 rounds each chunk's
+     output to bf16 before the merge) and each K2/K3/K4 call of the ring
+     against its plain version on the same operands (phase 6's gates),
+     K2/K3/K4 launched at ring_launches's count
+     (zigzag 2 sp - 1 a rank, contiguous 1 + r), and the ring's device
+     time summed over the ranks (a CUDA-activity profile), wall and host
+     enqueue against the whole sequence's; (b) K5 at a
+     tp = 2 and a tp = 4 rank's shard shapes (m = 8192), bitwise its plain
+     version in f32 and bf16 output, the sm90 route, its time beside its
+     bound; (c) is phase 20 (d)'s --sp 1 --tp 1.
 Phases 4, 5, 10, 11 and 18 run the batcher's defaults, in-block refill and
 overlapped dispatch on, as the JAX batcher's are.
 The second-to-last lines are the kernels' JSON record and the card's name
@@ -1708,34 +1726,45 @@ def paired_decode(torch, port, prompts, pairs: int = 2) -> dict:
 
 def paged_serving(torch, port, dense_tokens) -> dict:
     """Phase 11's loads, (a)-(e), on LM-base bf16; ``dense_tokens`` are
-    phase 5's bf16 load outputs, which load (a) must equal request by
-    request (K8 is bitwise K6, and prefill, insert and GEMM shapes are the
-    same)."""
+    phase 5's bf16 load outputs, which load (a), phase 5's first 8
+    requests, must equal request by request (K8 is bitwise K6, and
+    prefill, insert and GEMM shapes are the same)."""
     cfg = port["cfg"]
     load16 = phase5_load(cfg, 16, (64, 256))
     load8 = phase5_load(cfg, 8, (32, 64))
     short = dict(window_new=32)  # lighter idle-share window
+    # (a) over phase 5's first 8 requests since slice 5d-i's phase 26 took
+    # its time (its gate stands, on those 8)
     res = {"a": serving_run(torch, port, label="(a) paged, default pool, "
-                            "compact_tail=False", prompts=load16[0],
-                            max_new=load16[1], paged=True,
+                            "compact_tail=False, phase 5's first 8 "
+                            "requests", prompts=load16[0][:8],
+                            max_new=load16[1][:8], paged=True,
                             compact_tail=False)}
-    bad = [i for i, (x, y) in enumerate(zip(res["a"]["tokens"], dense_tokens))
+    bad = [i for i, (x, y) in enumerate(zip(res["a"]["tokens"],
+                                            dense_tokens[:8]))
            if not np.array_equal(x, y)]
-    if bad:
+    if bad or len(res["a"]["tokens"]) != 8:
         fail(f"(a): paged tokens differ from phase 5's dense tokens for "
              f"requests {bad}")
-    print(f"  (a): tokens equal phase 5's dense tokens for all "
-          f"{len(dense_tokens)} requests")
-    # (b) over 8 requests since slice 5c-iii's phase 25 took its time
-    # (its gate stands)
+    print("  (a): tokens equal phase 5's dense tokens for its first 8 "
+          "requests")
+    # (b) over phase 5's second load (its first 8 prompts at 32-64 new
+    # tokens) since slice 5d-i's phase 26 took its time (the first 8 at
+    # 64-256 since 5c-iii's phase 25 did): a tail still drains and
+    # compacts (its gate stands)
     res["b"] = serving_run(torch, port, label="(b) paged, compact_tail=True, "
-                           "phase 5's first 8 requests",
-                           prompts=load16[0][:8], max_new=load16[1][:8],
+                           "phase 5's second load",
+                           prompts=load8[0], max_new=load8[1],
                            paged=True, window_blocks=0)
     if res["b"]["compact_dispatches"] < 1:
         fail("(b): no compact dispatch")
-    res["c"] = serving_run(torch, port, label="(c) paged, pool_pages=9",
-                           prompts=load16[0], max_new=load16[1], paged=True,
+    # (c) at 64-128 new tokens a request since slice 5d-i's phase 26 took
+    # its time: 16 requests on 8 slots still outgrow 9 pages and evict (8
+    # requests never do: admission holds their pages); its gate stands
+    load_c = phase5_load(cfg, 16, (64, 128))
+    res["c"] = serving_run(torch, port, label="(c) paged, pool_pages=9, "
+                           "64-128 new tokens a request",
+                           prompts=load_c[0], max_new=load_c[1], paged=True,
                            pool_pages=9, window_blocks=0)
     if not (res["c"]["evictions"] >= 1
             and res["c"]["swap_ins"] == res["c"]["evictions"]):
@@ -1866,11 +1895,12 @@ def overlap_windows(torch, port, load, pairs: int = 2,
     """Phase 18 (b): LM-base bf16, phase 5's batcher (8 slots, 16 steps a
     block, in-block refill on) with overlap on (A) against off (B).
 
-    Load windows: each serves ``load`` (phase 5's 16 requests at their
-    64-256 budgets) from a drained batcher to its end, alternated A B B A
-    ``pairs`` times (``pairs=0``: one window a side, the overlapped one
-    ``base``, phase 5's run of the same load under the same batcher, when
-    given); with ``profile_load``, then one profiled load window
+    Load windows: each serves ``load`` (in phase 18 phase 5's second
+    load, 8 requests at 32-64 new tokens; scripts/serving_overlap_ab.py
+    passes the 16-request first) from a drained batcher to its end,
+    alternated A B B A ``pairs`` times (``pairs=0``: one window a side,
+    the overlapped one ``base``, a run of the same load under the same
+    batcher, when given); with ``profile_load``, then one profiled load window
     of each (CUDA activity only: the load's device time and operations
     per emitted token; ~75 s each with the profile's parse).  Decode
     windows (decode_window): the load's first 8 prompts admitted, then
@@ -2024,19 +2054,32 @@ def lookup_load(cfg, n_req: int = 16, max_new: int = 32):
 def scheduling_serving(torch, port, base) -> dict:
     """Phase 18 (b)-(e) at LM-base bf16.  ``base`` is phase 5's K6 run: the
     16-request load under the default scheduler (in-block refill and
-    overlap on, unchunked), the side each comparison below is held
-    against."""
+    overlap on, unchunked), the side (c) is held against; (b) and (e) hold
+    their runs against an unchunked run of phase 5's second load (its
+    first 8 prompts at 32-64 new tokens) under the same scheduler."""
     cfg = port["cfg"]
-    load16 = phase5_load(cfg, 16, (64, 256))
-    # one load window a side, the overlapped one phase 5's run (A B B A
-    # twice before slice 6b's phase 20 took its time, once before slice
-    # 5c-ii's phase 24 did: none resolved a gain, PERF.md section 6);
-    # every gate stands
-    res = {"b": overlap_windows(torch, port, load16, pairs=0, base=base)}
+    load8 = phase5_load(cfg, 8, (32, 64))
+    # (e) over phase 5's second load (its first 8 prompts at 32-64 new
+    # tokens; at 64-256 until slice 5d-i's phase 26 took its time), against
+    # an unchunked run of the same 8: over the whole first load the later
+    # 8 refill in-block on both sides (phase 5's path, no prompt chunk in
+    # it)
+    few = {"prompts": load8[0], "max_new": load8[1], "window_blocks": 0}
+    chunk = serving_run(torch, port, label="(e) prefill_chunk=128, phase "
+                        "5's second load", prefill_chunk=128, **few)
+    whole = serving_run(torch, port, label="(e) unchunked, the same 8 "
+                        "requests", **few)
+    # one load window a side over the same 8 requests, the overlapped one
+    # (e)'s unchunked run (phase 5's whole load before slice 5d-i's phase
+    # 26 took its time; A B B A twice before slice 6b's phase 20 did, once
+    # before slice 5c-ii's phase 24: none resolved a gain, PERF.md section
+    # 6); the pure-decode windows A B B A; every gate stands
+    res = {"b": overlap_windows(torch, port, load8, pairs=0, base=whole)}
     keys = ("tokens_per_s", "utilization", "emitted_per_slot_step",
             "inblock_refills", "inblock_prefill_steps",
             "chained_dispatches", "ttft_p50_s", "ttft_p95_s",
             "decode_steps", "wall_s")
+    load16 = phase5_load(cfg, 16, (64, 256))
     off = serving_run(torch, port, label="(c) inblock_refill=False",
                       prompts=load16[0], max_new=load16[1],
                       inblock_refill=False, window_blocks=0)
@@ -2084,15 +2127,6 @@ def scheduling_serving(torch, port, base) -> dict:
         "bf16_token_flips_spec_vs_plain": token_flips(
             spec["tokens"], plain["tokens"], prompts)}
     print("  (d) speculation: " + json.dumps(res["d"]))
-    # (e) over phase 5's first 8 requests, against an unchunked run of
-    # the same 8: over the whole load the later 8 refill in-block on both
-    # sides (phase 5's path, no prompt chunk in it)
-    few = {"prompts": load16[0][:8], "max_new": load16[1][:8],
-           "window_blocks": 0}
-    chunk = serving_run(torch, port, label="(e) prefill_chunk=128, phase "
-                        "5's first 8 requests", prefill_chunk=128, **few)
-    whole = serving_run(torch, port, label="(e) unchunked, the same 8 "
-                        "requests", **few)
     if chunk["prefill_dispatches"] <= whole["prefill_dispatches"]:
         fail(f"(e): {chunk['prefill_dispatches']} chunked prefill "
              f"dispatches against {whole['prefill_dispatches']} unchunked")
@@ -4208,7 +4242,8 @@ def moe_phase(torch, port, facts) -> dict:
     solo_s = time.perf_counter() - t0
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    rc, text = run_gang_of_one(argv + ["--rendezvous", "env", "--dp", "1"])
+    rc, text = run_gang_of_one(argv + ["--rendezvous", "env", "--dp", "1",
+                                       "--sp", "1", "--tp", "1"])
     lines = [ln for ln in text.splitlines() if ln.startswith("LMDP ")]
     if rc or not lines:
         fail(f"(d) the gang of one failed ({rc}):\n{text[-3000:]}")
@@ -4221,8 +4256,9 @@ def moe_phase(torch, port, facts) -> dict:
          "wall_s_no_group": solo_s,
          "wall_s_gang": time.perf_counter() - t0}
     out["d"] = d
-    print("  (d) lm_cli --rendezvous env --dp 1 under launch.py against "
-          "the run with no process group: " + json.dumps(d))
+    print("  (d) lm_cli --rendezvous env --dp 1 --sp 1 --tp 1 under "
+          "launch.py against the run with no process group: "
+          + json.dumps(d))
     if not d["bitwise"] or len(solo) != LMDP_STEPS:
         fail(f"(d) the gang of one's losses differ from the run without a "
              f"group: {gang_losses} vs {solo}")
@@ -4233,6 +4269,10 @@ def moe_phase(torch, port, facts) -> dict:
              f"{d}")
     if gang["calls"].get(f"{backend}:all_reduce") != 2:
         fail(f"(d) a step issued {gang['calls']}, want two all-reduces")
+    p2p = [c for c in gang["calls"] if any(w in c for w in (
+        "send", "recv", "p2p"))]
+    if p2p:  # --sp 1 --tp 1: no ring, no tensor-parallel sum
+        fail(f"(d) a step of the gang of one issued P2P operations {p2p}")
     return out
 
 
@@ -5776,7 +5816,6 @@ def checkpoint_phase(torch, port, facts, phase8: dict) -> dict:
 
 ELASTIC_DRAIN_AT = 10   # (a): SIGTERM once the beacon reports this step
 ELASTIC_STEPS = 20      # (b): the supervised resume runs to this step
-ELASTIC_EVERY = 15      # (b): one periodic save between two beats
 ELASTIC_GRACE = 30.0    # --drain-grace's default
 ELASTIC_HB_TIMEOUT = 300.0  # --heartbeat-timeout's default
 
@@ -5882,14 +5921,15 @@ def elastic_phase(torch, port, facts, phase8: dict) -> dict:
         stall is the write) against --drain-grace.
     (b) The resume under the agent: ``launch.py --elastic --min-nodes 1
         --max-nodes 1 --nproc-per-node 1 --telemetry-dir T`` over
-        ELASTIC_CHILD with (a)'s flags and ``--steps ELASTIC_STEPS
-        --checkpoint-every ELASTIC_EVERY``: exit 0, no ``gang_resize`` or
+        ELASTIC_CHILD with (a)'s flags and ``--steps ELASTIC_STEPS``
+        (no periodic save since slice 5d-i's phase 26 took its time; the
+        final one follows the last beat): exit 0, no ``gang_resize`` or
         ``heartbeat_stale`` event, every beacon the phase reads judged
         "fresh" by ``heartbeat_verdict`` at the default timeout once the
         first beat of the generation landed, the losses from the drain
         step on bitwise phase 8's, K2-K4 once per layer per step; the
-        longest gap between beats (the first step and the periodic save
-        fall in it) against --heartbeat-timeout.
+        longest gap between beats (the first step falls in it) against
+        --heartbeat-timeout.
     (c) The in-process rebuild on phase 22's VGG-11 ddp window (bf16,
         H = WIN_H, ``max_sync_every = 2 WIN_H``, steps_per_loop 2 WIN_H):
         ``SyncRelaxHook`` on a RunDoctor; a forced step-time breach
@@ -5984,7 +6024,8 @@ def elastic_phase(torch, port, facts, phase8: dict) -> dict:
              "--nproc-per-node", "1", "--master-port", str(free_port()),
              "--telemetry-dir", run_dir, "--", "-c", ELASTIC_CHILD,
              json.dumps(base + ["--steps", str(ELASTIC_STEPS),
-                                "--checkpoint-every", str(ELASTIC_EVERY)])],
+                                "--checkpoint-every",
+                                str(10 * ELASTIC_STEPS)])],
             {"TMPDIR": agent_tmp})
         verdicts, seen = {}, set()
         while proc.poll() is None and time.perf_counter() - t0 < 400:
@@ -6115,6 +6156,344 @@ def elastic_phase(torch, port, facts, phase8: dict) -> dict:
     return out
 
 
+# -- phase 26: tensor and sequence parallel (slice 5d-i) --------------------
+
+# The attention of one tp = 2 rank at LM-base (8 heads over 2 ranks),
+# B = 8 x S = 1024, head dim 128; the ring over sp ranks in one process.
+RING_SHAPE = dict(b=8, h=4, s=1024, d=128)
+RING_SPS = (2, 4, 8)
+RING_LAYOUTS = ("contiguous", "zigzag")
+# The ring against the whole sequence's K2-K4: f32 phase 6's K2 o bound and
+# its K3/K4 gradient bound; bf16 twice phase 6's bf16 gates
+# (flash_agreement): each chunk's output is rounded to bf16 by K2 before
+# the float32 merge, and through delta and the lse cotangent into the
+# gradients, one more bf16 rounding than the whole sequence's of the same
+# size, so the two pipelines part by up to two of phase 6's errors.  Each
+# K2/K3/K4 call of the ring is held against its plain version on the same
+# operands at phase 6's gates themselves (checked_flash).
+RING_TOL = {"float32": {"o": (2e-5, 2e-5), "grad": (1e-4, 1e-4)},
+            "bfloat16_factor": 2.0}
+# K5's products in one layer of a tp rank at LM-base, m = B x S = 8192:
+# (m, k, n) -> (launches a layer, what); q/k/v over the rank's heads, wo
+# over its heads' rows, w_gate/w_up over its FFN columns, w_down its rows
+K5_TP_SHAPES = {
+    2: {(8192, 1024, 512): (3, "wq/wk/wv"), (8192, 512, 1024): (1, "wo"),
+        (8192, 1024, 2048): (2, "w_gate/w_up"),
+        (8192, 2048, 1024): (1, "w_down")},
+    4: {(8192, 1024, 256): (3, "wq/wk/wv"), (8192, 256, 1024): (1, "wo"),
+        (8192, 1024, 1024): (3, "w_gate/w_up/w_down")},
+}
+
+
+def _ring_order(torch, ctx, s, n, layout, device):
+    """The layout's permutation of a length-s sequence and its inverse, as
+    index tensors on ``device``."""
+    perm = ctx.zigzag_permutation(n, s) if layout == "zigzag" \
+        else np.arange(s)
+    return (torch.as_tensor(perm, device=device),
+            torch.as_tensor(np.argsort(perm), device=device))
+
+
+def _ring_grads(torch, ctx, q, k, v, g, n, layout, impl, order=None):
+    """The ring over n ranks in one process (``LoopbackRing``) on the
+    whole (B, H, S, D) q/k/v laid out per ``layout``: the output and the
+    gradients of sum(o * g), back in sequence order.  ``order`` is
+    ``_ring_order``'s (made here when not given)."""
+    s = q.shape[2]
+    idx, inv = order or _ring_order(torch, ctx, s, n, layout, q.device)
+    qp, kp, vp = (x[:, :, idx].detach().requires_grad_(True)
+                  for x in (q, k, v))
+    c = s // n
+    qs, ks, vs = ([x[:, :, r * c:(r + 1) * c] for r in range(n)]
+                  for x in (qp, kp, vp))
+    o = torch.cat([ctx.ring_attention(qs[r], ks[r], vs[r],
+                                      ctx.LoopbackRing(r, ks, vs),
+                                      layout=layout, impl=impl)
+                   for r in range(n)], dim=2)
+    (o.float() * g[:, :, idx]).sum().backward()
+    return [x[:, :, inv] for x in (o.detach(), qp.grad, kp.grad, vp.grad)]
+
+
+class checked_flash:
+    """Within it, each call of ``ops.attention``'s K2, K3 and K4 wrappers
+    launches its kernel as usual and is then held against the kernel's
+    plain version on the same operands (flash_attention_fwd_plain,
+    flash_attention_bwd_plain), by phase 6's ``flash_agreement``: the
+    worst error / tolerance per kernel lands in ``worst``."""
+
+    NAMES = ("flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv")
+
+    def __init__(self, torch, attn, dtype: str):
+        self.torch, self.attn, self.dtype = torch, attn, dtype
+        self.worst = {"K2": 0.0, "K3": 0.0, "K4": 0.0}
+        self.calls = 0
+
+    def _note(self, kernel, pairs):
+        ratio = max(flash_agreement(self.torch, n, g, r, self.dtype)
+                    for n, g, r in pairs)
+        self.worst[kernel] = max(self.worst[kernel], ratio)
+        self.calls += 1
+
+    def __enter__(self):
+        a = self.attn
+        self.saved = {n: getattr(a, n) for n in self.NAMES}
+        fwd, dq_fn, dkv_fn = (self.saved[n] for n in self.NAMES)
+
+        def k2(q, k, v, **kw):
+            o, lse = fwd(q, k, v, **kw)
+            ro, rlse = a.flash_attention_fwd_plain(q, k, v, **kw)
+            self._note("K2", (("o", o, ro), ("lse", lse, rlse)))
+            return o, lse
+
+        def k3(*x, **kw):
+            dq = dq_fn(*x, **kw)
+            self._note("K3", (("grad", dq,
+                               a.flash_attention_bwd_plain(*x, **kw)[0]),))
+            return dq
+
+        def k4(*x, **kw):
+            dk, dv = dkv_fn(*x, **kw)
+            _, rdk, rdv = a.flash_attention_bwd_plain(*x, **kw)
+            self._note("K4", (("grad", dk, rdk), ("grad", dv, rdv)))
+            return dk, dv
+
+        for n, f in zip(self.NAMES, (k2, k3, k4)):
+            f.launches = 0
+            setattr(a, n, f)
+        return self
+
+    def __exit__(self, *exc):
+        # a wrapper counts its launch on the module's name for it, which
+        # is the checking stand-in while it is in place
+        for n, f in self.saved.items():
+            f.launches += getattr(self.attn, n).launches
+            setattr(self.attn, n, f)
+        return False
+
+
+def _ring_agreement(torch, name, got, ref, dtype: str) -> float:
+    """Worst error / tolerance of a ring's ``got`` against ``ref`` (B, H,
+    S[, D]): f32 atol + rtol |ref|, bf16 twice phase 6's flash_agreement
+    (RING_TOL)."""
+    if dtype == "bfloat16":
+        return flash_agreement(torch, name, got.flatten(0, 1),
+                               ref.flatten(0, 1), dtype) \
+            / RING_TOL["bfloat16_factor"]
+    atol, rtol = RING_TOL[dtype][name]
+    err = (got.float() - ref.float()).abs()
+    ratio = (err / (atol + rtol * ref.float().abs())).max().item()
+    return ratio if bool(torch.isfinite(got).all()) else math.inf
+
+
+def ring_phase(torch, port, facts) -> dict:
+    """Phase 26 (a): ring attention (parallel/context.py) at a tp = 2
+    rank's attention shape at LM-base, every rank of an sp-way ring run in
+    one process (``LoopbackRing``: rank r's chunk after rotation t is rank
+    (r - t) mod sp's), sp 2, 4 and 8, both layouts, f32 and bf16: the
+    output and dq, dk, dv against one causal flash attention (K2-K4) over
+    the whole sequence (f32 atol + rtol |x|, 2e-5 for o and 1e-4 for the
+    gradients; bf16 twice phase 6's flash_agreement, RING_TOL), and every
+    K2, K3 and K4
+    call of the ring against the kernel's plain version on the same
+    operands (``checked_flash``, phase 6's gates: the same ring through
+    the plain versions, step by step); the K2, K3 and K4 launches of one
+    ring (all ranks' forward and backward) at ``ring_launches``'s count;
+    then, bf16, the ring's device time (forward and backward, summed over
+    the ranks, from a CUDA-activity profile), its wall and its host
+    enqueue, against the one causal K2 + K3 + K4 over the whole
+    sequence."""
+    attn, ctx = port["attn"], port["ctx"]
+    b, h, s, d = (RING_SHAPE[x] for x in ("b", "h", "s", "d"))
+    fns = checked_flash.NAMES
+    out = {"shape": dict(RING_SHAPE), "tolerance": {
+        "float32": RING_TOL["float32"],
+        "bfloat16": "twice phase 6's flash_agreement (o: min(1e-2, 5% row "
+                    "RMS) + an ulp; grad: 5% of the slab RMS + an ulp)",
+        "each_call_vs_plain": "phase 6's gates (flash_agreement) per "
+                              "dtype"},
+        "cases": {}, "timing": {}}
+    gen = torch.Generator(device=DEVICE).manual_seed(26)
+    base = [torch.randn((b, h, s, d), generator=gen, device=DEVICE)
+            for _ in range(4)]
+    worst = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt)[6:]
+        q, k, v = (x.to(dt) for x in base[:3])
+        g = base[3]
+        whole = _ring_grads(torch, ctx, q, k, v, g, 1, "contiguous",
+                            "flash")
+        for sp in RING_SPS:
+            for layout in RING_LAYOUTS:
+                counts = [getattr(attn, f).launches for f in fns]
+                with checked_flash(torch, attn, name) as chk:
+                    got = _ring_grads(torch, ctx, q, k, v, g, sp, layout,
+                                      "flash")
+                    sync(torch)
+                launched = [getattr(attn, f).launches - c
+                            for f, c in zip(fns, counts)]
+                want = sum(ctx.ring_launches(sp, layout))
+                ratios = {f"{x}_vs_whole": _ring_agreement(
+                    torch, "o" if x == "o" else "grad", a, r, name)
+                    for x, a, r in zip(("o", "dq", "dk", "dv"), got, whole)}
+                ratios.update({f"{kn}_calls_vs_plain": r
+                               for kn, r in chk.worst.items()})
+                err = max((a.float() - r.float()).abs().max().item()
+                          for a, r in zip(got, whole))
+                case = {"launches": dict(zip(("K2", "K3", "K4"), launched)),
+                        "predicted": want,
+                        "per_rank": ctx.ring_launches(sp, layout),
+                        "max_abs_err_vs_whole": err,
+                        "err_over_tol": ratios}
+                out["cases"][f"{name} sp={sp} {layout}"] = case
+                print(f"  (a) {name} sp={sp} {layout}: " + json.dumps(case))
+                if launched != [want] * 3:
+                    fail(f"(a) {name} sp={sp} {layout}: K2/K3/K4 launched "
+                         f"{launched}, want {want} each")
+                if not max(ratios.values()) <= 1.0:
+                    fail(f"(a) {name} sp={sp} {layout}: the ring disagrees "
+                         f"({ratios})")
+                worst = max(worst, err)
+                del got
+        del whole
+    # the ring's device time against the whole sequence's kernels, bf16
+    q, k, v = (x.to(torch.bfloat16) for x in base[:3])
+    g = base[3]
+    counts = [getattr(attn, f).launches for f in fns]
+
+    def timed(n, layout, calls: int = 3):
+        """One call (every rank's forward and backward): its device ms,
+        the kernels' and copies' device time summed from a CUDA-activity
+        profile of ``calls`` calls (one stream, so they do not overlap;
+        stopped through ``tracing.stop_profile``, which waits for the last
+        records), and its device operations; its wall ms by CUDA events
+        between two syncs, and the host ms of its enqueue.  The wall
+        cannot stand for the device time: at sp >= 4 a call's thousands
+        of launches fill the launch queue behind any sleep kernel, so the
+        host paces the device."""
+        from torch.profiler import ProfilerActivity, profile
+        order = _ring_order(torch, ctx, s, n, layout, q.device)
+
+        def fn():
+            _ring_grads(torch, ctx, q, k, v, g, n, layout, "flash", order)
+
+        fn()
+        sync(torch)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        host_s = time.perf_counter() - t0
+        sync(torch)
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        prof.start()
+        for _ in range(calls):
+            fn()
+        port["tracing"].stop_profile(prof)
+        ev = device_events(prof).values()
+        # a report, not a gate: a profile that lost its records reads None
+        device_ms = sum(us for us, _ in ev) / 1e3 / calls or None
+        wall_ms = start.elapsed_time(end)
+        return {"ms": device_ms, "device_ops": sum(c for _, c in ev) / calls,
+                "wall_ms": wall_ms, "host_enqueue_ms": host_s * 1e3,
+                "device_idle_share": device_ms and 1.0 - device_ms / wall_ms}
+
+    whole = timed(1, "contiguous")
+    whole_ms = whole["ms"]
+    out["timing"]["whole_sequence"] = whole
+    for sp in RING_SPS:
+        for layout in RING_LAYOUTS:
+            t = timed(sp, layout)
+            t["over_whole"] = t["ms"] and whole_ms and t["ms"] / whole_ms
+            out["timing"][f"sp={sp} {layout}"] = t
+    for f, c in zip(fns, counts):  # timing launches are not counted
+        getattr(attn, f).launches = c
+    out["timing"]["note"] = ("ms: device ms of one forward + backward "
+                             "(all ranks' chunk pairs, the merges, the "
+                             "permutation), summed from a CUDA-activity "
+                             "profile; wall_ms by CUDA events; "
+                             + facts["smi"])
+    print("  (a) ring device time, bf16: " + json.dumps(out["timing"]))
+    out["max_abs_err"] = worst
+    del base, q, k, v, g
+    torch.cuda.empty_cache()
+    return out
+
+
+def k5_tp_phase(torch, qz, facts) -> dict:
+    """Phase 26 (b): K5 at the shapes a tp = 2 and a tp = 4 rank's int8
+    products take at LM-base (m = 8192): bitwise against
+    int8_matmul_plain in bf16 and f32 output, the route each takes (sm90
+    wherever TMA can read the operands: all of them), and the bf16
+    output's device time (operands rotated past L2) beside its bound and
+    the plain product's."""
+    out = {}
+    counts = (qz.int8_matmul_q.launches, k5_routes(qz))
+    for tp, shapes in K5_TP_SHAPES.items():
+        for (m, k, n), (per_layer, what) in shapes.items():
+            x, w = int8_operands(torch, m, k, n, torch.bfloat16, 260 + tp)
+            res = {"tp": tp, "what": what, "launches_per_layer": per_layer}
+            for o in K5_OUT:
+                odt = getattr(torch, K5_OUT[o])
+                before = k5_routes(qz)
+                got = qz.int8_matmul(x, w, out_dtype=odt)
+                res[f"route_{o}"] = k5_route_of(qz, before)
+                ref = qz.int8_matmul_plain(x, w, odt)
+                sync(torch)
+                if not torch.equal(got, ref):
+                    fail(f"(b) K5 differs from int8_matmul_plain at m={m} "
+                         f"k={k} n={n} ({o} out)")
+                del got, ref
+            if res["route_bf16"] != "sm90" or res["route_f32"] != "sm90":
+                fail(f"(b) K5 took {res} at m={m} k={k} n={n}, want sm90")
+            qx, sx = qz.quantize_rowwise(x)
+            qwt, sw = qz.quantize_rowwise(w.t())
+            qwt = qwt.contiguous()
+            n_rot = max(2, math.ceil(200e6 / (qx.numel() + qwt.numel()
+                                               + 2 * m * n)))
+            sets = [(qx.clone(), qwt.clone(), sx.clone(), sw.clone())
+                    for _ in range(n_rot)]
+            it = iter(range(10 ** 9))
+            res["ms"] = time_ms(torch, lambda: qz.int8_matmul_q(
+                *sets[next(it) % n_rot], torch.bfloat16))
+            bound = int8_bounds(facts, m, k, n)["bf16"]
+            res.update(bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+                       bound_share=bound["bound_ms"] / res["ms"])
+            a, bq, c, dd = sets[0]
+            res["plain_ms"] = time_ms(torch, lambda: qz._dequant(
+                qz._int_product(a, bq.t()), c, dd.view(1, -1)), iters=3)
+            out[f"tp={tp} {m}x{k}x{n}"] = res
+            print(f"  (b) K5 tp={tp} {what} m={m} k={k} n={n}: "
+                  + json.dumps(res) + f"; {facts['smi']}")
+            del x, w, sets, qx, qwt
+    qz.int8_matmul_q.launches = counts[0]  # checks and timing not counted
+    qz.int8_matmul_q.route_launches = counts[1]
+    for tp, shapes in K5_TP_SHAPES.items():
+        layer = {key: sum(cnt * out[f"tp={tp} {m}x{k}x{n}"][key]
+                          for (m, k, n), (cnt, _) in shapes.items())
+                 for key in ("ms", "bound_ms", "plain_ms")}
+        layer["bound_share"] = layer["bound_ms"] / layer["ms"]
+        out[f"tp={tp} per layer"] = layer
+        print(f"  (b) K5 per layer of a tp={tp} rank "
+              f"({sum(c for c, _ in shapes.values())} launches): "
+              + json.dumps(layer))
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_sp_phase(torch, port, facts) -> dict:
+    """Phase 26: (a) ``ring_phase``; (b) ``k5_tp_phase``.  (c), the gang
+    of one with ``--sp 1 --tp 1``, is phase 20 (d)'s run."""
+    t0 = time.perf_counter()
+    res = {"a": ring_phase(torch, port, facts),
+           "b": k5_tp_phase(torch, port["qz"], facts)}
+    res["seconds"] = time.perf_counter() - t0
+    print(f"  phase 26 took {res['seconds']:.1f} s")
+    return res
+
+
 T_START = time.perf_counter()
 
 
@@ -6141,6 +6520,7 @@ def main() -> int:
         from distributed_pytorch_tpu_torch.ops import losses, moe, nn
         from distributed_pytorch_tpu_torch.ops import quantized as qz
         from distributed_pytorch_tpu_torch.parallel import init as pinit
+        from distributed_pytorch_tpu_torch.parallel import context as pctx
         from distributed_pytorch_tpu_torch.parallel import mesh as pmesh
         from distributed_pytorch_tpu_torch.parallel import strategies
         from distributed_pytorch_tpu_torch.utils import (monitor, telemetry,
@@ -6156,7 +6536,7 @@ def main() -> int:
             "cifar10": cifar10, "nn": nn, "qz": qz, "losses": losses,
             "corpus": lm_corpus, "strategies": strategies, "mesh": pmesh,
             "parallel_init": pinit, "moe": moe, "telemetry": telemetry,
-            "monitor": monitor, "tracing": tracing}
+            "monitor": monitor, "tracing": tracing, "ctx": pctx}
 
     # 1. card facts
     facts = card_facts(torch)
@@ -6282,6 +6662,9 @@ def main() -> int:
     phase(25, "elastic at LM-base width: the drain, the supervised resume, "
               "SyncRelaxHook's rebuilds")
     elastic_res = elastic_phase(torch, port, facts, train_res)
+    phase(26, "tensor and sequence parallel at LM-base width: the ring "
+              "through the loopback (K2-K4), K5 at the tp shard shapes")
+    tp_res = tp_sp_phase(torch, port, facts)
     print(f"  phases done at {time.perf_counter() - T_START:.0f} s")
 
     kernels = []
@@ -6342,6 +6725,11 @@ def main() -> int:
             "launches_elastic_path": {
                 "drain": elastic_res["a"]["launches"][name],
                 "supervised_resume": elastic_res["b"]["launches"][name]},
+            "launches_ring_path": {
+                key: c["launches"][name]
+                for key, c in tp_res["a"]["cases"].items()},
+            "ring_max_abs_err_vs_whole_sequence": tp_res["a"]["max_abs_err"],
+            "ring_ms_bf16": tp_res["a"]["timing"],
             "max_abs_err": flash_worst[name]["max_abs_err"],
             "err_over_tol": flash_worst[name]["err_over_tol"],
             "tolerance": FLASH_TOL,
@@ -6436,7 +6824,8 @@ def main() -> int:
         "build": [{k: r.get(k) for k in (
             "out", "registers", "spill_stores", "spill_loads",
             "static_smem_bytes", "dynamic_smem_bytes")} for r in k5_build],
-        "per_shape": k5_timing["shapes"]})
+        "per_shape": k5_timing["shapes"],
+        "tp_shard_shapes": tp_res["b"]})
     if not all(k["launches"] for k in kernels):
         fail("a kernel of the main path was never launched")
     pinit.shutdown()

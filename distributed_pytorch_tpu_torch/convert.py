@@ -13,8 +13,10 @@ and layouts already (``from_jax_cache``).
 A ZeRO-3 run (``fsdp``) holds each rank's shards: ``from_jax_lm_sharded``
 cuts JAX's whole params (or Adam moments) to one rank's, and
 ``to_jax_lm_gathered`` puts a gang's shards back together in JAX's tree;
-a ``dcn_compress`` run's residual crosses a row a rank
-(``from_jax_sync_state``), as the VGG trainer's does.  Under sync windows
+a tensor-parallel run (``tp``) holds each rank's head / FFN shards
+(``from_jax_lm_tp``, and back over the ``model`` axis,
+``to_jax_lm_tp_gathered``); a ``dcn_compress`` run's residual crosses a
+row a rank (``from_jax_sync_state``), as the VGG trainer's does.  Under sync windows
 the JAX trainer stacks the delta and the Adam moments on a leading
 ``dcn`` axis, one row a slice; a port rank holds its slice's row
 (``from_jax_window_row``, and back over a gang,
@@ -147,6 +149,39 @@ def to_jax_lm_gathered(shards: list[dict], dims: dict) -> dict:
                                                                   axis=dim)
     return to_jax_params({k: torch.from_numpy(np.ascontiguousarray(v))
                           for k, v in whole.items()})
+
+
+def from_jax_lm_tp(tree, model_index: int, tp: int,
+                   device: str | torch.device = "cuda"
+                   ) -> dict[str, torch.Tensor]:
+    """One rank's tensor-parallel shards of the JAX package's whole LM
+    params (or Adam moments): each leaf that ``transformer.shard_specs``
+    splits over ``"model"`` narrowed to slice ``model_index`` of ``tp``
+    along that dim (the rank at mesh coordinates (d, e, s, model_index)
+    holds it), every replicated leaf whole."""
+    from .models import transformer as tfm
+    full = from_jax_params(tree, device=device)
+    dims = {n: tfm.tp_dim(sp)
+            for n, sp in tfm.shard_specs(None, list(full)).items()}
+    out = {}
+    for name, t in full.items():
+        dim = dims[name]
+        if dim is not None:
+            m = t.shape[dim] // tp
+            t = t.narrow(dim, model_index * m, m).clone()
+        out[name] = t
+    return out
+
+
+def to_jax_lm_tp_gathered(shards: list[dict]) -> dict:
+    """``from_jax_lm_tp``'s inverse over the ``model`` axis: ``shards[m]``
+    (a flat dict of arrays or tensors of model index m) concatenated along
+    each tp-split leaf's dim, back into the JAX package's nested tree of
+    numpy arrays; a replicated leaf is model index 0's."""
+    from .models import transformer as tfm
+    dims = {n: tfm.tp_dim(sp)
+            for n, sp in tfm.shard_specs(None, list(shards[0])).items()}
+    return to_jax_lm_gathered(shards, dims)
 
 
 def _map_leaves(tree, fn):

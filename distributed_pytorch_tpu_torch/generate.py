@@ -26,7 +26,7 @@ combined by the token-choice top-k gates with no capacity and no drops
 (the JAX package's decode MoE, not its training layer: where training
 drops tokens the two differ by design, and a model trained with expert
 choice is decoded approximately, with a warning).
-Tensor-parallel decode (``tp_axis``) is refused until slice 5d
+Tensor-parallel decode (``tp_axis``) is refused until slice 5d-ii
 (ROADMAP.md queue 1).
 """
 
@@ -47,7 +47,7 @@ from .utils.device import resolve_device
 
 Cache = dict[str, dict[str, torch.Tensor]]
 
-PARALLEL_SLICE = tfm.PARALLEL_SLICE
+TP_SERVING_SLICE = tfm.TP_SERVING_SLICE
 
 # int8 KV quantization floor: a zero row quantizes against this scale
 # instead of dividing by zero (dequantized zeros stay exactly zero).
@@ -223,7 +223,7 @@ def _forward_cached(params, cache: Cache, tokens: torch.Tensor,
     live-depth hint; without it the whole table is gathered), dequantized
     under int8."""
     if tp_axis is not None:
-        raise not_ported("tensor-parallel decode (tp_axis)", PARALLEL_SLICE)
+        raise not_ported("tensor-parallel decode (tp_axis)", TP_SERVING_SLICE)
     s = tokens.shape[1]
     ragged = pos.ndim == 2
     multi_ragged = ragged and s > 1

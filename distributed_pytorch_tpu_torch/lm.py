@@ -131,6 +131,7 @@ import torch.distributed as dist
 from .models import transformer as tfm
 from .ops import losses
 from .ops.nn import IGNORE_INDEX, step_metrics
+from .parallel import context as pctx
 from .parallel import strategies as strat
 from .parallel.mesh import (DATA_AXIS, ensure_process_group, make_mesh,
                             mesh_group, one_process_per_device)
@@ -140,7 +141,9 @@ from .utils.device import resolve_device
 
 IGNORE = IGNORE_INDEX  # target id excluded from the loss (padding)
 
-PARALLEL_SLICE, PLANNING_SLICE = tfm.PARALLEL_SLICE, tfm.PLANNING_SLICE
+PLANNING_SLICE = tfm.PLANNING_SLICE
+COMPOSE_SLICE, EXPERT_SLICE, PIPELINE_SLICE = (
+    tfm.COMPOSE_SLICE, tfm.EXPERT_SLICE, tfm.PIPELINE_SLICE)
 ADAM_EPS = 1e-8  # optax.adamw's default
 
 
@@ -204,12 +207,45 @@ class LMTrainConfig:
 # Fields whose non-default values belong to a later slice: name -> (the
 # value that means "off", the slice).
 _LATER = {
-    **{n: (1, PARALLEL_SLICE) for n in ("sp", "tp", "pp", "ep",
-                                        "interleave")},
+    **{n: (1, PIPELINE_SLICE) for n in ("pp", "interleave")},
+    "ep": (1, EXPERT_SLICE),
     **{n: (None, PLANNING_SLICE) for n in ("sync_plan", "sync_route")},
-    "pp_size": (0, PARALLEL_SLICE),
-    "microbatches": (0, PARALLEL_SLICE),
+    "pp_size": (0, PIPELINE_SLICE),
+    "microbatches": (0, PIPELINE_SLICE),
 }
+
+
+def model_parallel(cfg: LMTrainConfig) -> bool:
+    """Whether the config cuts the model (tensor parallel) or the sequence
+    (sequence parallel): the ``("data", "expert", "seq", "model")`` mesh."""
+    return cfg.tp > 1 or cfg.sp > 1
+
+
+def n_ranks(cfg: LMTrainConfig) -> int:
+    """The ranks (one process and one device each) the config spans."""
+    return cfg.dp * cfg.ep * cfg.sp * cfg.tp
+
+
+def _refuse_model_parallel_compositions(cfg: LMTrainConfig) -> None:
+    """The knobs that compose with tp / sp in the JAX package and are left
+    to ROADMAP slice 5d-i-b, and MoE under a tensor axis (5d-iii)."""
+    if not model_parallel(cfg):
+        return
+    knobs = [what for on, what in (
+        (cfg.fsdp, "fsdp=True"),
+        (cfg.dcn_size > 1, f"dcn_size={cfg.dcn_size}"),
+        (cfg.overlap, "overlap=True"),
+        (cfg.sync_every > 1, f"sync_every={cfg.sync_every}"),
+        (cfg.staleness != 0, f"staleness={cfg.staleness}"),
+        (cfg.outer_opt is not None, f"outer_opt={cfg.outer_opt!r}")) if on]
+    if knobs:
+        raise tfm.not_ported(
+            f"LMTrainConfig {', '.join(knobs)} with tp={cfg.tp}, "
+            f"sp={cfg.sp}", COMPOSE_SLICE)
+    if cfg.tp > 1 and cfg.model.n_experts:
+        raise tfm.not_ported(f"an MoE model (n_experts="
+                             f"{cfg.model.n_experts}) with tp={cfg.tp}",
+                             EXPERT_SLICE)
 
 
 def validate_lm_cfg(cfg: LMTrainConfig) -> None:
@@ -285,6 +321,11 @@ def validate_lm_cfg(cfg: LMTrainConfig) -> None:
     if cfg.loss_impl not in ("dense", "chunked"):
         raise ValueError(f"loss_impl must be 'dense' or 'chunked', got "
                          f"{cfg.loss_impl!r}")
+    if (cfg.loss_impl == "chunked" and cfg.tp > 1 and not pipelined
+            and cfg.model.vocab_size % cfg.tp):
+        raise ValueError(
+            f"vocab_size {cfg.model.vocab_size} must divide over "
+            f"tp={cfg.tp} for the chunked (vocab-sharded) head")
     if cfg.loss_chunk is not None:
         if cfg.loss_impl != "chunked":
             raise ValueError(
@@ -292,11 +333,14 @@ def validate_lm_cfg(cfg: LMTrainConfig) -> None:
                 "loss_impl='chunked'; the dense head has no chunk size "
                 "(set loss_impl='chunked' or drop loss_chunk)")
         v = cfg.model.vocab_size
-        if cfg.loss_chunk <= 0 or v % cfg.loss_chunk:
+        # the streamed head shards the vocabulary over 'model'
+        v_local = v // cfg.tp if (cfg.tp > 1 and not pipelined) else v
+        if cfg.loss_chunk <= 0 or v_local % cfg.loss_chunk:
             raise ValueError(
                 f"loss_chunk={cfg.loss_chunk} must be a positive divisor "
-                f"of the per-rank vocab rows ({v}) — the streaming scan "
-                "needs equal-sized chunks")
+                f"of the per-rank vocab rows ({v_local}"
+                + (f" = {v} // tp={cfg.tp}" if v_local != v else "")
+                + ") — the streaming scan needs equal-sized chunks")
     if cfg.remat not in ("none", "full", "selective"):
         raise ValueError(f"remat must be 'none', 'full' or 'selective', got "
                          f"{cfg.remat!r}")
@@ -337,10 +381,23 @@ def validate_lm_cfg(cfg: LMTrainConfig) -> None:
                 f"expert all_to_all wire, but ep=1 and tp=1 route "
                 f"experts locally (no exchange to compress or overlap) "
                 f"— raise ep or tp, or drop the knobs")
+    if not pipelined and cfg.tp > 1:
+        if m.n_heads % cfg.tp:
+            raise ValueError(f"n_heads {m.n_heads} must divide over "
+                             f"tp={cfg.tp}")
+        if m.kv_heads % cfg.tp:
+            raise ValueError(
+                f"n_kv_heads {m.kv_heads} must divide over "
+                f"tp={cfg.tp} (replicating kv heads across tensor ranks is "
+                f"not supported; lower tp or raise n_kv_heads)")
+    if cfg.seq_layout not in ("contiguous", "zigzag"):
+        raise ValueError(f"layout must be 'contiguous' or 'zigzag', "
+                         f"got {cfg.seq_layout!r}")
     for name, (off, where) in _LATER.items():
         value = getattr(cfg, name)
         if value != off:
             raise tfm.not_ported(f"LMTrainConfig.{name}={value!r}", where)
+    _refuse_model_parallel_compositions(cfg)
 
 
 def make_schedule(cfg: LMTrainConfig):
@@ -444,31 +501,43 @@ def _micro_split(x: torch.Tensor, a: int) -> torch.Tensor:
     return x.reshape(b // a, a, -1).transpose(0, 1)
 
 
+def _model_kw(cfg: LMTrainConfig, place, tokens) -> tuple:
+    """``apply``'s and ``head_loss``'s tensor / sequence parallel keywords
+    for this rank (none outside such a run)."""
+    if place is None:
+        return {}, {}
+    return (dict(seq_axis=place.seq_axis, seq_layout=cfg.seq_layout,
+                 tp_axis=place.tp_axis,
+                 pos=place.positions(tokens.shape[1], tokens.device)),
+            dict(tp_axis=place.tp_axis, tp_size=cfg.tp))
+
+
 def _loss_fn(cfg: LMTrainConfig, attn_impl: str, params, tokens, targets,
-             n_total, aux_w, n_ranks: int = 1, boundary=None):
+             n_total, aux_w, n_ranks: int = 1, boundary=None, place=None):
     """This rank's share of the step's loss: ``ce_sum / n_total`` (the
     GLOBAL count) plus ``aux_w`` times this rank's aux over ``n_ranks``
-    (the JAX ``pmean`` of the aux over the data axis, taken by the sum
-    over ranks).  ``boundary`` is the streaming hook (``overlap``)."""
+    (the JAX ``pmean`` of the aux over the data (and seq) axes, taken by
+    the sum over ranks).  ``boundary`` is the streaming hook
+    (``overlap``); ``place`` the rank's ``LMPlace`` under tp / sp, whose
+    ``tokens`` are its sequence chunk."""
+    apply_kw, head_kw = _model_kw(cfg, place, tokens)
     head = partial(losses.head_loss, targets=targets,
-                   loss_impl=cfg.loss_impl, loss_chunk=cfg.loss_chunk)
+                   loss_impl=cfg.loss_impl, loss_chunk=cfg.loss_chunk,
+                   **head_kw)
     (ce_sum, _), aux = tfm.apply(params, tokens, cfg=cfg.model,
                                  dtype=cfg.dtype, attn_impl=attn_impl,
                                  return_aux=True, head_fn=head,
                                  matmul_dtype=cfg.matmul_dtype,
-                                 remat=cfg.remat, boundary=boundary)
+                                 remat=cfg.remat, boundary=boundary,
+                                 **apply_kw)
     return ce_sum / n_total.clamp_min(1) + aux_w * (aux * (1.0 / n_ranks))
 
 
 # -- the sync knobs: ZeRO-3, the two-level dcn sync, overlap ------------------
 
 DCN, DATA = "dcn", DATA_AXIS
-MODEL = "model"  # the JAX tensor axis: size 1 here, but it shapes the specs
-
-_TP_SPECS = {"wq": (None, MODEL, None), "wk": (None, MODEL, None),
-             "wv": (None, MODEL, None), "wo": (MODEL, None, None),
-             "w_gate": (None, MODEL), "w_up": (None, MODEL),
-             "w_down": (MODEL, None)}
+EXPERT, SEQ = "expert", "seq"
+MODEL = tfm.MODEL_AXIS  # the JAX tensor axis (size 1 without tp)
 
 
 def jax_path(name: str) -> tuple[str, ...]:
@@ -486,29 +555,7 @@ def jax_order(names) -> list[str]:
     return sorted(names, key=jax_path)
 
 
-def param_shapes(cfg: tfm.TransformerConfig) -> dict[str, tuple]:
-    """Every parameter's shape, without building it (``tfm.init``'s)."""
-    d, h, dh, f, kv, e = (cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.ff,
-                          cfg.kv_heads, cfg.n_experts)
-    out = {"embed": (cfg.vocab_size, d), "final_norm": (d,)}
-    for i in range(cfg.n_layers):
-        lp = {"attn_norm": (d,), "wq": (d, h, dh), "wk": (d, kv, dh),
-              "wv": (d, kv, dh), "wo": (h, dh, d), "mlp_norm": (d,)}
-        if cfg.is_moe_layer(i):
-            lp.update({"moe.router": (d, e), "moe.w_gate": (e, d, f),
-                       "moe.w_up": (e, d, f), "moe.w_down": (e, f, d)})
-        else:
-            lp.update(w_gate=(d, f), w_up=(d, f), w_down=(f, d))
-        out.update({f"layers.{i}.{k}": v for k, v in lp.items()})
-    return out
-
-
-def _base_spec(name: str) -> tuple:
-    """The JAX ``shard_specs`` entry (tp_axis ``"model"``, no expert axis)."""
-    path = jax_path(name)
-    if "moe" in path:
-        return () if path[-1] == "router" else (MODEL, None, None)
-    return _TP_SPECS.get(path[-1], ())
+param_shapes = tfm.init_shapes  # every parameter's shape, unbuilt
 
 
 def param_specs(cfg: LMTrainConfig, shapes: dict | None = None
@@ -520,9 +567,10 @@ def param_specs(cfg: LMTrainConfig, shapes: dict | None = None
     divides (``data``); a leaf with none stays replicated."""
     shapes = shapes or param_shapes(cfg.model)
     inner = cfg.dp // cfg.dcn_size
+    base_specs = tfm.shard_specs(cfg.model, shapes)
     out = {}
     for name, shape in shapes.items():
-        base = _base_spec(name)
+        base = base_specs[name]
         spec = list(base) + [None] * (len(shape) - len(base))
         if cfg.fsdp and inner > 1:
             for i, dim in enumerate(shape):
@@ -539,17 +587,127 @@ def fsdp_dim(spec: tuple) -> int | None:
 
 
 def make_lm_mesh(cfg: LMTrainConfig, device: str | torch.device = "cuda"):
-    """The data-parallel mesh over the default process group: ``("data",)``
-    of ``dp`` ranks, or ``("dcn", "data")`` of ``(dcn_size, dp //
-    dcn_size)`` with ``dcn_size > 1`` (the slices outermost, as the JAX
-    mesh lays them)."""
+    """The mesh over the default process group: ``("data",)`` of ``dp``
+    ranks, ``("dcn", "data")`` of ``(dcn_size, dp // dcn_size)`` with
+    ``dcn_size > 1`` (the slices outermost), or with ``tp > 1`` or
+    ``sp > 1`` ``("data", "expert", "seq", "model")`` of ``(dp, ep, sp,
+    tp)``, ``model`` innermost as the JAX mesh lays devices, so that rank r
+    sits at JAX device r's coordinates."""
     validate_lm_cfg(cfg)
-    one_process_per_device(cfg.dp)
+    one_process_per_device(n_ranks(cfg))
+    if model_parallel(cfg):
+        return make_mesh(n_ranks(cfg), axis_names=(DATA, EXPERT, SEQ, MODEL),
+                         axis_shape=(cfg.dp, cfg.ep, cfg.sp, cfg.tp),
+                         device=device)
     if cfg.dcn_size > 1:
         return make_mesh(cfg.dp, axis_names=(DCN, DATA),
                          axis_shape=(cfg.dcn_size, cfg.dp // cfg.dcn_size),
                          device=device)
     return make_mesh(cfg.dp, device=device)
+
+
+class LMPlace:
+    """One rank's place in the ``("data", "expert", "seq", "model")`` mesh
+    of a tensor / sequence parallel run: its coordinates, the ``seq`` group
+    (the ring), the ``model`` group (the Megatron sums and the tp head),
+    and ``batch``, the data x expert x seq group of its model index, over
+    which the token count, the loss and the gradients are summed (the JAX
+    reduction over ``_batch_axes + ("seq",)``).  Each leaf's ``tp_dims``
+    entry is the dim it splits along over ``model`` (None: replicated)."""
+
+    def __init__(self, cfg: LMTrainConfig, mesh):
+        names = tuple(mesh.mesh_dim_names or ())
+        if names != (DATA, EXPERT, SEQ, MODEL):
+            raise ValueError(
+                f"tp={cfg.tp}, sp={cfg.sp} needs a ('data', 'expert', "
+                f"'seq', 'model') mesh (make_lm_mesh), got axes {names}")
+        self.cfg = cfg
+        (self.data_index, self.expert_index, self.seq_index,
+         self.model_index) = mesh.get_coordinate()
+        self.seq = mesh.get_group(SEQ)
+        self.model = mesh.get_group(MODEL)
+        ranks = mesh.mesh
+        self.batch = None
+        for m in range(cfg.tp):  # every rank makes every group, in order
+            members = sorted(int(r) for r in ranks[..., m].flatten())
+            group = dist.new_group(members)
+            if m == self.model_index:
+                self.batch = group
+        self.n_batch = dist.get_world_size(self.batch)
+        self.tp_dims = {n: (tfm.tp_dim(sp) if cfg.tp > 1 else None)
+                        for n, sp in tfm.shard_specs(cfg.model).items()}
+
+    @classmethod
+    def of(cls, cfg: LMTrainConfig, mesh):
+        """The mesh's place (made once a mesh: its groups are collective
+        to make), or None outside a tensor / sequence parallel run."""
+        if mesh is None or not model_parallel(cfg):
+            return None
+        place = getattr(mesh, "_lm_place", None)
+        if place is None:
+            place = mesh._lm_place = cls(cfg, mesh)
+        return place
+
+    @property
+    def seq_axis(self):
+        return self.seq if self.cfg.sp > 1 else None
+
+    @property
+    def tp_axis(self):
+        return self.model if self.cfg.tp > 1 else None
+
+    def shard(self, name: str, full: torch.Tensor) -> torch.Tensor:
+        """This rank's tp shard of a whole leaf (the leaf if replicated)."""
+        dim = self.tp_dims[name]
+        if dim is None:
+            return full
+        m = full.shape[dim] // self.cfg.tp
+        return full.narrow(dim, self.model_index * m, m)
+
+    def gather(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """The whole leaf of this rank's shard (every rank of ``model``
+        must call it)."""
+        dim = self.tp_dims[name]
+        return t if dim is None else _gather_dim(t, dim, self.model)
+
+    def seq_chunk(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's chunk of its data rank's rows (B, S): the zigzag
+        permutation of the sequence (the JAX ``_zigzag_global``), then the
+        contiguous ``seq_index``-th of ``sp`` slices."""
+        cfg = self.cfg
+        if cfg.sp == 1:
+            return x
+        s = x.shape[1]
+        if cfg.seq_layout == "zigzag":
+            perm = pctx.zigzag_permutation(cfg.sp, s)
+            x = x[:, torch.as_tensor(perm, device=x.device)]
+        if s % cfg.sp:
+            raise ValueError(f"sequence length {s} does not split over "
+                             f"sp={cfg.sp}")
+        c = s // cfg.sp
+        return x[:, self.seq_index * c:(self.seq_index + 1) * c]
+
+    def positions(self, s_local: int, device) -> torch.Tensor:
+        """The chunk's global positions (the JAX ``_shard_positions``)."""
+        cfg = self.cfg
+        if cfg.sp > 1 and cfg.seq_layout == "zigzag":
+            return pctx.zigzag_positions(self.seq_index, cfg.sp, s_local,
+                                         device=device)
+        return self.seq_index * s_local + torch.arange(s_local,
+                                                       device=device)
+
+    def global_sq(self, names: list[str], tensors: list) -> torch.Tensor:
+        """The sum of squares of the whole leaves from this rank's shards:
+        each tp-sharded leaf's summed over ``model``, each replicated leaf
+        counted once."""
+        sq = torch.stack(torch._foreach_norm(tensors)).float().square()
+        idx = [i for i, n in enumerate(names)
+               if self.tp_dims[n] is not None]
+        if idx:
+            part = sq[idx]
+            dist.all_reduce(part, group=self.model)
+            sq[idx] = part
+        return sq.sum()
 
 
 def _gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
@@ -1213,12 +1371,22 @@ def make_lm_train_step(cfg: LMTrainConfig, attn_impl: str = "flash",
     returns the residual too.  ``step_no`` and ``fault_arm`` (keywords)
     feed the fault taps (utils/faults.py): on the armed step one gradient
     leaf is poisoned, or the loss scaled, after the backward and before
-    the sync."""
+    the sync.
+
+    Under ``tp`` / ``sp`` (the 4-axis mesh) tokens/targets are the rows of
+    this rank's data index, whole sequences; the step cuts its sequence
+    chunk (``LMPlace.seq_chunk``), the params are its tp shards, and the
+    count, the loss and the gradients are summed over its data x seq group
+    (``LMPlace.batch``); the global norm counts each tp shard once."""
     validate_lm_cfg(cfg)
     update = make_optimizer(cfg)
     a = cfg.grad_accum
-    n_ranks = 1 if mesh is None else mesh.size()
-    loss_fn = partial(_loss_fn, cfg, attn_impl, n_ranks=n_ranks)
+    place = LMPlace.of(cfg, mesh)
+    group = place.batch if place is not None else (
+        None if mesh is None else mesh_group(mesh))
+    n_ranks = 1 if mesh is None else (
+        place.n_batch if place is not None else mesh.size())
+    loss_fn = partial(_loss_fn, cfg, attn_impl, n_ranks=n_ranks, place=place)
     if sharded(cfg):
         return _make_sharded_step(cfg, attn_impl, mesh, update, loss_fn)
     order = jax_order(param_shapes(cfg.model))  # the fault taps' leaf order
@@ -1226,9 +1394,11 @@ def make_lm_train_step(cfg: LMTrainConfig, attn_impl: str = "flash",
     def step(params, opt_state, tokens, targets, step_no=0, fault_arm=0.0):
         for p in params.values():
             p.grad = None
+        if place is not None:
+            tokens, targets = place.seq_chunk(tokens), place.seq_chunk(targets)
         n_total = (targets != IGNORE).sum().float()
         if mesh is not None:  # the global count, before the backward
-            dist.all_reduce(n_total, group=mesh_group(mesh))
+            dist.all_reduce(n_total, group=group)
         if a == 1:
             loss = loss_fn(params, tokens, targets, n_total, cfg.aux_coef)
             loss.backward()
@@ -1247,15 +1417,23 @@ def make_lm_train_step(cfg: LMTrainConfig, attn_impl: str = "flash",
             loss = faults.tap_loss(loss, step_no, fault_arm)
         if mesh is not None:  # gradients and loss summed over the ranks
             *summed, loss = flat_all_reduce(list(grads.values()) + [loss],
-                                            mesh)
+                                            group)
             grads = dict(zip(grads, summed))
-        gsq = torch.stack(torch._foreach_norm(list(grads.values()))
-                          ).square().sum()
+        if place is None:
+            gsq = torch.stack(torch._foreach_norm(list(grads.values()))
+                              ).square().sum()
+        else:
+            gsq = place.global_sq(list(grads), list(grads.values()))
         ok = (torch.isfinite(loss) & torch.isfinite(gsq)).float()
         update(params, grads, opt_state, gsq)
         for p in params.values():
             p.grad = None
-        return loss, ok, step_metrics(gsq, params.values())
+        if place is None:
+            return loss, ok, step_metrics(gsq, params.values())
+        with torch.no_grad():
+            psq = place.global_sq(list(params), [p.detach() for p in
+                                                 params.values()])
+        return loss, ok, torch.stack([gsq.float().sqrt(), psq.sqrt()])
 
     return step
 
@@ -1268,22 +1446,30 @@ def make_lm_eval_step(cfg: LMTrainConfig, attn_impl: str = "flash",
     backward to keep activations for).  Under ``mesh`` both are summed
     over the ranks, each given its own rows.  ZeRO-3 shards are gathered
     first, with the training step's gather dtype (the JAX eval step sees
-    the weights the train forward saw)."""
+    the weights the train forward saw).  Under tp / sp each rank evaluates
+    its sequence chunk of its data index's rows on its tp shards, the sums
+    taken over its data x seq group."""
     validate_lm_cfg(cfg)
     sync = LMSync(cfg, mesh, param_shapes(cfg.model)) if cfg.fsdp else None
+    place = LMPlace.of(cfg, mesh)
+    group = place.batch if place is not None else (
+        None if mesh is None else mesh_group(mesh))
 
     @torch.no_grad()
     def eval_step(params, tokens, targets):
         if sync is not None:
             params = sync.gather_all(params, cfg.fsdp_gather_dtype)
+        if place is not None:
+            tokens, targets = place.seq_chunk(tokens), place.seq_chunk(targets)
+        apply_kw, head_kw = _model_kw(cfg, place, tokens)
         head = partial(losses.head_loss, targets=targets,
-                       loss_impl=cfg.loss_impl, loss_chunk=cfg.loss_chunk)
+                       loss_impl=cfg.loss_impl, loss_chunk=cfg.loss_chunk,
+                       **head_kw)
         ce, n = tfm.apply(params, tokens, cfg=cfg.model, dtype=cfg.dtype,
                           attn_impl=attn_impl, head_fn=head,
-                          matmul_dtype=cfg.matmul_dtype)
+                          matmul_dtype=cfg.matmul_dtype, **apply_kw)
         if mesh is not None:
-            ce, n = flat_all_reduce([ce.float(), n.float()],
-                                    mesh_group(mesh))
+            ce, n = flat_all_reduce([ce.float(), n.float()], group)
         return ce, n
 
     return eval_step
@@ -1320,17 +1506,20 @@ class LMTrainer:
                  attn_impl: str = "flash", mesh=None):
         validate_lm_cfg(cfg)
         self.cfg = cfg
-        if mesh is None and cfg.dp > 1:
-            mesh = make_lm_mesh(cfg, device=device)  # a gang of dp ranks
+        if mesh is None and n_ranks(cfg) > 1:
+            mesh = make_lm_mesh(cfg, device=device)  # a gang of ranks
         if mesh is not None:
-            if mesh.size() != cfg.dp:
-                raise ValueError(f"mesh has {mesh.size()} ranks, config "
-                                 f"wants dp={cfg.dp}")
+            if mesh.size() != n_ranks(cfg):
+                raise ValueError(
+                    f"mesh has {mesh.size()} ranks, config wants "
+                    f"dp={cfg.dp}" + (f" x sp={cfg.sp} x tp={cfg.tp}"
+                                      if model_parallel(cfg) else ""))
             self.device = ensure_process_group(device)
         else:
             self.device = resolve_device(device)
         self.mesh = mesh
         self.rank = dist.get_rank() if mesh is not None else 0
+        self.place = LMPlace.of(cfg, mesh)
         self.attn_impl = attn_impl
         self.sync = (LMSync(cfg, mesh, param_shapes(cfg.model))
                      if sharded(cfg) else None)
@@ -1399,15 +1588,18 @@ class LMTrainer:
                                      .init_state(self.params.values())))
 
     def _shard(self, tree: dict) -> dict:
-        """This rank's ZeRO-3 shards of whole leaves (copies)."""
+        """This rank's ZeRO-3 (or tp) shards of whole leaves (copies)."""
+        if self.place is not None:
+            return {n: self.place.shard(n, t).clone()
+                    for n, t in tree.items()}
         if self.sync is None:
             return tree
         return {n: self.sync.shard(n, t).clone() for n, t in tree.items()}
 
     def _leaves(self, params: dict) -> dict[str, torch.Tensor]:
         """Float32 leaves on this device that require grad (this rank's
-        shards of them with ``fsdp``); rank 0's values on every rank of
-        the mesh."""
+        shards of them with ``fsdp`` or ``tp``); rank 0's values on every
+        rank of the mesh."""
         out = {n: p.detach().to(self.device, torch.float32).clone()
                for n, p in params.items()}
         if self.mesh is not None:
@@ -1424,8 +1616,8 @@ class LMTrainer:
         ``convert.from_jax_params``), optionally the Adam state
         (``convert.from_jax_opt_state``, whole moments; under sync windows
         this rank's slice's row) and this rank's residual
-        (``convert.from_jax_sync_state``); with ``fsdp`` each is cut to
-        this rank's shard.  The step count follows the optimizer state's,
+        (``convert.from_jax_sync_state``); with ``fsdp`` or ``tp`` each is
+        cut to this rank's shard.  The step count follows the optimizer state's,
         or restarts at 0 without one; a sync window restarts from the
         loaded point (zero delta and outer momentum)."""
         if sorted(params) != sorted(self.params):
@@ -1452,8 +1644,11 @@ class LMTrainer:
     @torch.no_grad()
     def full_params(self) -> dict[str, torch.Tensor]:
         """The whole params (ZeRO-3 leaves gathered in full precision, as
-        the JAX CLI fetches them for generation); every rank must call
-        it."""
+        the JAX CLI fetches them for generation; tp shards gathered over
+        ``model``); every rank must call it."""
+        if self.place is not None:
+            return {n: self.place.gather(n, p.detach())
+                    for n, p in self.params.items()}
         if self.sync is None:
             return {n: p.detach() for n, p in self.params.items()}
         return {n: p.detach() if self.sync.dims[n] is None else
@@ -1640,12 +1835,26 @@ class LMTrainer:
         ``Shard``s of the global arrays they are: a ZeRO-3 leaf the
         ``narrow`` of its dim at this rank's ``data`` index, a replicated
         leaf whole (rank 0's copy written); ``stacked`` (a sync window's
-        optimizer state, one row a slice) adds the leading ``dcn`` axis."""
+        optimizer state, one row a slice) adds the leading ``dcn`` axis.
+        Under tp a sharded leaf is the ``narrow`` of its dim at this
+        rank's ``model`` index, one copy a data x seq group (written by
+        the group's first rank)."""
         from .utils.checkpoint import Shard, full_index
         shapes = param_shapes(self.cfg.model)
         out = {}
         for n, t in tree.items():
             shape = tuple(shapes[n])
+            if self.place is not None:
+                dim = self.place.tp_dims[n]
+                index = list(full_index(shape))
+                replica = self.rank
+                if dim is not None:
+                    m = shape[dim] // self.cfg.tp
+                    r = self.place.model_index
+                    index[dim] = slice(r * m, (r + 1) * m)
+                    replica = dist.get_rank(self.place.batch)
+                out[n] = Shard(t.detach(), shape, tuple(index), replica)
+                continue
             dim = self.sync.dims[n] if self.sync is not None else None
             index = list(full_index(shape))
             if dim is not None:
@@ -1670,10 +1879,13 @@ class LMTrainer:
     def _whole(self, tree: dict, stacked: bool) -> dict:
         """The global arrays of this rank's leaves (ZeRO-3 shards gathered
         over ``data``; ``stacked`` rows gathered over ``dcn``): every rank
-        must call it."""
+        must call it; tp shards gathered over ``model``)."""
         out = {}
         for n, t in tree.items():
             t = t.detach()
+            if self.place is not None:
+                out[n] = self.place.gather(n, t)
+                continue
             dim = self.sync.dims[n] if self.sync is not None else None
             if dim is not None:
                 t = _gather_dim(t, dim, self.sync.data)
@@ -1782,6 +1994,10 @@ class LMTrainer:
         import dataclasses
         cfg = (dataclasses.replace(self.cfg, **overrides) if overrides
                else self.cfg)
+        if model_parallel(self.cfg) or model_parallel(cfg):
+            raise tfm.not_ported(
+                f"LMTrainer.rebuild with tp={cfg.tp}, sp={cfg.sp}",
+                COMPOSE_SLICE)
         if cfg.pp > 1 or cfg.pp_size > 0:
             raise ValueError(
                 "cannot resize a pipeline (pp/pp_size) config for now: "

@@ -64,8 +64,24 @@ waits for the write, and exits ``ELASTIC_DRAIN_EXIT_CODE``.  The loader
 takes the world-size-free order (``LMDataLoader(elastic_order=True)``), so
 the resized gang resumes from the recorded position with no window
 dropped or repeated; a gang's ``--dp`` is the world size each generation
-stands at.  Flags of later slices (the other parallel
-degrees) end the run with a usage error naming the slice.
+stands at.
+
+Tensor and sequence parallel (``--tp T``, ``--sp S``; the JAX CLI's
+example):
+
+  python -m distributed_pytorch_tpu_torch.launch --nproc-per-node 4 -- \\
+      -m distributed_pytorch_tpu_torch.lm_cli --rendezvous env \\
+      --dp 1 --sp 2 --tp 2 --batch-size 8 --seq-len 1024
+
+The gang is ``dp x sp x tp`` ranks on the ``("data", "expert", "seq",
+"model")`` mesh; each data index reads its stride of the corpus (the
+ranks of one data index read the same rows, and each cuts its sequence
+chunk, zigzag by default).  ``--generate`` under ``--tp > 1``
+(``generate_tp``) and ``--fsdp``, ``--dcn-size``, ``--overlap``, the
+window flags and ``--elastic`` under ``--tp`` / ``--sp > 1`` raise
+``NotImplementedError`` naming their ROADMAP slice.  Flags of later slices
+(the pipeline and expert degrees) end the run with a usage error naming
+the slice.
 """
 
 from __future__ import annotations
@@ -80,8 +96,8 @@ import numpy as np
 import torch
 
 from .data import lm_corpus
-from .lm import (PARALLEL_SLICE, PLANNING_SLICE, LMTrainConfig, LMTrainer,
-                 make_lm_mesh)
+from .lm import (COMPOSE_SLICE, EXPERT_SLICE, PIPELINE_SLICE, PLANNING_SLICE,
+                 LMTrainConfig, LMTrainer, make_lm_mesh)
 from .models import transformer as tfm
 from .parallel import elastic as elastic_mod
 from .parallel import init as dist_init
@@ -120,8 +136,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--moe-router", default=None,
                    choices=["tokens", "experts"])
     p.add_argument("--router-z-coef", type=float, default=None)
-    # parallelism (--dp: the gang's world size) and sync (later slices,
-    # refused unless left at default)
+    # parallelism (--dp x --sp x --tp: the gang's world size) and sync
+    # (later slices, refused unless left at default)
     p.add_argument("--dp", type=int, default=1)
     p.add_argument("--sp", type=int, default=1)
     p.add_argument("--tp", type=int, default=1)
@@ -223,11 +239,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 # (flag, argparse dest, the value that leaves it off, its slice)
 _LATER_FLAGS = [
-    *[(f"--{n}", n, 1, PARALLEL_SLICE)
-      for n in ("sp", "tp", "pp", "ep", "interleave")],
+    *[(f"--{n}", n, 1, PIPELINE_SLICE) for n in ("pp", "interleave")],
+    ("--ep", "ep", 1, EXPERT_SLICE),
     *[(f"--{n}", n, None, PLANNING_SLICE)
       for n in ("sync-plan", "sync-route", "autotune-profile")],
-    *[(f"--{n}", n, 0, PARALLEL_SLICE) for n in ("pp-size", "microbatches")],
+    *[(f"--{n}", n, 0, PIPELINE_SLICE) for n in ("pp-size", "microbatches")],
 ]
 
 
@@ -296,6 +312,21 @@ def elastic_args(parser: argparse.ArgumentParser, args) -> None:
                      "it (or drop the bounds)")
 
 
+def refuse_model_parallel_flags(args) -> None:
+    """``NotImplementedError`` for what ``--tp`` / ``--sp`` do not compose
+    with yet: ``--elastic`` (slice 5d-i-b) and ``--generate`` under
+    ``--tp > 1`` (the JAX CLI's ``generate_tp``, slice 5d-ii); the
+    config's own refusals come from ``LMTrainConfig``'s checks."""
+    if args.tp <= 1 and args.sp <= 1:
+        return
+    if args.elastic:
+        raise tfm.not_ported(f"--elastic with --tp {args.tp} --sp {args.sp}",
+                             COMPOSE_SLICE)
+    if args.generate is not None and args.tp > 1:
+        raise tfm.not_ported(f"--generate with --tp {args.tp} "
+                             "(generate_tp)", tfm.TP_SERVING_SLICE)
+
+
 def model_config(args) -> tfm.TransformerConfig:
     cfg = tfm.PRESETS[args.preset]
     # byte-level corpus: the vocab is always 256
@@ -329,6 +360,7 @@ def run(argv: list[str] | None = None, on_step=None) -> LMTrainer:
     window_args(parser, args)
     elastic_args(parser, args)
     refuse_later_flags(parser, args)
+    refuse_model_parallel_flags(args)
     # rendezvous first: the device is bound (cuda:{LOCAL_RANK}) before any
     # CUDA tensor exists
     if args.rendezvous == "env":
@@ -355,7 +387,7 @@ def _train(args, device, on_step, tel) -> LMTrainer:
         compute_dtype=(None if args.compute_dtype == "float32"
                        else args.compute_dtype),
         warmup_steps=args.warmup_steps, decay_steps=args.decay_steps,
-        dp=args.dp, grad_accum=args.grad_accum,
+        dp=args.dp, sp=args.sp, tp=args.tp, grad_accum=args.grad_accum,
         matmul_dtype=args.matmul_dtype,
         loss_impl=args.loss_impl or "dense", loss_chunk=args.loss_chunk,
         remat=args.remat or "none", fsdp=args.fsdp,
@@ -367,8 +399,9 @@ def _train(args, device, on_step, tel) -> LMTrainer:
         outer_lr=args.outer_lr,
         sync_every_per_slice=args.sync_every_per_slice)
     mesh = None
-    if args.rendezvous == "env" or args.num_nodes > 1 or args.dp > 1:
-        mesh = make_lm_mesh(cfg, device=device)  # --dp: the gang's size
+    if (args.rendezvous == "env" or args.num_nodes > 1
+            or args.dp * args.sp * args.tp > 1):
+        mesh = make_lm_mesh(cfg, device=device)  # the gang's size
     rank, world = dist_init.process_info()
     setup_logging(args.log_level if rank == 0 else "WARNING")
     log = get_logger("lm_cli")
@@ -394,11 +427,15 @@ def _train(args, device, on_step, tel) -> LMTrainer:
         start = trainer.maybe_restore(args.checkpoint_dir)
         if start:
             log.info("resumed at step %d", start)
-    # each rank feeds its share of the global batch
-    if args.batch_size % world:
+    # each data index feeds its share of the global batch (the ranks of
+    # one data index, over seq and model, read the same rows)
+    replicas = world // (args.sp * args.tp)
+    data_rank = (trainer.place.data_index if trainer.place is not None
+                 else rank)
+    if args.batch_size % replicas:
         raise SystemExit(f"--batch-size {args.batch_size} must divide "
-                         f"across {world} processes")
-    per_rank = args.batch_size // world
+                         f"across {replicas} data-parallel ranks")
+    per_rank = args.batch_size // replicas
 
     corpus = lm_corpus.load_corpus(args.corpus, mmap=args.mmap_corpus)
     log.info("corpus: %d tokens (%s)", len(corpus),
@@ -410,8 +447,8 @@ def _train(args, device, on_step, tel) -> LMTrainer:
         val = lm_corpus.LMCorpus(corpus.tokens[split:], corpus.synthetic)
         try:
             candidate = lm_corpus.LMDataLoader(
-                val, per_rank, args.seq_len, num_replicas=world, rank=rank,
-                shuffle=False)
+                val, per_rank, args.seq_len, num_replicas=replicas,
+                rank=data_rank, shuffle=False)
         except ValueError:
             candidate = None
         if candidate is None or len(candidate) == 0:
@@ -426,7 +463,8 @@ def _train(args, device, on_step, tel) -> LMTrainer:
     shuffle_mode = args.shuffle_mode or (
         "affine" if args.mmap_corpus else "permutation")
     loader = lm_corpus.LMDataLoader(
-        corpus, per_rank, args.seq_len, num_replicas=world, rank=rank,
+        corpus, per_rank, args.seq_len, num_replicas=replicas,
+        rank=data_rank,
         seed=args.seed, shuffle_mode=shuffle_mode,
         # elastic: a world-size-free global order, so the recorded
         # (epoch, offset) resumes with nothing lost at another size

@@ -21,9 +21,24 @@ dense projections through the int8 matmul (ops/quantized.py: kernel K5 on
 the GPU; MoE layers take no int8 path, as in the JAX block), and ``remat``
 recomputes each layer in the backward.  ``boundary`` is the layer-group
 hook of the sync knobs (lm.py: ZeRO-3 gathers and two-level sync
-points).  The parallelism options are refused with
-``NotImplementedError`` until the slice that ports them (ROADMAP.md
-queue 1).
+points).
+
+Tensor and sequence parallelism (the JAX package's ``tp_axis`` and
+``seq_axis``, each a process group here):
+
+- ``tp_axis``: the params are this rank's head / FFN shards
+  (``shard_specs``: heads of wq/wk/wv and rows of wo, columns of
+  w_gate/w_up and rows of w_down over ``model``).  The Megatron factoring
+  is a conjugate pair of autograd functions: ``_CopyToTP`` (identity
+  forward, all-reduce backward) where the replicated normed activations
+  enter the column-parallel projections, and ``_ReduceFromTP`` (all-reduce
+  forward, identity backward) after ``wo`` and ``w_down``.  JAX places the
+  first implicitly (its varying-axes tracking sums the cotangent of an
+  axis-invariant value); the port places it explicitly.  MoE under a
+  tensor axis is refused (``EXPERT_SLICE``).
+- ``seq_axis``: activations hold this rank's sequence chunk, laid out per
+  ``seq_layout``, and attention runs as a ring over the group
+  (parallel/context.py); ``pos`` carries the chunk's global positions.
 """
 
 from __future__ import annotations
@@ -32,19 +47,25 @@ import math
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import attention as attn_ops
 from ..ops import moe as moe_ops
 from ..ops import quantized as qz
+from ..parallel import context as ctx
 from ..utils.device import resolve_device
 
 Params = dict[str, torch.Tensor]
 
 # The sub-slices of slice 5 still to port, each named by the refusals of
-# its work (slices 5a, 5b and 5c are ported).
-PARALLEL_SLICE = "ROADMAP.md queue 1, slice 5d (model parallelism)"
+# its work (slices 5a, 5b, 5c and 5d-i are ported).
+COMPOSE_SLICE = ("ROADMAP.md queue 1, slice 5d-i-b (tensor and sequence "
+                 "parallel with the sync knobs)")
+TP_SERVING_SLICE = "ROADMAP.md queue 1, slice 5d-ii (tensor-parallel serving)"
+EXPERT_SLICE = "ROADMAP.md queue 1, slice 5d-iii (expert parallel)"
+PIPELINE_SLICE = "ROADMAP.md queue 1, slice 5d-iv (pipeline)"
 FLEET_SLICE = "ROADMAP.md queue 1, slice 5e (the fleet)"
 PLANNING_SLICE = ("ROADMAP.md queue 1, slice 5f (planning, accounting and "
                   "the bench leg)")
@@ -68,7 +89,7 @@ class TransformerConfig:
     # Mixture-of-Experts: 0 = dense; otherwise every ``moe_every``-th
     # layer (counting from layer moe_every-1) has a routed MoE MLP
     # (ops/moe.py).  The two a2a knobs shape the expert-parallel exchange
-    # (slice 5d).
+    # (slice 5d-iii).
     n_experts: int = 0
     moe_every: int = 2
     moe_top_k: int = 1
@@ -166,6 +187,56 @@ def sync_group_index(cfg: TransformerConfig) -> dict[str, int]:
     return idx
 
 
+MODEL_AXIS = "model"  # the JAX tensor axis's name
+_TP_SPECS = {"wq": (None, MODEL_AXIS, None), "wk": (None, MODEL_AXIS, None),
+             "wv": (None, MODEL_AXIS, None), "wo": (MODEL_AXIS, None, None),
+             "w_gate": (None, MODEL_AXIS), "w_up": (None, MODEL_AXIS),
+             "w_down": (MODEL_AXIS, None)}
+
+
+def shard_specs(cfg: TransformerConfig, names=None) -> dict[str, tuple]:
+    """Each parameter's partition spec (a tuple, one entry a dim: the axis
+    name or None) as the JAX ``shard_specs`` gives it without an expert
+    axis: the Megatron layout over ``"model"`` (heads of wq/wk/wv, rows of
+    wo, columns of w_gate/w_up, rows of w_down), MoE experts over
+    ``"model"`` with the router replicated, norms and the embedding
+    replicated (the empty tuple).  ``names`` defaults to every parameter
+    of ``cfg``."""
+    if names is None:
+        names = list(init_shapes(cfg))
+    out = {}
+    for name in names:
+        parts = name.split(".")
+        if "moe" in parts:
+            out[name] = () if parts[-1] == "router" else \
+                (MODEL_AXIS, None, None)
+        else:
+            out[name] = _TP_SPECS.get(parts[-1], ())
+    return out
+
+
+def tp_dim(spec: tuple) -> int | None:
+    """The dim a leaf splits along over ``"model"`` (None: replicated)."""
+    return spec.index(MODEL_AXIS) if MODEL_AXIS in spec else None
+
+
+def init_shapes(cfg: TransformerConfig) -> dict[str, tuple]:
+    """Every parameter's shape, without building it (``init``'s)."""
+    d, h, dh, f, kv, e = (cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.ff,
+                          cfg.kv_heads, cfg.n_experts)
+    out = {"embed": (cfg.vocab_size, d), "final_norm": (d,)}
+    for i in range(cfg.n_layers):
+        lp = {"attn_norm": (d,), "wq": (d, h, dh), "wk": (d, kv, dh),
+              "wv": (d, kv, dh), "wo": (h, dh, d), "mlp_norm": (d,)}
+        if cfg.is_moe_layer(i):
+            lp.update({"moe.router": (d, e), "moe.w_gate": (e, d, f),
+                       "moe.w_up": (e, d, f), "moe.w_down": (e, f, d)})
+        else:
+            lp.update(w_gate=(d, f), w_up=(d, f), w_down=(f, d))
+        out.update({f"layers.{i}.{k}": v for k, v in lp.items()})
+    return out
+
+
 def group_params(names, key: str) -> list[str]:
     """The port names (of ``names``) under the JAX top-level key ``key``:
     ``"embed"``, ``"final_norm"`` or ``"layer{i}"`` (``layers.{i}.*``)."""
@@ -238,27 +309,82 @@ def mlp(lp: Params, h: torch.Tensor) -> torch.Tensor:
     return (gate * up) @ lp["w_down"].to(h.dtype)
 
 
-def _check_options(attn_impl: str, matmul_dtype=None, **opts) -> None:
+def _check_options(attn_impl: str, matmul_dtype=None, ep_axis=None) -> None:
     if attn_impl not in ("flash", "reference"):
         raise ValueError(f"unknown attn_impl {attn_impl!r}")
     if matmul_dtype not in (None, "int8"):
         raise ValueError(f"matmul_dtype must be None or 'int8', got "
                          f"{matmul_dtype!r}")
-    for name, value in opts.items():
-        if value is not None:
-            raise not_ported(f"{name}={value!r}", PARALLEL_SLICE)
+    if ep_axis is not None:
+        raise not_ported(f"ep_axis={ep_axis!r}", EXPERT_SLICE)
+
+
+def tp_group(tp_axis):
+    """The tensor axis's process group, or None when there is no axis or
+    it has one rank (its all-reduces are the identity)."""
+    if tp_axis is None or dist.get_world_size(tp_axis) == 1:
+        return None
+    return tp_axis
+
+
+def seq_ring(seq_axis):
+    """The ring of ``seq_axis`` (a process group or a ring), or None when
+    there is none."""
+    return None if seq_axis is None else ctx.as_ring(seq_axis)
+
+
+def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    out = x.contiguous().clone()
+    dist.all_reduce(out, group=group)
+    return out
+
+
+class _CopyToTP(torch.autograd.Function):
+    """Megatron's f: identity forward, all-reduce over the tensor axis
+    backward (a replicated activation entering column-parallel
+    projections: each rank's cotangent is its heads' or columns' part)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    """Megatron's g: all-reduce over the tensor axis forward (the partial
+    sums of the row-parallel projections), identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_tp(x: torch.Tensor, group) -> torch.Tensor:
+    return x if group is None else _CopyToTP.apply(x, group)
+
+
+def reduce_from_tp(x: torch.Tensor, group) -> torch.Tensor:
+    return x if group is None else _ReduceFromTP.apply(x, group)
 
 
 def block(lp: Params, x: torch.Tensor, *, cfg: TransformerConfig,
           is_moe: bool, pos: torch.Tensor, attn_impl: str = "flash",
-          seq_axis=None, tp_axis=None, ep_axis=None, matmul_dtype=None,
-          attn_saved: list | None = None,
+          seq_axis=None, seq_layout: str = "contiguous", tp_axis=None,
+          ep_axis=None, matmul_dtype=None, attn_saved: list | None = None,
           ) -> tuple[torch.Tensor, torch.Tensor]:
     """One transformer block: (layer params, (B, S, D)) -> (x, aux), aux
     being the layer's MoE aux loss (``ops.moe.moe_apply`` over the B S
     tokens as one routing group; 0 for a dense layer).  GQA repeats the
-    k/v heads to H before attention, so autograd sums their gradient back
-    over each group.
+    k/v heads to H before attention (the local heads under ``tp_axis``),
+    so autograd sums their gradient back over each group.
 
     ``matmul_dtype="int8"`` runs q/k/v/o and a dense MLP's three products
     (not an MoE layer's experts, as in the JAX block)
@@ -267,12 +393,20 @@ def block(lp: Params, x: torch.Tensor, *, cfg: TransformerConfig,
     quantized, ``wq`` (D, H, Dh) as (D, H Dh), ``wo`` (H, Dh, D) as
     (H Dh, D), the projected (B, S, H, Dh) moved to (B, H, S, Dh).
     ``attn_saved`` is the flash forward's kept ``(o, lse)`` under
-    ``remat="selective"`` (``flash_attention(saved=...)``)."""
-    _check_options(attn_impl, matmul_dtype, seq_axis=seq_axis,
-                   tp_axis=tp_axis, ep_axis=ep_axis)
+    ``remat="selective"`` (``flash_attention(saved=...)``); the ring keeps
+    nothing (the JAX block saves no ring attention either).
+    ``tp_axis`` (a process group: the params are its rank's shards) and
+    ``seq_axis`` (a process group or a ``parallel.context`` ring; ``x`` is
+    the rank's chunk in ``seq_layout``) are the module docstring's."""
+    _check_options(attn_impl, matmul_dtype, ep_axis)
+    tp = tp_group(tp_axis)
+    ring = seq_ring(seq_axis)
+    if is_moe and tp is not None:
+        raise not_ported("an MoE layer under a tensor axis (tp_axis)",
+                         EXPERT_SLICE)
     b, s, d = x.shape
     q8 = matmul_dtype == "int8"
-    h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    h = copy_to_tp(rms_norm(x, lp["attn_norm"], cfg.norm_eps), tp)
     if q8:
         hf = h.reshape(b * s, d)
 
@@ -289,10 +423,14 @@ def block(lp: Params, x: torch.Tensor, *, cfg: TransformerConfig,
     else:
         q, k, v = qkv(lp, h, pos, cfg.rope_theta)
     if cfg.kv_heads != cfg.n_heads:
-        rep = q.shape[1] // k.shape[1]
+        rep = q.shape[1] // k.shape[1]  # local head counts (same under tp)
         k = k.repeat_interleave(rep, dim=1)
         v = v.repeat_interleave(rep, dim=1)
-    if attn_impl == "flash":
+    if ring is not None:
+        o = ctx.ring_attention(
+            q, k, v, ring, causal=True, layout=seq_layout,
+            impl="flash" if attn_impl == "flash" else "reference")
+    elif attn_impl == "flash":
         o = attn_ops.flash_attention(q, k, v, causal=True, saved=attn_saved)
     else:
         o = attn_ops.attention_reference(q, k, v, causal=True)
@@ -302,7 +440,7 @@ def block(lp: Params, x: torch.Tensor, *, cfg: TransformerConfig,
                                 ).reshape(b, s, d)
     else:
         o = attn_out(lp, o)
-    x = x + o
+    x = x + reduce_from_tp(o, tp)  # Megatron's row-parallel sum 1
     h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
     if is_moe:
         down, aux = moe_ops.moe_apply(
@@ -310,6 +448,7 @@ def block(lp: Params, x: torch.Tensor, *, cfg: TransformerConfig,
             capacity_factor=cfg.capacity_factor, top_k=cfg.moe_top_k,
             router_mode=cfg.moe_router, z_coef=cfg.router_z_coef)
         return x + down.reshape(b, s, d), aux
+    h = copy_to_tp(h, tp)
     if q8:
         hf = h.reshape(b * s, d)
         gate = F.silu(qz.quantized_matmul(hf, lp["w_gate"].to(h.dtype)))
@@ -318,19 +457,24 @@ def block(lp: Params, x: torch.Tensor, *, cfg: TransformerConfig,
                                    ).reshape(b, s, d)
     else:
         down = mlp(lp, h)
+    down = reduce_from_tp(down, tp)  # Megatron's row-parallel sum 2
     return x + down, torch.zeros((), device=x.device)
 
 
 def apply(params: Params, tokens: torch.Tensor, *, cfg: TransformerConfig,
           dtype: torch.dtype | None = None, attn_impl: str = "flash",
-          seq_axis=None, tp_axis=None, ep_axis=None,
-          pos0: int = 0, pos: torch.Tensor | None = None,
+          seq_axis=None, seq_layout: str = "contiguous", tp_axis=None,
+          ep_axis=None, pos0: int = 0, pos: torch.Tensor | None = None,
           return_aux: bool = False, boundary=None, matmul_dtype=None,
           remat=None, head_fn=None):
     """Forward pass: (B, S) int tokens -> (B, S, vocab) float32 logits.
 
     ``attn_impl`` is ``"flash"`` (the default, as in the JAX package) or
-    ``"reference"``.  ``head_fn``, when given, is called as
+    ``"reference"``.  Under ``seq_axis`` (module docstring) ``tokens`` is
+    the rank's sequence chunk in ``seq_layout`` and ``pos`` its global
+    positions (``pos0`` the offset of a contiguous chunk), and the logits
+    or the head's result are the chunk's; under ``tp_axis`` the params are
+    the rank's shards.  ``head_fn``, when given, is called as
     ``head_fn(h, params["embed"])`` on the final-norm hidden states in
     place of the logits matmul, and its result is returned where the
     logits would be (the trainer's head-loss seam, ops/losses.py).  With
@@ -355,8 +499,7 @@ def apply(params: Params, tokens: torch.Tensor, *, cfg: TransformerConfig,
     before the head): an identity on values, where lm.py places each
     group's ZeRO-3 gathers and sync points.  It stays outside the
     checkpointed block under ``remat``, so no collective runs twice."""
-    _check_options(attn_impl, matmul_dtype, seq_axis=seq_axis,
-                   tp_axis=tp_axis, ep_axis=ep_axis)
+    _check_options(attn_impl, matmul_dtype, ep_axis)
     if remat not in (None, "none", "full", "selective"):
         raise ValueError(f"unknown remat {remat!r}: expected 'none', 'full' "
                          "or 'selective'")
@@ -374,7 +517,8 @@ def apply(params: Params, tokens: torch.Tensor, *, cfg: TransformerConfig,
             params = boundary(i + 1, params)
         is_moe = cfg.is_moe_layer(i)
         kw = dict(cfg=cfg, is_moe=is_moe, pos=pos, attn_impl=attn_impl,
-                  matmul_dtype=matmul_dtype)
+                  matmul_dtype=matmul_dtype, seq_axis=seq_axis,
+                  seq_layout=seq_layout, tp_axis=tp_axis)
         if use_remat:
             kw["attn_saved"] = [] if remat == "selective" else None
             x, aux = checkpoint(block, layer(params, i), x,

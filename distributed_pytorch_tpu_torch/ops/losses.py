@@ -15,8 +15,16 @@ ops/losses.py.
   (B T, chunk).
 - ``default_chunk``: the largest divisor of the vocabulary <= 1024.
 
-The tensor-parallel head (``tp_axis`` / ``tp_size > 1``, the vocabulary
-sharded over the model axis) is refused until slice 5d (ROADMAP.md queue 1).
+The tensor-parallel chunked head (``tp_axis``, a process group, and
+``tp_size > 1``): each rank streams only its ``V / tp`` vocabulary rows,
+cut from the replicated embedding at its rank in the group, and the
+partial logsumexps combine with one max and one sum all-reduce over the
+group (the JAX ``pmax`` + ``psum``), the target logit (owned by one rank)
+with another sum; the backward sums the hidden-state gradient over the
+group and all-gathers the embedding gradient's row blocks, so both come
+back replicated, as the dense head's are.  The dense head ignores the
+tensor axis (each rank computes the full logits of its replicated hidden
+states), as in the JAX package.
 Masking follows ``ops.nn.IGNORE_INDEX``: ignored positions add zero loss
 and zero gradient.
 """
@@ -24,11 +32,9 @@ and zero gradient.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from .nn import IGNORE_INDEX, masked_ce
-
-TP_HEAD_SLICE = ("ROADMAP.md queue 1, slice 5d (model parallelism: the "
-                 "vocabulary-sharded head)")
 
 
 def default_chunk(vocab: int, cap: int = 1024) -> int:
@@ -51,48 +57,90 @@ def _flat(h: torch.Tensor, targets: torch.Tensor):
     return h2, t, mask, torch.where(mask, t, torch.zeros_like(t)).long()
 
 
+def _local_rows(emb: torch.Tensor, group, tp_size: int):
+    """This rank's vocabulary rows of the replicated embedding and their
+    global offset (0 and the whole embedding without a tensor axis)."""
+    if group is None:
+        return emb, 0
+    v_local = emb.shape[0] // tp_size
+    v0 = dist.get_rank(group) * v_local
+    return emb[v0:v0 + v_local], v0
+
+
 class _ChunkedCE(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, h, emb, targets, chunk):
+    def forward(ctx, h, emb, targets, chunk, group, tp_size):
         h2, _, mask, safe = _flat(h, targets)
+        emb_l, v0 = _local_rows(emb, group, tp_size)
         n = h2.shape[0]
         m = torch.full((n,), -torch.inf, device=h.device)
         s = torch.zeros((n,), device=h.device)
         tl = torch.zeros((n,), device=h.device)
-        for c0 in range(0, emb.shape[0], chunk):
-            lg = h2 @ emb[c0:c0 + chunk].float().T   # the only (n, chunk)
+        for c0 in range(0, emb_l.shape[0], chunk):
+            lg = h2 @ emb_l[c0:c0 + chunk].float().T   # the only (n, chunk)
             m_new = torch.maximum(m, lg.amax(-1))
             s = s * torch.exp(m - m_new) + torch.exp(
                 lg - m_new[:, None]).sum(-1)
             m = m_new
-            idx = safe - c0
+            idx = safe - (v0 + c0)
             own = (idx >= 0) & (idx < chunk)
             got = torch.gather(lg, 1, idx.clamp(0, chunk - 1)[:, None])[:, 0]
             tl = tl + torch.where(own, got, torch.zeros_like(got))
-        lse = m + torch.log(s)
+        if group is not None:
+            # the per-rank partial logsumexps and the one owned target
+            # logit combined over the tensor axis
+            mg = m.clone()
+            dist.all_reduce(mg, op=dist.ReduceOp.MAX, group=group)
+            sg = s * torch.exp(m - mg)
+            dist.all_reduce(sg, group=group)
+            lse = mg + torch.log(sg)
+            dist.all_reduce(tl, group=group)
+        else:
+            lse = m + torch.log(s)
         ce = torch.where(mask, lse - tl, torch.zeros_like(lse))
         ctx.save_for_backward(h, emb, targets, lse)
-        ctx.chunk = chunk
+        ctx.chunk, ctx.group, ctx.tp_size = chunk, group, tp_size
         return ce.sum()
 
     @staticmethod
     def backward(ctx, g):
         h, emb, targets, lse = ctx.saved_tensors
-        chunk = ctx.chunk
+        chunk, group = ctx.chunk, ctx.group
         h2, _, mask, safe = _flat(h, targets)
+        emb_l, v0 = _local_rows(emb, group, ctx.tp_size)
         cols = torch.arange(chunk, device=h.device)
         keep = mask[:, None].float()
         dh = torch.zeros_like(h2)
         dws = []
-        for c0 in range(0, emb.shape[0], chunk):
-            w32 = emb[c0:c0 + chunk].float()
+        for c0 in range(0, emb_l.shape[0], chunk):
+            w32 = emb_l[c0:c0 + chunk].float()
             p = torch.exp(h2 @ w32.T - lse[:, None])        # softmax slice
-            onehot = (cols[None, :] == (safe - c0)[:, None]).float()
+            onehot = (cols[None, :] == (safe - (v0 + c0))[:, None]).float()
             coeff = g * (p - onehot) * keep                  # (n, chunk)
             dh = dh + coeff @ w32
             dws.append(coeff.T @ h2)                         # (chunk, D)
-        demb = torch.cat(dws).to(emb.dtype)
-        return dh.reshape(h.shape).to(h.dtype), demb, None, None
+        demb = torch.cat(dws)
+        if group is not None:
+            # the partial dh of each rank's rows summed, the row blocks of
+            # demb gathered: both replicated, like the dense head's
+            dist.all_reduce(dh, group=group)
+            full = torch.empty((ctx.tp_size * demb.shape[0], demb.shape[1]),
+                               dtype=demb.dtype, device=demb.device)
+            _all_gather(full, demb, group)
+            demb = full
+        return (dh.reshape(h.shape).to(h.dtype), demb.to(emb.dtype), None,
+                None, None, None)
+
+
+def _all_gather(out: torch.Tensor, x: torch.Tensor, group) -> None:
+    """The row blocks of ``x`` from every rank of ``group`` into ``out``."""
+    from ..parallel.strategies import all_gather_flat
+    all_gather_flat(out.view(-1), x.contiguous().view(-1), group=group)
+
+
+def _tp(tp_axis, tp_size: int):
+    """The tensor axis's group when the head is vocabulary-sharded."""
+    return tp_axis if tp_axis is not None and tp_size > 1 else None
 
 
 def masked_ce_chunked(h: torch.Tensor, emb: torch.Tensor,
@@ -100,19 +148,21 @@ def masked_ce_chunked(h: torch.Tensor, emb: torch.Tensor,
                       tp_axis=None, tp_size: int = 1):
     """Streaming masked cross-entropy: ``(sum of CE, #unmasked tokens)``
     over ``logits = h @ emb.T`` without the logits.  ``chunk`` must divide
-    the vocabulary rows.  Matches ``masked_ce`` on the same logits to ~1e-6
-    (online against one-shot logsumexp rounding)."""
-    if tp_axis is not None and tp_size > 1:
-        raise NotImplementedError(
-            "the tensor-parallel chunked head (tp_axis, tp_size > 1) is not "
-            f"ported to PyTorch yet: {TP_HEAD_SLICE}")
-    v_local = emb.shape[0]
+    this rank's vocabulary rows (``V``, or ``V / tp_size`` with the
+    vocabulary sharded over ``tp_axis``, a process group of ``tp_size``
+    ranks).  Matches ``masked_ce`` on the same logits to ~1e-6 (online
+    against one-shot logsumexp rounding)."""
+    group = _tp(tp_axis, tp_size)
+    v_local = emb.shape[0] // (tp_size if group is not None else 1)
     if chunk <= 0 or v_local % chunk:
         raise ValueError(
             f"loss_chunk {chunk} must be a positive divisor of the "
-            f"per-rank vocab rows {v_local} (vocab {emb.shape[0]}) — the "
-            "scan needs equal-sized chunks")
-    ce_sum = _ChunkedCE.apply(h, emb, targets, int(chunk))
+            f"per-rank vocab rows {v_local} (vocab {emb.shape[0]}"
+            + (f" over the {tp_size}-way tp head" if group is not None
+               else "")
+            + ") — the scan needs equal-sized chunks")
+    ce_sum = _ChunkedCE.apply(h, emb, targets, int(chunk), group,
+                              int(tp_size))
     return ce_sum, (targets != IGNORE_INDEX).sum()
 
 
@@ -121,15 +171,15 @@ def head_loss(h: torch.Tensor, emb: torch.Tensor, targets: torch.Tensor, *,
               tp_axis=None, tp_size: int = 1):
     """Final-norm hidden states + tied embedding -> ``(sum of masked CE,
     #unmasked tokens)``: float32 ``h @ emb.T`` then ``masked_ce``
-    (``"dense"``), or the streamed ``masked_ce_chunked`` with
-    ``loss_chunk`` (default ``default_chunk`` of the vocabulary)."""
-    if tp_axis is not None and tp_size > 1:
-        raise NotImplementedError(
-            "the tensor-parallel head (tp_axis, tp_size > 1) is not ported "
-            f"to PyTorch yet: {TP_HEAD_SLICE}")
+    (``"dense"``, which ignores the tensor axis), or the streamed
+    ``masked_ce_chunked`` with ``loss_chunk`` (default ``default_chunk`` of
+    the per-rank vocabulary rows), vocabulary-sharded over ``tp_axis``
+    when ``tp_size > 1``."""
     if loss_impl == "chunked":
-        chunk = loss_chunk if loss_chunk else default_chunk(emb.shape[0])
-        return masked_ce_chunked(h, emb, targets, chunk=chunk)
+        v_local = emb.shape[0] // (tp_size if tp_axis is not None else 1)
+        chunk = loss_chunk if loss_chunk else default_chunk(v_local)
+        return masked_ce_chunked(h, emb, targets, chunk=chunk,
+                                 tp_axis=tp_axis, tp_size=tp_size)
     if loss_impl != "dense":
         raise ValueError(f"unknown loss_impl {loss_impl!r}: expected 'dense' "
                          "or 'chunked'")

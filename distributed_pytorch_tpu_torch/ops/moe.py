@@ -50,7 +50,7 @@ the adds changes nothing.
 descending sort.
 
 Expert parallelism (``axis``: the all-to-all dispatch, ``dispatch_bits``,
-``a2a_chunks``) belongs to slice 5d and raises ``NotImplementedError``;
+``a2a_chunks``) belongs to slice 5d-iii and raises ``NotImplementedError``;
 without an axis the JAX package's value errors are raised, with its
 messages.  The layer runs no hand-written kernel: it is GEMMs and gathers,
 what XLA lowers by itself in the JAX package.
@@ -65,8 +65,7 @@ import torch.nn.functional as F
 
 Params = dict[str, torch.Tensor]
 
-EP_SLICE = ("ROADMAP.md queue 1, slice 5d (model parallelism: expert "
-            "parallelism)")
+EP_SLICE = "ROADMAP.md queue 1, slice 5d-iii (expert parallel)"
 
 
 def moe_init(generator: torch.Generator, d_model: int, d_ff: int,

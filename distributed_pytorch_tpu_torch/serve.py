@@ -69,7 +69,7 @@ uniforms for all ``steps_per_sync`` steps at once, so a block draws the
 same whether it runs serially or chained.  Tensor parallelism (``mesh``,
 ``tp_axis``) and the fleet handoff (``export_request`` /
 ``import_request``) raise ``NotImplementedError`` naming ROADMAP.md
-queue 1, slices 5d and 5e.
+queue 1, slices 5d-ii and 5e.
 """
 
 from __future__ import annotations
@@ -236,7 +236,7 @@ class ContinuousBatcher:
                  device: str | torch.device = "cuda"):
         if mesh is not None or tp_axis != "model":
             raise not_ported("mesh / tp_axis (tensor-parallel serving)",
-                             gen.PARALLEL_SLICE)
+                             gen.TP_SERVING_SLICE)
         self.device = resolve_device(device)
         # pinned host buffers and events carry device->host reads on CUDA
         self._pinned = self.device.type == "cuda"

@@ -235,7 +235,9 @@ def test_losses_match_jax():
     chunks in another order) and
     against the dense head, ignored targets included, for the default chunk
     and one that tiles the vocabulary; a chunk that does not divide it is
-    a ValueError, as in JAX; the tensor-parallel head names slice 5."""
+    a ValueError, as in JAX; with a tensor axis the dense head is
+    unchanged in both packages (the chunked one's tp parity is
+    tests/test_torch_tp.py's)."""
     rng = np.random.default_rng(4)
     h = rng.standard_normal((2, 8, 16)).astype(np.float32)
     emb = rng.standard_normal((32, 16)).astype(np.float32)
@@ -268,10 +270,16 @@ def test_losses_match_jax():
         with pytest.raises(ValueError, match="divisor"):
             mod.head_loss(arr(h), arr(emb), arr(tg), loss_impl="chunked",
                           loss_chunk=5)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tlosses.head_loss(torch.from_numpy(h), torch.from_numpy(emb),
-                          torch.from_numpy(tg), loss_impl="chunked",
-                          tp_axis="model", tp_size=2)
+    # the tensor-parallel head is ported (its parity at tp = 2 is
+    # tests/test_torch_tp.py's): the dense head ignores the tensor axis in
+    # both packages, each rank computing the full logits
+    got_tp = tlosses.head_loss(torch.from_numpy(h), torch.from_numpy(emb),
+                               torch.from_numpy(tg), tp_axis=object(),
+                               tp_size=2)
+    want_tp = jlosses.head_loss(jnp.asarray(h), jnp.asarray(emb),
+                                jnp.asarray(tg), tp_axis="model", tp_size=2)
+    np.testing.assert_allclose(got_tp[0].item(), float(want_tp[0]), **tol)
+    assert int(got_tp[1]) == int(want_tp[1]) == 13
 
 
 def test_corpus_and_loader_match_jax():
@@ -327,7 +335,9 @@ def test_lm_cli_parser_matches_jax():
     assert tflags["--device"].default == "cuda"
 
 
-REFUSED_FLAGS = [["--dp", "2"], ["--tp", "2"], ["--pp-size", "2"],
+REFUSED_FLAGS = [["--dp", "2"], ["--tp", "2", "--n-heads", "2",
+                                  "--head-dim", "32"], ["--sp", "2"],
+                 ["--pp-size", "2"],
                  ["--fsdp"], ["--elastic"], ["--checkpoint-dir", "ck"],
                  ["--max-nodes", "4"],
                  ["--telemetry-dir", "tel"], ["--profile-dir", "p"],
@@ -368,7 +378,9 @@ def test_lm_cli_refuses_later_flags(flag, capsys, tmp_path, monkeypatch,
     without a launcher is a gang of one: its losses are bitwise those of
     the run without a process group, and no group is left after the
     run.  ``--dp 2`` without a gang of two names the launcher (the
-    4-rank ``--dp 4`` run is in tests/test_torch_lm_dp.py).  ``--fsdp``
+    4-rank ``--dp 4`` run is in tests/test_torch_lm_dp.py), and so do
+    ``--tp 2`` and ``--sp 2`` (ported in slice 5d-i: their gangs are
+    tests/test_torch_tp.py's).  ``--fsdp``
     and ``--dcn-size 2`` are ported: in one process the JAX config checks
     refuse them (ZeRO-3 over a data axis of one rank is a no-op, and one
     rank does not factor into two slices; the 4-rank run of every sync
@@ -445,7 +457,7 @@ def test_lm_cli_refuses_later_flags(flag, capsys, tmp_path, monkeypatch,
         with pytest.raises(ValueError, match="no-op|does not factor"):
             tcli.main(CLI_BASE + ["--steps", "1"] + flag)
         return
-    if flag[0] == "--dp":
+    if flag[0] in ("--dp", "--tp", "--sp"):
         with pytest.raises(NotImplementedError,
                            match="launch --nproc-per-node 2"):
             tcli.main(CLI_BASE + ["--steps", "1"] + flag)

@@ -18,7 +18,7 @@ across as numpy.  Held:
   and in bfloat16 for top-2, whose pair must add in float32 and round
   once (two bfloat16 adds differ: checked);
 - the JAX value errors, with the same messages; an expert-parallel axis
-  names slice 5d.
+  names slice 5d-iii.
 """
 
 import jax
@@ -216,5 +216,5 @@ def test_value_errors_match_jax(kw):
 def test_expert_parallel_axis_names_slice_5d():
     params, x = _setup()
     tp, tx = _torch(params, x)
-    with pytest.raises(NotImplementedError, match="slice 5d"):
+    with pytest.raises(NotImplementedError, match="slice 5d-iii"):
         tmoe.moe_apply(tp, tx, n_experts=E, axis="model")

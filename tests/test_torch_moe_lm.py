@@ -262,7 +262,7 @@ def test_expert_choice_decode_warns(serve_model):
 def test_moe_config_checks_match_jax(model_kw):
     """The a2a knobs without an expert exchange are ValueErrors with the
     JAX messages; an expert or tensor axis that would carry them names
-    slice 5d."""
+    slice 5d-iii (expert parallel)."""
     jcfg, tcfg = _models(**model_kw)
     with pytest.raises(ValueError) as want:
         jlm.validate_lm_cfg(jlm.LMTrainConfig(model=jcfg))
@@ -271,6 +271,6 @@ def test_moe_config_checks_match_jax(model_kw):
     assert str(got.value) == str(want.value)
     if model_kw.get("n_experts") != 0:
         for axis in ("ep", "tp"):
-            with pytest.raises(NotImplementedError, match="slice 5d"):
+            with pytest.raises(NotImplementedError, match="slice 5d-iii"):
                 tlm.validate_lm_cfg(tlm.LMTrainConfig(model=tcfg,
                                                       **{axis: 2}))

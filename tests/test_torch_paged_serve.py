@@ -353,7 +353,7 @@ def test_prefix_page_hashes_equal_jax(page):
 
 def test_paged_refusals_name_their_slice(params):
     _, tp = params
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    with pytest.raises(NotImplementedError, match="slice 5d-ii"):
         _batcher(tp, mesh=object())
     assert tgen.init_paged_cache(TCFG, 2, 512, device="cpu")[
         "layer0"]["v"].shape == (2, 2, 512, 32)

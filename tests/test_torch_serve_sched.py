@@ -466,7 +466,7 @@ def test_scheduler_validation(params):
     cb = _port(tp, speculate=4, max_len=512)
     assert cb.kv_len == 1024 and cb.cache["layer0"]["k"].shape[2] == 1024
     for kw in (dict(mesh=object()), dict(tp_axis="tp")):
-        with pytest.raises(NotImplementedError, match="slice 5"):
+        with pytest.raises(NotImplementedError, match="slice 5d-ii"):
             _port(tp, **kw)
 
 

@@ -7,6 +7,8 @@ convert.py; inputs are made with numpy from a seed.  Tolerance 1e-4
 orders.
 """
 
+from functools import partial
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -206,16 +208,24 @@ def _check_int8_apply(jcfg, tcfg, jp, tp):
 @pytest.mark.parametrize("kw", REFUSED_APPLY,
                          ids=[next(iter(k)) for k in REFUSED_APPLY])
 def test_apply_refuses_unported_options(model, kw):
-    """Options of later slices raise, naming their ROADMAP slice.  Four are
+    """Options of later slices raise, naming their ROADMAP slice.  Six are
     ported now and are held against the JAX package's apply on the CPU
     instead: ``attn_impl="flash"`` (Pallas in interpret mode), ``remat``
     (the forward of each rematerialized layer is the layer's, and the
     gradients equal the plain apply's), ``matmul_dtype="int8"``
-    (``_check_int8_apply``) and ``boundary`` (the sync knobs' layer-group
+    (``_check_int8_apply``), ``boundary`` (the sync knobs' layer-group
     hook: called at JAX's groups in JAX's order, an identity, the logits
-    JAX's)."""
+    JAX's), and ``seq_axis`` / ``tp_axis`` (slice 5d-i): over a one-rank
+    axis the logits are JAX's ``apply`` under ``shard_map`` over a
+    one-device mesh (the ring of one is plain causal attention, the
+    Megatron sums of one rank the identity); their multi-rank parity is
+    tests/test_torch_context.py's and tests/test_torch_tp.py's.
+    ``ep_axis`` names slice 5d-iii."""
     jcfg, tcfg, jp, tp = model
     toks = np.random.default_rng(4).integers(0, 256, (2, 24))
+    if "seq_axis" in kw or "tp_axis" in kw:
+        _check_one_rank_axis(jcfg, tcfg, jp, tp, toks, kw)
+        return
     if kw == dict(attn_impl="flash"):
         want = np.asarray(jtfm.apply(jp, jnp.asarray(toks, jnp.int32),
                                      cfg=jcfg, attn_impl="flash"))
@@ -259,6 +269,31 @@ def test_apply_refuses_unported_options(model, kw):
         return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ttfm.apply(tp, torch.zeros((1, 4), dtype=torch.long), cfg=tcfg, **kw)
+
+
+def _check_one_rank_axis(jcfg, tcfg, jp, tp, toks, kw):
+    import torch.distributed as dist
+    from jax.sharding import Mesh, PartitionSpec as P
+    from distributed_pytorch_tpu.utils.compat import shard_map
+    axis = "seq" if "seq_axis" in kw else "model"
+    mesh = Mesh(np.array(jax.devices()[:1]), (axis,))
+    jkw = {f"{'seq' if axis == 'seq' else 'tp'}_axis": axis}
+    fwd = jax.jit(shard_map(partial(jtfm.apply, cfg=jcfg, **jkw),
+                            mesh=mesh,
+                            in_specs=(jtfm.shard_specs(jcfg)
+                                      if axis == "model" else P(), P()),
+                            out_specs=P()))
+    want = np.asarray(fwd(jp, jnp.asarray(toks, jnp.int32)))
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        got = ttfm.apply(tp, torch.from_numpy(toks), cfg=tcfg,
+                         **{next(iter(kw)): dist.group.WORLD})
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    with pytest.raises(NotImplementedError, match="slice 5d-iii"):
+        ttfm.apply(tp, torch.from_numpy(toks), cfg=tcfg, ep_axis="expert")
 
 
 def test_apply_rejects_bad_knob_values(model):

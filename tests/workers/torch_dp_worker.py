@@ -59,6 +59,20 @@ the port only, pins torch to one intra-op thread, runs every case of
   before and after); ``DrainGuard.sync`` before and after rank 1 alone
   gets a SIGTERM; ``resize_mesh`` over a (1, 2) mesh and its refusals.
 
+- ``tp``: tensor and sequence parallelism (``lm_tp``) at world size 2 or
+  4: ``ring_attention`` over a real ``GroupRing`` for the 2-rank (and at
+  4, the 4-rank) seq groups, both layouts (this rank's chunk of the given
+  q/k/v, its output and the gradients of a given cotangent); one
+  ``LMTrainer`` a ``cases.json`` config of the world size from the given
+  whole params (an MoE case's from its own, its ``model`` key the
+  model's overrides) (its losses, gathered params, ``evaluate`` and last
+  metrics); at world size 4 also ``apply`` with ``tp_axis`` over 2-rank
+  model groups on this rank's shards (logits and the shards'
+  gradients; the int8 logits), the tensor-parallel chunked head over
+  them, and a tp=2 x
+  dp=2 trainer's whole-tree and sharded checkpoints restored into fresh
+  trainers (bitwise) and stepped on.
+
 ``python torch_dp_worker.py lm_cli <out_dir> <lm_cli argv...>`` is no gang
 rank of its own: it runs ``lm_cli.run(argv)`` (the launcher's environment
 rendezvouses it) and appends a line a step to
@@ -567,6 +581,138 @@ def lm_ckpt(data, rank: int, world: int, cases: dict) -> dict:
     return out
 
 
+def lm_tp(data, rank: int, world: int, cases: dict) -> dict:
+    from distributed_pytorch_tpu_torch import lm as tlm
+    from distributed_pytorch_tpu_torch.models import transformer as ttfm
+    from distributed_pytorch_tpu_torch.ops import losses as tlosses
+    from distributed_pytorch_tpu_torch.parallel import context as tctx
+    out = {}
+    # every rank makes every group, in one order; at world size 2 the
+    # world is the one pair
+    world_group = dist.new_group(list(range(world)))
+    if world == 4:
+        pairs = [dist.new_group([0, 1]), dist.new_group([2, 3])]
+        pair = pairs[rank // 2]
+    else:
+        pair = world_group
+
+    # -- the ring: each rank's chunk of the whole q/k/v ---------------------
+    q, k, v, g = (torch.from_numpy(np.array(data[f"ring/{x}"]))
+                  for x in ("q", "k", "v", "g"))
+    s = q.shape[2]
+    for n, group in ((2, pair), (4, world_group))[:world // 2]:
+        me = rank % n
+        for layout in ("contiguous", "zigzag"):
+            perm = tctx.zigzag_permutation(n, s) if layout == "zigzag" \
+                else np.arange(s)
+            c = s // n
+            mine = torch.as_tensor(perm[me * c:(me + 1) * c])
+            qc, kc, vc = (x[:, :, mine].clone().requires_grad_(True)
+                          for x in (q, k, v))
+            o = tctx.ring_attention(qc, kc, vc, group, layout=layout,
+                                    impl="flash")
+            (o * g[:, :, mine]).sum().backward()
+            tag = f"ring/{n}/{layout}"
+            for name, t in (("o", o), ("dq", qc.grad), ("dk", kc.grad),
+                            ("dv", vc.grad)):
+                out[f"{tag}/{name}"] = t.detach().numpy()
+
+    model = ttfm.TransformerConfig(**cases["model"])
+
+    def params(prefix):
+        return {k[len(prefix):]: torch.from_numpy(np.array(data[k]))
+                for k in data.files if k.startswith(prefix)}
+
+    whole = params("p/")
+    tokens, targets = data["tokens"], data["targets"]
+
+    def rows(tr, i):
+        per = tokens.shape[1] // tr.cfg.dp
+        d = tr.place.data_index
+        return tokens[i, d * per:(d + 1) * per], \
+            targets[i, d * per:(d + 1) * per]
+
+    for name, case in cases["trainer"][str(world)].items():
+        case = dict(case)
+        mkw = case.pop("model", {})  # an MoE case's model and params
+        cfg = tlm.LMTrainConfig(
+            model=ttfm.TransformerConfig(**dict(cases["model"], **mkw)),
+            compute_dtype=None, **case)
+        tr = tlm.LMTrainer(cfg, device="cpu")
+        tr.load_state(params("pmoe/") if mkw else whole)
+        losses = [float(tr.train_step(*rows(tr, i)))
+                  for i in range(cases["steps"])]
+        out[f"tr/{name}/losses"] = np.asarray(losses)
+        out[f"tr/{name}/met"] = tr.last_metrics.numpy()
+        for n2, t in tr.full_params().items():
+            out[f"tr/{name}/p/{n2}"] = t.numpy()
+        ev = tr.evaluate([rows(tr, 0)])
+        out[f"tr/{name}/eval"] = np.asarray([ev["loss"], ev["tokens"]])
+    if world != 4:
+        return out
+
+    # -- apply and the chunked head over 2-rank model groups ----------------
+    specs = ttfm.shard_specs(model)
+    m = rank % 2
+    shards = {}
+    for name, t in whole.items():
+        dim = ttfm.tp_dim(specs[name])
+        if dim is not None:
+            w = t.shape[dim] // 2
+            t = t.narrow(dim, m * w, w)
+        shards[name] = t.clone().requires_grad_(True)
+    toks = torch.from_numpy(np.array(data["apply/tokens"])).long()
+    logits = ttfm.apply(shards, toks, cfg=model, tp_axis=pair)
+    (logits * torch.from_numpy(np.array(data["apply/g"]))).sum().backward()
+    out["apply/logits"] = logits.detach().numpy()
+    for name, t in shards.items():
+        out[f"apply/grad/{name}"] = t.grad.numpy()
+    with torch.no_grad():
+        out["apply/int8_logits"] = ttfm.apply(
+            shards, toks, cfg=model, tp_axis=pair,
+            matmul_dtype="int8").numpy()
+    h, emb = (torch.from_numpy(np.array(data[f"head/{x}"]))
+              .requires_grad_(True) for x in ("h", "emb"))
+    ce, cnt = tlosses.masked_ce_chunked(
+        h, emb, torch.from_numpy(np.array(data["head/targets"])).long(),
+        chunk=int(data["head/chunk"]), tp_axis=pair, tp_size=2)
+    ce.backward()
+    out["head/ce"] = ce.detach().numpy()
+    out["head/n"] = cnt.numpy()
+    out["head/dh"] = h.grad.numpy()
+    out["head/demb"] = emb.grad.numpy()
+
+    # -- checkpoints of a tp=2 x dp=2 trainer ------------------------------
+    cfg = tlm.LMTrainConfig(model=model, compute_dtype=None, dp=2, tp=2)
+
+    def local(tr) -> dict:
+        return {f"{m2}/{n2}": t.detach().clone() for m2, tree in (
+            ("p", tr.params), ("mu", tr.opt_state["mu"]),
+            ("nu", tr.opt_state["nu"])) for n2, t in tree.items()}
+
+    tr = tlm.LMTrainer(cfg, device="cpu")
+    tr.load_state(whole)
+    for i in range(2):
+        tr.train_step(*rows(tr, i))
+    dirs = {fmt: os.path.join(cases["dir"], f"tp_{fmt}")
+            for fmt in ("sharded", "whole")}
+    tr.save_checkpoint(dirs["sharded"], sharded=True)
+    tr.save_checkpoint(dirs["whole"])
+    tr.flush_checkpoints()
+    saved = local(tr)
+    out["ckpt/cont"] = np.asarray([float(tr.train_step(*rows(tr, 2)))])
+    for fmt, d in dirs.items():
+        fresh = tlm.LMTrainer(cfg, device="cpu")
+        out[f"ckpt/{fmt}/step"] = np.asarray(fresh.maybe_restore(d))
+        got = local(fresh)
+        out[f"ckpt/{fmt}/equal"] = np.asarray(
+            got.keys() == saved.keys() and all(
+                torch.equal(t, saved[k2]) for k2, t in got.items()))
+        out[f"ckpt/{fmt}/cont"] = np.asarray(
+            [float(fresh.train_step(*rows(fresh, 2)))])
+    return out
+
+
 def lm_elastic(data, rank: int, world: int, cases: dict) -> dict:
     import signal
     from distributed_pytorch_tpu_torch import lm as tlm
@@ -763,11 +909,12 @@ def main() -> int:
     elif mode == "eval":
         out = sharded_eval(data, rank, world)
     elif mode in ("lm", "lm_sync", "counts", "ledger", "window", "ckpt",
-                  "elastic"):
+                  "elastic", "tp"):
         with open(os.path.join(os.path.dirname(in_path), "cases.json")) as f:
             out = {"lm": lm, "lm_sync": lm_sync, "counts": counts,
                    "ledger": lm_ledger, "window": window,
-                   "ckpt": lm_ckpt, "elastic": lm_elastic}[mode](
+                   "ckpt": lm_ckpt, "elastic": lm_elastic,
+                   "tp": lm_tp}[mode](
                 data, rank, world, json.load(f))
     else:
         out = checks(data, rank, world)
